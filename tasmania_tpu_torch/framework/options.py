@@ -1,0 +1,23 @@
+"""Storage options (counterpart of ``tasmania_tpu/framework/options.py``).
+
+The port has no backend or compile options: PyTorch runs eagerly, and the
+device a tensor lies on decides between a kernel and its plain version."""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+
+@dataclasses.dataclass
+class StorageOptions:
+    """Type and device of every tensor a component allocates."""
+
+    dtype: torch.dtype = torch.float64
+    device: torch.device | str = "cpu"
+
+    @property
+    def np_dtype(self):
+        """The numpy type of ``dtype``, for host-side construction."""
+        return torch.empty((), dtype=self.dtype).numpy().dtype

@@ -1,0 +1,123 @@
+"""The (moist) isentropic dynamical core (counterpart of
+``tasmania_tpu/isentropic/dynamics/dycore.py``, its whole-stage path
+``_stage_fused`` ``:217-293``).
+
+Per stage: one whole-stage operation (advection, lateral BC, Montgomery,
+momenta, mass fractions, Rayleigh damping on the last stage unless
+``damp_at_every_stage``), then the staggered velocities of the stepped state
+with their outermost layers taken from the lateral boundary.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Mapping, Optional
+
+import numpy as np
+import torch
+
+from tasmania_tpu_torch.dwarfs.diagnostics import get_velocity_components
+from tasmania_tpu_torch.dwarfs.vertical_damping import Rayleigh
+from tasmania_tpu_torch.framework.dycore import DynamicalCore
+from tasmania_tpu_torch.framework.options import StorageOptions
+from tasmania_tpu_torch.isentropic.dynamics.prognostic import RK3WSSI, mfcw, mfpw, mfwv
+
+DIMS = ("x", "y", "z")
+DIMS_U = ("x_at_u_locations", "y", "z")
+DIMS_V = ("x", "y_at_v_locations", "z")
+
+
+class IsentropicDynamicalCore(DynamicalCore):
+    """Buffers: the steady topography (the driver scales it as the mountain
+    grows) and, through the submodules, γ, the reference state, θ and the
+    Rayleigh profile."""
+
+    def __init__(
+        self,
+        domain,
+        moist: bool = False,
+        time_integration_scheme: str = "rk3ws_si",
+        horizontal_flux_scheme: str = "fifth_order_upwind",
+        time_integration_properties: Optional[Dict[str, Any]] = None,
+        damp: bool = True,
+        damp_at_every_stage: bool = True,
+        damp_type: str = "rayleigh",
+        damp_depth: int = 15,
+        damp_max: float = 0.0002,
+        *,
+        storage_options: Optional[StorageOptions] = None,
+    ) -> None:
+        super().__init__()
+        if time_integration_scheme != "rk3ws_si":
+            raise NotImplementedError(
+                f"time integration {time_integration_scheme!r} is not ported (have 'rk3ws_si')"
+            )
+        if damp and damp_type != "rayleigh":
+            raise NotImplementedError(f"damping {damp_type!r} is not ported (have 'rayleigh')")
+        so = storage_options or StorageOptions()
+        self.horizontal_boundary = domain.horizontal_boundary
+        self.moist = moist
+        self.damp_at_every_stage = damp_at_every_stage
+        self.prognostic = RK3WSSI(
+            horizontal_flux_scheme, domain, moist, storage_options=so,
+            **(time_integration_properties or {}),
+        )
+        grid = domain.numerical_grid
+        self.damper = (
+            Rayleigh(grid, damp_depth, damp_max, storage_options=so) if damp else None
+        )
+        steady = np.asarray(grid.topography.steady_profile.to_units("m").data)
+        self.register_buffer(
+            "topography_steady", torch.as_tensor(steady, dtype=so.dtype, device=so.device)
+        )
+
+    @property
+    def stages(self) -> int:
+        return self.prognostic.stages
+
+    @property
+    def stage_input_properties(self):
+        props = {
+            "air_isentropic_density": {"dims": DIMS, "units": "kg m^-2 K^-1"},
+            "montgomery_potential": {"dims": DIMS, "units": "m^2 s^-2"},
+            "x_momentum_isentropic": {"dims": DIMS, "units": "kg m^-1 K^-1 s^-1"},
+            "x_velocity_at_u_locations": {"dims": DIMS_U, "units": "m s^-1"},
+            "y_momentum_isentropic": {"dims": DIMS, "units": "kg m^-1 K^-1 s^-1"},
+            "y_velocity_at_v_locations": {"dims": DIMS_V, "units": "m s^-1"},
+        }
+        if self.moist:
+            for q in (mfwv, mfcw, mfpw):
+                props[q] = {"dims": DIMS, "units": "g g^-1"}
+        return props
+
+    @property
+    def stage_output_properties(self):
+        props = dict(self.stage_input_properties)
+        del props["montgomery_potential"]
+        return props
+
+    def stage_array_call(self, stage: int, raw_state: Mapping[str, Any], timestep: float):
+        hb = self.horizontal_boundary
+        # an all-zero profile (dd == 0) damps nothing
+        damp = (
+            self.damper is not None
+            and self.damper.dd > 0
+            and (self.damp_at_every_stage or stage == self.stages - 1)
+        )
+        out = self.prognostic.stage_call(
+            stage, timestep, raw_state,
+            rmat=self.damper.rmat if damp else None,
+            dd=self.damper.dd if damp else 0,
+            dtf=timestep,
+        )
+        u, v = get_velocity_components(
+            out["air_isentropic_density"],
+            out["x_momentum_isentropic"],
+            out["y_momentum_isentropic"],
+        )
+        out["x_velocity_at_u_locations"] = hb.set_outermost_layers_x(
+            u, "x_velocity_at_u_locations", "m s^-1"
+        )
+        out["y_velocity_at_v_locations"] = hb.set_outermost_layers_y(
+            v, "y_velocity_at_v_locations", "m s^-1"
+        )
+        return out

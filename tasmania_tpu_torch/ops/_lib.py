@@ -1,0 +1,147 @@
+"""Build, load and count the port's hand-written CUDA kernels.
+
+The sources in ``tasmania_tpu_torch/csrc`` are compiled by ``nvcc`` for Hopper
+(``sm_90a``) into one shared library with a plain C interface, loaded with
+``ctypes``.  The build happens at first use, into ``build/tasmania_tpu_torch/``
+at the root of the checkout, in a directory keyed by a hash of the sources
+and flags, so a changed source is rebuilt and an unchanged one is reused.
+Nothing here runs at import time: CPU-only machines import every module.
+
+``launch_counts`` counts kernel launches per wrapper; each wrapper adds one
+where it launches its kernel and nowhere else.
+"""
+
+from __future__ import annotations
+
+import collections
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+import torch
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "tasmania_tpu_torch"
+# no --use_fast_math: the Exner power must be powf, not __powf
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
+)
+DTYPE_CODES = {torch.float32: 0, torch.float64: 1}
+
+launch_counts: collections.Counter = collections.Counter()
+
+_vp = ctypes.c_void_p
+_int = ctypes.c_int
+_SIGNATURES = {
+    # dtype, pointer table (device), n, nx, ny, nz, w, stream
+    "tt_paste_x_edges_multi": (_int, _vp, _int, _int, _int, _int, _int, _vp),
+    # dtype, inputs (host array), outputs (host array), gamma, nf, nx, ny, nz,
+    # order, nb, stream
+    "tt_smoothing": (_int, _vp, _vp, _vp, _int, _int, _int, _int, _int, _int, _vp),
+    # dtype, inputs, outputs, nq, nx, ny, nz, nb, dd, scalars, stream
+    "tt_si_stage": (_int, _vp, _vp, _int, _int, _int, _int, _int, _int, _vp, _vp),
+}
+
+_loaded = None
+build_info: dict = {}
+
+
+def reset_launch_counts() -> None:
+    launch_counts.clear()
+
+
+def _sources():
+    return sorted(p for p in CSRC.iterdir() if p.suffix in (".cu", ".cuh"))
+
+
+def library_path() -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in _sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return BUILD_ROOT / h.hexdigest()[:16] / "libtasmania_kernels.so"
+
+
+def _nvcc() -> str:
+    nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(nvcc):
+        raise RuntimeError("nvcc not found: the CUDA kernels are built on a machine with the CUDA toolkit")
+    return nvcc
+
+
+def build() -> Path:
+    """Compile the kernels if this source hash has no library yet; raises with
+    the compiler's output if ``nvcc`` fails."""
+    path = library_path()
+    if path.exists():
+        build_info.update(path=str(path), seconds=0.0, cached=True, log="")
+        return path
+    path.parent.mkdir(parents=True, exist_ok=True)
+    tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
+    cu = [str(p) for p in _sources() if p.suffix == ".cu"]
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp), *cu],
+        capture_output=True,
+        text=True,
+    )
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}")
+    os.replace(tmp, path)
+    build_info.update(
+        path=str(path), seconds=time.perf_counter() - t0, cached=False,
+        log=proc.stdout + proc.stderr,
+    )
+    return path
+
+
+def lib() -> ctypes.CDLL:
+    """The loaded kernel library, built on first use."""
+    global _loaded
+    if _loaded is None:
+        dll = ctypes.CDLL(str(build()))
+        for name, argtypes in _SIGNATURES.items():
+            fn = getattr(dll, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        _loaded = dll
+    return _loaded
+
+
+def check(err: int, name: str) -> None:
+    """Raise if a launch reported a CUDA error."""
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA error {err} at launch")
+
+
+def stream_handle() -> int:
+    return torch.cuda.current_stream().cuda_stream
+
+
+def pointer_array(tensors) -> ctypes.Array:
+    """A host array of the tensors' data pointers."""
+    return (ctypes.c_void_p * len(tensors))(*[t.data_ptr() for t in tensors])
+
+
+def check_cuda_tensors(name: str, tensors, dtype, shapes=None) -> None:
+    """Device, dtype, shape and contiguity checks shared by the wrappers."""
+    if dtype not in DTYPE_CODES:
+        raise TypeError(f"{name}: dtype {dtype} not supported (float32, float64)")
+    device = tensors[0].device
+    if device.type == "cuda" and device.index != torch.cuda.current_device():
+        raise ValueError(f"{name}: tensors on {device}, but the current device is "
+                         f"cuda:{torch.cuda.current_device()} (the launch stream's)")
+    for a, t in enumerate(tensors):
+        if not t.is_cuda or t.device != device:
+            raise ValueError(f"{name}: argument {a} is not on {device}")
+        if t.dtype != dtype:
+            raise TypeError(f"{name}: argument {a} has dtype {t.dtype}, expected {dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: argument {a} is not contiguous")
+        if shapes is not None and tuple(t.shape) != tuple(shapes[a]):
+            raise ValueError(f"{name}: argument {a} has shape {tuple(t.shape)}, expected {shapes[a]}")

@@ -1,0 +1,146 @@
+"""The port's CUDA kernels against their plain PyTorch versions on the card.
+
+These tests import neither JAX nor the JAX package, so they also run on a GPU
+machine without them; without a CUDA device they skip.  On the GPU machine::
+
+    python -m pytest tests/test_torch_kernels.py -m cuda --noconftest -q
+
+Tolerances, float64: paste bitwise; smoothing and the stage within 1e-12 of
+the largest magnitude of the output (FMA contraction; the stage's column
+scans sum in another order than the plain version's cumulative sums).  The
+input helpers here are shared with ``tests/test_torch_ops.py``.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import pytest
+import torch
+
+from tasmania_tpu_torch.domain.domain import Domain
+from tasmania_tpu_torch.dwarfs.vertical_damping import Rayleigh
+from tasmania_tpu_torch.framework.field import FieldArray
+from tasmania_tpu_torch.ops.paste import paste_x_edges_multi, paste_x_edges_multi_plain
+from tasmania_tpu_torch.ops.si_stage import StageConstants, si_stage, si_stage_plain
+from tasmania_tpu_torch.ops.smoothing_step import fused_smoothing, fused_smoothing_plain
+
+NX, NY, NZ, NB, NR = 19, 21, 8, 3, 6
+FRACS = (1.0 / 3.0, 0.5, 1.0)
+DTF = 10.0
+CONSTS = dict(dx=5e3, dy=4e3, eps=0.5, pt=2000.0, dz=10.0, g=9.80665, cp=1004.0,
+              rd=287.05, pref=1e5)
+
+
+def tensor(a, device="cpu"):
+    return torch.as_tensor(np.asarray(a), dtype=torch.float64, device=device)
+
+
+def stage_inputs(seed):
+    """Random stage inputs (numpy) at the test geometry, with the relaxed-BC
+    γ and the Rayleigh profile of a real domain."""
+    rng = np.random.default_rng(seed)
+
+    def f(*shape, lo=0.5, hi=1.5):
+        return rng.uniform(lo, hi, shape)
+
+    domain = Domain(
+        (0.0, 1e5), NX, (0.0, 1e5), NY, FieldArray(np.array([400.0, 300.0]), "K", ("z",)), NZ,
+        horizontal_boundary_type="relaxed", nb=NB, horizontal_boundary_kwargs={"nr": NR},
+    )
+    damper = Rayleigh(domain.numerical_grid, 4, 0.05)
+    cell = (NX, NY, NZ)
+    return dict(
+        u=f(NX + 1, NY, NZ, lo=-4, hi=12),
+        v=f(NX, NY + 1, NZ, lo=-6, hi=6),
+        s_now=f(*cell, lo=5, hi=10),
+        s_int=f(*cell, lo=5, hi=10),
+        q_now=[f(*cell, lo=-1e-4, hi=1e-3) for _ in range(3)],
+        q_int=[f(*cell, lo=-1e-4, hi=1e-3) for _ in range(3)],
+        su_now=f(*cell, lo=20, hi=80),
+        sv_now=f(*cell, lo=-20, hi=20),
+        su_int=f(*cell, lo=20, hi=80),
+        sv_int=f(*cell, lo=-20, hi=20),
+        mtg_now=f(*cell, lo=1e5, hi=3e5),
+        hs=f(NX, NY, lo=0, hi=300),
+        theta=np.linspace(400.0, 300.0, NZ + 1),
+        gamma=domain.horizontal_boundary.gamma[:NX, :NY].numpy(),
+        s_ref=f(*cell, lo=5, hi=10),
+        su_ref=f(*cell, lo=20, hi=80),
+        sv_ref=f(*cell, lo=-20, hi=20),
+        q_refs=[f(*cell, lo=0, hi=1e-3) for _ in range(3)],
+        rmat=damper.rmat.numpy(),
+        dd=damper.dd,
+    )
+
+
+def port_args(inp, damp, device="cpu"):
+    keys = ("u", "v", "s_now", "s_int", "q_now", "q_int", "su_now", "sv_now", "su_int",
+            "sv_int", "mtg_now", "hs", "theta", "gamma", "s_ref", "su_ref", "sv_ref", "q_refs")
+    args = [[tensor(a, device) for a in inp[k]] if isinstance(inp[k], list) else tensor(inp[k], device)
+            for k in keys]
+    return args + [tensor(inp["rmat"], device) if damp else None]
+
+
+def smoothing_inputs(seed, nf=6):
+    rng = np.random.default_rng(seed)
+    fields = [rng.normal(size=(NX, NY, NZ)) * 10.0 ** rng.integers(-3, 3) for _ in range(nf)]
+    gamma = rng.uniform(0.0, 1.0, (nf, NZ))
+    return fields, gamma
+
+
+def assert_scaled(got, ref, atol, what):
+    ref = np.asarray(ref)
+    got = np.asarray(got)
+    assert got.shape == ref.shape, what
+    scale = np.max(np.abs(ref)) or 1.0
+    np.testing.assert_allclose(got / scale, ref / scale, rtol=0, atol=atol, err_msg=what)
+
+
+# ---------------------------------------------------------------- on the card
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_paste_kernel_bitwise(cuda_device, dtype):
+    rng = np.random.default_rng(0)
+    mk = lambda *s: torch.as_tensor(rng.normal(size=s), dtype=dtype, device=cuda_device)
+    fulls = [mk(NX, NY, NZ) for _ in range(6)]
+    lo = [mk(NB, NY, NZ) for _ in range(6)]
+    hi = [mk(NB, NY, NZ) for _ in range(6)]
+    ref = paste_x_edges_multi_plain([f.clone() for f in fulls], lo, hi)
+    got = paste_x_edges_multi(fulls, lo, hi)
+    for a, b in zip(got, ref):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("order", [1, 2, 3])
+def test_smoothing_kernel_vs_plain(cuda_device, order):
+    fields, gamma = smoothing_inputs(seed=order)
+    tf = [tensor(a, cuda_device) for a in fields]
+    g = tensor(gamma, cuda_device)
+    got = fused_smoothing(tf, g, order=order, nb=NB)
+    ref = fused_smoothing_plain(tf, g, order=order, nb=NB)
+    for a, b in zip(got, ref):
+        assert_scaled(a.cpu().numpy(), b.cpu().numpy(), 1e-13, f"order {order}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stage", [0, 1, 2])
+@pytest.mark.parametrize("damp", [True, False])
+def test_si_stage_kernel_vs_plain(cuda_device, damp, stage):
+    inp = stage_inputs(seed=5 + stage)
+    c = StageConstants(dt=FRACS[stage] * DTF, dtf=DTF, **CONSTS)
+    args = port_args(inp, damp, cuda_device)
+    dd = inp["dd"] if damp else 0
+    got = si_stage(*args, nb=NB, c=c, dd=dd)
+    ref = si_stage_plain(*args, nb=NB, c=c, dd=dd)
+    for k, (a, b) in enumerate(zip(got, ref)):
+        assert_scaled(a.cpu().numpy(), b.cpu().numpy(), 1e-12, f"output {k}")
