@@ -5,20 +5,42 @@ printing one line; any failure raises and exits non-zero:
 
 1. the card's name and power limit (``nvidia-smi``); a CUDA device is required;
 2. build the hand-written CUDA kernels from ``tasmania_tpu_torch/csrc``;
-3. each kernel at the slice's shapes in float32 against its plain PyTorch
-   version on the same inputs: paste bitwise, smoothing within
-   1e-6·max|plain|, each of the three RK3WS stages (damping on the last)
-   within 1e-5·max|plain| per output, su and sv both against the larger of
-   the two (FMA contraction in the stencils moves the float32 Montgomery
-   potential by a few units of its last place, which reaches the momentum
-   vector through the pressure gradient); median times by CUDA events;
-4. the slice at the flagship configuration (161x161x120, 1 + 100 steps of
-   dycore -> diagnostics -> smoothing -> velocities) through the kernels:
-   launch counts, finiteness, and agreement with the JAX package's result
-   (``tasmania_tpu_torch/drivers/slice_reference.json``) to 1e-4 relative.
+3. each of the seven kernels at the flagship shapes (161x161x120 float32) on
+   perturbed real states against its plain PyTorch version on the same
+   inputs, with median CUDA-event times of both, the bytes it must move and
+   its bound at 3.35 TB/s.  Tolerances, as a share of the largest magnitude
+   of the plain output (su and sv both of the momentum vector's):
+   paste bitwise; smoothing 1e-6; each of the three RK3WS stages of si_stage
+   (damping on the last) 1e-5 (FMA contraction in the stencils moves the
+   float32 Montgomery potential by a few units of its last place, which
+   reaches the momenta through the pressure gradient); Kessler + saturation
+   adjustment, Smagorinsky, vertical advection and sedimentation 1e-5 (the
+   same algebra; FMA contraction, and PyTorch dividing by a scalar as a
+   product with the reciprocal on the card, move the last bits of each
+   stage, and the powers and exponentials come from the same CUDA math
+   library in both);
+4. the port's first slice (dycore -> diagnostics -> smoothing -> velocities,
+   ``namelist_sus.slice_skip``), 1 + 100 steps, with its launch counts and
+   agreement with ``tasmania_tpu_torch/drivers/slice_reference.json`` to 1e-4
+   relative;
+5. the full flagship step (dycore -> diagnostics -> smoothing -> Smagorinsky
+   -> velocities -> Kessler + saturation adjustment -> vertical advection ->
+   sedimentation -> precipitation), 1 + 100 steps through the entry point
+   ``driver_namelist_sus.run``: the launch counts of all seven kernels,
+   finiteness, and agreement with the JAX package's float32 result
+   (``tasmania_tpu_torch/drivers/flagship_reference.json``).  Limits: 1e-4
+   relative on every number but qc's, and exactly zero where the reference
+   is zero (no rain forms in this run: qc stays below the autoconversion
+   threshold); qc_max and qc_mean_abs 1e-3, because
+   saturation adjustment switches on the sign of (qvs - qv) / denom - qc, so
+   float32 differences in the dynamics move where cloud forms.  The port on
+   the CPU in float32 came within 1.5e-5 (vmax) and 6.9e-5 (qc_mean_abs) of
+   that reference.  umax and vmax are printed beside the TPU's validation
+   values for information.
 
-The last two lines are a JSON summary of the kernels and
-``{"ok": true, "device": {...}}``.
+The last two lines are the card's name and power limit, then
+``{"ok": true, "device": {...}}``; the line before them is a JSON summary of
+the kernels, their launches in phase 5 and their times.
 """
 
 from __future__ import annotations
@@ -32,7 +54,13 @@ from pathlib import Path
 
 import torch
 
-REF_TOL = 1e-4
+SLICE_TOL = 1e-4
+FLAGSHIP_TOL = 1e-4
+FLAGSHIP_QC_TOL = 1e-3
+KERNEL_TOL = 1e-5
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
+F32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
+TPU_VALIDATION = {"umax": 23.62408, "vmax": 1.07557}  # BENCH_NOTES.json "current"
 
 
 def phase(name: str, msg: str) -> None:
@@ -55,9 +83,54 @@ def median_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
-def max_err(got, ref):
-    """(max|got-ref|, max|ref|) over matching tensors."""
-    return float((got - ref).abs().max()), float(ref.abs().max())
+def nbytes(tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
+
+
+def bound(bytes_moved: int, flops: float) -> dict:
+    """The least time of the work: bytes at the memory rate or operations at
+    the float32 rate, whichever is larger."""
+    t_bytes = 1e3 * bytes_moved / HBM_BYTES_PER_S
+    t_ops = 1e3 * flops / F32_FLOPS
+    return dict(bytes=bytes_moved, bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations")
+
+
+def check_outputs(name, got, ref, scales, tol):
+    """max|got - ref| <= tol * scale per output; returns (worst abs error,
+    the relative errors as text)."""
+    worst, rels = 0.0, []
+    for k, (a, b, m) in enumerate(zip(got, ref, scales)):
+        if not torch.isfinite(a).all():
+            raise AssertionError(f"{name} output {k} is not finite")
+        e = float((a - b).abs().max())
+        rels.append(f"{e / m if m else e:.1e}")
+        if not e <= tol * m:
+            raise AssertionError(f"{name} output {k}: max|d|={e} > {tol}*{m}")
+        worst = max(worst, e)
+    return worst, " ".join(rels)
+
+
+def amax(*tensors) -> float:
+    return max(float(t.abs().max()) for t in tensors)
+
+
+def compare_reference(tag, got, ref, tol_of, zero_tol):
+    """Relative agreement of validation numbers with a reference file's;
+    where the reference is zero, the number itself is held to ``zero_tol``."""
+    diffs = []
+    for key, r in ref.items():
+        if not isinstance(r, (int, float)):
+            continue
+        val = got[key]
+        if r:
+            rel, tol = abs(val - r) / abs(r), tol_of(key)
+        else:
+            rel, tol = abs(val), zero_tol
+        diffs.append(f"{key}={val:.7g}({rel:.1e})")
+        if not rel <= tol:
+            raise AssertionError(f"{tag} {key}: {val} vs reference {r} (deviation {rel:.2e} > {tol})")
+    return " ".join(diffs)
 
 
 def main() -> int:
@@ -78,11 +151,35 @@ def main() -> int:
 
     from tasmania_tpu_torch.drivers import driver_namelist_sus as drv
     from tasmania_tpu_torch.drivers.namelist_sus import load_namelist
-    from tasmania_tpu_torch.framework.options import StorageOptions
+    from tasmania_tpu_torch.framework.steppers import TendencyStepper
+    from tasmania_tpu_torch.isentropic.physics.turbulence import IsentropicSmagorinsky
+    from tasmania_tpu_torch.isentropic.physics.vertical_advection import IsentropicVerticalAdvection
+    from tasmania_tpu_torch.isentropic.utils import AirPotentialTemperatureToTendency
     from tasmania_tpu_torch.ops import _lib
+    from tasmania_tpu_torch.ops.kessler_step import (
+        KesslerConstants,
+        fused_kessler_satadj_rk2,
+        fused_kessler_satadj_rk2_plain,
+    )
     from tasmania_tpu_torch.ops.paste import paste_x_edges_multi, paste_x_edges_multi_plain
+    from tasmania_tpu_torch.ops.sedimentation_step import (
+        fused_sedimentation_rk3ws,
+        fused_sedimentation_rk3ws_plain,
+    )
     from tasmania_tpu_torch.ops.si_stage import StageConstants, si_stage, si_stage_plain
+    from tasmania_tpu_torch.ops.smagorinsky_step import (
+        fused_smagorinsky_rk2,
+        fused_smagorinsky_rk2_plain,
+    )
     from tasmania_tpu_torch.ops.smoothing_step import fused_smoothing, fused_smoothing_plain
+    from tasmania_tpu_torch.ops.vertical_advection_step import (
+        fused_vertical_advection_rk3ws,
+        fused_vertical_advection_rk3ws_plain,
+    )
+    from tasmania_tpu_torch.physics.microphysics.kessler import (
+        KesslerMicrophysics,
+        KesslerSedimentation,
+    )
 
     # -- 2. build --------------------------------------------------------------
     t0 = time.perf_counter()
@@ -92,23 +189,47 @@ def main() -> int:
     phase("build", f"{time.perf_counter() - t0:.1f} s (nvcc {info['seconds']:.1f} s, "
           f"cached={info['cached']}) -> {info['path']}; ptxas: {' | '.join(ptxas)}")
 
-    # -- 3. kernels against their plain versions at the slice's shapes ---------
-    nl = load_namelist(so=StorageOptions(dtype=torch.float32, device=device))
+    # -- 3. kernels against their plain versions at the flagship shapes --------
+    nl = load_namelist()
     domain, state, pt = drv.build_domain_and_state(nl)
-    dycore, physics = drv.build_model(nl, domain, pt, nl.slice_skip)
-    smoother = physics.components[1]
+    dycore, physics = drv.build_model(nl, domain, pt)
     prog = dycore.prognostic
     rng = np.random.default_rng(1234)
 
+    def noise(shape, scale=1.0):
+        return torch.as_tensor(rng.standard_normal(tuple(shape)) * scale, dtype=torch.float32, device=device)
+
+    def uniform(shape, lo, hi):
+        return torch.as_tensor(rng.uniform(lo, hi, tuple(shape)), dtype=torch.float32, device=device)
+
     def perturbed(t, rel=1e-3):
-        noise = torch.as_tensor(rng.standard_normal(tuple(t.shape)), dtype=t.dtype, device=device)
-        return t * (1.0 + rel * noise)
+        return t * (1.0 + noise(t.shape, rel))
+
+    def stepper_of(component_type):
+        for p in physics.components:
+            if isinstance(p, TendencyStepper) and any(
+                isinstance(c, component_type) for c in p.coupling.components
+            ):
+                return p
+        raise LookupError(component_type.__name__)
 
     raw = {k: v.data for k, v in state.items() if k != "time"}
     qn = list(prog.q_names)
     hb = domain.horizontal_boundary
+    cell = raw["air_isentropic_density"].shape
     s_now, su_now, sv_now = (raw[n] for n in ("air_isentropic_density",
                                                "x_momentum_isentropic", "y_momentum_isentropic"))
+    kernels = {}
+
+    def record(name, source, replaces, worst, ms, plain_ms, b, library_ms=None, unit=""):
+        kernels[name] = dict(route="cuda", source=f"tasmania_tpu_torch/csrc/{source}",
+                             replaces=replaces, max_abs_err=worst, ms=ms, plain_ms=plain_ms,
+                             bound_ms=b["bound_ms"], bound_by=b["bound_by"], library_ms=library_ms)
+        lib = f", one PyTorch call {library_ms:.3f} ms" if library_ms is not None else ""
+        phase("kernel", f"{name}: {ms:.3f} ms{unit} (plain {plain_ms:.3f} ms{lib}); "
+              f"{b['bytes'] / 1e6:.1f} MB, bound {b['bound_ms']:.4f} ms by {b['bound_by']}")
+
+    # si_stage: the three stages, damping on the last
     stage_in = dict(
         u=perturbed(raw["x_velocity_at_u_locations"]),
         v=perturbed(raw["y_velocity_at_v_locations"]) + 0.5,
@@ -121,9 +242,6 @@ def main() -> int:
         sv_ref=hb.ref_field("y_momentum_isentropic"), q_refs=[hb.ref_field(q) for q in qn],
     )
     dia = prog.diagnostics
-    kernels = {}
-
-    # si_stage: the three stages, damping on the last
     worst, errs = 0.0, []
     for stage, frac in enumerate(prog.substep_fractions):
         last = stage == 2
@@ -139,47 +257,34 @@ def main() -> int:
         got = si_stage(*args, nb=nl.nb, c=c, dd=dd)
         ref = si_stage_plain(*args, nb=nl.nb, c=c, dd=dd)
         torch.cuda.synchronize()
-        # su and sv are the components of one momentum vector: both are held
-        # to the vector's scale (the f32 rounding of the Montgomery potential,
-        # ~0.03 at 3.7e5, enters both through the pressure gradient, and sv
-        # alone is small in a flow along x)
-        momentum = max(float(ref[1].abs().max()), float(ref[2].abs().max()))
-        for k, (a, b) in enumerate(zip(got, ref)):
-            e, m = max_err(a, b)
-            if k in (1, 2):
-                m = momentum
-            errs.append(f"s{stage}o{k}={e / m if m else e:.1e}")
-            if not (e <= 1e-5 * m) or not torch.isfinite(a).all():
-                raise AssertionError(f"si_stage stage {stage} output {k}: max|d|={e} > 1e-5*{m}")
-            worst = max(worst, e)
-    kernels["si_stage"] = dict(
-        route="cuda", source="tasmania_tpu_torch/csrc/si_stage.cu",
-        replaces="tasmania_tpu/ops/si_stage.py:146", max_abs_err=worst,
-        ms=median_ms(lambda: si_stage(*args, nb=nl.nb, c=c, dd=dd)),
-        plain_ms=median_ms(lambda: si_stage_plain(*args, nb=nl.nb, c=c, dd=dd)),
-    )
-    phase("kernel", f"si_stage rel errors {' '.join(errs)}; {kernels['si_stage']['ms']:.3f} ms "
-          f"(plain {kernels['si_stage']['plain_ms']:.3f} ms) per stage")
+        momentum = amax(ref[1], ref[2])
+        scales = [amax(ref[0]), momentum, momentum] + [amax(r) for r in ref[3:]]
+        w, rel = check_outputs(f"si_stage stage {stage}", got, ref, scales, KERNEL_TOL)
+        worst = max(worst, w)
+        errs.append(f"s{stage}: {rel}")
+    flat_in = [a for v in stage_in.values() for a in (v if isinstance(v, list) else [v])] + [rmat]
+    # about 700 flops a cell: fifth-order fluxes of 7 fields on 4 faces, the
+    # momentum and pressure-gradient terms
+    b = bound(nbytes(flat_in) + nbytes(ref), 700.0 * s_now.numel())
+    phase("check", f"si_stage relative errors {' | '.join(errs)}")
+    record("si_stage", "si_stage.cu", "tasmania_tpu/ops/si_stage.py:146", worst,
+           median_ms(lambda: si_stage(*args, nb=nl.nb, c=c, dd=dd)),
+           median_ms(lambda: si_stage_plain(*args, nb=nl.nb, c=c, dd=dd)), b, unit=" per stage")
 
     # smoothing on the six smoothed fields
+    smoother = physics.components[1]
     names = list(smoother.input_properties)
     fields = [perturbed(raw[n]) for n in names]
-    got = fused_smoothing(fields, smoother.gamma, order=smoother.order, nb=smoother.nb)
-    ref = fused_smoothing_plain(fields, smoother.gamma, order=smoother.order, nb=smoother.nb)
-    worst = 0.0
-    for n, a, b in zip(names, got, ref):
-        e, m = max_err(a, b)
-        if not e <= 1e-6 * m:
-            raise AssertionError(f"fused_smoothing {n}: max|d|={e} > 1e-6*{m}")
-        worst = max(worst, e)
-    kernels["fused_smoothing"] = dict(
-        route="cuda", source="tasmania_tpu_torch/csrc/smoothing.cu",
-        replaces="tasmania_tpu/ops/smoothing_step.py:44", max_abs_err=worst,
-        ms=median_ms(lambda: fused_smoothing(fields, smoother.gamma, order=smoother.order, nb=smoother.nb)),
-        plain_ms=median_ms(lambda: fused_smoothing_plain(fields, smoother.gamma, order=smoother.order, nb=smoother.nb)),
-    )
-    phase("kernel", f"fused_smoothing max|d| {worst:.3e}; {kernels['fused_smoothing']['ms']:.3f} ms "
-          f"(plain {kernels['fused_smoothing']['plain_ms']:.3f} ms)")
+    sm = dict(order=smoother.order, nb=smoother.nb)
+    got = fused_smoothing(fields, smoother.gamma, **sm)
+    ref = fused_smoothing_plain(fields, smoother.gamma, **sm)
+    worst, rel = check_outputs("fused_smoothing", got, ref, [amax(r) for r in ref], 1e-6)
+    phase("check", f"fused_smoothing relative errors {rel}")
+    # 2 x 2n taps of 3 operations and the centre, a cell of each field
+    b = bound(nbytes(fields) + nbytes(ref), (12.0 * smoother.order + 3.0) * len(fields) * s_now.numel())
+    record("fused_smoothing", "smoothing.cu", "tasmania_tpu/ops/smoothing_step.py:44", worst,
+           median_ms(lambda: fused_smoothing(fields, smoother.gamma, **sm)),
+           median_ms(lambda: fused_smoothing_plain(fields, smoother.gamma, **sm)), b)
 
     # paste: six arrays, nb-wide strips, bitwise
     nb = nl.nb
@@ -188,46 +293,148 @@ def main() -> int:
     hi = [perturbed(f[-nb:].contiguous()) for f in fields]
     got = paste_x_edges_multi([f.clone() for f in fulls], lo, hi)
     ref = paste_x_edges_multi_plain([f.clone() for f in fulls], lo, hi)
-    for a, b in zip(got, ref):
-        if not torch.equal(a, b):
+    for a, r in zip(got, ref):
+        if not torch.equal(a, r):
             raise AssertionError("paste_x_edges_multi differs from its plain version")
-    kernels["paste_x_edges_multi"] = dict(
-        route="cuda", source="tasmania_tpu_torch/csrc/paste.cu",
-        replaces="tasmania_tpu/ops/paste.py:67", max_abs_err=0.0,
-        ms=median_ms(lambda: paste_x_edges_multi(fulls, lo, hi)),
-        plain_ms=median_ms(lambda: paste_x_edges_multi_plain(fulls, lo, hi)),
-    )
-    phase("kernel", f"paste_x_edges_multi bitwise; {kernels['paste_x_edges_multi']['ms']:.3f} ms "
-          f"(plain {kernels['paste_x_edges_multi']['plain_ms']:.3f} ms)")
-    del fields, fulls, lo, hi, got, ref, stage_in, args, state, raw, dycore, physics, domain
+    views = [f[:nb] for f in fulls] + [f[-nb:] for f in fulls]
+    b = bound(2 * nbytes(lo + hi), 0.0)
+    record("paste_x_edges_multi", "paste.cu", "tasmania_tpu/ops/paste.py:67", 0.0,
+           median_ms(lambda: paste_x_edges_multi(fulls, lo, hi)),
+           median_ms(lambda: paste_x_edges_multi_plain(fulls, lo, hi)), b,
+           library_ms=median_ms(lambda: torch._foreach_copy_(views, lo + hi)))
 
-    # -- 4. the slice through the kernels ---------------------------------------
+    # Kessler + saturation adjustment: the initial thermodynamics, qv near
+    # saturation, qc on both sides of the autoconversion threshold, qr with zeros
+    ke = stepper_of(KesslerMicrophysics).coupling.components[0]
+    sa = stepper_of(AirPotentialTemperatureToTendency).coupling.components[1]
+    rv = ke.rpc["gas_constant_of_water_vapor"]
+    kc = KesslerConstants(
+        a=ke.a, k1=ke.k1, k2=ke.k2, sr=sa.sr, beta=ke.rpc["gas_constant_of_dry_air"] / rv,
+        lhvw=ke.rpc["latent_heat_of_vaporization_of_water"],
+        cp=sa.rpc["specific_heat_of_dry_air_at_constant_pressure"], rv=rv, dt=5.0,
+    )
+    qc = uniform(cell, 0.0, 2.0 * ke.a)
+    qr = uniform(cell, 0.0, ke.a) * (uniform(cell, 0.0, 1.0) > 0.3)
+    kin = (raw["air_density"], raw["air_temperature"], raw["air_pressure_on_interface_levels"],
+           raw["exner_function_on_interface_levels"], perturbed(raw[qn[0]], 0.05), qc, qr)
+    got = fused_kessler_satadj_rk2(*kin, kc)
+    ref = fused_kessler_satadj_rk2_plain(*kin, kc)
+    worst, rel = check_outputs("fused_kessler_satadj_rk2", got, ref, [amax(r) for r in ref], KERNEL_TOL)
+    phase("check", f"fused_kessler_satadj_rk2 relative errors (qv qc qr theta) {rel}")
+    # about 150 flops a cell: three powers, one exponential, two RK2 pairs
+    b = bound(nbytes(kin) + nbytes(ref), 150.0 * s_now.numel())
+    record("fused_kessler_satadj_rk2", "kessler.cu", "tasmania_tpu/ops/kessler_step.py:111", worst,
+           median_ms(lambda: fused_kessler_satadj_rk2(*kin, kc)),
+           median_ms(lambda: fused_kessler_satadj_rk2_plain(*kin, kc)), b)
+
+    # Smagorinsky RK2: both stages
+    smag = stepper_of(IsentropicSmagorinsky).coupling.components[0]
+    dx, dy = smag.spacings()
+    skw = dict(dx=dx, dy=dy, cs=smag.cs, nb=smag.nb, dt=5.0)
+    # velocity noise of a few m/s, so that the closure's increments are large
+    sin = (s_now, perturbed(su_now, 0.05), s_now * noise(cell, 2.0))
+    got = fused_smagorinsky_rk2(*sin, **skw)
+    ref = fused_smagorinsky_rk2_plain(*sin, **skw)
+    momentum = amax(*ref)
+    worst, rel = check_outputs("fused_smagorinsky_rk2", got, ref, [momentum, momentum], KERNEL_TOL)
+    inc = " ".join(f"{float((a - r).abs().max()) / amax(r - b):.1e}" for a, r, b in zip(got, ref, sin[1:]))
+    phase("check", f"fused_smagorinsky_rk2 relative errors (su sv) {rel}; "
+          f"as a share of the largest increment {inc}")
+    # about 100 flops a cell and stage: 4 strains and viscosities, the divergence
+    b = bound(nbytes(sin) + nbytes(ref), 2 * 100.0 * s_now.numel())
+    record("fused_smagorinsky_rk2", "smagorinsky.cu", "tasmania_tpu/ops/smagorinsky_step.py:149",
+           worst, median_ms(lambda: fused_smagorinsky_rk2(*sin, **skw)),
+           median_ms(lambda: fused_smagorinsky_rk2_plain(*sin, **skw)), b, unit=" (both stages)")
+
+    # vertical advection RK3WS: a θ-tendency of a few hundredths of K/s
+    va = stepper_of(IsentropicVerticalAdvection).coupling.components[0]
+    vkw = dict(order=va.vflux.order, dt=5.0, dz=va.dz)
+    vin = (noise(cell, 0.02), perturbed(s_now), perturbed(su_now), perturbed(sv_now) + 1.0)
+    vq = (perturbed(raw[qn[0]]), qc, qr)
+    got = fused_vertical_advection_rk3ws(*vin, vq, **vkw)
+    ref = fused_vertical_advection_rk3ws_plain(*vin, vq, **vkw)
+    momentum = amax(ref[1], ref[2])
+    scales = [amax(ref[0]), momentum, momentum] + [amax(r) for r in ref[3:]]
+    worst, rel = check_outputs("fused_vertical_advection_rk3ws", got, ref, scales, KERNEL_TOL)
+    phase("check", f"fused_vertical_advection_rk3ws relative errors (s su sv qv qc qr) {rel}")
+    # 18 tendency evaluations of about 22 flops a level
+    b = bound(nbytes(vin + vq) + nbytes(ref), 18 * 22.0 * s_now.numel())
+    record("fused_vertical_advection_rk3ws", "vertical_advection.cu",
+           "tasmania_tpu/ops/vertical_advection_step.py:158", worst,
+           median_ms(lambda: fused_vertical_advection_rk3ws(*vin, vq, **vkw)),
+           median_ms(lambda: fused_vertical_advection_rk3ws_plain(*vin, vq, **vkw)), b)
+
+    # sedimentation RK3WS, the flagship's vt_mode
+    sed = stepper_of(KesslerSedimentation).coupling.components[1]
+    dkw = dict(order=sed.sflux.nb, dt=5.0, vt_mode=sed.vt_mode)
+    din = (raw["air_density"], raw["height_on_interface_levels"], qr)
+    got = fused_sedimentation_rk3ws(*din, **dkw)
+    ref = fused_sedimentation_rk3ws_plain(*din, **dkw)
+    worst, rel = check_outputs("fused_sedimentation_rk3ws", got, ref, [amax(r) for r in ref], KERNEL_TOL)
+    phase("check", f"fused_sedimentation_rk3ws ({sed.vt_mode}) relative errors (qr vt) {rel}")
+    # one power (vt_mode step) or three, and about 30 flops a stage
+    powers = 1 if sed.vt_mode == "step" else 3
+    b = bound(nbytes(din) + nbytes(ref), (powers * 20.0 + 90.0) * s_now.numel())
+    record("fused_sedimentation_rk3ws", "sedimentation.cu",
+           "tasmania_tpu/ops/sedimentation_step.py:123", worst,
+           median_ms(lambda: fused_sedimentation_rk3ws(*din, **dkw)),
+           median_ms(lambda: fused_sedimentation_rk3ws_plain(*din, **dkw)), b)
+    del (fields, fulls, lo, hi, views, got, ref, stage_in, args, flat_in, kin, sin, vin, vq, din,
+         state, raw, dycore, physics, domain)
+
+    # -- 4. the first slice through its kernels --------------------------------
     torch.cuda.synchronize()
     _lib.reset_launch_counts()
-    res = drv.run(nl, verbose=False)
+    res = drv.run(nl, skip=nl.slice_skip, verbose=False)
     counts = dict(_lib.launch_counts)
     steps = 1 + nl.niter
     expected = {"si_stage": 3 * steps, "fused_smoothing": steps}
     for name, n in expected.items():
         if counts.get(name, 0) != n:
-            raise AssertionError(f"{name} launched {counts.get(name, 0)} times, expected {n}")
+            raise AssertionError(f"slice: {name} launched {counts.get(name, 0)} times, expected {n}")
     if counts.get("paste_x_edges_multi", 0) <= 0:
-        raise AssertionError("paste_x_edges_multi was never launched")
+        raise AssertionError("slice: paste_x_edges_multi was never launched")
     out = {k: fa.data.float().cpu().numpy() for k, fa in res["fields"].items()}
     bad = [k for k, a in out.items() if not np.isfinite(a).all()]
     if bad:
-        raise AssertionError(f"non-finite fields: {bad}")
+        raise AssertionError(f"slice: non-finite fields: {bad}")
     ref = json.loads(Path(drv.__file__).with_name("slice_reference.json").read_text())
-    got = drv.validation_summary(out)
-    diffs = []
-    for key, val in got.items():
-        rel = abs(val - ref[key]) / abs(ref[key]) if ref[key] else abs(val)
-        diffs.append(f"{key}={val:.7g}({rel:.1e})")
-        if rel > REF_TOL:
-            raise AssertionError(f"{key}: {val} vs reference {ref[key]} (relative {rel:.2e})")
+    diffs = compare_reference("slice", drv.validation_summary(out), ref, lambda key: SLICE_TOL, SLICE_TOL)
     phase("slice", f"{nl.nx}x{nl.ny}x{nl.nz}, 1+{nl.niter} steps: {res['ms_per_step']:.3f} ms/step, "
           f"{res['gps']:.4e} gridpoints/s on {card}; launches {counts}")
-    phase("reference", " ".join(diffs))
+    phase("slice-reference", diffs)
+    del res, out
+
+    # -- 5. the full flagship step through all seven kernels (the main path) ----
+    torch.cuda.synchronize()
+    _lib.reset_launch_counts()
+    res = drv.run(nl, verbose=False)
+    counts = dict(_lib.launch_counts)
+    expected = {
+        "si_stage": 3 * steps, "fused_smoothing": steps, "fused_smagorinsky_rk2": 2 * steps,
+        "fused_kessler_satadj_rk2": steps, "fused_vertical_advection_rk3ws": steps,
+        "fused_sedimentation_rk3ws": steps,
+    }
+    for name, n in expected.items():
+        if counts.get(name, 0) != n:
+            raise AssertionError(f"flagship: {name} launched {counts.get(name, 0)} times, expected {n}")
+    if counts.get("paste_x_edges_multi", 0) <= 0:
+        raise AssertionError("flagship: paste_x_edges_multi was never launched")
+    out = {k: fa.data.float().cpu().numpy() for k, fa in res["fields"].items()}
+    bad = [k for k, a in out.items() if not np.isfinite(a).all()]
+    if bad:
+        raise AssertionError(f"flagship: non-finite fields: {bad}")
+    ref = json.loads(Path(drv.__file__).with_name("flagship_reference.json").read_text())
+    diffs = compare_reference(
+        "flagship", drv.validation_summary(out), ref,
+        lambda key: FLAGSHIP_QC_TOL if key.startswith("qc_") else FLAGSHIP_TOL, 0.0,
+    )
+    phase("flagship", f"{nl.nx}x{nl.ny}x{nl.nz}, 1+{nl.niter} steps: {res['ms_per_step']:.3f} ms/step, "
+          f"{res['gps']:.4e} gridpoints/s on {card}; launches {counts}")
+    phase("flagship-reference", diffs)
+    phase("validation", f"umax = {res['umax']:.5f}, vmax = {res['vmax']:.5f} "
+          f"(the TPU's: umax = {TPU_VALIDATION['umax']:.5f}, vmax = {TPU_VALIDATION['vmax']:.5f}; "
+          "for information)")
 
     for name, entry in kernels.items():
         entry["launches"] = counts.get(name, 0)

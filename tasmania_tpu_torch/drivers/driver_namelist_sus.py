@@ -1,10 +1,13 @@
 """Moist isentropic benchmark driver, sequential-update splitting (counterpart
 of ``drivers/driver_namelist_sus.py``).
 
-The dycore steps the state, then the physics chain runs in sequence.  The
-port's chain is the slice diagnostics -> smoothing -> velocities
-(``namelist_sus.slice_skip`` leaves the rest out); asking for a process that
-is not ported raises ``NotImplementedError``.  The step sequence is the JAX
+The dycore steps the state, then the physics chain runs in sequence:
+diagnostics -> smoothing -> Smagorinsky (RK2) -> velocities -> Kessler (RK2)
+-> saturation adjustment (RK2) -> vertical advection (RK3WS) -> fall velocity
++ sedimentation (RK3WS) -> fall velocity + precipitation.  Kessler and
+saturation adjustment run as one fused pair.  ``skip`` leaves processes out
+(``namelist_sus.slice_skip`` gives the port's first slice); Coriolis is not
+ported and raises ``NotImplementedError``.  The step sequence is the JAX
 driver's: one step at zero mountain height (the warm-up), then ``niter``
 timed steps with the mountain at ``min((i+1)·dt/1800 s, 1)`` of its height.
 
@@ -13,8 +16,8 @@ Usage::
     python -m tasmania_tpu_torch.drivers.driver_namelist_sus [--nx N] [--ny N]
         [--nz N] [--niter N] [--device cuda|cpu]
 
-The default device is ``cuda``; a machine without a GPU is an error unless
-``--device cpu`` is given.
+The namelist's device is ``cuda``; without a GPU, ``run`` raises unless the
+namelist names the CPU (``--device cpu`` on the command line).
 """
 
 from __future__ import annotations
@@ -28,7 +31,9 @@ import numpy as np
 import torch
 
 from tasmania_tpu_torch.domain.domain import Domain
+from tasmania_tpu_torch.framework.concurrent_coupling import ConcurrentCoupling
 from tasmania_tpu_torch.framework.field import FieldArray
+from tasmania_tpu_torch.framework.options import TimeIntegrationOptions
 from tasmania_tpu_torch.framework.splitting import SequentialUpdateSplitting
 from tasmania_tpu_torch.isentropic.dynamics.dycore import IsentropicDynamicalCore
 from tasmania_tpu_torch.isentropic.physics.diagnostics import (
@@ -38,16 +43,27 @@ from tasmania_tpu_torch.isentropic.physics.diagnostics import (
 from tasmania_tpu_torch.isentropic.physics.horizontal_smoothing import (
     IsentropicHorizontalSmoothing,
 )
+from tasmania_tpu_torch.isentropic.physics.turbulence import IsentropicSmagorinsky
+from tasmania_tpu_torch.isentropic.physics.vertical_advection import IsentropicVerticalAdvection
 from tasmania_tpu_torch.isentropic.state import (
     get_isentropic_state_from_brunt_vaisala_frequency,
 )
+from tasmania_tpu_torch.isentropic.utils import (
+    AirPotentialTemperatureToDiagnostic,
+    AirPotentialTemperatureToTendency,
+)
+from tasmania_tpu_torch.physics.microphysics.kessler import (
+    KesslerFallVelocity,
+    KesslerMicrophysics,
+    KesslerSaturationAdjustmentPrognostic,
+    KesslerSedimentation,
+)
+from tasmania_tpu_torch.physics.microphysics.utils import Precipitation
 
 PROCESSES = (
     "diagnostics", "coriolis", "smoothing", "smagorinsky", "velocities",
     "kessler", "satadj", "vertical_advection", "sedimentation", "precipitation",
 )
-_NOT_PORTED = {"coriolis", "smagorinsky", "kessler", "satadj", "vertical_advection",
-               "sedimentation", "precipitation"}
 
 
 def build_domain_and_state(nl):
@@ -83,8 +99,8 @@ def build_domain_and_state(nl):
 
 
 def build_model(nl, domain, pt, skip=()):
-    """Dycore + physics chain.  ``skip`` names processes to leave out; every
-    process of the chain that is neither skipped nor ported raises."""
+    """Dycore + physics chain, as ``drivers/driver_namelist_sus.py:87-251``
+    builds it.  ``skip`` names processes to leave out."""
     unknown = set(skip) - set(PROCESSES)
     if unknown:
         raise ValueError(f"unknown processes in skip: {sorted(unknown)}")
@@ -102,42 +118,81 @@ def build_model(nl, domain, pt, skip=()):
         damp_at_every_stage=nl.damp_at_every_stage,
         storage_options=so,
     )
-    wanted = [p for p in PROCESSES if p not in skip]
-    if nl.coriolis_parameter is None:
-        wanted.remove("coriolis")
-    if not nl.smooth:
-        wanted.remove("smoothing")
-    if not nl.vertical_advection:
-        wanted.remove("vertical_advection")
-    missing = [p for p in wanted if p in _NOT_PORTED]
-    if missing:
-        raise NotImplementedError(
-            f"physics processes not ported yet: {missing}; leave them out with skip"
+    ptis = nl.physics_time_integration_scheme
+    args = []
+    if "diagnostics" not in skip:
+        dv = IsentropicDiagnostics(domain, "numerical", moist=True, pt=pt, storage_options=so)
+        args.append(TimeIntegrationOptions(component=dv))
+    if nl.coriolis_parameter is not None and "coriolis" not in skip:
+        raise NotImplementedError("the Coriolis process is not ported; set coriolis_parameter=None")
+    if nl.smooth and "smoothing" not in skip:
+        smoother = IsentropicHorizontalSmoothing(
+            domain,
+            nl.smooth_type,
+            nl.smooth_coeff,
+            nl.smooth_coeff_max,
+            nl.smooth_damp_depth,
+            moist=nl.smooth_moist,
+            smooth_moist_coeff=nl.smooth_moist_coeff,
+            smooth_moist_coeff_max=nl.smooth_moist_coeff_max,
+            smooth_moist_damp_depth=nl.smooth_moist_damp_depth,
+            storage_options=so,
         )
-    components = []
-    for proc in wanted:
-        if proc == "diagnostics":
-            components.append(
-                IsentropicDiagnostics(domain, "numerical", moist=True, pt=pt, storage_options=so)
-            )
-        elif proc == "smoothing":
-            components.append(
-                IsentropicHorizontalSmoothing(
-                    domain,
-                    nl.smooth_type,
-                    nl.smooth_coeff,
-                    nl.smooth_coeff_max,
-                    nl.smooth_damp_depth,
-                    moist=nl.smooth_moist,
-                    smooth_moist_coeff=nl.smooth_moist_coeff,
-                    smooth_moist_coeff_max=nl.smooth_moist_coeff_max,
-                    smooth_moist_damp_depth=nl.smooth_moist_damp_depth,
-                    storage_options=so,
-                )
-            )
-        elif proc == "velocities":
-            components.append(IsentropicVelocityComponents(domain, storage_options=so))
-    return dycore, SequentialUpdateSplitting(*components)
+        args.append(TimeIntegrationOptions(component=smoother))
+    if "smagorinsky" not in skip:
+        turb = IsentropicSmagorinsky(domain, nl.smagorinsky_constant, storage_options=so)
+        args.append(TimeIntegrationOptions(component=turb, scheme=ptis))
+    if "velocities" not in skip:
+        args.append(TimeIntegrationOptions(component=IsentropicVelocityComponents(domain, storage_options=so)))
+    t2d = AirPotentialTemperatureToDiagnostic(domain, "numerical")
+    if "kessler" not in skip:
+        ke = KesslerMicrophysics(
+            domain,
+            "numerical",
+            air_pressure_on_interface_levels=True,
+            tendency_of_air_potential_temperature_in_diagnostics=False,
+            rain_evaporation=nl.rain_evaporation,
+            autoconversion_threshold=nl.autoconversion_threshold,
+            autoconversion_rate=nl.autoconversion_rate,
+            collection_rate=nl.collection_rate,
+            storage_options=so,
+        )
+        args.append(TimeIntegrationOptions(component=ConcurrentCoupling(ke, t2d), scheme=ptis))
+    if "satadj" not in skip:
+        d2t = AirPotentialTemperatureToTendency(domain, "numerical")
+        sa = KesslerSaturationAdjustmentPrognostic(
+            domain,
+            "numerical",
+            air_pressure_on_interface_levels=True,
+            saturation_rate=nl.saturation_rate,
+            storage_options=so,
+        )
+        args.append(TimeIntegrationOptions(component=ConcurrentCoupling(d2t, sa, t2d), scheme=ptis))
+    if nl.vertical_advection and "vertical_advection" not in skip:
+        if nl.implicit_vertical_advection:
+            raise NotImplementedError("implicit vertical advection is not ported")
+        va = IsentropicVerticalAdvection(
+            domain,
+            flux_scheme=nl.vertical_flux_scheme,
+            moist=True,
+            tendency_of_air_potential_temperature_on_interface_levels=False,
+            storage_options=so,
+        )
+        args.append(TimeIntegrationOptions(component=va, scheme="rk3ws"))
+    rfv = KesslerFallVelocity(domain, "numerical", storage_options=so)
+    if "sedimentation" not in skip:
+        sd = KesslerSedimentation(
+            domain,
+            "numerical",
+            sedimentation_flux_scheme=nl.sedimentation_flux_scheme,
+            vt_mode=nl.sedimentation_vt_mode,
+            storage_options=so,
+        )
+        args.append(TimeIntegrationOptions(component=ConcurrentCoupling(rfv, sd), scheme="rk3ws"))
+    if "precipitation" not in skip:
+        ap = Precipitation(domain, "numerical", storage_options=so)
+        args.append(TimeIntegrationOptions(component=ConcurrentCoupling(rfv, ap)))
+    return dycore, SequentialUpdateSplitting(*args)
 
 
 def make_step(dycore, physics, field_names, dt_s: float):
@@ -159,10 +214,21 @@ def synchronize(device) -> None:
         torch.cuda.synchronize()
 
 
-def run(nl, skip=None, *, verbose: bool = True) -> Dict[str, Any]:
-    """Build the model, run the warm-up step and ``nl.niter`` timed steps.
-    Returns the validation numbers, the timing and the final fields."""
-    skip = nl.slice_skip if skip is None else skip
+def check_device(device) -> None:
+    """Raise if ``device`` is a CUDA device this machine does not have."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "the namelist's device is cuda but no CUDA device is available "
+            "(name the CPU to run there: so=StorageOptions(..., device='cpu'))"
+        )
+
+
+def run(nl, skip=(), *, verbose: bool = True) -> Dict[str, Any]:
+    """Build the model, run the warm-up step and ``nl.niter`` timed steps on
+    the namelist's device.  Returns the validation numbers, the timing and
+    the final fields."""
+    check_device(nl.so.device)
     domain, state, pt = build_domain_and_state(nl)
     dycore, physics = build_model(nl, domain, pt, skip)
     cgrid = domain.numerical_grid
@@ -209,19 +275,24 @@ VALIDATION_FIELDS = {
     "qv": "mass_fraction_of_water_vapor_in_air",
     "qc": "mass_fraction_of_cloud_liquid_water_in_air",
     "qr": "mass_fraction_of_precipitation_water_in_air",
+    "prec": "precipitation",
+    "accprec": "accumulated_precipitation",
 }
 
 
 def validation_summary(fields: Dict[str, np.ndarray]) -> Dict[str, float]:
     """umax and vmax as the drivers print them, and the max and the float64
-    mean of the magnitude of s, su, sv and the mass fractions (the magnitude:
-    sv's plain mean is a near-zero difference of large terms); ``fields``
-    maps names to numpy arrays.  ``slice_reference.json`` holds these numbers
-    from the JAX package."""
+    mean of the magnitude of s, su, sv, the mass fractions and the
+    precipitation fields (the magnitude: sv's plain mean is a near-zero
+    difference of large terms); ``fields`` maps names to numpy arrays.
+    ``slice_reference.json`` and ``flagship_reference.json`` hold these
+    numbers from the JAX package."""
     u = fields["x_velocity_at_u_locations"]
     v = fields["y_velocity_at_v_locations"]
     out = {"umax": float(u[:, :-1].max()), "vmax": float(v[:-1, :].max())}
     for short, name in VALIDATION_FIELDS.items():
+        if name not in fields:
+            continue
         out[f"{short}_max"] = float(fields[name].max())
         out[f"{short}_mean_abs"] = float(np.mean(np.abs(fields[name]), dtype=np.float64))
     return out

@@ -3,9 +3,12 @@
 fifth-order upwind fluxes, relaxed BC nb=3/nr=6, a Gaussian mountain that
 grows over 1800 s), restated here because that file imports the JAX package.
 
-``slice_skip`` names the physics processes the port leaves out: its chain is
-diagnostics -> smoothing -> velocities.  Use :func:`load_namelist` for a copy
-with overrides; the module's own values are never mutated.
+The storage device is ``cuda``: a run needs a GPU unless the caller passes
+``so=StorageOptions(..., device="cpu")``.  ``slice_skip`` names the processes
+the first slice of the port left out (its chain was diagnostics -> smoothing
+-> velocities); ``driver_namelist_sus.run(nl, skip=slice_skip)`` still runs
+that slice.  Use :func:`load_namelist` for a copy with overrides; the
+module's own values are never mutated.
 """
 
 from __future__ import annotations
@@ -33,8 +36,8 @@ hb_type = "relaxed"
 nb = 3
 hb_kwargs = {"nr": 6}
 
-# storage (the device is chosen by the driver)
-so = StorageOptions(dtype=torch.float32)
+# storage
+so = StorageOptions(dtype=torch.float32, device="cuda")
 enable_checks = False
 
 # topography
@@ -103,7 +106,7 @@ saturation_rate = FieldArray(np.asarray(0.025), "s^-1", ())
 timestep = timedelta(seconds=5)
 niter = 100
 
-# the processes the port's slice leaves out
+# the processes the first slice of the port left out
 slice_skip = frozenset(
     {"smagorinsky", "kessler", "satadj", "vertical_advection", "sedimentation", "precipitation"}
 )

@@ -1,8 +1,8 @@
 """Build, load and count the port's hand-written CUDA kernels.
 
 The sources in ``tasmania_tpu_torch/csrc`` are compiled by ``nvcc`` for Hopper
-(``sm_90a``) into one shared library with a plain C interface, loaded with
-``ctypes``.  The build happens at first use, into ``build/tasmania_tpu_torch/``
+(``sm_90a``), one process per source started together, and linked into one
+shared library with a plain C interface, loaded with ``ctypes``.  The build happens at first use, into ``build/tasmania_tpu_torch/``
 at the root of the checkout, in a directory keyed by a hash of the sources
 and flags, so a changed source is rebuilt and an unchanged one is reused.
 Nothing here runs at import time: CPU-only machines import every module.
@@ -29,7 +29,7 @@ BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "tasmania_tpu_torch
 # no --use_fast_math: the Exner power must be powf, not __powf
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
+    "-Xcompiler", "-fPIC", "-Xptxas=-v",
 )
 DTYPE_CODES = {torch.float32: 0, torch.float64: 1}
 
@@ -45,6 +45,17 @@ _SIGNATURES = {
     "tt_smoothing": (_int, _vp, _vp, _vp, _int, _int, _int, _int, _int, _int, _vp),
     # dtype, inputs, outputs, nq, nx, ny, nz, nb, dd, scalars, stream
     "tt_si_stage": (_int, _vp, _vp, _int, _int, _int, _int, _int, _int, _vp, _vp),
+    # dtype, inputs (host array), outputs (host array), ncol, nz, scalars, stream
+    "tt_kessler_satadj": (_int, _vp, _vp, _int, _int, _vp, _vp),
+    # dtype, inputs (s, su_stage, sv_stage, su_base, sv_base), outputs (su, sv),
+    # nx, ny, nz, nb, scalars (c, nu factor, 2 dx, 2 dy), stream
+    "tt_smagorinsky_stage": (_int, _vp, _vp, _int, _int, _int, _int, _vp, _vp),
+    # dtype, inputs (w, s, su, sv[, qv, qc, qr]), outputs, nfields, ncol, nz,
+    # order, scalars (dt, dz), stream
+    "tt_vertical_advection_rk3ws": (_int, _vp, _vp, _int, _int, _int, _int, _vp, _vp),
+    # dtype, inputs (rho, h_if, qr), outputs (qr, vt), ncol, nz, order,
+    # vt_step, dt, stream
+    "tt_sedimentation_rk3ws": (_int, _vp, _vp, _int, _int, _int, _int, ctypes.c_double, _vp),
 }
 
 _loaded = None
@@ -75,27 +86,43 @@ def _nvcc() -> str:
 
 
 def build() -> Path:
-    """Compile the kernels if this source hash has no library yet; raises with
-    the compiler's output if ``nvcc`` fails."""
+    """Compile the kernels if this source hash has no library yet: one
+    ``nvcc -c`` per source, all started together, then one link.  Raises with
+    the compiler's output if a step fails."""
     path = library_path()
     if path.exists():
         build_info.update(path=str(path), seconds=0.0, cached=True, log="")
         return path
     path.parent.mkdir(parents=True, exist_ok=True)
-    tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
-    cu = [str(p) for p in _sources() if p.suffix == ".cu"]
+    tag = f"{os.getpid()}.tmp"
+    cu = [p for p in _sources() if p.suffix == ".cu"]
+    objs = [path.with_name(f"{src.stem}.{tag}.o") for src in cu]
     t0 = time.perf_counter()
-    proc = subprocess.run(
-        [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp), *cu],
-        capture_output=True,
-        text=True,
+    procs = [
+        subprocess.Popen(
+            [_nvcc(), *NVCC_FLAGS, "-c", "-I", str(CSRC), "-o", str(obj), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        )
+        for src, obj in zip(cu, objs)
+    ]
+    logs = [p.communicate()[0] for p in procs]
+    failed = [f"{src.name}:\n{log}" for src, p, log in zip(cu, procs, logs) if p.returncode != 0]
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+    tmp = path.with_name(f"{path.name}.{tag}")
+    link = subprocess.run(
+        [_nvcc(), "-shared", "-gencode", "arch=compute_90a,code=sm_90a", "-o", str(tmp),
+         *map(str, objs)],
+        capture_output=True, text=True,
     )
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}")
+    if link.returncode != 0:
+        raise RuntimeError(f"nvcc link failed ({link.returncode}):\n{link.stdout}\n{link.stderr}")
     os.replace(tmp, path)
+    for obj in objs:
+        obj.unlink()
     build_info.update(
         path=str(path), seconds=time.perf_counter() - t0, cached=False,
-        log=proc.stdout + proc.stderr,
+        log="".join(logs) + link.stdout + link.stderr,
     )
     return path
 
@@ -126,6 +153,11 @@ def stream_handle() -> int:
 def pointer_array(tensors) -> ctypes.Array:
     """A host array of the tensors' data pointers."""
     return (ctypes.c_void_p * len(tensors))(*[t.data_ptr() for t in tensors])
+
+
+def scalar_array(values) -> ctypes.Array:
+    """A host array of doubles, the kernels' scalar arguments."""
+    return (ctypes.c_double * len(values))(*values)
 
 
 def check_cuda_tensors(name: str, tensors, dtype, shapes=None) -> None:

@@ -137,3 +137,28 @@ def units_are_same(a: str, b: str) -> bool:
     """True if the two unit strings are exactly equivalent (same dims and scale)."""
     ua, ub = parse_units(a), parse_units(b)
     return ua.dims == ub.dims and abs(ua.scale / ub.scale - 1.0) < 1e-12
+
+
+def units_are_compatible(a: str, b: str) -> bool:
+    """True if values can be converted between the two unit strings."""
+    return parse_units(a).dims == parse_units(b).dims
+
+
+def per_second(units: str) -> str:
+    """Units of the time tendency of a field carrying ``units``."""
+    units = units.strip()
+    if units in ("", "1", "dimensionless"):
+        return "s^-1"
+    return f"{units} s^-1"
+
+
+def strip_per_second(units: str) -> str:
+    """Units of the field whose tendency carries ``units`` (inverse of
+    :func:`per_second`): drops one ``s^-1`` token where there is one,
+    otherwise appends ``s``."""
+    tokens = units.split()
+    for i, tok in enumerate(tokens):
+        if tok in ("s^-1", "s**-1", "s-1"):
+            rest = tokens[:i] + tokens[i + 1 :]
+            return " ".join(rest) if rest else "1"
+    return f"{units} s" if units.strip() not in ("", "1") else "s"

@@ -7,8 +7,12 @@ machine without them; without a CUDA device they skip.  On the GPU machine::
 
 Tolerances, float64: paste bitwise; smoothing and the stage within 1e-12 of
 the largest magnitude of the output (FMA contraction; the stage's column
-scans sum in another order than the plain version's cumulative sums).  The
-input helpers here are shared with ``tests/test_torch_ops.py``.
+scans sum in another order than the plain version's cumulative sums); the
+Kessler, Smagorinsky, vertical-advection and sedimentation steps within
+1e-12 of the output's largest magnitude (FMA contraction, and PyTorch's
+division by a scalar on the card, a product with the reciprocal).  The input
+helpers here are shared with ``tests/test_torch_ops.py`` and
+``tests/test_torch_physics_ops.py``.
 """
 
 from __future__ import annotations
@@ -20,9 +24,26 @@ import torch
 from tasmania_tpu_torch.domain.domain import Domain
 from tasmania_tpu_torch.dwarfs.vertical_damping import Rayleigh
 from tasmania_tpu_torch.framework.field import FieldArray
+from tasmania_tpu_torch.ops.kessler_step import (
+    KesslerConstants,
+    fused_kessler_satadj_rk2,
+    fused_kessler_satadj_rk2_plain,
+)
 from tasmania_tpu_torch.ops.paste import paste_x_edges_multi, paste_x_edges_multi_plain
+from tasmania_tpu_torch.ops.sedimentation_step import (
+    fused_sedimentation_rk3ws,
+    fused_sedimentation_rk3ws_plain,
+)
 from tasmania_tpu_torch.ops.si_stage import StageConstants, si_stage, si_stage_plain
+from tasmania_tpu_torch.ops.smagorinsky_step import (
+    fused_smagorinsky_rk2,
+    fused_smagorinsky_rk2_plain,
+)
 from tasmania_tpu_torch.ops.smoothing_step import fused_smoothing, fused_smoothing_plain
+from tasmania_tpu_torch.ops.vertical_advection_step import (
+    fused_vertical_advection_rk3ws,
+    fused_vertical_advection_rk3ws_plain,
+)
 
 NX, NY, NZ, NB, NR = 19, 21, 8, 3, 6
 FRACS = (1.0 / 3.0, 0.5, 1.0)
@@ -88,6 +109,73 @@ def smoothing_inputs(seed, nf=6):
     return fields, gamma
 
 
+# the moist physics' geometry: nx >= 2 nb + 16, so that the TPU Smagorinsky
+# entry takes its one-kernel path at tile_x = 8
+PX, PY, PZ = 25, 21, 16
+KESSLER = KesslerConstants(
+    a=1e-4, k1=1e-3, k2=2.2, sr=0.025, beta=287.05 / 461.52, lhvw=2.5e6, cp=1004.0,
+    rv=461.52, dt=5.0,
+)
+SMAG = dict(dx=2200.0, dy=2150.0, cs=0.18, nb=3, dt=5.0)
+
+
+def kessler_inputs(seed):
+    """(rho, t, p_if, exn_if, qv, qc, qr) in numpy reaching every branch of the
+    scheme: T 250-300 K, p 1e4-1e5 Pa, qv on both sides of saturation, qc on
+    both sides of the threshold 1e-4 (a tenth of it zero), qr with zeros and
+    a few negatives."""
+    rng = np.random.default_rng(seed)
+    cell, iface = (PX, PY, PZ), (PX, PY, PZ + 1)
+    t = rng.uniform(250.0, 300.0, cell)
+    p_if = rng.uniform(1e4, 1e5, iface)
+    exn_if = 1004.0 * (p_if / 1e5) ** (287.05 / 1004.0)
+    p = 0.5 * (p_if[..., :-1] + p_if[..., 1:])
+    qvs = KESSLER.beta * 610.78 * np.exp(17.27 * (t - 273.16) / (t - 35.86)) / p
+    qv = qvs * rng.uniform(0.8, 1.2, cell)
+    qc = rng.uniform(0.0, 3e-4, cell) * (rng.uniform(size=cell) > 0.1)
+    qr = rng.uniform(-1e-6, 1e-3, cell) * (rng.uniform(size=cell) > 0.3)
+    rho = rng.uniform(0.3, 1.3, cell)
+    return rho, t, p_if, exn_if, qv, qc, qr
+
+
+def smagorinsky_inputs(seed):
+    """(s, su, sv) in numpy: a sheared flow with noise."""
+    rng = np.random.default_rng(seed)
+    cell = (PX, PY, PZ)
+    s = rng.uniform(5.0, 10.0, cell)
+    su = s * (10.0 + 5.0 * np.sin(np.arange(PY) / 3.0)[None, :, None] + rng.normal(0, 2.0, cell))
+    sv = s * rng.normal(0.0, 3.0, cell)
+    return s, su, sv
+
+
+def vertical_advection_inputs(seed):
+    """(w, s, su, sv, qv, qc, qr) in numpy; w = dθ/dt of both signs."""
+    rng = np.random.default_rng(seed)
+    cell = (PX, PY, PZ)
+    w = rng.normal(0.0, 0.05, cell)
+    s = rng.uniform(5.0, 10.0, cell)
+    su = rng.uniform(20.0, 80.0, cell)
+    sv = rng.uniform(-20.0, 20.0, cell)
+    qv = rng.uniform(1e-3, 1e-2, cell)
+    qc = rng.uniform(0.0, 1e-3, cell)
+    qr = rng.uniform(0.0, 1e-3, cell) * (rng.uniform(size=cell) > 0.3)
+    return w, s, su, sv, qv, qc, qr
+
+
+def sedimentation_inputs(seed):
+    """(rho, h_if, qr) in numpy: density growing and heights falling towards
+    the surface (the last level), qr with zeros and a few negatives."""
+    rng = np.random.default_rng(seed)
+    cell = (PX, PY, PZ)
+    rho = np.sort(rng.uniform(0.3, 1.3, cell), axis=-1)
+    dh = rng.uniform(100.0, 400.0, (PX, PY, PZ))
+    h_if = np.zeros((PX, PY, PZ + 1))
+    h_if[..., PZ] = rng.uniform(0.0, 500.0, (PX, PY))
+    h_if[..., :PZ] = h_if[..., PZ:] + np.cumsum(dh[..., ::-1], axis=-1)[..., ::-1]
+    qr = rng.uniform(-1e-6, 2e-3, cell) * (rng.uniform(size=cell) > 0.3)
+    return rho, h_if, qr
+
+
 def assert_scaled(got, ref, atol, what):
     ref = np.asarray(ref)
     got = np.asarray(got)
@@ -142,5 +230,47 @@ def test_si_stage_kernel_vs_plain(cuda_device, damp, stage):
     dd = inp["dd"] if damp else 0
     got = si_stage(*args, nb=NB, c=c, dd=dd)
     ref = si_stage_plain(*args, nb=NB, c=c, dd=dd)
+    for k, (a, b) in enumerate(zip(got, ref)):
+        assert_scaled(a.cpu().numpy(), b.cpu().numpy(), 1e-12, f"output {k}")
+
+
+@pytest.mark.cuda
+def test_kessler_satadj_kernel_vs_plain(cuda_device):
+    args = [tensor(a, cuda_device) for a in kessler_inputs(seed=1)]
+    got = fused_kessler_satadj_rk2(*args, KESSLER)
+    ref = fused_kessler_satadj_rk2_plain(*args, KESSLER)
+    for k, (a, b) in enumerate(zip(got, ref)):
+        assert_scaled(a.cpu().numpy(), b.cpu().numpy(), 1e-12, f"output {k}")
+
+
+@pytest.mark.cuda
+def test_smagorinsky_kernel_vs_plain(cuda_device):
+    args = [tensor(a, cuda_device) for a in smagorinsky_inputs(seed=2)]
+    got = fused_smagorinsky_rk2(*args, **SMAG)
+    ref = fused_smagorinsky_rk2_plain(*args, **SMAG)
+    for k, (a, b) in enumerate(zip(got, ref)):
+        assert_scaled(a.cpu().numpy(), b.cpu().numpy(), 1e-12, f"output {k}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("order", [1, 2, 3, 5])
+@pytest.mark.parametrize("moist", [True, False])
+def test_vertical_advection_kernel_vs_plain(cuda_device, order, moist):
+    w, s, su, sv, *q = [tensor(a, cuda_device) for a in vertical_advection_inputs(seed=order)]
+    q = q if moist else ()
+    got = fused_vertical_advection_rk3ws(w, s, su, sv, q, order=order, dt=5.0, dz=1.0)
+    ref = fused_vertical_advection_rk3ws_plain(w, s, su, sv, q, order=order, dt=5.0, dz=1.0)
+    assert len(got) == len(ref) == (6 if moist else 3)
+    for k, (a, b) in enumerate(zip(got, ref)):
+        assert_scaled(a.cpu().numpy(), b.cpu().numpy(), 1e-12, f"output {k}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("order", [1, 2])
+@pytest.mark.parametrize("vt_mode", ["stage", "step"])
+def test_sedimentation_kernel_vs_plain(cuda_device, order, vt_mode):
+    args = [tensor(a, cuda_device) for a in sedimentation_inputs(seed=order)]
+    got = fused_sedimentation_rk3ws(*args, order=order, dt=5.0, vt_mode=vt_mode)
+    ref = fused_sedimentation_rk3ws_plain(*args, order=order, dt=5.0, vt_mode=vt_mode)
     for k, (a, b) in enumerate(zip(got, ref)):
         assert_scaled(a.cpu().numpy(), b.cpu().numpy(), 1e-12, f"output {k}")

@@ -1,7 +1,7 @@
 """The port's slice of the moist SUS benchmark against the JAX package.
 
-Three steps of the chain dycore -> diagnostics -> smoothing -> velocities at
-17x17x8 in float64: the port on the CPU (through the plain versions of its
+Three steps of the port's first slice, the chain dycore -> diagnostics ->
+smoothing -> velocities (``namelist_sus.slice_skip``), at 17x17x8 in float64: the port on the CPU (through the plain versions of its
 kernels) against the JAX driver's ``build_model`` with the same ``skip`` on
 the plain ``"jax"`` backend.  Tolerance: every field within 1e-11 of the
 field's largest magnitude; the two packages take cumulative sums and
@@ -63,10 +63,10 @@ def _run_jax():
 
 
 def _run_port():
-    nl = load_namelist(**SIZE, niter=NSTEPS, so=StorageOptions(dtype=torch.float64))
+    nl = load_namelist(**SIZE, niter=NSTEPS, so=StorageOptions(dtype=torch.float64, device="cpu"))
     domain, state, pt = port_driver.build_domain_and_state(nl)
     initial = {k: v[0] for k, v in state_to_numpy(state).items() if k != "time"}
-    res = port_driver.run(nl, verbose=False)
+    res = port_driver.run(nl, skip=slice_skip, verbose=False)
     return initial, {k: a for k, (a, _) in state_to_numpy(res["fields"]).items()}
 
 
@@ -95,12 +95,15 @@ def test_slice_three_steps_agree(both_runs):
 
 
 def test_port_imports_no_jax():
-    """Importing the port and running a CPU step leaves JAX unloaded."""
+    """Importing the port and running a CPU step of the full flagship chain
+    (the driver's default) leaves JAX and the JAX package unloaded."""
     code = (
         "import sys, torch\n"
         "from tasmania_tpu_torch.drivers.driver_namelist_sus import run\n"
         "from tasmania_tpu_torch.drivers.namelist_sus import load_namelist\n"
-        "run(load_namelist(nx=17, ny=17, nz=8, niter=1), verbose=False)\n"
+        "from tasmania_tpu_torch.framework.options import StorageOptions\n"
+        "so = StorageOptions(dtype=torch.float32, device='cpu')\n"
+        "run(load_namelist(nx=17, ny=17, nz=8, niter=1, so=so), verbose=False)\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'tasmania_tpu.')) or m == 'tasmania_tpu')\n"
         "assert not bad, bad\n"
     )
