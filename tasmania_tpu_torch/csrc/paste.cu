@@ -8,20 +8,29 @@
 // C-contiguous array are two contiguous runs of w*ny*nz elements, so the paste
 // is 2*N memcpy-like streams: read the strip, write the edge (at the flagship
 // 6 arrays x 2 strips x 3*161*120 f32 = 2.8 MB each way).  Design: one thread
-// per element, k fastest, blockIdx.y picks the array; the pointer table
-// (fulls, lows, highs) lives on the device so one launch serves any N.
+// per element, k fastest, blockIdx.y picks the array; the pointers (fulls,
+// lows, highs) ride in the kernel arguments, so a launch needs no copy to the
+// device and never waits on it.
 
 #include "common.cuh"
 
 namespace {
 
+constexpr int kMaxArrays = 16;
+
 template <typename T>
-__global__ void paste_kernel(const int64_t* __restrict__ ptrs, int n, int64_t strip,
-                             int64_t hi_offset) {
+struct PastePtrs {
+  T* full[kMaxArrays];
+  const T* lo[kMaxArrays];
+  const T* hi[kMaxArrays];
+};
+
+template <typename T>
+__global__ void paste_kernel(PastePtrs<T> ptrs, int64_t strip, int64_t hi_offset) {
   const int a = blockIdx.y;
-  T* full = reinterpret_cast<T*>(ptrs[a]);
-  const T* lo = reinterpret_cast<const T*>(ptrs[n + a]);
-  const T* hi = reinterpret_cast<const T*>(ptrs[2 * n + a]);
+  T* full = ptrs.full[a];
+  const T* lo = ptrs.lo[a];
+  const T* hi = ptrs.hi[a];
   for (int64_t e = int64_t(blockIdx.x) * blockDim.x + threadIdx.x; e < 2 * strip;
        e += int64_t(gridDim.x) * blockDim.x) {
     if (e < strip) {
@@ -32,21 +41,31 @@ __global__ void paste_kernel(const int64_t* __restrict__ ptrs, int n, int64_t st
   }
 }
 
-}  // namespace
-
-extern "C" int tt_paste_x_edges_multi(int dtype, const void* ptrs, int n, int nx, int ny, int nz,
-                                      int w, cudaStream_t stream) {
+template <typename T>
+int launch(void* const* fulls, const void* const* lows, const void* const* highs, int n, int nx,
+           int ny, int nz, int w, cudaStream_t stream) {
+  PastePtrs<T> ptrs{};
+  for (int a = 0; a < n; ++a) {
+    ptrs.full[a] = static_cast<T*>(fulls[a]);
+    ptrs.lo[a] = static_cast<const T*>(lows[a]);
+    ptrs.hi[a] = static_cast<const T*>(highs[a]);
+  }
   const int64_t strip = int64_t(w) * ny * nz;
   const int64_t hi_offset = int64_t(nx - w) * ny * nz;
   const int threads = 256;
   int64_t blocks = (2 * strip + threads - 1) / threads;
   if (blocks > 4096) blocks = 4096;
   dim3 grid(static_cast<unsigned>(blocks), static_cast<unsigned>(n));
-  const int64_t* p = static_cast<const int64_t*>(ptrs);
-  if (dtype == tt::kFloat32) {
-    paste_kernel<float><<<grid, threads, 0, stream>>>(p, n, strip, hi_offset);
-  } else {
-    paste_kernel<double><<<grid, threads, 0, stream>>>(p, n, strip, hi_offset);
-  }
+  paste_kernel<T><<<grid, threads, 0, stream>>>(ptrs, strip, hi_offset);
   return int(cudaGetLastError());
+}
+
+}  // namespace
+
+extern "C" int tt_paste_x_edges_multi(int dtype, void* const* fulls, const void* const* lows,
+                                      const void* const* highs, int n, int nx, int ny, int nz,
+                                      int w, cudaStream_t stream) {
+  if (n < 1 || n > kMaxArrays) return int(cudaErrorInvalidValue);
+  if (dtype == tt::kFloat32) return launch<float>(fulls, lows, highs, n, nx, ny, nz, w, stream);
+  return launch<double>(fulls, lows, highs, n, nx, ny, nz, w, stream);
 }

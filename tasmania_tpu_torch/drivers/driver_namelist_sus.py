@@ -149,9 +149,6 @@ def build_model(nl, domain, pt, skip=()):
         ke = KesslerMicrophysics(
             domain,
             "numerical",
-            air_pressure_on_interface_levels=True,
-            tendency_of_air_potential_temperature_in_diagnostics=False,
-            rain_evaporation=nl.rain_evaporation,
             autoconversion_threshold=nl.autoconversion_threshold,
             autoconversion_rate=nl.autoconversion_rate,
             collection_rate=nl.collection_rate,
@@ -163,7 +160,6 @@ def build_model(nl, domain, pt, skip=()):
         sa = KesslerSaturationAdjustmentPrognostic(
             domain,
             "numerical",
-            air_pressure_on_interface_levels=True,
             saturation_rate=nl.saturation_rate,
             storage_options=so,
         )
@@ -171,13 +167,7 @@ def build_model(nl, domain, pt, skip=()):
     if nl.vertical_advection and "vertical_advection" not in skip:
         if nl.implicit_vertical_advection:
             raise NotImplementedError("implicit vertical advection is not ported")
-        va = IsentropicVerticalAdvection(
-            domain,
-            flux_scheme=nl.vertical_flux_scheme,
-            moist=True,
-            tendency_of_air_potential_temperature_on_interface_levels=False,
-            storage_options=so,
-        )
+        va = IsentropicVerticalAdvection(domain, flux_scheme=nl.vertical_flux_scheme, storage_options=so)
         args.append(TimeIntegrationOptions(component=va, scheme="rk3ws"))
     rfv = KesslerFallVelocity(domain, "numerical", storage_options=so)
     if "sedimentation" not in skip:

@@ -96,7 +96,6 @@ coriolis_parameter = None
 sedimentation = True
 sedimentation_flux_scheme = "second_order_upwind"
 sedimentation_vt_mode = "step"
-rain_evaporation = True
 autoconversion_threshold = FieldArray(np.asarray(0.1), "g kg^-1", ())
 autoconversion_rate = FieldArray(np.asarray(0.001), "s^-1", ())
 collection_rate = FieldArray(np.asarray(2.2), "s^-1", ())

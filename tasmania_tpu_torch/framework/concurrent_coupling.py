@@ -40,12 +40,8 @@ class ConcurrentCoupling(nn.Module):
     """Explicit concurrent coupling of diagnostic, tendency and promoter
     components (Staniforth et al. 2002), evaluated serially."""
 
-    def __init__(self, *components, execution_policy: str = "serial") -> None:
+    def __init__(self, *components) -> None:
         super().__init__()
-        if execution_policy != "serial":
-            raise NotImplementedError(
-                f"execution policy {execution_policy!r} is not ported (have 'serial')"
-            )
         self.components = nn.ModuleList(components)
         self.input_properties = self._input_properties()
         self.tendency_properties = self._tendency_properties()

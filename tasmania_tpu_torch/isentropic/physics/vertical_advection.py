@@ -2,8 +2,9 @@
 (counterpart of ``tasmania_tpu/isentropic/physics/vertical_advection.py:34-166``).
 
 The vertical velocity is w = dθ/dt on the main levels, interpolated to the
-interfaces; the tendencies are the vertical flux divergence, zero on the
-``extent`` top and bottom levels.  Under RK3WS the stepper takes
+interfaces; the tendencies of s, su, sv and the three mass fractions (advected
+as s·q) are the vertical flux divergence, zero on the ``extent`` top
+and bottom levels.  Under RK3WS the stepper takes
 ``fused_rk_step``: all three stages in
 ``ops/vertical_advection_step.fused_vertical_advection_rk3ws`` (the kernel on
 the card).
@@ -24,7 +25,6 @@ mfcw = "mass_fraction_of_cloud_liquid_water_in_air"
 mfpw = "mass_fraction_of_precipitation_water_in_air"
 
 DIMS = ("x", "y", "z")
-DIMS_Z = ("x", "y", "z_on_interface_levels")
 TTD = "tendency_of_air_potential_temperature"
 
 
@@ -37,59 +37,43 @@ def interface_w(w_main):
 
 
 class IsentropicVerticalAdvection(TendencyComponent):
-    def __init__(
-        self,
-        domain,
-        grid_type: str = "numerical",
-        flux_scheme: str = "upwind",
-        moist: bool = False,
-        tendency_of_air_potential_temperature_on_interface_levels: bool = False,
-        **kwargs,
-    ) -> None:
+    fields = ("air_isentropic_density", "x_momentum_isentropic", "y_momentum_isentropic",
+              mfwv, mfcw, mfpw)
+
+    def __init__(self, domain, grid_type: str = "numerical", flux_scheme: str = "upwind",
+                 **kwargs) -> None:
         super().__init__(domain, grid_type, **kwargs)
-        self.moist = moist
-        self.w_on_interfaces = tendency_of_air_potential_temperature_on_interface_levels
         self.vflux = IsentropicMinimalVerticalFlux.factory(flux_scheme)
         self.dz = float(np.asarray(self.grid.dz.to_units("K").data))
 
     @property
-    def fields(self):
-        names = ["air_isentropic_density", "x_momentum_isentropic", "y_momentum_isentropic"]
-        return names + [mfwv, mfcw, mfpw] if self.moist else names
-
-    @property
     def input_properties(self):
-        props = {
+        return {
             "air_isentropic_density": {"dims": DIMS, "units": "kg m^-2 K^-1"},
             "x_momentum_isentropic": {"dims": DIMS, "units": "kg m^-1 K^-1 s^-1"},
             "y_momentum_isentropic": {"dims": DIMS, "units": "kg m^-1 K^-1 s^-1"},
+            TTD: {"dims": DIMS, "units": "K s^-1"},
+            mfwv: {"dims": DIMS, "units": "g g^-1"},
+            mfcw: {"dims": DIMS, "units": "g g^-1"},
+            mfpw: {"dims": DIMS, "units": "g g^-1"},
         }
-        if self.w_on_interfaces:
-            props[TTD + "_on_interface_levels"] = {"dims": DIMS_Z, "units": "K s^-1"}
-        else:
-            props[TTD] = {"dims": DIMS, "units": "K s^-1"}
-        if self.moist:
-            for q in (mfwv, mfcw, mfpw):
-                props[q] = {"dims": DIMS, "units": "g g^-1"}
-        return props
 
     @property
     def tendency_properties(self):
-        props = {
+        return {
             "air_isentropic_density": {"dims": DIMS, "units": "kg m^-2 K^-1 s^-1"},
             "x_momentum_isentropic": {"dims": DIMS, "units": "kg m^-1 K^-1 s^-2"},
             "y_momentum_isentropic": {"dims": DIMS, "units": "kg m^-1 K^-1 s^-2"},
+            mfwv: {"dims": DIMS, "units": "g g^-1 s^-1"},
+            mfcw: {"dims": DIMS, "units": "g g^-1 s^-1"},
+            mfpw: {"dims": DIMS, "units": "g g^-1 s^-1"},
         }
-        if self.moist:
-            for q in (mfwv, mfcw, mfpw):
-                props[q] = {"dims": DIMS, "units": "g g^-1 s^-1"}
-        return props
 
     def array_call(self, state):
         e = self.vflux.extent
         s = state["air_isentropic_density"]
         nz = s.shape[2]
-        w = state[TTD + "_on_interface_levels"] if self.w_on_interfaces else interface_w(state[TTD])
+        w = interface_w(state[TTD])
 
         def tendency(phi, scale=None):
             f = self.vflux(0.0, self.dz, w, phi)  # interfaces [e, nz+1-e)
@@ -100,19 +84,14 @@ class IsentropicVerticalAdvection(TendencyComponent):
             out[:, :, e : nz - e] = div
             return out
 
-        tends = {
-            name: tendency(state[name])
-            for name in ("air_isentropic_density", "x_momentum_isentropic", "y_momentum_isentropic")
-        }
-        if self.moist:
-            for q in (mfwv, mfcw, mfpw):
-                tends[q] = tendency(s * state[q], scale=s)
+        tends = {name: tendency(state[name]) for name in self.fields[:3]}
+        for q in self.fields[3:]:
+            tends[q] = tendency(s * state[q], scale=s)
         return tends, {}
 
     def fused_rk_step(self, scheme, state, dt, output_properties):
-        """The whole RK3WS step in one operation; None for another scheme or
-        interface-level w."""
-        if scheme != "rk3ws" or self.w_on_interfaces:
+        """The whole RK3WS step in one operation; None for another scheme."""
+        if scheme != "rk3ws":
             return None
         raw = get_array_dict(state, self.input_properties)
         names = self.fields

@@ -50,9 +50,6 @@ def _kessler_chain_matches(components, scheme) -> bool:
         and len(components) == 2
         and isinstance(components[0], KesslerMicrophysics)
         and isinstance(components[1], AirPotentialTemperatureToDiagnostic)
-        and components[0].p_on_interfaces
-        and components[0].rain_evaporation
-        and not components[0].theta_tendency_in_diagnostics
     )
 
 
@@ -63,7 +60,6 @@ def _satadj_chain_matches(components, scheme) -> bool:
         and isinstance(components[0], AirPotentialTemperatureToTendency)
         and isinstance(components[1], KesslerSaturationAdjustmentPrognostic)
         and isinstance(components[2], AirPotentialTemperatureToDiagnostic)
-        and components[1].p_on_interfaces
     )
 
 

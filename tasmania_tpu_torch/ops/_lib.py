@@ -2,9 +2,10 @@
 
 The sources in ``tasmania_tpu_torch/csrc`` are compiled by ``nvcc`` for Hopper
 (``sm_90a``), one process per source started together, and linked into one
-shared library with a plain C interface, loaded with ``ctypes``.  The build happens at first use, into ``build/tasmania_tpu_torch/``
-at the root of the checkout, in a directory keyed by a hash of the sources
-and flags, so a changed source is rebuilt and an unchanged one is reused.
+shared library with a plain C interface, loaded with ``ctypes``.  The build
+happens at first use, into ``build/tasmania_tpu_torch/`` at the root of the
+checkout, in a directory keyed by a hash of the sources and flags, so a
+changed source is rebuilt and an unchanged one is reused.
 Nothing here runs at import time: CPU-only machines import every module.
 
 ``launch_counts`` counts kernel launches per wrapper; each wrapper adds one
@@ -38,8 +39,9 @@ launch_counts: collections.Counter = collections.Counter()
 _vp = ctypes.c_void_p
 _int = ctypes.c_int
 _SIGNATURES = {
-    # dtype, pointer table (device), n, nx, ny, nz, w, stream
-    "tt_paste_x_edges_multi": (_int, _vp, _int, _int, _int, _int, _int, _vp),
+    # dtype, fulls, lows, highs (host arrays, at most 16 each), n, nx, ny, nz,
+    # w, stream
+    "tt_paste_x_edges_multi": (_int, _vp, _vp, _vp, _int, _int, _int, _int, _int, _vp),
     # dtype, inputs (host array), outputs (host array), gamma, nf, nx, ny, nz,
     # order, nb, stream
     "tt_smoothing": (_int, _vp, _vp, _vp, _int, _int, _int, _int, _int, _int, _vp),
@@ -87,8 +89,10 @@ def _nvcc() -> str:
 
 def build() -> Path:
     """Compile the kernels if this source hash has no library yet: one
-    ``nvcc -c`` per source, all started together, then one link.  Raises with
-    the compiler's output if a step fails."""
+    ``nvcc -c`` per source, all started together, then one link (a cold
+    build's time is bounded by the slowest source, not the sum of all).
+    Raises with the compiler's output if a step fails, leaving no object or
+    partial library behind."""
     path = library_path()
     if path.exists():
         build_info.update(path=str(path), seconds=0.0, cached=True, log="")
@@ -97,29 +101,31 @@ def build() -> Path:
     tag = f"{os.getpid()}.tmp"
     cu = [p for p in _sources() if p.suffix == ".cu"]
     objs = [path.with_name(f"{src.stem}.{tag}.o") for src in cu]
-    t0 = time.perf_counter()
-    procs = [
-        subprocess.Popen(
-            [_nvcc(), *NVCC_FLAGS, "-c", "-I", str(CSRC), "-o", str(obj), str(src)],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
-        )
-        for src, obj in zip(cu, objs)
-    ]
-    logs = [p.communicate()[0] for p in procs]
-    failed = [f"{src.name}:\n{log}" for src, p, log in zip(cu, procs, logs) if p.returncode != 0]
-    if failed:
-        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
     tmp = path.with_name(f"{path.name}.{tag}")
-    link = subprocess.run(
-        [_nvcc(), "-shared", "-gencode", "arch=compute_90a,code=sm_90a", "-o", str(tmp),
-         *map(str, objs)],
-        capture_output=True, text=True,
-    )
-    if link.returncode != 0:
-        raise RuntimeError(f"nvcc link failed ({link.returncode}):\n{link.stdout}\n{link.stderr}")
-    os.replace(tmp, path)
-    for obj in objs:
-        obj.unlink()
+    t0 = time.perf_counter()
+    try:
+        procs = [
+            subprocess.Popen(
+                [_nvcc(), *NVCC_FLAGS, "-c", "-I", str(CSRC), "-o", str(obj), str(src)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            )
+            for src, obj in zip(cu, objs)
+        ]
+        logs = [p.communicate()[0] for p in procs]
+        failed = [f"{src.name}:\n{log}" for src, p, log in zip(cu, procs, logs) if p.returncode != 0]
+        if failed:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+        link = subprocess.run(
+            [_nvcc(), "-shared", "-gencode", "arch=compute_90a,code=sm_90a", "-o", str(tmp),
+             *map(str, objs)],
+            capture_output=True, text=True,
+        )
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({link.returncode}):\n{link.stdout}\n{link.stderr}")
+        os.replace(tmp, path)
+    finally:
+        for leftover in (*objs, tmp):
+            leftover.unlink(missing_ok=True)
     build_info.update(
         path=str(path), seconds=time.perf_counter() - t0, cached=False,
         log="".join(logs) + link.stdout + link.stderr,

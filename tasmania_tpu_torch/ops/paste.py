@@ -13,6 +13,8 @@ import torch
 
 from tasmania_tpu_torch.ops import _lib
 
+MAX_ARRAYS = 16  # csrc/paste.cu kMaxArrays: the pointers ride in the kernel arguments
+
 
 def paste_x_edges_multi_plain(fulls, lo_vals, hi_vals):
     """Write columns [0, w) <- lo and [nx-w, nx) <- hi of each array IN PLACE
@@ -47,14 +49,11 @@ def paste_x_edges_multi(
         fulls[0].dtype,
         [(nx, ny, nz)] * n + [(w, ny, nz)] * (2 * n),
     )
-    table = torch.tensor(
-        [t.data_ptr() for t in fulls + lo_vals + hi_vals],
-        dtype=torch.int64,
-        device=fulls[0].device,
-    )
+    if n > MAX_ARRAYS:
+        raise ValueError(f"paste_x_edges_multi: {n} arrays, the kernel takes at most {MAX_ARRAYS}")
     err = _lib.lib().tt_paste_x_edges_multi(
-        _lib.DTYPE_CODES[fulls[0].dtype], table.data_ptr(), n, nx, ny, nz, w,
-        _lib.stream_handle(),
+        _lib.DTYPE_CODES[fulls[0].dtype], _lib.pointer_array(fulls), _lib.pointer_array(lo_vals),
+        _lib.pointer_array(hi_vals), n, nx, ny, nz, w, _lib.stream_handle(),
     )
     _lib.launch_counts["paste_x_edges_multi"] += 1
     _lib.check(err, "paste_x_edges_multi")

@@ -47,6 +47,9 @@ def coefficient(value, units: str, default: float) -> float:
 
 
 class _KesslerBase(TendencyComponent):
+    """Pressure and Exner function on the main levels are the means of their
+    interface values."""
+
     default_physical_constants = {
         "gas_constant_of_dry_air": (287.05, "J K^-1 kg^-1"),
         "gas_constant_of_water_vapor": (461.52, "J K^-1 kg^-1"),
@@ -54,24 +57,16 @@ class _KesslerBase(TendencyComponent):
         "specific_heat_of_dry_air_at_constant_pressure": (1004.0, "J K^-1 kg^-1"),
     }
 
-    def __init__(self, domain, grid_type, air_pressure_on_interface_levels, **kwargs):
-        self.p_on_interfaces = air_pressure_on_interface_levels
-        super().__init__(domain, grid_type, **kwargs)
+    @staticmethod
+    def p_exn(state):
+        p_if = state["air_pressure_on_interface_levels"]
+        exn_if = state["exner_function_on_interface_levels"]
+        return 0.5 * (p_if[:, :, :-1] + p_if[:, :, 1:]), 0.5 * (exn_if[:, :, :-1] + exn_if[:, :, 1:])
 
-    def p_exn(self, state):
-        if self.p_on_interfaces:
-            p_if = state["air_pressure_on_interface_levels"]
-            exn_if = state["exner_function_on_interface_levels"]
-            return 0.5 * (p_if[:, :, :-1] + p_if[:, :, 1:]), 0.5 * (exn_if[:, :, :-1] + exn_if[:, :, 1:])
-        return state["air_pressure"], state["exner_function"]
-
-    def with_pressure(self, props):
-        if self.p_on_interfaces:
-            props["air_pressure_on_interface_levels"] = {"dims": DIMS_Z, "units": "Pa"}
-            props["exner_function_on_interface_levels"] = {"dims": DIMS_Z, "units": "J K^-1 kg^-1"}
-        else:
-            props["air_pressure"] = {"dims": DIMS, "units": "Pa"}
-            props["exner_function"] = {"dims": DIMS, "units": "J K^-1 kg^-1"}
+    @staticmethod
+    def with_pressure(props):
+        props["air_pressure_on_interface_levels"] = {"dims": DIMS_Z, "units": "Pa"}
+        props["exner_function_on_interface_levels"] = {"dims": DIMS_Z, "units": "J K^-1 kg^-1"}
         return props
 
     def saturation_mixing_ratio(self, t, p):
@@ -80,23 +75,19 @@ class _KesslerBase(TendencyComponent):
 
 
 class KesslerMicrophysics(_KesslerBase):
-    """Autoconversion, accretion and (optionally) rain evaporation."""
+    """Autoconversion, accretion and rain evaporation, with the θ-tendency
+    of the evaporation as a tendency."""
 
     def __init__(
         self,
         domain,
         grid_type: str = "numerical",
-        air_pressure_on_interface_levels: bool = True,
-        tendency_of_air_potential_temperature_in_diagnostics: bool = False,
-        rain_evaporation: bool = True,
         autoconversion_threshold=None,
         autoconversion_rate=None,
         collection_rate=None,
         **kwargs,
     ) -> None:
-        super().__init__(domain, grid_type, air_pressure_on_interface_levels, **kwargs)
-        self.theta_tendency_in_diagnostics = tendency_of_air_potential_temperature_in_diagnostics
-        self.rain_evaporation = rain_evaporation
+        super().__init__(domain, grid_type, **kwargs)
         self.a = coefficient(autoconversion_threshold, "g g^-1", 0.001)
         self.k1 = coefficient(autoconversion_rate, "s^-1", 0.001)
         self.k2 = coefficient(collection_rate, "s^-1", 2.2)
@@ -113,21 +104,12 @@ class KesslerMicrophysics(_KesslerBase):
 
     @property
     def tendency_properties(self):
-        props = {
+        return {
             mfcw: {"dims": DIMS, "units": "g g^-1 s^-1"},
             mfpw: {"dims": DIMS, "units": "g g^-1 s^-1"},
+            mfwv: {"dims": DIMS, "units": "g g^-1 s^-1"},
+            "air_potential_temperature": {"dims": DIMS, "units": "K s^-1"},
         }
-        if self.rain_evaporation:
-            props[mfwv] = {"dims": DIMS, "units": "g g^-1 s^-1"}
-            if not self.theta_tendency_in_diagnostics:
-                props["air_potential_temperature"] = {"dims": DIMS, "units": "K s^-1"}
-        return props
-
-    @property
-    def diagnostic_properties(self):
-        if self.rain_evaporation and self.theta_tendency_in_diagnostics:
-            return {"tendency_of_air_potential_temperature": {"dims": DIMS, "units": "K s^-1"}}
-        return {}
 
     def array_call(self, state):
         lhvw = self.rpc["latent_heat_of_vaporization_of_water"]
@@ -138,20 +120,13 @@ class KesslerMicrophysics(_KesslerBase):
         zero = torch.zeros((), dtype=qc.dtype, device=qc.device)
         ar = self.k1 * torch.where(qc > self.a, qc - self.a, zero)
         cr = self.k2 * qc * torch.where(qr > 0.0, qr**0.875, zero)
-        tends = {mfcw: -(ar + cr)}
-        diags = {}
-        if self.rain_evaporation:
-            er = torch.where(qr > 0.0, 0.0484794 * (qvs - qv) * (rho * qr) ** (13.0 / 20.0), zero)
-            tends[mfwv] = er
-            tends[mfpw] = ar + cr - er
-            theta_tnd = -lhvw / exn * er
-            if self.theta_tendency_in_diagnostics:
-                diags["tendency_of_air_potential_temperature"] = theta_tnd
-            else:
-                tends["air_potential_temperature"] = theta_tnd
-        else:
-            tends[mfpw] = ar + cr
-        return tends, diags
+        er = torch.where(qr > 0.0, 0.0484794 * (qvs - qv) * (rho * qr) ** (13.0 / 20.0), zero)
+        return {
+            mfcw: -(ar + cr),
+            mfpw: ar + cr - er,
+            mfwv: er,
+            "air_potential_temperature": -lhvw / exn * er,
+        }, {}
 
 
 class KesslerSaturationAdjustmentPrognostic(_KesslerBase):
@@ -161,11 +136,10 @@ class KesslerSaturationAdjustmentPrognostic(_KesslerBase):
         self,
         domain,
         grid_type: str = "numerical",
-        air_pressure_on_interface_levels: bool = True,
         saturation_rate=None,
         **kwargs,
     ) -> None:
-        super().__init__(domain, grid_type, air_pressure_on_interface_levels, **kwargs)
+        super().__init__(domain, grid_type, **kwargs)
         self.sr = coefficient(saturation_rate, "s^-1", 0.5)
 
     @property

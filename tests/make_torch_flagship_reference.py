@@ -11,10 +11,19 @@ summary of ``driver_namelist_sus.validation_summary`` (umax, vmax, and the max
 and mean magnitude of s, su, sv, qv, qc, qr, precipitation and accumulated
 precipitation); ``chip_smoke.py`` holds the port's run on the GPU against it.
 
-Usage: ``python tests/make_torch_flagship_reference.py`` (about five minutes).
-With ``--check-port`` it writes nothing: it runs the port on the CPU in
-float32 at the same configuration (about two minutes) and prints each
-number's relative deviation from the file, the measurement behind the
+In that run no rain forms (cloud water stays below the autoconversion
+threshold), so ``--rain`` makes a second reference,
+``flagship_rain_reference.json``: the same namelist from a supersaturated
+start (relative humidity 1.05), 1 warm-up + 30 steps, in which saturation
+adjustment makes cloud water above the threshold in the lower levels and
+every branch of the Kessler scheme, sedimentation and precipitation run on
+rain.  (At relative humidity 1.2 the full-size run is unstable within 30
+steps: its largest water vapour mass fraction reaches 84.)
+
+Usage: ``python tests/make_torch_flagship_reference.py [--rain]`` (about five
+minutes, or a minute and a half with ``--rain``).  With ``--check-port`` it writes nothing:
+it runs the port on the CPU in float32 at the same configuration and prints
+each number's relative deviation from the file, the measurement behind the
 limits ``chip_smoke.py`` holds the card to.
 """
 
@@ -33,20 +42,23 @@ sys.path.insert(0, str(ROOT))
 
 import numpy as np  # noqa: E402
 
-OUT = ROOT / "tasmania_tpu_torch" / "drivers" / "flagship_reference.json"
+DRIVERS = ROOT / "tasmania_tpu_torch" / "drivers"
 BACKEND = "pallas:interpret"
+# the raining run: namelist overrides and output file
+RAIN = {"relative_humidity": 1.05, "niter": 30}
 
 
-def check_port() -> None:
+def check_port(out, overrides) -> None:
     import torch
 
     from tasmania_tpu_torch.drivers import driver_namelist_sus as drv
     from tasmania_tpu_torch.drivers.namelist_sus import load_namelist
     from tasmania_tpu_torch.framework.options import StorageOptions
 
-    res = drv.run(load_namelist(so=StorageOptions(dtype=torch.float32, device="cpu")), verbose=False)
+    nl = load_namelist(so=StorageOptions(dtype=torch.float32, device="cpu"), **overrides)
+    res = drv.run(nl, verbose=False)
     got = drv.validation_summary({k: fa.data.numpy() for k, fa in res["fields"].items()})
-    ref = json.loads(OUT.read_text())
+    ref = json.loads(out.read_text())
     for key, r in ref.items():
         if isinstance(r, (int, float)):
             dev = abs(got[key] - r) / abs(r) if r else abs(got[key])
@@ -54,8 +66,11 @@ def check_port() -> None:
 
 
 def main() -> None:
+    rain = "--rain" in sys.argv[1:]
+    overrides = RAIN if rain else {}
+    out = DRIVERS / ("flagship_rain_reference.json" if rain else "flagship_reference.json")
     if "--check-port" in sys.argv[1:]:
-        check_port()
+        check_port(out, overrides)
         return
     import jax
     import jax.numpy as jnp
@@ -67,6 +82,8 @@ def main() -> None:
 
     nl = SimpleNamespace(**{k: getattr(jnl, k) for k in dir(jnl) if not k.startswith("_")})
     nl.backend = BACKEND
+    for key, value in overrides.items():
+        setattr(nl, key, value)
     domain, state, pt = build_domain_and_state(nl)
     dycore, physics = build_model(nl, domain, pt)
     names = sorted(k for k in state if k != "time")
@@ -96,12 +113,12 @@ def main() -> None:
     ref = validation_summary(fields)
     ref["config"] = {
         "namelist": "drivers/namelist_sus.py", "nx": nl.nx, "ny": nl.ny, "nz": nl.nz,
-        "steps": f"1 warm-up + {nl.niter}", "dtype": "float32",
+        "steps": f"1 warm-up + {nl.niter}", "niter": nl.niter, "dtype": "float32",
         "backend": f"{BACKEND} (CPU)", "sedimentation_vt_mode": nl.sedimentation_vt_mode,
-        "skip": [],
+        "skip": [], "relative_humidity": nl.relative_humidity,
     }
-    ref["command"] = "python tests/make_torch_flagship_reference.py"
-    OUT.write_text(json.dumps(ref, indent=1) + "\n")
+    ref["command"] = "python tests/make_torch_flagship_reference.py" + (" --rain" if rain else "")
+    out.write_text(json.dumps(ref, indent=1) + "\n")
     print(json.dumps(ref, indent=1))
     print(f"{elapsed:.1f} s")
 
