@@ -5,7 +5,7 @@ printing one line; any failure raises and exits non-zero:
 
 1. the card's name and power limit (``nvidia-smi``); a CUDA device is required;
 2. build the hand-written CUDA kernels from ``tasmania_tpu_torch/csrc``;
-3. each of the seven kernels at the flagship shapes (161x161x120 float32) on
+3. each of the eleven kernels at the flagship shapes (161x161x120 float32) on
    perturbed real states against its plain PyTorch version on the same
    inputs, with the device time of one call of each (``device_ms``: the
    device operations' time over 20 calls under ``torch.profiler``, so ``ms``
@@ -18,14 +18,19 @@ printing one line; any failure raises and exits non-zero:
    stages of si_stage (damping on the last) 1e-5 (FMA contraction in the
    stencils moves the float32 Montgomery potential by a few units of its
    last place, which reaches the momenta through the pressure gradient);
-   Kessler + saturation adjustment and sedimentation 1e-5 (the same algebra;
+   Kessler + saturation adjustment, Kessler alone, saturation adjustment
+   alone and sedimentation 1e-5 (the same algebra;
    FMA contraction, and PyTorch dividing by a scalar as a product with the
    reciprocal on the card, move the last bits of each stage, and the powers
-   and exponentials come from the same CUDA math library in both).
+   and exponentials come from the same CUDA math library in both); the
+   momentum epilogue of the tendency-carrying stage 1e-5 on su and sv, as
+   si_stage's.
    Smagorinsky and vertical advection add small updates to large momenta, so
    each of their outputs is held to 1e-5 of its largest update plus 4 float32
    ulps of its magnitude (the rounding of the result; su's ulp is 4.9e-4,
-   about 0.1% of its Smagorinsky update here);
+   about 0.1% of its Smagorinsky update here); so are the advection of the
+   density and water of the tendency-carrying stage, and the epilogue's s
+   and q (updates against the "now" values);
 4. the port's first slice (dycore -> diagnostics -> smoothing -> velocities,
    ``namelist_sus.slice_skip``), 1 + 100 steps, with its launch counts and
    agreement with ``tasmania_tpu_torch/drivers/slice_reference.json`` to 1e-4
@@ -54,11 +59,28 @@ printing one line; any failure raises and exits non-zero:
    so float32 differences grow faster than in phase 5: the port on the CPU in
    float32 came within 2.8e-4 (qc_max), 2.2e-4 (sv_max) and 1.9e-4 (su_max)
    of that reference, and within 4.2e-5 on every rain and precipitation
-   number.
+   number;
+7. the five other couplings through ``driver_isentropic_moist.run``, each
+   at 161x161x120 from relative humidity 1.05 (the supersaturated start of
+   phase 6), 1 + 20 steps: the exact launch counts of its path
+   (``LAUNCHES_PER_STEP``), finiteness, its step time, and agreement with
+   the JAX package's float32 result at the same configuration
+   (``tasmania_tpu_torch/drivers/variant_<coupling>_reference.json``).
+   Limits: the flagship's, 1e-4 relative and 1e-3 on qc_max and
+   qc_mean_abs, and exactly zero where the reference is zero (ps's
+   precipitation); 3e-4 on the vmax of ps and sts (``VARIANT_LOOSER``).
+   The port on the CPU in float32 came within 7.2e-5 (ps's vmax) and
+   6.2e-5 (sts's vmax), and within 4.4e-5 on every other number but qc
+   (1.1e-4, sts's qc_max).
 
-The last two lines are the card's name and power limit, then
-``{"ok": true, "device": {...}}``; the line before them is a JSON summary of
-the kernels, their launches in phase 5 (the main path) and their times.
+Every phase checks the launch counts exactly: each kernel of the path as
+often as its path launches it a step, and no other kernel.  The last two
+lines are the card's name and power limit, then ``{"ok": true, "device":
+{...}}``; the line before them is a JSON summary of the kernels, their
+launches in the full-size run of the first path that runs them (``path``:
+the flagship, phase 5, for the seven of the SUS chain; fc for the two
+stage kernels, ps for Kessler and saturation adjustment alone), their
+launches a step on every path, and their times.
 """
 
 from __future__ import annotations
@@ -79,6 +101,39 @@ KERNEL_TOL = 1e-5
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 F32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
 TPU_VALIDATION = {"umax": 23.62408, "vmax": 1.07557}  # BENCH_NOTES.json "current"
+VARIANT_TOL = 1e-4
+VARIANT_QC_TOL = 1e-3
+# the numbers on which the port's float32 run on the CPU came within half of
+# VARIANT_TOL of the reference (make_torch_flagship_reference.py --coupling C
+# --check-port): vmax, the smallest velocity, moves most with rounding
+VARIANT_LOOSER = {
+    ("ps", "vmax"): 3e-4,  # CPU reading 7.2e-5
+    ("sts", "vmax"): 3e-4,  # CPU reading 6.2e-5
+}
+VARIANTS = ("fc", "lfc", "ps", "sts", "ssus")
+# kernel launches per step of each path, as the code routes it: with
+# tendencies (fc, lfc) each dycore stage is the two-kernel stage and the
+# physics chain is plain PyTorch; ps runs the SUS chain's kernels but for the
+# pair, whose processes step apart; sts's steppers never fuse
+_SUS = {"si_stage": 3, "paste_x_edges_multi": 4, "fused_smoothing": 1, "fused_smagorinsky_rk2": 2,
+        "fused_kessler_satadj_rk2": 1, "fused_vertical_advection_rk3ws": 1,
+        "fused_sedimentation_rk3ws": 1}
+_TWO_KERNEL = {"fused_advection_fields": 3, "fused_momentum_epilogue": 3, "fused_smoothing": 1,
+               "paste_x_edges_multi": 1}
+LAUNCHES_PER_STEP = {
+    "sus": _SUS,
+    "ssus": _SUS,
+    "fc": _TWO_KERNEL,
+    "lfc": _TWO_KERNEL,
+    "ps": {**{k: n for k, n in _SUS.items() if k != "fused_kessler_satadj_rk2"},
+           "fused_kessler_rk2": 1, "fused_satadj_rk2": 1},
+    "sts": {"si_stage": 3, "paste_x_edges_multi": 4, "fused_smoothing": 1},
+}
+
+
+def variant_tol(coupling: str, key: str) -> float:
+    default = VARIANT_QC_TOL if key.startswith("qc_") else VARIANT_TOL
+    return VARIANT_LOOSER.get((coupling, key), default)
 
 
 def phase(name: str, msg: str) -> None:
@@ -213,6 +268,7 @@ def main() -> int:
 
     import numpy as np
 
+    from tasmania_tpu_torch.drivers import driver_isentropic_moist as moist
     from tasmania_tpu_torch.drivers import driver_namelist_sus as drv
     from tasmania_tpu_torch.drivers.namelist_sus import load_namelist
     from tasmania_tpu_torch.framework.steppers import TendencyStepper
@@ -220,17 +276,27 @@ def main() -> int:
     from tasmania_tpu_torch.isentropic.physics.vertical_advection import IsentropicVerticalAdvection
     from tasmania_tpu_torch.isentropic.utils import AirPotentialTemperatureToTendency
     from tasmania_tpu_torch.ops import _lib
+    from tasmania_tpu_torch.ops.advection_step import (
+        fused_advection_fields,
+        fused_advection_fields_plain,
+        fused_momentum_epilogue,
+        fused_momentum_epilogue_plain,
+    )
     from tasmania_tpu_torch.ops.kessler_step import (
         KesslerConstants,
+        fused_kessler_rk2,
+        fused_kessler_rk2_plain,
         fused_kessler_satadj_rk2,
         fused_kessler_satadj_rk2_plain,
+        fused_satadj_rk2,
+        fused_satadj_rk2_plain,
     )
     from tasmania_tpu_torch.ops.paste import paste_x_edges_multi, paste_x_edges_multi_plain
     from tasmania_tpu_torch.ops.sedimentation_step import (
         fused_sedimentation_rk3ws,
         fused_sedimentation_rk3ws_plain,
     )
-    from tasmania_tpu_torch.ops.si_stage import StageConstants, si_stage, si_stage_plain
+    from tasmania_tpu_torch.ops.si_stage import StageConstants, clip_pos, si_stage, si_stage_plain
     from tasmania_tpu_torch.ops.smagorinsky_step import (
         fused_smagorinsky_rk2,
         fused_smagorinsky_rk2_plain,
@@ -448,25 +514,87 @@ def main() -> int:
            "tasmania_tpu/ops/sedimentation_step.py:123", worst,
            lambda: fused_sedimentation_rk3ws(*din, **dkw),
            lambda: fused_sedimentation_rk3ws_plain(*din, **dkw), b)
+    # Kessler alone and saturation adjustment alone (the parallel splitting's
+    # chains): the pair's inputs, and a θ-tendency for the adjustment to add to
+    for name, wrapper, plain, kargs, flops, replaces in (
+        ("fused_kessler_rk2", fused_kessler_rk2, fused_kessler_rk2_plain, kin, 120.0,
+         "tasmania_tpu/ops/kessler_step.py:39"),
+        ("fused_satadj_rk2", fused_satadj_rk2, fused_satadj_rk2_plain,
+         kin[1:4] + kin[4:6] + (noise(cell, 1e-3),), 60.0, "tasmania_tpu/ops/kessler_step.py:204"),
+    ):
+        got = wrapper(*kargs, kc)
+        ref = plain(*kargs, kc)
+        worst, rel = check_outputs(name, got, ref, [amax(r) for r in ref], KERNEL_TOL)
+        phase("check", f"{name} relative errors {rel}")
+        record(name, "kessler.cu", replaces, worst,
+               lambda w=wrapper, a=kargs: w(*a, kc), lambda p=plain, a=kargs: p(*a, kc),
+               bound(nbytes(kargs) + nbytes(ref), flops * s_now.numel()))
+
+    # the tendency-carrying stage (fc, lfc), its last stage (c, rmat of the
+    # si_stage loop): tendencies of the size the physics chain gives
+    q_now = [raw[q] for q in qn]
+    s_int = stage_in["s_int"]
+    adv_args = (
+        stage_in["u"], stage_in["v"], [s_now] + q_now, [s_int] + stage_in["q_int"],
+        [noise(cell, 1e-3)] + [s_int * noise(cell, 1e-7) for _ in qn],
+        prog.gamma, stage_in["s_ref"],
+    )
+    akw = dict(nb=nl.nb, dt=c.dt, dx=prog.dx, dy=prog.dy, q_product=(False,) + (True,) * len(qn))
+    got = fused_advection_fields(*adv_args, **akw)
+    adv = fused_advection_fields_plain(*adv_args, **akw)
+    base = [s_now] + [clip_pos(s_now * q) for q in q_now]
+    worst, inc = check_increments("fused_advection_fields", got, adv, base, KERNEL_TOL)
+    phase("check", f"fused_advection_fields errors as a share of the largest increment (s sqv sqc sqr) {inc}")
+    # per field and cell: a fifth-order flux at one x and one y face (about
+    # 20 operations each), the divergence, the tendency and the s·q product
+    flat = [a for v in adv_args for a in (v if isinstance(v, list) else [v])]
+    record("fused_advection_fields", "advection.cu", "tasmania_tpu/ops/advection_step.py:140", worst,
+           lambda: fused_advection_fields(*adv_args, **akw),
+           lambda: fused_advection_fields_plain(*adv_args, **akw),
+           bound(nbytes(flat) + nbytes(adv), 50.0 * len(adv) * s_now.numel()))
+
+    mtg_e = prog.diagnostics.get_montgomery_potential(adv[0], prog.pt, dycore.topography_steady)
+    mom_args = (
+        stage_in["u"], stage_in["v"], su_now, sv_now, stage_in["su_int"], stage_in["sv_int"],
+        s_now, raw["montgomery_potential"], adv[0], mtg_e, list(adv[1:]), prog.gamma,
+        stage_in["s_ref"], stage_in["su_ref"], stage_in["sv_ref"], stage_in["q_refs"], rmat,
+        noise(cell, 0.05), noise(cell, 0.05),
+    )
+    got = fused_momentum_epilogue(*mom_args, nb=nl.nb, c=c)
+    ref = fused_momentum_epilogue_plain(*mom_args, nb=nl.nb, c=c)
+    momentum = amax(ref[1], ref[2])
+    w1, rel = check_outputs("fused_momentum_epilogue (su sv)", got[1:3], ref[1:3], [momentum] * 2, KERNEL_TOL)
+    w2, inc = check_increments("fused_momentum_epilogue (s q)", [got[0], *got[3:]], [ref[0], *ref[3:]],
+                               [s_now, *q_now], KERNEL_TOL)
+    phase("check", f"fused_momentum_epilogue relative errors (su sv) {rel}; errors as a share of "
+          f"the largest increment (s qv qc qr) {inc}")
+    # per cell: two momentum divergences (2 fluxes each), the pressure
+    # gradient, and the epilogue of six outputs
+    flat = [a for v in mom_args for a in (v if isinstance(v, list) else [v])]
+    record("fused_momentum_epilogue", "advection.cu", "tasmania_tpu/ops/advection_step.py:422",
+           max(w1, w2), lambda: fused_momentum_epilogue(*mom_args, nb=nl.nb, c=c),
+           lambda: fused_momentum_epilogue_plain(*mom_args, nb=nl.nb, c=c),
+           bound(nbytes(flat) + nbytes(ref), 160.0 * s_now.numel()))
     phase("timing", f"profiler sessions with device time {profiler_sessions['recorded']}, "
           f"without {profiler_sessions['empty']}")
     del (fields, fulls, lo, hi, views, got, ref, stage_in, args, flat_in, kin, sin, vin, vq, din,
-         state, raw, dycore, physics, domain)
+         adv_args, adv, mtg_e, mom_args, flat, base, q_now, s_int, state, raw, dycore, physics, domain)
 
-    def drive(tag, nl_run, skip, expected, reference, tol_of, zero_tol):
-        """One ``drv.run`` from zeroed launch counts: each kernel in
-        ``expected`` launched exactly that often and paste at least once,
-        every field finite, and the validation numbers within the limits of
-        the reference file's.  Returns the run's result and launch counts."""
+    def drive(tag, run, nl_run, per_step, reference, tol_of, zero_tol):
+        """One ``run(nl_run)`` from zeroed launch counts: every kernel
+        launched exactly ``per_step`` times a step (none other), every field
+        finite, and the validation numbers within the limits of the
+        reference file's.  Returns the run's result and
+        launch counts."""
+        steps = 1 + nl_run.niter
         torch.cuda.synchronize()
         _lib.reset_launch_counts()
-        res = drv.run(nl_run, skip=skip, verbose=False)
+        res = run(nl_run)
         counts = dict(_lib.launch_counts)
-        for name, n in expected.items():
-            if counts.get(name, 0) != n:
-                raise AssertionError(f"{tag}: {name} launched {counts.get(name, 0)} times, expected {n}")
-        if counts.get("paste_x_edges_multi", 0) <= 0:
-            raise AssertionError(f"{tag}: paste_x_edges_multi was never launched")
+        for name in sorted(set(per_step) | set(counts)):
+            if counts.get(name, 0) != steps * per_step.get(name, 0):
+                raise AssertionError(f"{tag}: {name} launched {counts.get(name, 0)} times, "
+                                     f"expected {steps * per_step.get(name, 0)}")
         out = {k: fa.data.float().cpu().numpy() for k, fa in res["fields"].items()}
         bad = [k for k, a in out.items() if not np.isfinite(a).all()]
         if bad:
@@ -479,23 +607,20 @@ def main() -> int:
         phase(f"{tag}-reference", diffs)
         return res, counts
 
-    def full_chain_launches(steps):
-        return {
-            "si_stage": 3 * steps, "fused_smoothing": steps, "fused_smagorinsky_rk2": 2 * steps,
-            "fused_kessler_satadj_rk2": steps, "fused_vertical_advection_rk3ws": steps,
-            "fused_sedimentation_rk3ws": steps,
-        }
+    def sus(skip):
+        return lambda n: drv.run(n, skip=skip, verbose=False)
 
     # -- 4. the first slice through its kernels --------------------------------
-    steps = 1 + nl.niter
-    drive("slice", nl, nl.slice_skip, {"si_stage": 3 * steps, "fused_smoothing": steps},
-          "slice_reference.json", lambda key: SLICE_TOL, SLICE_TOL)
+    slice_launches = {"si_stage": 3, "paste_x_edges_multi": 4, "fused_smoothing": 1}
+    drive("slice", sus(nl.slice_skip), nl, slice_launches, "slice_reference.json",
+          lambda key: SLICE_TOL, SLICE_TOL)
 
     # -- 5. the full flagship step through all seven kernels (the main path) ----
     res, counts = drive(
-        "flagship", nl, (), full_chain_launches(steps), "flagship_reference.json",
+        "flagship", sus(()), nl, LAUNCHES_PER_STEP["sus"], "flagship_reference.json",
         lambda key: FLAGSHIP_QC_TOL if key.startswith("qc_") else FLAGSHIP_TOL, 0.0,
     )
+    path_counts, path_steps = {"sus": counts}, {"sus": 1 + nl.niter}
     phase("validation", f"umax = {res['umax']:.5f}, vmax = {res['vmax']:.5f} "
           f"(the TPU's: umax = {TPU_VALIDATION['umax']:.5f}, vmax = {TPU_VALIDATION['vmax']:.5f}; "
           "for information)")
@@ -504,11 +629,33 @@ def main() -> int:
     # -- 6. the full step on rain ----------------------------------------------
     rain_cfg = json.loads(Path(drv.__file__).with_name("flagship_rain_reference.json").read_text())["config"]
     nl_rain = load_namelist(relative_humidity=rain_cfg["relative_humidity"], niter=rain_cfg["niter"])
-    drive("rain", nl_rain, (), full_chain_launches(1 + nl_rain.niter), "flagship_rain_reference.json",
+    drive("rain", sus(()), nl_rain, LAUNCHES_PER_STEP["sus"], "flagship_rain_reference.json",
           lambda key: RAIN_TOL, 0.0)
 
+    # -- 7. the five other couplings (driver_isentropic_moist) ----------------
+    for coupling in VARIANTS:
+        reference = f"variant_{coupling}_reference.json"
+        cfg = json.loads(Path(drv.__file__).with_name(reference).read_text())["config"]
+        nl_v = moist.load_namelist(coupling, niter=cfg["niter"], relative_humidity=cfg["relative_humidity"])
+        if (nl_v.nx, nl_v.ny, nl_v.nz) != (cfg["nx"], cfg["ny"], cfg["nz"]):
+            raise AssertionError(f"{reference} is not at the flagship's size")
+        res, counts = drive(
+            coupling, lambda n, c=coupling: moist.run(n, c, verbose=False), nl_v,
+            LAUNCHES_PER_STEP[coupling], reference, lambda key, c=coupling: variant_tol(c, key), 0.0,
+        )
+        path_counts[coupling], path_steps[coupling] = counts, 1 + nl_v.niter
+        phase(f"{coupling}-validation", f"umax = {res['umax']:.5f}, vmax = {res['vmax']:.5f} "
+              "(for information)")
+        del res
+
+    # each kernel's launches in the full-size run of the first path that runs
+    # it (the flagship for the seven of the SUS chain), and in every path
     for name, entry in kernels.items():
-        entry["launches"] = counts.get(name, 0)
+        entry["path"] = next(p for p, n in path_counts.items() if n.get(name, 0))
+        entry["launches"] = path_counts[entry["path"]][name]
+        entry["launches_per_step_by_path"] = {
+            p: n.get(name, 0) / path_steps[p] for p, n in path_counts.items()
+        }
     print(json.dumps({"kernels": [{"name": n, **e} for n, e in kernels.items()]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

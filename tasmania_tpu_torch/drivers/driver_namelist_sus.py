@@ -98,14 +98,10 @@ def build_domain_and_state(nl):
     return domain, state, pt
 
 
-def build_model(nl, domain, pt, skip=()):
-    """Dycore + physics chain, as ``drivers/driver_namelist_sus.py:87-251``
-    builds it.  ``skip`` names processes to leave out."""
-    unknown = set(skip) - set(PROCESSES)
-    if unknown:
-        raise ValueError(f"unknown processes in skip: {sorted(unknown)}")
-    so = nl.so
-    dycore = IsentropicDynamicalCore(
+def make_dycore(nl, domain, pt, **fast_components):
+    """The namelist's isentropic dycore; ``fast_components`` are the
+    dycore's fast tendency and diagnostic components, if any."""
+    return IsentropicDynamicalCore(
         domain,
         moist=True,
         time_integration_scheme=nl.time_integration_scheme,
@@ -116,17 +112,42 @@ def build_model(nl, domain, pt, skip=()):
         damp_depth=nl.damp_depth,
         damp_max=nl.damp_max,
         damp_at_every_stage=nl.damp_at_every_stage,
-        storage_options=so,
+        storage_options=nl.so,
+        **fast_components,
     )
-    ptis = nl.physics_time_integration_scheme
-    args = []
-    if "diagnostics" not in skip:
-        dv = IsentropicDiagnostics(domain, "numerical", moist=True, pt=pt, storage_options=so)
-        args.append(TimeIntegrationOptions(component=dv))
-    if nl.coriolis_parameter is not None and "coriolis" not in skip:
-        raise NotImplementedError("the Coriolis process is not ported; set coriolis_parameter=None")
-    if nl.smooth and "smoothing" not in skip:
-        smoother = IsentropicHorizontalSmoothing(
+
+
+def build_components(nl, domain, pt):
+    """Every physics component of the moist chain, under the keys of the
+    JAX driver's ``build_components`` (``drivers/driver_isentropic_moist.py:36-105``)
+    but for Coriolis, which is not ported."""
+    so = nl.so
+    return {
+        "dv": IsentropicDiagnostics(domain, "numerical", moist=True, pt=pt, storage_options=so),
+        "turb": IsentropicSmagorinsky(domain, nl.smagorinsky_constant, storage_options=so),
+        "vc": IsentropicVelocityComponents(domain, storage_options=so),
+        "t2d": AirPotentialTemperatureToDiagnostic(domain, "numerical"),
+        "d2t": AirPotentialTemperatureToTendency(domain, "numerical"),
+        "ke": KesslerMicrophysics(
+            domain, "numerical",
+            autoconversion_threshold=nl.autoconversion_threshold,
+            autoconversion_rate=nl.autoconversion_rate,
+            collection_rate=nl.collection_rate,
+            storage_options=so,
+        ),
+        "sa": KesslerSaturationAdjustmentPrognostic(
+            domain, "numerical", saturation_rate=nl.saturation_rate, storage_options=so,
+        ),
+        "vf": IsentropicVerticalAdvection(domain, flux_scheme=nl.vertical_flux_scheme, storage_options=so),
+        "rfv": KesslerFallVelocity(domain, "numerical", storage_options=so),
+        "sd": KesslerSedimentation(
+            domain, "numerical",
+            sedimentation_flux_scheme=nl.sedimentation_flux_scheme,
+            vt_mode=nl.sedimentation_vt_mode,
+            storage_options=so,
+        ),
+        "ap": Precipitation(domain, "numerical", storage_options=so),
+        "hs": IsentropicHorizontalSmoothing(
             domain,
             nl.smooth_type,
             nl.smooth_coeff,
@@ -137,63 +158,54 @@ def build_model(nl, domain, pt, skip=()):
             smooth_moist_coeff_max=nl.smooth_moist_coeff_max,
             smooth_moist_damp_depth=nl.smooth_moist_damp_depth,
             storage_options=so,
-        )
-        args.append(TimeIntegrationOptions(component=smoother))
-    if "smagorinsky" not in skip:
-        turb = IsentropicSmagorinsky(domain, nl.smagorinsky_constant, storage_options=so)
-        args.append(TimeIntegrationOptions(component=turb, scheme=ptis))
-    if "velocities" not in skip:
-        args.append(TimeIntegrationOptions(component=IsentropicVelocityComponents(domain, storage_options=so)))
-    t2d = AirPotentialTemperatureToDiagnostic(domain, "numerical")
-    if "kessler" not in skip:
-        ke = KesslerMicrophysics(
-            domain,
-            "numerical",
-            autoconversion_threshold=nl.autoconversion_threshold,
-            autoconversion_rate=nl.autoconversion_rate,
-            collection_rate=nl.collection_rate,
-            storage_options=so,
-        )
-        args.append(TimeIntegrationOptions(component=ConcurrentCoupling(ke, t2d), scheme=ptis))
-    if "satadj" not in skip:
-        d2t = AirPotentialTemperatureToTendency(domain, "numerical")
-        sa = KesslerSaturationAdjustmentPrognostic(
-            domain,
-            "numerical",
-            saturation_rate=nl.saturation_rate,
-            storage_options=so,
-        )
-        args.append(TimeIntegrationOptions(component=ConcurrentCoupling(d2t, sa, t2d), scheme=ptis))
-    if nl.vertical_advection and "vertical_advection" not in skip:
-        if nl.implicit_vertical_advection:
-            raise NotImplementedError("implicit vertical advection is not ported")
-        va = IsentropicVerticalAdvection(domain, flux_scheme=nl.vertical_flux_scheme, storage_options=so)
-        args.append(TimeIntegrationOptions(component=va, scheme="rk3ws"))
-    rfv = KesslerFallVelocity(domain, "numerical", storage_options=so)
-    if "sedimentation" not in skip:
-        sd = KesslerSedimentation(
-            domain,
-            "numerical",
-            sedimentation_flux_scheme=nl.sedimentation_flux_scheme,
-            vt_mode=nl.sedimentation_vt_mode,
-            storage_options=so,
-        )
-        args.append(TimeIntegrationOptions(component=ConcurrentCoupling(rfv, sd), scheme="rk3ws"))
-    if "precipitation" not in skip:
-        ap = Precipitation(domain, "numerical", storage_options=so)
-        args.append(TimeIntegrationOptions(component=ConcurrentCoupling(rfv, ap)))
-    return dycore, SequentialUpdateSplitting(*args)
+        ),
+    }
 
 
-def make_step(dycore, physics, field_names, dt_s: float):
+def physics_options(nl, c, skip=()):
+    """The chain's processes as ``TimeIntegrationOptions``, in the order of
+    ``drivers/driver_namelist_sus.py:139-250`` (the splitting variants of
+    ``drivers/driver_isentropic_moist.py:210-243`` share it); ``c`` holds
+    the components of :func:`build_components`, ``skip`` names processes to
+    leave out."""
+    unknown = set(skip) - set(PROCESSES)
+    if unknown:
+        raise ValueError(f"unknown processes in skip: {sorted(unknown)}")
+    if nl.coriolis_parameter is not None and "coriolis" not in skip:
+        raise NotImplementedError("the Coriolis process is not ported; set coriolis_parameter=None")
+    ptis = nl.physics_time_integration_scheme
+    processes = [
+        ("diagnostics", dict(component=c["dv"])),
+        ("smoothing", dict(component=c["hs"]) if nl.smooth else None),
+        ("smagorinsky", dict(component=c["turb"], scheme=ptis)),
+        ("velocities", dict(component=c["vc"])),
+        ("kessler", dict(component=ConcurrentCoupling(c["ke"], c["t2d"]), scheme=ptis)),
+        ("satadj", dict(component=ConcurrentCoupling(c["d2t"], c["sa"], c["t2d"]), scheme=ptis)),
+        ("vertical_advection", dict(component=c["vf"], scheme="rk3ws") if nl.vertical_advection else None),
+        ("sedimentation", dict(component=ConcurrentCoupling(c["rfv"], c["sd"]), scheme="rk3ws")),
+        ("precipitation", dict(component=ConcurrentCoupling(c["rfv"], c["ap"]))),
+    ]
+    if nl.vertical_advection and nl.implicit_vertical_advection and "vertical_advection" not in skip:
+        raise NotImplementedError("implicit vertical advection is not ported")
+    return [TimeIntegrationOptions(**kw) for name, kw in processes if kw is not None and name not in skip]
+
+
+def build_model(nl, domain, pt, skip=()):
+    """Dycore + physics chain, as ``drivers/driver_namelist_sus.py:87-251``
+    builds it.  ``skip`` names processes to leave out."""
+    options = physics_options(nl, build_components(nl, domain, pt), skip)
+    return make_dycore(nl, domain, pt), SequentialUpdateSplitting(*options)
+
+
+def fields_step(step_impl, field_names, dt_s: float):
     """One model timestep on a dict of ``FieldArray``s, with the current
-    topography height ``hs`` as an input."""
+    topography height ``hs`` as an input: ``step_impl(state, dt)`` on the
+    fields and the topography, keeping ``field_names``."""
 
     def step(fields: Dict[str, FieldArray], hs: torch.Tensor) -> Dict[str, FieldArray]:
         st = dict(fields)
         st["topography_height"] = FieldArray(hs, "m", ("x", "y"))
-        st = dycore(st, {}, dt_s)
-        st = physics(st, dt_s)
+        st = step_impl(st, dt_s)
         return {k: st[k] for k in field_names}
 
     return step
@@ -221,12 +233,20 @@ def run(nl, skip=(), *, verbose: bool = True) -> Dict[str, Any]:
     check_device(nl.so.device)
     domain, state, pt = build_domain_and_state(nl)
     dycore, physics = build_model(nl, domain, pt, skip)
-    cgrid = domain.numerical_grid
+    return run_steps(nl, state, lambda st, dt: physics(dycore(st, {}, dt), dt),
+                     dycore.topography_steady, verbose=verbose)
+
+
+def run_steps(nl, state, step_impl, hs_steady, *, verbose: bool = True) -> Dict[str, Any]:
+    """The JAX drivers' step sequence from ``state``: one warm-up step at
+    zero mountain height, then ``nl.niter`` timed steps with the mountain at
+    ``min((i+1)·dt/1800 s, 1)`` of ``hs_steady``; ``step_impl(state, dt)``
+    is one timestep.  Returns :func:`run`'s result."""
+    nx, ny, nz = state["air_isentropic_density"].shape
     dt_s = nl.timestep.total_seconds()
     topo_time = nl.topo_kwargs["time"].total_seconds()
-    hs_steady = dycore.topography_steady
     field_names = sorted(k for k in state if k != "time")
-    step = make_step(dycore, physics, field_names, dt_s)
+    step = fields_step(step_impl, field_names, dt_s)
     fields = {k: state[k] for k in field_names}
     device = nl.so.device
 
@@ -247,7 +267,7 @@ def run(nl, skip=(), *, verbose: bool = True) -> Dict[str, Any]:
     v = fields["y_velocity_at_v_locations"].data
     umax = float(u[:, :-1].max())
     vmax = float(v[:-1, :].max())
-    gps = cgrid.nx * cgrid.ny * cgrid.nz * max(nl.niter, 1) / elapsed
+    gps = nx * ny * nz * max(nl.niter, 1) / elapsed
     if verbose:
         print(f"Validation: umax = {umax:.5f}, vmax = {vmax:.5f}")
         print(f"Compute time: {elapsed:.3f} s.")
@@ -288,20 +308,23 @@ def validation_summary(fields: Dict[str, np.ndarray]) -> Dict[str, float]:
     return out
 
 
-def main(argv=None):
-    from tasmania_tpu_torch.drivers.namelist_sus import load_namelist
-
-    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+def size_parser(description: str) -> argparse.ArgumentParser:
+    """The drivers' command line: grid size, step count and device."""
+    parser = argparse.ArgumentParser(description=description)
     parser.add_argument("--nx", type=int, default=None)
     parser.add_argument("--ny", type=int, default=None)
     parser.add_argument("--nz", type=int, default=None)
     parser.add_argument("--niter", type=int, default=None)
     parser.add_argument("--device", type=str, default="cuda")
-    cli = parser.parse_args(argv)
+    return parser
+
+
+def namelist_from(parser, cli, load_namelist):
+    """The namelist with the command line's overrides; the parser exits if
+    it names a CUDA device this machine does not have."""
     device = torch.device(cli.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         parser.error("no CUDA device is available (pass --device cpu to run on the CPU)")
-    nl = load_namelist()
     overrides = {}
     if cli.nx:
         overrides["nx"] = cli.nx
@@ -312,8 +335,15 @@ def main(argv=None):
         overrides["nz"] = cli.nz
     if cli.niter:
         overrides["niter"] = cli.niter
-    overrides["so"] = replace(nl.so, device=device)
-    res = run(load_namelist(**overrides))
+    overrides["so"] = replace(load_namelist().so, device=device)
+    return load_namelist(**overrides)
+
+
+def main(argv=None):
+    from tasmania_tpu_torch.drivers.namelist_sus import load_namelist
+
+    parser = size_parser(__doc__.split("\n\n")[0])
+    res = run(namelist_from(parser, parser.parse_args(argv), load_namelist))
     print("Simulation successfully completed.")
     return res
 

@@ -2,14 +2,15 @@
 
 Builds the flagship configuration (``namelist_sus``, 161x161x120, float32)
 with the full physics chain (or, with ``--slice``, the port's first slice:
-dycore -> diagnostics -> smoothing -> velocities), runs a few steps
+dycore -> diagnostics -> smoothing -> velocities; with ``--coupling C``, the
+same model under coupling C of ``driver_isentropic_moist``), runs a few steps
 untraced, then traces ``--steps`` steps with ``torch.profiler`` and prints
 the device time per kernel, the host-clock time per step and the device's
 busy share of that window.  Before the trace it times ``--steps`` steps
 without the profiler (host clock around steps that end in a synchronize).
 
 Usage: ``python -m tasmania_tpu_torch.drivers.profile_slice [--steps N]
-[--slice]`` (needs a CUDA device).
+[--slice | --coupling C]`` (needs a CUDA device).
 """
 
 from __future__ import annotations
@@ -21,22 +22,30 @@ import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
+from tasmania_tpu_torch.drivers import driver_isentropic_moist as moist
 from tasmania_tpu_torch.drivers import driver_namelist_sus as drv
-from tasmania_tpu_torch.drivers.namelist_sus import load_namelist
 
 
 def main(argv=None) -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--steps", type=int, default=10)
     parser.add_argument("--slice", action="store_true", help="profile the first slice's chain")
+    parser.add_argument("--coupling", choices=moist.COUPLINGS, default="sus")
     cli = parser.parse_args(argv)
     if not torch.cuda.is_available():
         parser.error("needs a CUDA device")
-    nl = load_namelist()
-    domain, state, pt = drv.build_domain_and_state(nl)
-    dycore, physics = drv.build_model(nl, domain, pt, nl.slice_skip if cli.slice else ())
+    if cli.slice and cli.coupling != "sus":
+        parser.error("--slice is the SUS chain's")
+    nl = moist.load_namelist(cli.coupling)
+    dt_s = nl.timestep.total_seconds()
+    if cli.slice:
+        domain, state, pt = drv.build_domain_and_state(nl)
+        dycore, physics = drv.build_model(nl, domain, pt, nl.slice_skip)
+        step_impl = lambda st, dt: physics(dycore(st, {}, dt), dt)  # noqa: E731
+    else:
+        _, state, dycore, step_impl = moist.build_variant(nl, cli.coupling)
     names = sorted(k for k in state if k != "time")
-    step = drv.make_step(dycore, physics, names, nl.timestep.total_seconds())
+    step = drv.fields_step(step_impl, names, dt_s)
     fields = {k: state[k] for k in names}
     hs = dycore.topography_steady
     for _ in range(3):
@@ -64,7 +73,7 @@ def main(argv=None) -> None:
             per_name[e.name] = (t + e.time_range.elapsed_us(), n + 1)
     busy_us = sum(t for t, _ in per_name.values())
     calls = sum(n for _, n in per_name.values())
-    chain = "slice" if cli.slice else "full chain"
+    chain = "slice" if cli.slice else f"full chain, {cli.coupling}"
     print(f"{chain}, {cli.steps} steps: {plain_ms:.3f} ms/step without the profiler; "
           f"{1e3 * wall / cli.steps:.3f} ms/step (host clock) under it, device busy "
           f"{1e-3 * busy_us / cli.steps:.3f} ms/step ({100.0 * busy_us * 1e-6 / wall:.1f}% of the "

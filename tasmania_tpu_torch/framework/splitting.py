@@ -1,10 +1,16 @@
-"""Sequential-update splitting (counterpart of
-``tasmania_tpu/framework/splitting.py:101 SequentialUpdateSplitting``).
+"""Physics-dynamics splittings: sequential-update, parallel and
+sequential-tendency (counterpart of ``tasmania_tpu/framework/splitting.py``).
 
-Each process updates the state in turn.  A process is given as
-``TimeIntegrationOptions``: a diagnostic component, or a component without a
-scheme, feeds the state its diagnostics; a component with a scheme is wrapped
-in that stepper (``framework/steppers.py``), run ``substeps`` times.
+A process is given as ``TimeIntegrationOptions``: a diagnostic component, or
+a component without a scheme, gives diagnostics; a component with a scheme
+is wrapped in that stepper (``framework/steppers.py``).
+
+* ``SequentialUpdateSplitting``: each process updates the state in turn,
+  its stepper run ``substeps`` times.
+* ``ParallelSplitting``: every process steps from the same current state,
+  and each one's increment is added to the provisional state.
+* ``SequentialTendencySplitting``: each process evaluates its tendencies on
+  the current state and applies them to the provisional state.
 
 Process-pair fusers let a component module run two ADJACENT processes (both
 steppers with one substep) as one operation, A then B, for example the
@@ -22,9 +28,10 @@ from torch import nn
 
 from tasmania_tpu_torch.framework.concurrent_coupling import ConcurrentCoupling
 from tasmania_tpu_torch.framework.core_components import DiagnosticComponent, TendencyComponent
+from tasmania_tpu_torch.framework.dict_operator import addsub, update
 from tasmania_tpu_torch.framework.field import ensure_timedelta_seconds
 from tasmania_tpu_torch.framework.options import TimeIntegrationOptions
-from tasmania_tpu_torch.framework.steppers import TendencyStepper
+from tasmania_tpu_torch.framework.steppers import SequentialTendencyStepper, TendencyStepper
 
 # (matcher(stepper_a, stepper_b) -> bool, fuser(stepper_a, stepper_b, state, dt)
 #  -> (diagnostics, stepped))
@@ -55,7 +62,9 @@ def _pair_plan(processes) -> List[Tuple[Any, ...]]:
     return plan
 
 
-def _build_processes(options: Sequence[TimeIntegrationOptions]) -> List[Tuple[Any, int]]:
+def _build_processes(options: Sequence[TimeIntegrationOptions], family=TendencyStepper) -> List[Tuple[Any, int]]:
+    """``(process, substeps)``: the component itself where it has no scheme,
+    else the stepper of ``family`` for its scheme."""
     out = []
     for opt in options:
         if not isinstance(opt, TimeIntegrationOptions):
@@ -63,7 +72,7 @@ def _build_processes(options: Sequence[TimeIntegrationOptions]) -> List[Tuple[An
         if isinstance(opt.component, DiagnosticComponent) or opt.scheme is None:
             out.append((opt.component, 1))
         else:
-            stepper = TendencyStepper.factory(
+            stepper = family.factory(
                 opt.scheme, opt.component,
                 enforce_horizontal_boundary=opt.enforce_horizontal_boundary,
             )
@@ -71,45 +80,111 @@ def _build_processes(options: Sequence[TimeIntegrationOptions]) -> List[Tuple[An
     return out
 
 
-class SequentialUpdateSplitting(nn.Module):
-    """Processes applied one after another, each on the state the previous
-    one left."""
-
-    def __init__(self, *options: TimeIntegrationOptions) -> None:
+class _Splitting(nn.Module):
+    def __init__(self, *options: TimeIntegrationOptions, family=TendencyStepper) -> None:
         super().__init__()
-        self._processes = _build_processes(options)
+        self._processes = _build_processes(options, family)
         self.processes = nn.ModuleList(p for p, _ in self._processes)
 
     @property
     def components(self):
         return tuple(self.processes)
 
+
+class SequentialUpdateSplitting(_Splitting):
+    """Processes applied one after another, each on the state the previous
+    one left."""
+
     def forward(self, state: Mapping[str, Any], timestep) -> Dict[str, Any]:
         td = timedelta(seconds=ensure_timedelta_seconds(timestep))
         out = dict(state)
-
-        def update(new):
-            out.update({k: v for k, v in new.items() if k != "time"})
-
         for entry in _pair_plan(self._processes):
             if entry[0] == "pair":
                 _, a, b, fuser = entry
                 diagnostics, stepped = fuser(a, b, out, td)
-                update(diagnostics)
-                update(stepped)
+                out = update(update(out, diagnostics), stepped)
                 continue
             _, proc, substeps = entry
             if isinstance(proc, DiagnosticComponent):
-                update(proc(out))
+                out = update(out, proc(out))
             elif isinstance(proc, (ConcurrentCoupling, TendencyComponent)):
                 # a tendency process without a scheme: only its diagnostics
                 # feed the state (the chain's fall velocity + precipitation)
-                update(proc(out, td)[1])
+                out = update(out, proc(out, td)[1])
             else:
                 for _ in range(substeps):
                     diagnostics, stepped = proc(out, td / substeps)
-                    update(diagnostics)
-                    update(stepped)
+                    out = update(update(out, diagnostics), stepped)
         if "time" in state:
             out["time"] = state["time"] + td
         return out
+
+
+class ParallelSplitting(_Splitting):
+    """Every process steps from the same current state, and its increment
+    (stepped minus current, on its output variables) is added to the
+    provisional state.  ``__call__(state, state_prv, timestep)`` returns
+    ``(current state with the processes' diagnostics, new provisional
+    state)``; diagnostic components update the current state.
+
+    A process without a scheme is called as a stepper is, as the JAX package
+    does: a coupling's ``(tendencies, diagnostics)`` then take the places of
+    ``(diagnostics, stepped)``, and as a coupling has no output variables
+    nothing is added.  So the diagnostics of the moist chain's
+    ``[fall velocity, precipitation]`` reach neither state."""
+
+    def __init__(self, *options: TimeIntegrationOptions) -> None:
+        super().__init__(*options)
+        self.provisional_output_properties: Dict[str, Any] = {}
+        for proc, _ in self._processes:
+            for name, props in getattr(proc, "output_properties", {}).items():
+                self.provisional_output_properties[name] = dict(props)
+
+    def forward(self, state: Mapping[str, Any], state_prv: Mapping[str, Any], timestep):
+        td = timedelta(seconds=ensure_timedelta_seconds(timestep))
+        cur, prv = dict(state), dict(state_prv)
+        for proc, substeps in self._processes:
+            if isinstance(proc, DiagnosticComponent):
+                cur = update(cur, proc(cur))
+                continue
+            sub_td = td / substeps
+            diagnostics, stepped = proc(cur, sub_td)
+            for _ in range(1, substeps):
+                _, stepped = proc(update(cur, stepped), sub_td)
+            own = getattr(proc, "output_properties", {})
+            props = {k: v for k, v in self.provisional_output_properties.items() if k in own}
+            prv = update(prv, addsub(prv, stepped, cur, props))
+            cur = update(cur, diagnostics)
+        if "time" in state:
+            prv["time"] = state["time"] + td
+        return cur, prv
+
+
+class SequentialTendencySplitting(_Splitting):
+    """Each process evaluates its tendencies on the current state and applies
+    them to the provisional state, through the sequential-tendency steppers
+    (a process's stepper runs once, with the timestep over ``substeps``, as
+    in the JAX package).  Diagnostic components, and components without a
+    scheme, update the provisional state.  ``__call__(state, state_prv,
+    timestep)`` returns ``(current state with the steppers' diagnostics, new
+    provisional state)``."""
+
+    def __init__(self, *options: TimeIntegrationOptions) -> None:
+        super().__init__(*options, family=SequentialTendencyStepper)
+
+    def forward(self, state: Mapping[str, Any], state_prv: Mapping[str, Any], timestep):
+        td = timedelta(seconds=ensure_timedelta_seconds(timestep))
+        cur, prv = dict(state), dict(state_prv)
+        for proc, substeps in self._processes:
+            if isinstance(proc, DiagnosticComponent):
+                prv = update(prv, proc(prv))
+            elif isinstance(proc, (ConcurrentCoupling, TendencyComponent)):
+                prv = update(prv, proc(prv, td)[1])
+            else:
+                diagnostics, stepped = proc(cur, prv, td / substeps)
+                cur = update(cur, diagnostics)
+                prv = update(prv, stepped)
+        if "time" in state:
+            cur["time"] = state["time"]
+            prv["time"] = state["time"] + td
+        return cur, prv

@@ -1,16 +1,22 @@
-"""Time steppers over a tendency coupling: forward Euler, RK2 and RK3WS
-(counterpart of ``tasmania_tpu/framework/steppers.py``, the tendency
-steppers).
+"""Time steppers over a tendency coupling: forward Euler, RK2 and RK3WS, and
+their sequential-tendency variants (counterpart of
+``tasmania_tpu/framework/steppers.py``).
 
-Stage algebra, with ``f`` the coupling's tendencies:
+Stage algebra, with ``f`` the coupling's tendencies and, for the
+sequential-tendency steppers, ``x'`` the provisional state:
 
 * FE    : out = x + dt·f(x)
 * RK2   : x1 = x + dt/2·f(x);  out = x + dt·f(x1)
 * RK3WS : x1 = x + dt/3·f(x);  x2 = x + dt/2·f(x1);  out = x + dt·f(x2)
+* STS-FE    : out = x' + dt·f(x)
+* STS-RK2   : x1 = ½(x + x' + dt·f(x));  out = x' + dt·f(x1)
+* STS-RK3WS : x1 = (2x + x' + dt·f(x))/3;  x2 = ½(x + x' + dt·f(x1));
+              out = x' + dt·f(x2)
 
 The diagnostics returned are those of the first stage.  RK2 and RK3WS first
 ask the coupling, then its single component, for one operation that runs the
-whole step (``fused_rk_step``); that is the kernel path on the card.
+whole step (``fused_rk_step``); that is the kernel path on the card.  The
+sequential-tendency steppers always go stage by stage.
 """
 
 from __future__ import annotations
@@ -21,31 +27,17 @@ from typing import Any, Dict, Tuple
 from torch import nn
 
 from tasmania_tpu_torch.framework.concurrent_coupling import ConcurrentCoupling
-from tasmania_tpu_torch.framework.field import FieldArray, ensure_timedelta_seconds
-from tasmania_tpu_torch.utils.units import per_second, strip_per_second
+from tasmania_tpu_torch.framework.dict_operator import fma, sts_rk2_0, sts_rk3ws_0
+from tasmania_tpu_torch.framework.field import ensure_timedelta_seconds
+from tasmania_tpu_torch.utils.units import strip_per_second
 
 PropertyDict = Dict[str, Dict[str, Any]]
 
 
-def fma(state, tendencies, dt: float, field_properties) -> Dict[str, FieldArray]:
-    """``state + dt·tendency`` over the fields of ``field_properties``, each in
-    its declared units (the tendency converted to those units per second)."""
-    out: Dict[str, FieldArray] = {}
-    for name, props in field_properties.items():
-        if name not in state:
-            continue
-        s = state[name].to_units(props["units"])
-        if name in tendencies:
-            t = tendencies[name].to_units(per_second(props["units"]))
-            out[name] = FieldArray(s.data + dt * t.data, s.units, s.dims)
-        else:
-            out[name] = s
-    return out
-
-
-class TendencyStepper(nn.Module):
-    """Steps the variables a coupling has tendencies for; ``__call__`` returns
-    ``(diagnostics, new_state)``."""
+class _Stepper(nn.Module):
+    """A coupling, the variables it has tendencies for (each in its state
+    units: the coupling's input units, else the tendency's units times a
+    second) and the optional boundary enforcement between stages."""
 
     name = ""
 
@@ -55,8 +47,6 @@ class TendencyStepper(nn.Module):
             self.coupling = components[0]
         else:
             self.coupling = ConcurrentCoupling(*components)
-        # each stepped variable in its state units: the coupling's input
-        # units, else the tendency's units times a second
         cin = self.coupling.input_properties
         self.output_properties: PropertyDict = {}
         for name, tprops in self.coupling.tendency_properties.items():
@@ -64,11 +54,29 @@ class TendencyStepper(nn.Module):
             self.output_properties[name] = {**tprops, "units": units}
         self.enforce_hb = enforce_horizontal_boundary and self.coupling.horizontal_boundary is not None
 
-    @staticmethod
-    def factory(scheme: str, *components, **kwargs) -> "TendencyStepper":
-        if scheme not in _SCHEMES:
-            raise NotImplementedError(f"time integration scheme {scheme!r} is not ported (have {sorted(_SCHEMES)})")
-        return _SCHEMES[scheme](*components, **kwargs)
+    @classmethod
+    def factory(cls, scheme: str, *components, **kwargs):
+        """The stepper of this family for ``scheme``."""
+        schemes = {sub.name: sub for sub in cls.__subclasses__()}
+        if scheme not in schemes:
+            raise NotImplementedError(f"time integration scheme {scheme!r} is not ported (have {sorted(schemes)})")
+        return schemes[scheme](*components, **kwargs)
+
+    def _post_stage(self, state, stepped):
+        """Enforce the lateral boundary where asked; the stage's full state."""
+        if self.enforce_hb:
+            hb = self.coupling.horizontal_boundary
+            stepped = {
+                k: fa.with_data(hb.enforce_field(fa.data, k, fa.units)) for k, fa in stepped.items()
+            }
+        stage_state = dict(state)
+        stage_state.update(stepped)
+        return stepped, stage_state
+
+
+class TendencyStepper(_Stepper):
+    """Steps the variables a coupling has tendencies for; ``__call__`` returns
+    ``(diagnostics, new_state)``."""
 
     def forward(self, state, timestep) -> Tuple[Dict[str, Any], Dict[str, Any]]:
         dt = ensure_timedelta_seconds(timestep)
@@ -92,17 +100,6 @@ class TendencyStepper(nn.Module):
         comps = self.coupling.components
         fused = getattr(comps[0], "fused_rk_step", None) if len(comps) == 1 else None
         return None if fused is None else fused(self.name, state, dt, self.output_properties)
-
-    def _post_stage(self, state, stepped):
-        """Enforce the lateral boundary where asked; the stage's full state."""
-        if self.enforce_hb:
-            hb = self.coupling.horizontal_boundary
-            stepped = {
-                k: fa.with_data(hb.enforce_field(fa.data, k, fa.units)) for k, fa in stepped.items()
-            }
-        stage_state = dict(state)
-        stage_state.update(stepped)
-        return stepped, stage_state
 
     def _stage(self, state, base, dt_stage: float, dt: float):
         """``base + dt_stage·f(state)``: (diagnostics, stepped, stage state)."""
@@ -146,4 +143,54 @@ class RK3WS(TendencyStepper):
         return diagnostics, out
 
 
-_SCHEMES = {cls.name: cls for cls in (ForwardEuler, RK2, RK3WS)}
+class SequentialTendencyStepper(_Stepper):
+    """Evaluates the tendencies on the current state and applies them to the
+    provisional one; ``__call__(state, prv_state, timestep)`` returns
+    ``(diagnostics, new_provisional_state)``."""
+
+    def forward(self, state, prv_state, timestep) -> Tuple[Dict[str, Any], Dict[str, Any]]:
+        dt = ensure_timedelta_seconds(timestep)
+        diagnostics, out = self._call(state, prv_state, dt)
+        if "time" in state:
+            out["time"] = state["time"] + timedelta(seconds=dt)
+        return diagnostics, out
+
+    def _call(self, state, prv_state, dt: float):
+        raise NotImplementedError
+
+    def _stage(self, state, stepped):
+        """The stage's full state: ``state`` with the stepped variables."""
+        return self._post_stage(state, stepped)[1]
+
+    def _last(self, state, prv_state, k, dt: float):
+        return self._post_stage(state, fma(prv_state, k, dt, self.output_properties))[0]
+
+
+class ForwardEulerSTS(SequentialTendencyStepper):
+    name = "forward_euler"
+
+    def _call(self, state, prv_state, dt):
+        k1, diagnostics = self.coupling(state, dt)
+        return diagnostics, self._last(state, prv_state, k1, dt)
+
+
+class RK2STS(SequentialTendencyStepper):
+    name = "rk2"
+
+    def _call(self, state, prv_state, dt):
+        k1, diagnostics = self.coupling(state, dt)
+        stage1 = self._stage(state, sts_rk2_0(dt, state, prv_state, k1, self.output_properties))
+        k2, _ = self.coupling(stage1, dt)
+        return diagnostics, self._last(state, prv_state, k2, dt)
+
+
+class RK3WSSTS(SequentialTendencyStepper):
+    name = "rk3ws"
+
+    def _call(self, state, prv_state, dt):
+        k1, diagnostics = self.coupling(state, dt)
+        stage1 = self._stage(state, sts_rk3ws_0(dt, state, prv_state, k1, self.output_properties))
+        k2, _ = self.coupling(stage1, dt)
+        stage2 = self._stage(state, sts_rk2_0(dt, state, prv_state, k2, self.output_properties))
+        k3, _ = self.coupling(stage2, dt)
+        return diagnostics, self._last(state, prv_state, k3, dt)

@@ -65,6 +65,18 @@ class IsentropicDiagnostics(nn.Module):
         """The topography as an (nx, ny, 1) plane; ``hs`` overrides the grid's."""
         return (self.hs if hs is None else hs)[:, :, None]
 
+    def _p_exn_mtg(self, s, pt: float, hs3):
+        rpc = self.rpc
+        g = rpc["gravitational_acceleration"]
+        p = pressure(s, pt, g, self.dz)
+        exn = exner(p, rpc["specific_heat_of_dry_air_at_constant_pressure"],
+                    rpc["gas_constant_of_dry_air"], rpc["air_pressure_at_sea_level"])
+        return p, exn, montgomery(exn, hs3, self.theta_s, g, self.dz)
+
+    def get_montgomery_potential(self, s, pt: float, hs=None):
+        """mtg on the main levels."""
+        return self._p_exn_mtg(s, pt, self._hs3(hs))[2]
+
     def get_diagnostic_variables(self, s, pt: float, hs=None, moist: bool = False):
         """(p, exn, mtg, h[, rho, t])."""
         rpc = self.rpc
@@ -72,9 +84,7 @@ class IsentropicDiagnostics(nn.Module):
         cp = rpc["specific_heat_of_dry_air_at_constant_pressure"]
         rd = rpc["gas_constant_of_dry_air"]
         hs3 = self._hs3(hs)
-        p = pressure(s, pt, g, self.dz)
-        exn = exner(p, cp, rd, rpc["air_pressure_at_sea_level"])
-        mtg = montgomery(exn, hs3, self.theta_s, g, self.dz)
+        p, exn, mtg = self._p_exn_mtg(s, pt, hs3)
         th = self.theta[None, None, :]
         dh = (
             rd

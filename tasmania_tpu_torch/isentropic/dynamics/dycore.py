@@ -1,11 +1,13 @@
 """The (moist) isentropic dynamical core (counterpart of
-``tasmania_tpu/isentropic/dynamics/dycore.py``, its whole-stage path
+``tasmania_tpu/isentropic/dynamics/dycore.py``, its fused path
 ``_stage_fused`` ``:217-293``).
 
-Per stage: one whole-stage operation (advection, lateral BC, Montgomery,
-momenta, mass fractions, Rayleigh damping on the last stage unless
-``damp_at_every_stage``), then the staggered velocities of the stepped state
-with their outermost layers taken from the lateral boundary.
+Per stage: the stage operation of the prognostic scheme (advection, lateral
+BC, Montgomery, momenta, mass fractions, Rayleigh damping on the last stage
+unless ``damp_at_every_stage``; with tendencies, the two-kernel stage that
+adds them), then the staggered velocities of the stepped state with their
+outermost layers taken from the lateral boundary.  The velocities are
+recomputed after every stage, so the next stage reads the stepped state's.
 """
 
 from __future__ import annotations
@@ -34,6 +36,8 @@ class IsentropicDynamicalCore(DynamicalCore):
     def __init__(
         self,
         domain,
+        fast_tendency_component=None,
+        fast_diagnostic_component=None,
         moist: bool = False,
         time_integration_scheme: str = "rk3ws_si",
         horizontal_flux_scheme: str = "fifth_order_upwind",
@@ -46,7 +50,7 @@ class IsentropicDynamicalCore(DynamicalCore):
         *,
         storage_options: Optional[StorageOptions] = None,
     ) -> None:
-        super().__init__()
+        super().__init__(fast_tendency_component, fast_diagnostic_component)
         if time_integration_scheme != "rk3ws_si":
             raise NotImplementedError(
                 f"time integration {time_integration_scheme!r} is not ported (have 'rk3ws_si')"
@@ -90,12 +94,26 @@ class IsentropicDynamicalCore(DynamicalCore):
         return props
 
     @property
+    def stage_tendency_properties(self):
+        props = {
+            "air_isentropic_density": {"dims": DIMS, "units": "kg m^-2 K^-1 s^-1"},
+            "x_momentum_isentropic": {"dims": DIMS, "units": "kg m^-1 K^-1 s^-2"},
+            "y_momentum_isentropic": {"dims": DIMS, "units": "kg m^-1 K^-1 s^-2"},
+        }
+        if self.moist:
+            for q in (mfwv, mfcw, mfpw):
+                props[q] = {"dims": DIMS, "units": "g g^-1 s^-1"}
+        return props
+
+    @property
     def stage_output_properties(self):
         props = dict(self.stage_input_properties)
         del props["montgomery_potential"]
         return props
 
-    def stage_array_call(self, stage: int, raw_state: Mapping[str, Any], timestep: float):
+    def stage_array_call(
+        self, stage: int, raw_state: Mapping[str, Any], raw_tendencies: Mapping[str, Any], timestep: float
+    ):
         hb = self.horizontal_boundary
         # an all-zero profile (dd == 0) damps nothing
         damp = (
@@ -104,7 +122,7 @@ class IsentropicDynamicalCore(DynamicalCore):
             and (self.damp_at_every_stage or stage == self.stages - 1)
         )
         out = self.prognostic.stage_call(
-            stage, timestep, raw_state,
+            stage, timestep, raw_state, raw_tendencies,
             rmat=self.damper.rmat if damp else None,
             dd=self.damper.dd if damp else 0,
             dtf=timestep,

@@ -1,13 +1,22 @@
 """RK3WS-SI stage scheme of the isentropic core (counterpart of
 ``tasmania_tpu/isentropic/dynamics/prognostic.py``: ``RK3WSSI`` ``:1077``,
-``_capture_now`` ``:1019`` and the whole-stage path ``:372-530``).
+``_capture_now`` ``:1019``, the whole-stage path ``:372-530`` and the
+two-kernel path ``stage_call_fused_epilogue`` ``:553-656``).
 
-Three semi-implicit Wicker-Skamarock stages of dt/3, dt/2 and dt, each one
-call of the whole-stage operation ``ops/si_stage.py``: density and water
-advection with the relaxed lateral BC, the Montgomery potential of the
-stepped density, the momenta with the off-centred pressure gradient, and the
-epilogue (mass fractions, second enforcement, Rayleigh damping).  The "now"
-fields are captured at stage 0.  Fifth-order upwind fluxes only.
+Three semi-implicit Wicker-Skamarock stages of dt/3, dt/2 and dt: density
+and water advection with the relaxed lateral BC, the Montgomery potential of
+the stepped density, the momenta with the off-centred pressure gradient, and
+the epilogue (mass fractions, second enforcement, Rayleigh damping).  The
+"now" fields are captured at stage 0.  Fifth-order upwind fluxes only.
+
+A stage without tendencies is one call of the whole-stage operation
+``ops/si_stage.py``.  A stage with tendencies (as ``_supports_stage_v2``
+decides, ``prognostic.py:347-348``) takes two: ``fused_advection_fields``
+steps the density (enforced) and the water densities with their
+tendencies, the Montgomery potential of the stepped density is computed
+between them in plain PyTorch (cumulative sums, as the JAX package's XLA
+path), and ``fused_momentum_epilogue`` steps the momenta with theirs and
+runs the epilogue (``ops/advection_step.py``).
 """
 
 from __future__ import annotations
@@ -21,6 +30,7 @@ from torch import nn
 from tasmania_tpu_torch.framework.field import FieldArray
 from tasmania_tpu_torch.framework.options import StorageOptions
 from tasmania_tpu_torch.isentropic.dynamics.diagnostics import IsentropicDiagnostics
+from tasmania_tpu_torch.ops.advection_step import fused_advection_fields, fused_momentum_epilogue
 from tasmania_tpu_torch.ops.si_stage import StageConstants, si_stage
 
 mfwv = "mass_fraction_of_water_vapor_in_air"
@@ -83,12 +93,15 @@ class RK3WSSI(nn.Module):
         self._now = {n: state[n] for n in names}
 
     def stage_call(
-        self, stage: int, timestep: float, state: Mapping[str, Any], *,
+        self, stage: int, timestep: float, state: Mapping[str, Any],
+        tendencies: Optional[Mapping[str, Any]] = None, *,
         rmat: Optional[torch.Tensor] = None, dd: int = 0, dtf: Optional[float] = None,
     ) -> Dict[str, Any]:
         """One stage from the captured "now" state; returns the stepped,
         enforced (and, with ``rmat``, damped) s, su, sv and mass fractions.
-        ``state`` must carry the staggered velocities of the "int" state."""
+        ``state`` must carry the staggered velocities of the "int" state;
+        ``tendencies`` holds raw tendencies of s, su, sv and the mass
+        fractions, in the dycore's ``stage_tendency_properties`` units."""
         if stage == 0:
             self._capture_now(state)
         now = self._now
@@ -112,6 +125,8 @@ class RK3WSSI(nn.Module):
             rd=rpc["gas_constant_of_dry_air"],
             pref=rpc["air_pressure_at_sea_level"],
         )
+        if tendencies:
+            return self._stage_with_tendencies(state, tendencies, ref, hs, rmat, c)
         outs = si_stage(
             state["x_velocity_at_u_locations"],
             state["y_velocity_at_v_locations"],
@@ -136,6 +151,45 @@ class RK3WSSI(nn.Module):
             c=c,
             dd=dd,
         )
-        names = ("air_isentropic_density", "x_momentum_isentropic", "y_momentum_isentropic",
-                 *self.q_names)
-        return dict(zip(names, outs))
+        return dict(zip(self._out_names, outs))
+
+    @property
+    def _out_names(self):
+        return ("air_isentropic_density", "x_momentum_isentropic", "y_momentum_isentropic",
+                *self.q_names)
+
+    def _stage_with_tendencies(self, state, tendencies, ref, hs, rmat, c: StageConstants):
+        """The two-kernel stage (``stage_call_fused_epilogue`` and the fused
+        branch of ``_step_density_and_water``, ``prognostic.py:689-732``)."""
+        now = self._now
+        s_int = state["air_isentropic_density"]
+        u, v = state["x_velocity_at_u_locations"], state["y_velocity_at_v_locations"]
+        # the mass-fraction tendencies enter the density update times s_int
+        tnds = [tendencies.get("air_isentropic_density")] + [
+            None if tendencies.get(q) is None else s_int * tendencies[q] for q in self.q_names
+        ]
+        stepped = fused_advection_fields(
+            u, v,
+            [now["air_isentropic_density"], *(now[q] for q in self.q_names)],
+            [s_int, *(state[q] for q in self.q_names)],
+            tnds,
+            self.gamma, ref["air_isentropic_density"],
+            nb=self.nb, dt=c.dt, dx=c.dx, dy=c.dy,
+            q_product=(False,) + (True,) * len(self.q_names),
+        )
+        s_e = stepped[0]
+        mtg = self.diagnostics.get_montgomery_potential(s_e, self.pt, hs)
+        su_tnd = tendencies.get("x_momentum_isentropic")
+        sv_tnd = tendencies.get("y_momentum_isentropic")
+        if (su_tnd is None) != (sv_tnd is None):
+            su_tnd = torch.zeros_like(s_e) if su_tnd is None else su_tnd
+            sv_tnd = torch.zeros_like(s_e) if sv_tnd is None else sv_tnd
+        outs = fused_momentum_epilogue(
+            u, v, now["x_momentum_isentropic"], now["y_momentum_isentropic"],
+            state["x_momentum_isentropic"], state["y_momentum_isentropic"],
+            now["air_isentropic_density"], now["montgomery_potential"], s_e, mtg,
+            stepped[1:], self.gamma, ref["air_isentropic_density"], ref["x_momentum_isentropic"],
+            ref["y_momentum_isentropic"], [ref[q] for q in self.q_names], rmat, su_tnd, sv_tnd,
+            nb=self.nb, c=c,
+        )
+        return dict(zip(self._out_names, outs))

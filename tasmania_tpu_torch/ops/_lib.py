@@ -49,6 +49,17 @@ _SIGNATURES = {
     "tt_si_stage": (_int, _vp, _vp, _int, _int, _int, _int, _int, _int, _vp, _vp),
     # dtype, inputs (host array), outputs (host array), ncol, nz, scalars, stream
     "tt_kessler_satadj": (_int, _vp, _vp, _int, _int, _vp, _vp),
+    # the same, Kessler alone (out: qv, qc, qr, theta tendency)
+    "tt_kessler_rk2": (_int, _vp, _vp, _int, _int, _vp, _vp),
+    # the same, saturation adjustment alone (in: t, p_if, exn_if, qv, qc,
+    # theta tendency; out: qv, qc, theta tendency)
+    "tt_satadj_rk2": (_int, _vp, _vp, _int, _int, _vp, _vp),
+    # dtype, inputs (u, v, gamma, ref0, now[nf], int[nf], tnd[nf]), outputs,
+    # nf, q_mask, nx, ny, nz, nb, scalars (dt, dx, dy), stream
+    "tt_advection_fields": (_int, _vp, _vp, _int, _int, _int, _int, _int, _int, _vp, _vp),
+    # dtype, inputs (17 arrays, sq[nq], q_ref[nq]), outputs (s, su, sv,
+    # q[nq]), nq, nx, ny, nz, nb, scalars (dt, dtf, dx, dy, eps), stream
+    "tt_momentum_epilogue": (_int, _vp, _vp, _int, _int, _int, _int, _int, _vp, _vp),
     # dtype, inputs (s, su_stage, sv_stage, su_base, sv_base), outputs (su, sv),
     # nx, ny, nz, nb, scalars (c, nu factor, 2 dx, 2 dy), stream
     "tt_smagorinsky_stage": (_int, _vp, _vp, _int, _int, _int, _int, _vp, _vp),
@@ -157,8 +168,8 @@ def stream_handle() -> int:
 
 
 def pointer_array(tensors) -> ctypes.Array:
-    """A host array of the tensors' data pointers."""
-    return (ctypes.c_void_p * len(tensors))(*[t.data_ptr() for t in tensors])
+    """A host array of the tensors' data pointers (null for None)."""
+    return (ctypes.c_void_p * len(tensors))(*[None if t is None else t.data_ptr() for t in tensors])
 
 
 def scalar_array(values) -> ctypes.Array:

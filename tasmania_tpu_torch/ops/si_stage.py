@@ -93,14 +93,33 @@ def stage_montgomery(s, hs, theta, c: StageConstants):
     return torch.stack(mtg[::-1], dim=2)
 
 
-def _interior(base, interior, nb):
+def with_interior(base, interior, nb):
+    """A copy of ``base`` with its nb-inset interior replaced."""
     out = base.clone()
     out[nb : base.shape[0] - nb, nb : base.shape[1] - nb] = interior
     return out
 
 
-def _damp(phi, now, ref, rmat, dtf):
+def rayleigh_damp(phi, now, ref, rmat, dtf):
+    """``phi`` damped toward ``ref`` from ``now``; ``rmat`` None: no damping."""
     return phi if rmat is None else phi - dtf * rmat * (now - ref)
+
+
+def pressure_gradient(s_now, s_e, mtg_now, mtg, nb: int, c: StageConstants):
+    """The semi-implicit pressure gradient (1-eps)·s_now·∇mtg_now +
+    eps·s_e·∇mtg on the nb-inset interior, as (x, y) components."""
+    nx, ny, _ = s_now.shape
+    iin, jin = slice(nb, nx - nb), slice(nb, ny - nb)
+    ip1, im1 = slice(nb + 1, nx - nb + 1), slice(nb - 1, nx - nb - 1)
+    jp1, jm1 = slice(nb + 1, ny - nb + 1), slice(nb - 1, ny - nb - 1)
+    sn_i, se_i = s_now[iin, jin], s_e[iin, jin]
+    pgx = (1.0 - c.eps) * sn_i * (mtg_now[ip1, jin] - mtg_now[im1, jin]) / (
+        2.0 * c.dx
+    ) + c.eps * se_i * (mtg[ip1, jin] - mtg[im1, jin]) / (2.0 * c.dx)
+    pgy = (1.0 - c.eps) * sn_i * (mtg_now[iin, jp1] - mtg_now[iin, jm1]) / (
+        2.0 * c.dy
+    ) + c.eps * se_i * (mtg[iin, jp1] - mtg[iin, jm1]) / (2.0 * c.dy)
+    return pgx, pgy
 
 
 def si_stage_plain(
@@ -113,35 +132,25 @@ def si_stage_plain(
     needed here)."""
     nx, ny, _ = s_now.shape
     iin, jin = slice(nb, nx - nb), slice(nb, ny - nb)
-    ip1, im1 = slice(nb + 1, nx - nb + 1), slice(nb - 1, nx - nb - 1)
-    jp1, jm1 = slice(nb + 1, ny - nb + 1), slice(nb - 1, ny - nb - 1)
     g3 = gamma[:, :, None]
 
     def div(phi):
         return flux_divergence(u, v, phi, nb, c.dx, c.dy)
 
-    s_res = _interior(s_now, s_now[iin, jin] - c.dt * div(s_int), nb)
+    s_res = with_interior(s_now, s_now[iin, jin] - c.dt * div(s_int), nb)
     s_e = enforce_relaxed(s_res, g3, s_ref)
     mtg = stage_montgomery(s_e, hs, theta, c)
+    pgx, pgy = pressure_gradient(s_now, s_e, mtg_now, mtg, nb, c)
+    su_pre = with_interior(su_now, su_now[iin, jin] - c.dt * (div(su_int) + pgx), nb)
+    sv_pre = with_interior(sv_now, sv_now[iin, jin] - c.dt * (div(sv_int) + pgy), nb)
 
-    # semi-implicit pressure gradient (1-eps)·s_now·∇mtg_now + eps·s_e·∇mtg
-    sn_i, se_i = s_now[iin, jin], s_e[iin, jin]
-    pgx = (1.0 - c.eps) * sn_i * (mtg_now[ip1, jin] - mtg_now[im1, jin]) / (
-        2.0 * c.dx
-    ) + c.eps * se_i * (mtg[ip1, jin] - mtg[im1, jin]) / (2.0 * c.dx)
-    pgy = (1.0 - c.eps) * sn_i * (mtg_now[iin, jp1] - mtg_now[iin, jm1]) / (
-        2.0 * c.dy
-    ) + c.eps * se_i * (mtg[iin, jp1] - mtg[iin, jm1]) / (2.0 * c.dy)
-    su_pre = _interior(su_now, su_now[iin, jin] - c.dt * (div(su_int) + pgx), nb)
-    sv_pre = _interior(sv_now, sv_now[iin, jin] - c.dt * (div(sv_int) + pgy), nb)
-
-    s_f = _damp(enforce_relaxed(s_e, g3, s_ref), s_now, s_ref, rmat, c.dtf)
-    su_f = _damp(enforce_relaxed(su_pre, g3, su_ref), su_now, su_ref, rmat, c.dtf)
-    sv_f = _damp(enforce_relaxed(sv_pre, g3, sv_ref), sv_now, sv_ref, rmat, c.dtf)
+    s_f = rayleigh_damp(enforce_relaxed(s_e, g3, s_ref), s_now, s_ref, rmat, c.dtf)
+    su_f = rayleigh_damp(enforce_relaxed(su_pre, g3, su_ref), su_now, su_ref, rmat, c.dtf)
+    sv_f = rayleigh_damp(enforce_relaxed(sv_pre, g3, sv_ref), sv_now, sv_ref, rmat, c.dtf)
     q_f = []
     for qn, qi, qref in zip(q_now, q_int, q_refs):
         sq_now = clip_pos(s_now * qn)
-        sq_res = _interior(sq_now, sq_now[iin, jin] - c.dt * div(clip_pos(s_int * qi)), nb)
+        sq_res = with_interior(sq_now, sq_now[iin, jin] - c.dt * div(clip_pos(s_int * qi)), nb)
         q_f.append(enforce_relaxed(clip_pos(sq_res / s_e), g3, qref))
     return (s_f, su_f, sv_f, *q_f)
 
@@ -154,9 +163,9 @@ def frame_strips(sl, s_now, su_now, sv_now, q_now, gamma, s_ref, su_ref, sv_ref,
     g = gamma[sl][:, :, None]
     sn = s_now[sl]
     s_e = enforce_relaxed(sn, g, s_ref[sl])
-    s_f = _damp(enforce_relaxed(s_e, g, s_ref[sl]), sn, s_ref[sl], rmat, dtf)
-    su_f = _damp(enforce_relaxed(su_now[sl], g, su_ref[sl]), su_now[sl], su_ref[sl], rmat, dtf)
-    sv_f = _damp(enforce_relaxed(sv_now[sl], g, sv_ref[sl]), sv_now[sl], sv_ref[sl], rmat, dtf)
+    s_f = rayleigh_damp(enforce_relaxed(s_e, g, s_ref[sl]), sn, s_ref[sl], rmat, dtf)
+    su_f = rayleigh_damp(enforce_relaxed(su_now[sl], g, su_ref[sl]), su_now[sl], su_ref[sl], rmat, dtf)
+    sv_f = rayleigh_damp(enforce_relaxed(sv_now[sl], g, sv_ref[sl]), sv_now[sl], sv_ref[sl], rmat, dtf)
     q_f = [
         enforce_relaxed(clip_pos(clip_pos(sn * qn[sl]) / s_e), g, qref[sl])
         for qn, qref in zip(q_now, q_refs)

@@ -1,4 +1,5 @@
-"""Record the JAX package's result of the full flagship step at full size.
+"""Record the JAX package's result of the full flagship step, and of the
+other couplings, at full size.
 
 Runs the JAX driver's ``build_domain_and_state``/``build_model`` with
 ``drivers/namelist_sus.py`` unchanged (161x161x120, float32, the whole SUS
@@ -20,8 +21,15 @@ every branch of the Kessler scheme, sedimentation and precipitation run on
 rain.  (At relative humidity 1.2 the full-size run is unstable within 30
 steps: its largest water vapour mass fraction reaches 84.)
 
-Usage: ``python tests/make_torch_flagship_reference.py [--rain]`` (about five
-minutes, or a minute and a half with ``--rain``).  With ``--check-port`` it writes nothing:
+``--coupling fc|lfc|ps|sts|ssus`` makes the reference of one of the five
+other physics-dynamics couplings, ``variant_<coupling>_reference.json``: the
+JAX driver's ``build_variant`` (``drivers/driver_isentropic_moist.py``) with
+``drivers/namelist_<coupling>.py`` (161x161x120) from the raining run's
+supersaturated start (relative humidity 1.05), 1 warm-up + 20 steps.
+
+Usage: ``python tests/make_torch_flagship_reference.py [--rain | --coupling
+C]`` (about five minutes, a minute and a half with ``--rain`` or
+``--coupling``).  With ``--check-port`` it writes nothing:
 it runs the port on the CPU in float32 at the same configuration and prints
 each number's relative deviation from the file, the measurement behind the
 limits ``chip_smoke.py`` holds the card to.
@@ -48,15 +56,25 @@ BACKEND = "pallas:interpret"
 RAIN = {"relative_humidity": 1.05, "niter": 30}
 
 
-def check_port(out, overrides) -> None:
+# the couplings' runs: namelist overrides (``variant_<coupling>_reference.json``)
+VARIANT = {"niter": 20, "relative_humidity": 1.05}
+COUPLINGS = ("fc", "lfc", "ps", "sts", "ssus")
+
+
+def check_port(out, overrides, coupling=None) -> None:
     import torch
 
+    from tasmania_tpu_torch.drivers import driver_isentropic_moist as moist
     from tasmania_tpu_torch.drivers import driver_namelist_sus as drv
-    from tasmania_tpu_torch.drivers.namelist_sus import load_namelist
     from tasmania_tpu_torch.framework.options import StorageOptions
 
-    nl = load_namelist(so=StorageOptions(dtype=torch.float32, device="cpu"), **overrides)
-    res = drv.run(nl, verbose=False)
+    so = StorageOptions(dtype=torch.float32, device="cpu")
+    if coupling is None:
+        from tasmania_tpu_torch.drivers.namelist_sus import load_namelist
+
+        res = drv.run(load_namelist(so=so, **overrides), verbose=False)
+    else:
+        res = moist.run(moist.load_namelist(coupling, so=so, **overrides), coupling, verbose=False)
     got = drv.validation_summary({k: fa.data.numpy() for k, fa in res["fields"].items()})
     ref = json.loads(out.read_text())
     for key, r in ref.items():
@@ -65,27 +83,48 @@ def check_port(out, overrides) -> None:
             print(f"{key:18s} port {got[key]:.9g}  reference {r:.9g}  deviation {dev:.3e}")
 
 
+def jax_step(nl, coupling):
+    """(domain, initial state, step(state, dt)) of the JAX drivers."""
+    if coupling is None:
+        from drivers.driver_namelist_sus import build_domain_and_state, build_model
+
+        domain, state, pt = build_domain_and_state(nl)
+        dycore, physics = build_model(nl, domain, pt)
+        return domain, state, lambda st, dt: physics(dycore(st, {}, dt), dt)
+    from drivers.driver_isentropic_moist import build_variant
+
+    return build_variant(nl, coupling)
+
+
 def main() -> None:
-    rain = "--rain" in sys.argv[1:]
-    overrides = RAIN if rain else {}
-    out = DRIVERS / ("flagship_rain_reference.json" if rain else "flagship_reference.json")
-    if "--check-port" in sys.argv[1:]:
-        check_port(out, overrides)
+    argv = sys.argv[1:]
+    rain = "--rain" in argv
+    coupling = argv[argv.index("--coupling") + 1] if "--coupling" in argv else None
+    if coupling is not None and coupling not in COUPLINGS:
+        raise SystemExit(f"--coupling: one of {COUPLINGS}")
+    if coupling is not None:
+        overrides = VARIANT
+        out = DRIVERS / f"variant_{coupling}_reference.json"
+    else:
+        overrides = RAIN if rain else {}
+        out = DRIVERS / ("flagship_rain_reference.json" if rain else "flagship_reference.json")
+    if "--check-port" in argv:
+        check_port(out, overrides, coupling)
         return
+    import importlib
+
     import jax
     import jax.numpy as jnp
 
-    import drivers.namelist_sus as jnl
-    from drivers.driver_namelist_sus import build_domain_and_state, build_model
     from tasmania_tpu.framework.field import FieldArray
     from tasmania_tpu_torch.drivers.driver_namelist_sus import validation_summary
 
+    jnl = importlib.import_module(f"drivers.namelist_{coupling or 'sus'}")
     nl = SimpleNamespace(**{k: getattr(jnl, k) for k in dir(jnl) if not k.startswith("_")})
     nl.backend = BACKEND
     for key, value in overrides.items():
         setattr(nl, key, value)
-    domain, state, pt = build_domain_and_state(nl)
-    dycore, physics = build_model(nl, domain, pt)
+    domain, state, step_impl = jax_step(nl, coupling)
     names = sorted(k for k in state if k != "time")
     units = {k: state[k].units for k in names}
     dims = {k: state[k].dims for k in names}
@@ -99,7 +138,7 @@ def main() -> None:
     def step(fields, hs):
         st = {k: FieldArray(v, units[k], dims[k]) for k, v in fields.items()}
         st["topography_height"] = FieldArray(hs, "m", ("x", "y"))
-        st = physics(dycore(st, {}, dt_s), dt_s)
+        st = step_impl(st, dt_s)
         return {k: st[k].data for k in names}
 
     step_c = jax.jit(step)
@@ -112,12 +151,16 @@ def main() -> None:
 
     ref = validation_summary(fields)
     ref["config"] = {
-        "namelist": "drivers/namelist_sus.py", "nx": nl.nx, "ny": nl.ny, "nz": nl.nz,
-        "steps": f"1 warm-up + {nl.niter}", "niter": nl.niter, "dtype": "float32",
+        "namelist": f"drivers/namelist_{coupling or 'sus'}.py", "nx": nl.nx, "ny": nl.ny,
+        "nz": nl.nz, "steps": f"1 warm-up + {nl.niter}", "niter": nl.niter, "dtype": "float32",
         "backend": f"{BACKEND} (CPU)", "sedimentation_vt_mode": nl.sedimentation_vt_mode,
         "skip": [], "relative_humidity": nl.relative_humidity,
     }
-    ref["command"] = "python tests/make_torch_flagship_reference.py" + (" --rain" if rain else "")
+    if coupling is not None:
+        ref["config"]["coupling"] = coupling
+    ref["command"] = "python tests/make_torch_flagship_reference.py" + (
+        f" --coupling {coupling}" if coupling else " --rain" if rain else ""
+    )
     out.write_text(json.dumps(ref, indent=1) + "\n")
     print(json.dumps(ref, indent=1))
     print(f"{elapsed:.1f} s")

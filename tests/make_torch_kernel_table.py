@@ -3,12 +3,14 @@
 For each function that reaches ``pl.pallas_call`` in ``tasmania_tpu/ops/``:
 the bytes it must move at the flagship shapes (161x161x120 float32; each
 input read once, each output written once, from the arrays of its signature
-as the flagship or its nearest caller passes them) and that traffic's time
-at the H100's 3.35 TB/s.  Given the log of a ``chip_smoke.py`` run, it adds
-for each ported kernel its launches per flagship step (phase 5's count over
-101 steps) and the times that run measured on the card: kernel, plain
-version and, where one exists, the single PyTorch call computing the same
-function.
+as the flagship or its nearest caller passes them; the two kernels of the
+tendency-carrying stage with the tendencies the fc and lfc couplings pass)
+and that traffic's time at the H100's 3.35 TB/s.  Given the log of a
+``chip_smoke.py`` run, it adds for each ported kernel its route and source,
+its launches per step on each path that runs it (the full-size runs of
+phases 5 and 7: the flagship's SUS chain and the five other couplings) and
+the times that run measured on the card: kernel, plain version and, where
+one exists, the single PyTorch call computing the same function.
 
 Usage: ``python tests/make_torch_kernel_table.py [CHIP_SMOKE_LOG]``
 """
@@ -27,7 +29,6 @@ V = NX * (NY + 1) * NZ * F32
 PLANE = NX * NY * F32
 STRIP = NB * NY * NZ * F32
 HBM = 3.35e12
-STEPS = 101
 
 # (number, def, name in chip_smoke or None while not ported, bytes read,
 #  bytes written, what the arrays are)
@@ -41,19 +42,20 @@ KERNELS = [
      6 * CELL, 6 * CELL, "6 fields in, 6 out"),
     (4, "ops/paste.py:23 paste_x_edges", None, 2 * STRIP, 2 * STRIP,
      "1 array: 2 strips in, 2 out"),
-    (5, "ops/advection_step.py:140 fused_advection_fields", None,
+    (5, "ops/advection_step.py:140 fused_advection_fields", "fused_advection_fields",
      13 * CELL + U + V + PLANE, 4 * CELL,
      "u, v, s and 3 q now, int and tendency, gamma, ref -> 4 fields"),
     (6, "ops/advection_step.py:282 fused_momentum_step", None,
      8 * CELL + U + V, 2 * CELL, "u, v, su/sv now and int, s and mtg now and new -> su, sv"),
-    (7, "ops/advection_step.py:422 fused_momentum_epilogue", None,
-     17 * CELL + U + V + PLANE + NZ * F32, 6 * CELL,
-     "u, v, 8 momentum-step fields, 3 sq, 6 refs, gamma, rmat -> su, sv, s, 3 q"),
-    (8, "ops/kessler_step.py:39 fused_kessler_rk2", None,
+    (7, "ops/advection_step.py:422 fused_momentum_epilogue", "fused_momentum_epilogue",
+     19 * CELL + U + V + PLANE + NZ * F32, 6 * CELL,
+     "u, v, 8 momentum-step fields, 3 sq, 6 refs, su and sv tendencies, gamma, rmat "
+     "-> su, sv, s, 3 q"),
+    (8, "ops/kessler_step.py:39 fused_kessler_rk2", "fused_kessler_rk2",
      5 * CELL + 2 * IFACE, 4 * CELL, "rho, T, qv, qc, qr, p_if, exn_if -> qv, qc, qr, theta tendency"),
     (9, "ops/kessler_step.py:111 fused_kessler_satadj_rk2", "fused_kessler_satadj_rk2",
      5 * CELL + 2 * IFACE, 4 * CELL, "rho, T, qv, qc, qr, p_if, exn_if -> qv, qc, qr, theta tendency"),
-    (10, "ops/kessler_step.py:204 fused_satadj_rk2", None,
+    (10, "ops/kessler_step.py:204 fused_satadj_rk2", "fused_satadj_rk2",
      4 * CELL + 2 * IFACE, 3 * CELL, "T, qv, qc, theta tendency, p_if, exn_if -> qv, qc, theta tendency"),
     (11, "ops/smagorinsky_step.py:33 _smag_stage", None,
      5 * CELL, 2 * CELL, "s, su and sv of the stage and the base -> su, sv"),
@@ -86,20 +88,26 @@ def fmt(x, digits=3):
     return "—" if x is None else f"{x:.{digits}f}"
 
 
+def launches(k) -> str:
+    """Launches per step on each path that runs the kernel."""
+    per_step = k["launches_per_step_by_path"]
+    return " · ".join(f"{p} {n:g}" for p, n in per_step.items() if n) or "0"
+
+
 def main(argv) -> None:
     chip = chip_kernels(argv[1]) if len(argv) > 1 else {}
-    print("| # | TPU kernel (def) | Status | Launches/step | MB | Bound ms | Kernel ms | Plain ms "
-          "| One PyTorch call ms |")
-    print("|---|---|---|---|---|---|---|---|---|")
+    print("| # | TPU kernel (def) | Status | Route → file | Launches/step by path | MB | Bound ms "
+          "| Kernel ms | Plain ms | One PyTorch call ms |")
+    print("|---|---|---|---|---|---|---|---|---|---|")
     for num, name, key, rd, wr, _ in KERNELS:
         status = "ported" if key else "to port"
         mb = (rd + wr) / 1e6
         bound = 1e3 * (rd + wr) / HBM
         k = chip.get(key) if key else None
-        launches = f"{k['launches'] / STEPS:g}" if k else ("0" if key is None else "—")
+        route = f"{k['route'].upper()} → `{k['source'].split('/')[-1]}`" if k else "—"
         ms, plain, lib = (k["ms"], k["plain_ms"], k["library_ms"]) if k else (None, None, None)
-        print(f"| {num} | `{name}` | {status} | {launches} | {mb:.1f} | {bound:.4f} | {fmt(ms)} "
-              f"| {fmt(plain)} | {'none' if lib is None else fmt(lib)} |")
+        print(f"| {num} | `{name}` | {status} | {route} | {launches(k) if k else '0'} | {mb:.1f} "
+              f"| {bound:.4f} | {fmt(ms)} | {fmt(plain)} | {'none' if lib is None else fmt(lib)} |")
 
 
 if __name__ == "__main__":

@@ -115,7 +115,7 @@ def test_flagship_matches_golden_trajectory():
     names = sorted(k for k in state if k != "time")
     dt_s = nl.timestep.total_seconds()
     topo_time = nl.topo_kwargs["time"].total_seconds()
-    step = port_driver.make_step(dycore, physics, names, dt_s)
+    step = port_driver.fields_step(lambda st, dt: physics(dycore(st, {}, dt), dt), names, dt_s)
     fields = {k: state[k] for k in names}
     snaps = []
     for i in range(make_golden.NSTEPS):

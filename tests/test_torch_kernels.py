@@ -8,10 +8,13 @@ machine without them; without a CUDA device they skip.  On the GPU machine::
 Tolerances, float64: paste bitwise; smoothing and the stage within 1e-12 of
 the largest magnitude of the output (FMA contraction; the stage's column
 scans sum in another order than the plain version's cumulative sums); the
-Kessler, Smagorinsky, vertical-advection and sedimentation steps within
+two kernels of the tendency-carrying stage (advection of the fields, the
+momentum epilogue), the Kessler and saturation-adjustment steps (the pair
+and each alone), Smagorinsky, vertical advection and sedimentation within
 1e-12 of the output's largest magnitude (FMA contraction, and PyTorch's
-division by a scalar on the card, a product with the reciprocal).  The input
-helpers here are shared with ``tests/test_torch_ops.py`` and
+division by a scalar on the card, a product with the reciprocal); the
+advection of the fields also in float32, within 1e-5.  The input helpers
+here are shared with ``tests/test_torch_ops.py`` and
 ``tests/test_torch_physics_ops.py``.
 """
 
@@ -24,10 +27,20 @@ import torch
 from tasmania_tpu_torch.domain.domain import Domain
 from tasmania_tpu_torch.dwarfs.vertical_damping import Rayleigh
 from tasmania_tpu_torch.framework.field import FieldArray
+from tasmania_tpu_torch.ops.advection_step import (
+    fused_advection_fields,
+    fused_advection_fields_plain,
+    fused_momentum_epilogue,
+    fused_momentum_epilogue_plain,
+)
 from tasmania_tpu_torch.ops.kessler_step import (
     KesslerConstants,
+    fused_kessler_rk2,
+    fused_kessler_rk2_plain,
     fused_kessler_satadj_rk2,
     fused_kessler_satadj_rk2_plain,
+    fused_satadj_rk2,
+    fused_satadj_rk2_plain,
 )
 from tasmania_tpu_torch.ops.paste import paste_x_edges_multi, paste_x_edges_multi_plain
 from tasmania_tpu_torch.ops.sedimentation_step import (
@@ -102,6 +115,57 @@ def port_args(inp, damp, device="cpu"):
     return args + [tensor(inp["rmat"], device) if damp else None]
 
 
+def advection_inputs(seed):
+    """Stage inputs (numpy) for the two-kernel stage: those of
+    :func:`stage_inputs`, tendencies of s, the three water densities and the
+    momenta, the stepped density ``s_e``, its Montgomery potential ``mtg``
+    and the stepped water densities ``sqs``."""
+    inp = stage_inputs(seed)
+    rng = np.random.default_rng(seed + 1000)
+    cell = (NX, NY, NZ)
+    inp.update(
+        tnds=[rng.normal(0.0, 1e-3, cell)] + [rng.normal(0.0, 1e-6, cell) for _ in range(3)],
+        su_tnd=rng.normal(0.0, 0.1, cell),
+        sv_tnd=rng.normal(0.0, 0.1, cell),
+        s_e=rng.uniform(5.0, 10.0, cell),
+        mtg=rng.uniform(1e5, 3e5, cell),
+        sqs=[rng.uniform(-1e-4, 1e-2, cell) for _ in range(3)],
+    )
+    return inp
+
+
+def advection_args(inp, tendencies, enforce, device="cpu"):
+    """(positional args, keyword args) of ``fused_advection_fields`` for s
+    and the three mass fractions."""
+    t = lambda a: tensor(a, device)
+    args = (
+        t(inp["u"]), t(inp["v"]),
+        [t(inp["s_now"])] + [t(a) for a in inp["q_now"]],
+        [t(inp["s_int"])] + [t(a) for a in inp["q_int"]],
+        [t(a) for a in inp["tnds"]] if tendencies else None,
+        t(inp["gamma"]) if enforce else None,
+        t(inp["s_ref"]) if enforce else None,
+    )
+    kw = dict(nb=NB, dt=FRACS[1] * DTF, dx=CONSTS["dx"], dy=CONSTS["dy"],
+              q_product=(False, True, True, True))
+    return args, kw
+
+
+def epilogue_args(inp, damp, tendencies, device="cpu"):
+    """Positional args of ``fused_momentum_epilogue``."""
+    t = lambda a: tensor(a, device)
+    return (
+        *(t(inp[k]) for k in ("u", "v", "su_now", "sv_now", "su_int", "sv_int", "s_now",
+                              "mtg_now", "s_e", "mtg")),
+        [t(a) for a in inp["sqs"]],
+        *(t(inp[k]) for k in ("gamma", "s_ref", "su_ref", "sv_ref")),
+        [t(a) for a in inp["q_refs"]],
+        t(inp["rmat"]) if damp else None,
+        t(inp["su_tnd"]) if tendencies else None,
+        t(inp["sv_tnd"]) if tendencies else None,
+    )
+
+
 def smoothing_inputs(seed, nf=6):
     rng = np.random.default_rng(seed)
     fields = [rng.normal(size=(NX, NY, NZ)) * 10.0 ** rng.integers(-3, 3) for _ in range(nf)]
@@ -123,7 +187,8 @@ def kessler_inputs(seed):
     """(rho, t, p_if, exn_if, qv, qc, qr) in numpy reaching every branch of the
     scheme: T 250-300 K, p 1e4-1e5 Pa, qv on both sides of saturation, qc on
     both sides of the threshold 1e-4 (a tenth of it zero), qr with zeros and
-    a few negatives."""
+    a few negatives.  Saturation adjustment alone takes (t, p_if, exn_if, qv,
+    qc) and a θ-tendency (:func:`theta_tendency`)."""
     rng = np.random.default_rng(seed)
     cell, iface = (PX, PY, PZ), (PX, PY, PZ + 1)
     t = rng.uniform(250.0, 300.0, cell)
@@ -136,6 +201,17 @@ def kessler_inputs(seed):
     qr = rng.uniform(-1e-6, 1e-3, cell) * (rng.uniform(size=cell) > 0.3)
     rho = rng.uniform(0.3, 1.3, cell)
     return rho, t, p_if, exn_if, qv, qc, qr
+
+
+def theta_tendency(seed):
+    """A θ-tendency in numpy, the input saturation adjustment adds to."""
+    return np.random.default_rng(seed + 500).normal(0.0, 1e-3, (PX, PY, PZ))
+
+
+def satadj_inputs(seed):
+    """(t, p_if, exn_if, qv, qc, θ-tendency) in numpy."""
+    _, t, p_if, exn_if, qv, qc, _ = kessler_inputs(seed)
+    return t, p_if, exn_if, qv, qc, theta_tendency(seed)
 
 
 def smagorinsky_inputs(seed):
@@ -241,6 +317,61 @@ def test_kessler_satadj_kernel_vs_plain(cuda_device):
     ref = fused_kessler_satadj_rk2_plain(*args, KESSLER)
     for k, (a, b) in enumerate(zip(got, ref)):
         assert_scaled(a.cpu().numpy(), b.cpu().numpy(), 1e-12, f"output {k}")
+
+
+@pytest.mark.cuda
+def test_kessler_kernel_vs_plain(cuda_device):
+    args = [tensor(a, cuda_device) for a in kessler_inputs(seed=3)]
+    got = fused_kessler_rk2(*args, KESSLER)
+    ref = fused_kessler_rk2_plain(*args, KESSLER)
+    for k, (a, b) in enumerate(zip(got, ref)):
+        assert_scaled(a.cpu().numpy(), b.cpu().numpy(), 1e-12, f"output {k}")
+
+
+@pytest.mark.cuda
+def test_satadj_kernel_vs_plain(cuda_device):
+    args = [tensor(a, cuda_device) for a in satadj_inputs(seed=4)]
+    got = fused_satadj_rk2(*args, KESSLER)
+    ref = fused_satadj_rk2_plain(*args, KESSLER)
+    for k, (a, b) in enumerate(zip(got, ref)):
+        assert_scaled(a.cpu().numpy(), b.cpu().numpy(), 1e-12, f"output {k}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("tendencies", [True, False])
+@pytest.mark.parametrize("enforce", [True, False])
+def test_advection_fields_kernel_vs_plain(cuda_device, dtype, tendencies, enforce):
+    args, kw = advection_args(advection_inputs(seed=8), tendencies, enforce, cuda_device)
+    args = _cast(args, dtype)
+    got = fused_advection_fields(*args, **kw)
+    ref = fused_advection_fields_plain(*args, **kw)
+    tol = 1e-12 if dtype == torch.float64 else 1e-5
+    for k, (a, b) in enumerate(zip(got, ref)):
+        assert_scaled(a.double().cpu().numpy(), b.double().cpu().numpy(), tol, f"field {k}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("damp", [True, False])
+@pytest.mark.parametrize("tendencies", [True, False])
+def test_momentum_epilogue_kernel_vs_plain(cuda_device, damp, tendencies):
+    inp = advection_inputs(seed=9)
+    args = epilogue_args(inp, damp, tendencies, cuda_device)
+    c = StageConstants(dt=FRACS[2] * DTF, dtf=DTF, **CONSTS)
+    got = fused_momentum_epilogue(*args, nb=NB, c=c)
+    ref = fused_momentum_epilogue_plain(*args, nb=NB, c=c)
+    assert len(got) == len(ref) == 6
+    for k, (a, b) in enumerate(zip(got, ref)):
+        assert_scaled(a.cpu().numpy(), b.cpu().numpy(), 1e-12, f"output {k}")
+
+
+def _cast(args, dtype):
+    """``args`` with every tensor (also inside lists) cast to ``dtype``."""
+    def cast(a):
+        if isinstance(a, list):
+            return [cast(x) for x in a]
+        return a.to(dtype) if isinstance(a, torch.Tensor) else a
+    return tuple(cast(a) for a in args)
 
 
 @pytest.mark.cuda

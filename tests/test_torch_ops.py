@@ -9,6 +9,13 @@ package's Pallas kernels run in interpret mode, in float64.
   orders 1-3, scaled atol 1e-13 (same terms, same order; the bound covers
   the compilers' freedom to contract multiply-adds).
 * ``paste_x_edges_multi_plain`` vs ``paste_x_edges_multi``: bitwise.
+* The two kernels of the tendency-carrying stage at the same geometry:
+  ``fused_advection_fields_plain`` vs ``fused_advection_fields(interpret=True)``
+  on s and the three mass fractions, with and without tendencies (one field
+  without), the relaxed BC on field 0 and the in-kernel s·q products;
+  ``fused_momentum_epilogue_plain`` vs ``fused_momentum_epilogue(interpret=True)``
+  with and without damping and momentum tendencies.  Scaled atol 1e-13 (the
+  same terms in the same order; no column scan).
 
 The kernels themselves are tested against these plain versions on the card
 in ``tests/test_torch_kernels.py``.
@@ -22,10 +29,18 @@ import torch
 
 import jax.numpy as jnp
 
+from tasmania_tpu.ops.advection_step import fused_advection_fields as jax_advection
+from tasmania_tpu.ops.advection_step import fused_momentum_epilogue as jax_momentum_epilogue
 from tasmania_tpu.ops.paste import paste_x_edges_multi as jax_paste
 from tasmania_tpu.ops.si_stage import fused_si_stage
 from tasmania_tpu.ops.smoothing_step import fused_smoothing as jax_smoothing
 from tasmania_tpu_torch.ops import _lib
+from tasmania_tpu_torch.ops.advection_step import (
+    fused_advection_fields,
+    fused_advection_fields_plain,
+    fused_momentum_epilogue,
+    fused_momentum_epilogue_plain,
+)
 from tasmania_tpu_torch.ops.paste import paste_x_edges_multi, paste_x_edges_multi_plain
 from tasmania_tpu_torch.ops.si_stage import (
     StageConstants,
@@ -43,7 +58,10 @@ from tests.test_torch_kernels import (
     NX,
     NY,
     NZ,
+    advection_args,
+    advection_inputs,
     assert_scaled,
+    epilogue_args,
     port_args,
     smoothing_inputs,
     stage_inputs,
@@ -142,6 +160,71 @@ def test_paste_plain_vs_pallas_bitwise(n, w):
     for a, b, t in zip(got, ref, tfulls):
         assert a is t  # in place
         np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+
+
+def _jax_tuple(arrays):
+    return None if arrays is None else tuple(None if a is None else jnp.asarray(a.numpy()) for a in arrays)
+
+
+def _jax_or_none(a):
+    return None if a is None else jnp.asarray(a.numpy())
+
+
+@pytest.mark.parametrize("tendencies", [True, False])
+@pytest.mark.parametrize("enforce", [True, False])
+@pytest.mark.parametrize("q_product", [True, False])
+def test_advection_fields_plain_vs_pallas(tendencies, enforce, q_product):
+    args, kw = advection_args(advection_inputs(seed=20), tendencies, enforce)
+    if not q_product:
+        kw["q_product"] = None
+    u, v, now, intl, tnds, gamma, ref0 = args
+    if tendencies:
+        tnds = [tnds[0], None, tnds[2], tnds[3]]  # a field without a tendency
+    ref = jax_advection(
+        _jax_or_none(u), _jax_or_none(v), _jax_tuple(now), _jax_tuple(intl), _jax_tuple(tnds),
+        _jax_or_none(gamma), _jax_or_none(ref0), order=5, interpret=True,
+        **{k: (tuple(val) if k == "q_product" and val is not None else val) for k, val in kw.items()},
+    )
+    got = fused_advection_fields_plain(u, v, now, intl, tnds, gamma, ref0, **kw)
+    assert len(got) == len(ref) == 4
+    for k, (a, b) in enumerate(zip(got, ref)):
+        assert_scaled(a.numpy(), b, 1e-13, f"field {k}")
+
+
+@pytest.mark.parametrize("damp", [True, False])
+@pytest.mark.parametrize("tendencies", [True, False])
+def test_momentum_epilogue_plain_vs_pallas(damp, tendencies):
+    inp = advection_inputs(seed=21)
+    args = epilogue_args(inp, damp, tendencies)
+    c = StageConstants(dt=FRACS[0] * DTF, dtf=DTF, **CONSTS)
+    (u, v, su_now, sv_now, su_int, sv_int, s_now, mtg_now, s_e, mtg, sqs, gamma, s_ref,
+     su_ref, sv_ref, q_refs, rmat, su_tnd, sv_tnd) = args
+    j = _jax_or_none
+    ref = jax_momentum_epilogue(
+        j(u), j(v), j(su_now), j(sv_now), j(su_int), j(sv_int), j(s_now), j(mtg_now), j(s_e),
+        j(mtg), _jax_tuple(sqs), j(gamma), j(s_ref), j(su_ref), j(sv_ref), _jax_tuple(q_refs),
+        jnp.asarray(inp["rmat"])[None, :], j(su_tnd), j(sv_tnd),
+        order=5, nb=NB, dt=c.dt, dtf=c.dtf, dx=c.dx, dy=c.dy, eps=c.eps, nq=3,
+        do_damp=damp, has_tnd=tendencies, interpret=True,
+    )
+    got = fused_momentum_epilogue_plain(*args, nb=NB, c=c)
+    assert len(got) == len(ref) == 6
+    for k, (a, b) in enumerate(zip(got, ref)):
+        assert_scaled(a.numpy(), b, 1e-13, f"output {k}")
+
+
+def test_advection_wrappers_take_plain_on_cpu():
+    inp = advection_inputs(seed=22)
+    args, kw = advection_args(inp, True, True)
+    before = sum(_lib.launch_counts.values())
+    for a, b in zip(fused_advection_fields(*args, **kw), fused_advection_fields_plain(*args, **kw)):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    c = StageConstants(dt=DTF, dtf=DTF, **CONSTS)
+    args = epilogue_args(inp, True, True)
+    for a, b in zip(fused_momentum_epilogue(*args, nb=NB, c=c),
+                    fused_momentum_epilogue_plain(*args, nb=NB, c=c)):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    assert sum(_lib.launch_counts.values()) == before
 
 
 def test_paste_plain_writes_in_place():

@@ -3,7 +3,9 @@ package's Pallas kernels run in interpret mode, in float64, at 25x21x16 on
 inputs made with numpy from a seed (``tests/test_torch_kernels.py``):
 
 * ``fused_kessler_satadj_rk2_plain`` vs ``fused_kessler_satadj_rk2`` on
-  states that reach every branch of the scheme;
+  states that reach every branch of the scheme, and each process alone
+  (``fused_kessler_rk2_plain``, ``fused_satadj_rk2_plain``) vs its own
+  Pallas kernel on the same states;
 * ``fused_smagorinsky_rk2_plain`` vs ``_smag_rk2_fused`` (``tile_x=8``, the
   one-kernel path) and vs two ``_smag_stage`` launches;
 * ``fused_vertical_advection_rk3ws_plain`` vs
@@ -28,7 +30,9 @@ import numpy as np
 import pytest
 import torch
 
+from tasmania_tpu.ops.kessler_step import fused_kessler_rk2 as jax_kessler_alone
 from tasmania_tpu.ops.kessler_step import fused_kessler_satadj_rk2 as jax_kessler
+from tasmania_tpu.ops.kessler_step import fused_satadj_rk2 as jax_satadj_alone
 from tasmania_tpu.ops.sedimentation_step import fused_sedimentation_rk3ws as jax_sedimentation
 from tasmania_tpu.ops.smagorinsky_step import _smag_rk2_fused, _smag_stage
 from tasmania_tpu.ops.vertical_advection_step import (
@@ -36,8 +40,12 @@ from tasmania_tpu.ops.vertical_advection_step import (
 )
 from tasmania_tpu_torch.ops import _lib
 from tasmania_tpu_torch.ops.kessler_step import (
+    fused_kessler_rk2,
+    fused_kessler_rk2_plain,
     fused_kessler_satadj_rk2,
     fused_kessler_satadj_rk2_plain,
+    fused_satadj_rk2,
+    fused_satadj_rk2_plain,
 )
 from tasmania_tpu_torch.ops.sedimentation_step import (
     fused_sedimentation_rk3ws,
@@ -56,6 +64,7 @@ from tests.test_torch_kernels import (
     SMAG,
     assert_scaled,
     kessler_inputs,
+    satadj_inputs,
     sedimentation_inputs,
     smagorinsky_inputs,
     tensor,
@@ -86,6 +95,41 @@ def test_kessler_satadj_plain_vs_pallas(seed):
     )
     got = fused_kessler_satadj_rk2_plain(*[tensor(a) for a in inputs], c)
     _assert_outputs(got, ref, f"seed {seed}", tol=KESSLER_TOL)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_kessler_alone_plain_vs_pallas(seed):
+    inputs = kessler_inputs(seed)
+    c = KESSLER
+    ref = jax_kessler_alone(
+        *_jax(inputs), a=c.a, k1=c.k1, k2=c.k2, beta=c.beta, lhvw=c.lhvw, dt=c.dt, tile_x=8,
+        interpret=True,
+    )
+    got = fused_kessler_rk2_plain(*[tensor(a) for a in inputs], c)
+    _assert_outputs(got, ref, f"seed {seed}", tol=KESSLER_TOL)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_satadj_alone_plain_vs_pallas(seed):
+    inputs = satadj_inputs(seed)
+    c = KESSLER
+    ref = jax_satadj_alone(
+        *_jax(inputs), sr=c.sr, beta=c.beta, lhvw=c.lhvw, cp=c.cp, rv=c.rv, dt=c.dt, tile_x=8,
+        interpret=True,
+    )
+    got = fused_satadj_rk2_plain(*[tensor(a) for a in inputs], c)
+    _assert_outputs(got, ref, f"seed {seed}", tol=KESSLER_TOL)
+
+
+def test_pair_is_kessler_then_satadj():
+    """The pair kernel's plain version is the two single ones in sequence,
+    bitwise: Kessler's stage-1 θ-tendency feeds the adjustment's."""
+    rho, t, p_if, exn_if, qv, qc, qr = [tensor(a) for a in kessler_inputs(3)]
+    qv1, qc1, qr1, th1 = fused_kessler_rk2_plain(rho, t, p_if, exn_if, qv, qc, qr, KESSLER)
+    qv2, qc2, th2 = fused_satadj_rk2_plain(t, p_if, exn_if, qv1, qc1, th1, KESSLER)
+    pair = fused_kessler_satadj_rk2_plain(rho, t, p_if, exn_if, qv, qc, qr, KESSLER)
+    for a, b in zip(pair, (qv2, qc2, qr1, th2)):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
 
 
 def test_kessler_inputs_reach_every_branch():
@@ -176,6 +220,9 @@ def _cpu_routing(wrapper, plain, args, kwargs):
 def test_kessler_wrapper_takes_plain_on_cpu():
     args = [tensor(a) for a in kessler_inputs(2)] + [KESSLER]
     _cpu_routing(fused_kessler_satadj_rk2, fused_kessler_satadj_rk2_plain, args, {})
+    _cpu_routing(fused_kessler_rk2, fused_kessler_rk2_plain, args, {})
+    args = [tensor(a) for a in satadj_inputs(2)] + [KESSLER]
+    _cpu_routing(fused_satadj_rk2, fused_satadj_rk2_plain, args, {})
 
 
 def test_smagorinsky_wrapper_takes_plain_on_cpu():

@@ -96,14 +96,19 @@ def test_slice_three_steps_agree(both_runs):
 
 def test_port_imports_no_jax():
     """Importing the port and running a CPU step of the full flagship chain
-    (the driver's default) leaves JAX and the JAX package unloaded."""
+    (the driver's default) and of each coupling of the variant driver leaves
+    JAX and the JAX package unloaded."""
     code = (
         "import sys, torch\n"
+        "from tasmania_tpu_torch.drivers import driver_isentropic_moist as moist\n"
         "from tasmania_tpu_torch.drivers.driver_namelist_sus import run\n"
         "from tasmania_tpu_torch.drivers.namelist_sus import load_namelist\n"
         "from tasmania_tpu_torch.framework.options import StorageOptions\n"
         "so = StorageOptions(dtype=torch.float32, device='cpu')\n"
-        "run(load_namelist(nx=17, ny=17, nz=8, niter=1, so=so), verbose=False)\n"
+        "size = dict(nx=17, ny=17, nz=8, niter=1, so=so)\n"
+        "run(load_namelist(**size), verbose=False)\n"
+        "for coupling in moist.COUPLINGS:\n"
+        "    moist.run(moist.load_namelist(coupling, **size), coupling, verbose=False)\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'tasmania_tpu.')) or m == 'tasmania_tpu')\n"
         "assert not bad, bad\n"
     )
