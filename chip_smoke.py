@@ -5,7 +5,7 @@ printing one line; any failure raises and exits non-zero:
 
 1. the card's name and power limit (``nvidia-smi``); a CUDA device is required;
 2. build the hand-written CUDA kernels from ``tasmania_tpu_torch/csrc``;
-3. each of the eleven kernels at the flagship shapes (161x161x120 float32) on
+3. each of the fifteen kernels at the flagship shapes (161x161x120 float32) on
    perturbed real states against its plain PyTorch version on the same
    inputs, with the device time of one call of each (``device_ms``: the
    device operations' time over 20 calls under ``torch.profiler``, so ``ms``
@@ -14,8 +14,9 @@ printing one line; any failure raises and exits non-zero:
    CUDA events and the kernel's ``timed_by`` says so),
    the bytes it must move and its bound at 3.35 TB/s.  Tolerances, as a share
    of the largest magnitude of the plain output (su and sv both of the
-   momentum vector's): paste bitwise; smoothing 1e-6; each of the three RK3WS
-   stages of si_stage (damping on the last) 1e-5 (FMA contraction in the
+   momentum vector's): paste bitwise (N arrays, and one); smoothing 1e-6;
+   each of the three RK3WS stages of si_stage (damping on the last) 1e-5
+   (FMA contraction in the
    stencils moves the float32 Montgomery potential by a few units of its
    last place, which reaches the momenta through the pressure gradient);
    Kessler + saturation adjustment, Kessler alone, saturation adjustment
@@ -23,14 +24,23 @@ printing one line; any failure raises and exits non-zero:
    FMA contraction, and PyTorch dividing by a scalar as a product with the
    reciprocal on the card, move the last bits of each stage, and the powers
    and exponentials come from the same CUDA math library in both); the
-   momentum epilogue of the tendency-carrying stage 1e-5 on su and sv, as
-   si_stage's.
-   Smagorinsky and vertical advection add small updates to large momenta, so
-   each of their outputs is held to 1e-5 of its largest update plus 4 float32
+   momentum epilogue of the tendency-carrying stage and the momentum step of
+   the unfused stage (fifth order, without and with tendencies) 1e-5 on su
+   and sv, as si_stage's; the isentropic diagnostics in their three modes
+   (p, exn, mtg, h, rho, T) 1e-5 of each output (the kernel sums level by
+   level, the plain version's cumulative sums on the card in another order),
+   rho 4e-5 (``DIAG_RHO_TOL``: it divides by a difference of two summed
+   heights).  Smagorinsky (both stages, and each stage alone) and vertical
+   advection add small updates to large momenta, so each of their outputs
+   is held to 1e-5 of its largest update plus 4 float32
    ulps of its magnitude (the rounding of the result; su's ulp is 4.9e-4,
    about 0.1% of its Smagorinsky update here); so are the advection of the
    density and water of the tendency-carrying stage, and the epilogue's s
-   and q (updates against the "now" values);
+   and q (updates against the "now" values).  The unfused stage's kernels
+   are also held at the mountain wave's shapes (161x7x120: one interior row
+   in y), as phase 8 runs them: the advection of s at third order (its
+   increment, as above), the Montgomery potential and the momentum step at
+   third order (1e-5), each timed there too (``also`` in the summary);
 4. the port's first slice (dycore -> diagnostics -> smoothing -> velocities,
    ``namelist_sus.slice_skip``), 1 + 100 steps, with its launch counts and
    agreement with ``tasmania_tpu_torch/drivers/slice_reference.json`` to 1e-4
@@ -73,14 +83,34 @@ printing one line; any failure raises and exits non-zero:
    6.2e-5 (sts's vmax), and within 4.4e-5 on every other number but qc
    (1.1e-4, sts's qc_max).
 
-Every phase checks the launch counts exactly: each kernel of the path as
-often as its path launches it a step, and no other kernel.  The last two
+8. the deep-domain mountain wave (BASELINE config 3) through
+   ``driver_mountain_wave.run_case``: 161x1x120 (the numerical grid
+   161x7x120), θ at the top 420 K, damping depth 60, 10 h at dt 20 s (1800
+   steps, the first a warm-up), float32: the exact launch counts of the
+   unfused dry stage, finiteness, its ms/step, the analytic gate of
+   ``tests/test_mountain_wave_validation.py:146-151`` (correlation >= 0.95
+   over |x| <= 2a and >= 0.93 over 4a, amplitude ratio in (0.7, 1.2)), and
+   agreement with the JAX package's float32 result
+   (``tasmania_tpu_torch/drivers/mountain_wave_reference.json``): ``MW_ABS_TOL``
+   on the correlations, ``MW_REL_TOL`` on the amplitude ratios and umax.
+   Float32 rounding of the Montgomery potential (a last digit of 0.03 m2/s2,
+   1e-4 m/s a step through the pressure gradient) moves the wave's extremes:
+   the port's float32 run on the CPU came within 7.1e-3 (corr), 2.2e-3 (the
+   window correlations), 5.6e-2 (the amplitude ratio) and 1.0e-4 (umax) of
+   that reference.
+
+The isentropic diagnostics kernel serves every diagnostics call, so phases
+4-7 count it too (``LAUNCHES_PER_STEP``).  Every phase checks the launch
+counts exactly: each kernel of the path as often as its path launches it a
+step, and no other kernel.  The last two
 lines are the card's name and power limit, then ``{"ok": true, "device":
 {...}}``; the line before them is a JSON summary of the kernels, their
 launches in the full-size run of the first path that runs them (``path``:
-the flagship, phase 5, for the seven of the SUS chain; fc for the two
-stage kernels, ps for Kessler and saturation adjustment alone), their
-launches a step on every path, and their times.
+the flagship, phase 5, for the seven of the SUS chain and the diagnostics;
+fc for the two stage kernels, ps for Kessler and saturation adjustment
+alone, the mountain wave for the momentum step; none for the single paste
+and the Smagorinsky stage alone, which no path runs), their launches a step
+on every path, and their times.
 """
 
 from __future__ import annotations
@@ -98,6 +128,14 @@ FLAGSHIP_TOL = 1e-4
 FLAGSHIP_QC_TOL = 1e-3
 RAIN_TOL = 1e-3
 KERNEL_TOL = 1e-5
+# the density of the isentropic diagnostics, rho = s·dθ/(h[k] - h[k+1]),
+# divides by the difference of two heights summed over up to 120 levels:
+# at 161x161x120 the heights reach 1.2e4 m (a float32 ulp of 1e-3 m) and
+# differ by about 100 m, so summing in another order (the kernel level by
+# level, the plain version's cumulative sum on the card in blocks) moves rho
+# by about 1e-5 of its value per ulp of h (1.2e-5 of its largest magnitude
+# on an H100 80GB HBM3)
+DIAG_RHO_TOL = 4e-5
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 F32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
 TPU_VALIDATION = {"umax": 23.62408, "vmax": 1.07557}  # BENCH_NOTES.json "current"
@@ -115,20 +153,46 @@ VARIANTS = ("fc", "lfc", "ps", "sts", "ssus")
 # tendencies (fc, lfc) each dycore stage is the two-kernel stage and the
 # physics chain is plain PyTorch; ps runs the SUS chain's kernels but for the
 # pair, whose processes step apart; sts's steppers never fuse
+# the isentropic diagnostics (fused_isentropic_diagnostics) serve every
+# diagnostics call: the physics chain's diagnostics once a step on every
+# path; with tendencies also the Montgomery potential of each stage (3 a
+# step) and, in fc, the dycore's fast diagnostics after each stage (3 more)
 _SUS = {"si_stage": 3, "paste_x_edges_multi": 4, "fused_smoothing": 1, "fused_smagorinsky_rk2": 2,
         "fused_kessler_satadj_rk2": 1, "fused_vertical_advection_rk3ws": 1,
-        "fused_sedimentation_rk3ws": 1}
+        "fused_sedimentation_rk3ws": 1, "fused_isentropic_diagnostics": 1}
 _TWO_KERNEL = {"fused_advection_fields": 3, "fused_momentum_epilogue": 3, "fused_smoothing": 1,
                "paste_x_edges_multi": 1}
 LAUNCHES_PER_STEP = {
+    "slice": {"si_stage": 3, "paste_x_edges_multi": 4, "fused_smoothing": 1,
+              "fused_isentropic_diagnostics": 1},
     "sus": _SUS,
     "ssus": _SUS,
-    "fc": _TWO_KERNEL,
-    "lfc": _TWO_KERNEL,
+    "fc": {**_TWO_KERNEL, "fused_isentropic_diagnostics": 6},
+    "lfc": {**_TWO_KERNEL, "fused_isentropic_diagnostics": 4},
     "ps": {**{k: n for k, n in _SUS.items() if k != "fused_kessler_satadj_rk2"},
            "fused_kessler_rk2": 1, "fused_satadj_rk2": 1},
-    "sts": {"si_stage": 3, "paste_x_edges_multi": 4, "fused_smoothing": 1},
+    "sts": {"si_stage": 3, "paste_x_edges_multi": 4, "fused_smoothing": 1,
+            "fused_isentropic_diagnostics": 1},
+    # the unfused dry stage: advection of s, the Montgomery potential of the
+    # stepped density and the momentum step, thrice, and the driver's
+    # Montgomery refresh after the step
+    "mountain_wave": {"fused_advection_fields": 3, "fused_momentum_step": 3,
+                      "fused_isentropic_diagnostics": 4},
 }
+# phase 8, the deep-domain mountain wave (tests/test_mountain_wave_validation.py:115-151)
+MOUNTAIN_WAVE = dict(nx=161, nz=120, hours=10.0, dt=20.0, theta_top=420.0, damp_depth=60,
+                     damp_max=5e-4)
+# the analytic gate: correlation over |x| <= 2a and 4a, the 2a amplitude ratio
+MW_GATE = {"corr_2a": 0.95, "corr_4a": 0.93, "amplitude_ratio_2a": (0.7, 1.2)}
+# agreement with the JAX float32 result (mountain_wave_reference.json):
+# absolute on the correlations, relative on the amplitude ratios and umax
+# (make_torch_mountain_wave_reference.py --check-port: the port's float32 run
+# on the CPU came within 7.1e-3 on corr, 2.2e-3 on the other correlations,
+# 5.6e-2 on the amplitude ratios and 1.0e-4 on umax; the limits are about
+# twice those readings)
+MW_ABS_TOL = {"corr": 1.5e-2, "corr_focused": 5e-3, "corr_2a": 5e-3, "corr_3a": 5e-3,
+              "corr_4a": 5e-3}
+MW_REL_TOL = {"amplitude_ratio": 0.1, "amplitude_ratio_2a": 0.1, "umax": 2e-4}
 
 
 def variant_tol(coupling: str, key: str) -> float:
@@ -269,8 +333,10 @@ def main() -> int:
     import numpy as np
 
     from tasmania_tpu_torch.drivers import driver_isentropic_moist as moist
+    from tasmania_tpu_torch.drivers import driver_mountain_wave as mw
     from tasmania_tpu_torch.drivers import driver_namelist_sus as drv
     from tasmania_tpu_torch.drivers.namelist_sus import load_namelist
+    from tasmania_tpu_torch.framework.options import StorageOptions
     from tasmania_tpu_torch.framework.steppers import TendencyStepper
     from tasmania_tpu_torch.isentropic.physics.turbulence import IsentropicSmagorinsky
     from tasmania_tpu_torch.isentropic.physics.vertical_advection import IsentropicVerticalAdvection
@@ -281,6 +347,12 @@ def main() -> int:
         fused_advection_fields_plain,
         fused_momentum_epilogue,
         fused_momentum_epilogue_plain,
+        fused_momentum_step,
+        fused_momentum_step_plain,
+    )
+    from tasmania_tpu_torch.ops.diagnostics_step import (
+        fused_isentropic_diagnostics,
+        fused_isentropic_diagnostics_plain,
     )
     from tasmania_tpu_torch.ops.kessler_step import (
         KesslerConstants,
@@ -291,7 +363,11 @@ def main() -> int:
         fused_satadj_rk2,
         fused_satadj_rk2_plain,
     )
-    from tasmania_tpu_torch.ops.paste import paste_x_edges_multi, paste_x_edges_multi_plain
+    from tasmania_tpu_torch.ops.paste import (
+        paste_x_edges,
+        paste_x_edges_multi,
+        paste_x_edges_multi_plain,
+    )
     from tasmania_tpu_torch.ops.sedimentation_step import (
         fused_sedimentation_rk3ws,
         fused_sedimentation_rk3ws_plain,
@@ -300,6 +376,8 @@ def main() -> int:
     from tasmania_tpu_torch.ops.smagorinsky_step import (
         fused_smagorinsky_rk2,
         fused_smagorinsky_rk2_plain,
+        smag_stage,
+        smagorinsky_stage_plain,
     )
     from tasmania_tpu_torch.ops.smoothing_step import fused_smoothing, fused_smoothing_plain
     from tasmania_tpu_torch.ops.vertical_advection_step import (
@@ -367,6 +445,16 @@ def main() -> int:
         phase("kernel", f"{name}: {ms:.3f} ms{unit} (plain {plain_ms:.3f} ms{lib}); "
               f"{b['bytes'] / 1e6:.1f} MB, bound {b['bound_ms']:.4f} ms by {b['bound_by']}; "
               f"timed by {kernels[name]['timed_by']}")
+
+    def record_also(name, label, kernel_fn, plain_fn, b):
+        """Time a recorded kernel at other shapes or in another mode, kept
+        under its ``also`` entry, ``label``."""
+        (ms, how), (plain_ms, plain_how) = device_ms(kernel_fn), device_ms(plain_fn)
+        kernels[name].setdefault("also", {})[label] = dict(
+            ms=ms, plain_ms=plain_ms, bytes=b["bytes"], bound_ms=b["bound_ms"], bound_by=b["bound_by"],
+            timed_by="profiler" if how == plain_how == "profiler" else "cuda events for one or both")
+        phase("kernel", f"{name} {label}: {ms:.3f} ms (plain {plain_ms:.3f} ms); "
+              f"{b['bytes'] / 1e6:.2f} MB, bound {b['bound_ms']:.4f} ms by {b['bound_by']}")
 
     # si_stage: the three stages, damping on the last
     stage_in = dict(
@@ -442,6 +530,17 @@ def main() -> int:
            lambda: paste_x_edges_multi_plain(fulls, lo, hi), b,
            library_fn=lambda: torch._foreach_copy_(views, lo + hi))
 
+    # the single-array paste: the same kernel with one array, bitwise
+    full1, lo1, hi1 = fulls[0].clone(), lo[0], hi[0]
+    got = paste_x_edges(full1.clone(), lo1, hi1)
+    ref = paste_x_edges_multi_plain([full1.clone()], [lo1], [hi1])[0]
+    if not torch.equal(got, ref):
+        raise AssertionError("paste_x_edges differs from its plain version")
+    record("paste_x_edges", "paste.cu", "tasmania_tpu/ops/paste.py:23", 0.0,
+           lambda: paste_x_edges(full1, lo1, hi1),
+           lambda: paste_x_edges_multi_plain([full1], [lo1], [hi1]), bound(2 * nbytes([lo1, hi1]), 0.0),
+           library_fn=lambda: torch._foreach_copy_([full1[:nb], full1[-nb:]], [lo1, hi1]))
+
     # Kessler + saturation adjustment: the initial thermodynamics, qv near
     # saturation, qc on both sides of the autoconversion threshold, qr with zeros
     ke = stepper_of(KesslerMicrophysics).coupling.components[0]
@@ -481,6 +580,24 @@ def main() -> int:
     record("fused_smagorinsky_rk2", "smagorinsky.cu", "tasmania_tpu/ops/smagorinsky_step.py:149",
            worst, lambda: fused_smagorinsky_rk2(*sin, **skw),
            lambda: fused_smagorinsky_rk2_plain(*sin, **skw), b, unit=" (both stages)")
+
+    # one Smagorinsky stage alone: the RK2's first on the base state, then its
+    # second from the first's output, each against the plain stage
+    k1 = {k: skw[k] for k in ("dx", "dy", "cs", "nb")}
+    st1 = (s_now, sin[1], sin[2], sin[1], sin[2])
+    got1 = smag_stage(*st1, c=0.5 * skw["dt"], **k1)
+    ref1 = smagorinsky_stage_plain(*st1, c=0.5 * skw["dt"], **k1)
+    w1, inc1 = check_increments("smag_stage (stage 1)", got1, ref1, sin[1:], KERNEL_TOL)
+    st2 = (s_now, *ref1, sin[1], sin[2])
+    got = smag_stage(*st2, c=skw["dt"], **k1)
+    ref = smagorinsky_stage_plain(*st2, c=skw["dt"], **k1)
+    w2, inc2 = check_increments("smag_stage (stage 2)", got, ref, sin[1:], KERNEL_TOL)
+    phase("check", f"smag_stage errors as a share of the largest increment (su sv), stage 1 {inc1}, "
+          f"stage 2 {inc2}")
+    record("smag_stage", "smagorinsky.cu", "tasmania_tpu/ops/smagorinsky_step.py:33", max(w1, w2),
+           lambda: smag_stage(*st2, c=skw["dt"], **k1),
+           lambda: smagorinsky_stage_plain(*st2, c=skw["dt"], **k1),
+           bound(nbytes(st2) + nbytes(ref), 100.0 * s_now.numel()))
 
     # vertical advection RK3WS: a θ-tendency of a few hundredths of K/s
     va = stepper_of(IsentropicVerticalAdvection).coupling.components[0]
@@ -575,10 +692,115 @@ def main() -> int:
            max(w1, w2), lambda: fused_momentum_epilogue(*mom_args, nb=nl.nb, c=c),
            lambda: fused_momentum_epilogue_plain(*mom_args, nb=nl.nb, c=c),
            bound(nbytes(flat) + nbytes(ref), 160.0 * s_now.numel()))
+    # the momentum step of the unfused stage at the flagship shapes, fifth
+    # order, without and with momentum tendencies: from the stepped density
+    # of the tendency-carrying stage and its Montgomery potential
+    ms_args = (stage_in["u"], stage_in["v"], su_now, sv_now, stage_in["su_int"], stage_in["sv_int"],
+               s_now, raw["montgomery_potential"], adv[0], mtg_e)
+    mkw = dict(order=5, nb=nl.nb, dt=c.dt, dx=prog.dx, dy=prog.dy, eps=prog.eps)
+    worst, rels = 0.0, []
+    for tnd in ((None, None), (noise(cell, 0.05), noise(cell, 0.05))):
+        got = fused_momentum_step(*ms_args, *tnd, **mkw)
+        ref = fused_momentum_step_plain(*ms_args, *tnd, **mkw)
+        momentum = amax(*ref)
+        w, rel = check_outputs("fused_momentum_step", got, ref, [momentum] * 2, KERNEL_TOL)
+        worst, rels = max(worst, w), rels + [rel]
+    phase("check", "fused_momentum_step (order 5) relative errors (su sv), without | with tendencies "
+          f"{' | '.join(rels)}")
+    # per cell: two fifth-order divergences (4 fluxes each) and the pressure gradient
+    record("fused_momentum_step", "advection.cu", "tasmania_tpu/ops/advection_step.py:282", worst,
+           lambda: fused_momentum_step(*ms_args, **mkw),
+           lambda: fused_momentum_step_plain(*ms_args, **mkw),
+           bound(nbytes(ms_args) + nbytes(ref), 200.0 * s_now.numel()))
+
+    # the isentropic diagnostics at the flagship shapes, in its three modes
+    dkw = dict(pt=prog.pt, dz=dia.dz, g=dia.rpc["gravitational_acceleration"],
+               cp=dia.rpc["specific_heat_of_dry_air_at_constant_pressure"],
+               rd=dia.rpc["gas_constant_of_dry_air"], pref=dia.rpc["air_pressure_at_sea_level"])
+    d_in = (perturbed(s_now), dycore.topography_steady, dia.theta)
+    worst, rels, diag_b = 0.0, [], {}
+    for mode in ("mtg", "dry", "moist"):
+        got = fused_isentropic_diagnostics(*d_in, mode=mode, **dkw)
+        ref = fused_isentropic_diagnostics_plain(*d_in, mode=mode, **dkw)
+        got, ref = ((got,), (ref,)) if mode == "mtg" else (got, ref)
+        tols = [DIAG_RHO_TOL if k == 4 else KERNEL_TOL for k in range(len(ref))]
+        w, rel = 0.0, []
+        for k, (a, r, tol) in enumerate(zip(got, ref, tols)):
+            wk, rk = check_outputs(f"fused_isentropic_diagnostics ({mode}) output {k}", [a], [r],
+                                   [amax(r)], tol)
+            w, rel = max(w, wk), rel + [rk]
+        worst, rels = max(worst, w), rels + [f"{mode}: {' '.join(rel)}"]
+        # per level: one power, the scans, the height increment, rho and T
+        diag_b[mode] = bound(nbytes(d_in) + nbytes(ref), {"mtg": 30.0, "dry": 45.0, "moist": 55.0}[mode]
+                             * s_now.numel())
+    phase("check", f"fused_isentropic_diagnostics relative errors (p exn mtg h rho T) {' | '.join(rels)}")
+    record("fused_isentropic_diagnostics", "diagnostics.cu", "tasmania_tpu/ops/diagnostics_step.py:103",
+           worst, lambda: fused_isentropic_diagnostics(*d_in, mode="moist", **dkw),
+           lambda: fused_isentropic_diagnostics_plain(*d_in, mode="moist", **dkw), diag_b["moist"],
+           unit=" (moist)")
+    for mode in ("mtg", "dry"):
+        record_also("fused_isentropic_diagnostics", f"{mode}, 161x161x120",
+                    lambda m=mode: fused_isentropic_diagnostics(*d_in, mode=m, **dkw),
+                    lambda m=mode: fused_isentropic_diagnostics_plain(*d_in, mode=m, **dkw), diag_b[mode])
+
+    # the unfused stage's three kernels at the mountain wave's shapes
+    # (161x7x120: one interior row in y, v zero), third order, as phase 8
+    # runs them
+    mdom, mstate, mcore, mdiag, mpt = mw.build(
+        MOUNTAIN_WAVE["nx"], MOUNTAIN_WAVE["nz"], theta_top=MOUNTAIN_WAVE["theta_top"],
+        damp_depth=MOUNTAIN_WAVE["damp_depth"], damp_max=MOUNTAIN_WAVE["damp_max"],
+        so=StorageOptions(dtype=torch.float32, device=device))
+    mraw = {k: v.data for k, v in mstate.items() if k != "time"}
+    mprog, mhb = mcore.prognostic, mdom.horizontal_boundary
+    mcell = mraw["air_isentropic_density"].shape
+    ms_now = mraw["air_isentropic_density"]
+    mu, mv = perturbed(mraw["x_velocity_at_u_locations"], 0.05), mraw["y_velocity_at_v_locations"]
+    ms_int = perturbed(ms_now)
+    akw3 = dict(nb=mprog.nb, dt=MOUNTAIN_WAVE["dt"], dx=mprog.dx, dy=mprog.dy, order=3)
+    a3 = (mu, mv, [ms_now], [ms_int])
+    got = fused_advection_fields(*a3, **akw3)
+    madv = fused_advection_fields_plain(*a3, **akw3)
+    w, inc = check_increments("fused_advection_fields (order 3)", got, madv, [ms_now], KERNEL_TOL)
+    phase("check", f"fused_advection_fields (order 3, {tuple(mcell)}) error as a share of the largest "
+          f"increment {inc}")
+    kernels["fused_advection_fields"]["max_abs_err"] = max(kernels["fused_advection_fields"]["max_abs_err"], w)
+    record_also("fused_advection_fields", "order 3, s alone, 161x7x120",
+                lambda: fused_advection_fields(*a3, **akw3), lambda: fused_advection_fields_plain(*a3, **akw3),
+                bound(nbytes([mu, mv, ms_now, ms_int]) + nbytes(madv), 40.0 * ms_now.numel()))
+    ms_e = mhb.enforce_field(madv[0], "air_isentropic_density")
+    mhs = mcore.topography_steady
+    mkw3 = dict(order=3, nb=mprog.nb, dt=MOUNTAIN_WAVE["dt"], dx=mprog.dx, dy=mprog.dy, eps=mprog.eps)
+    mtg_args = (ms_e, mhs, mdiag.theta)
+    mkd = dict(pt=mpt, dz=mdiag.dz, g=dkw["g"], cp=dkw["cp"], rd=dkw["rd"], pref=dkw["pref"], mode="mtg")
+    got = fused_isentropic_diagnostics(*mtg_args, **mkd)
+    mmtg = fused_isentropic_diagnostics_plain(*mtg_args, **mkd)
+    w, rel = check_outputs("fused_isentropic_diagnostics (mtg, 161x7x120)", [got], [mmtg], [amax(mmtg)],
+                           KERNEL_TOL)
+    kernels["fused_isentropic_diagnostics"]["max_abs_err"] = max(
+        kernels["fused_isentropic_diagnostics"]["max_abs_err"], w)
+    record_also("fused_isentropic_diagnostics", "mtg, 161x7x120",
+                lambda: fused_isentropic_diagnostics(*mtg_args, **mkd),
+                lambda: fused_isentropic_diagnostics_plain(*mtg_args, **mkd),
+                bound(nbytes(mtg_args) + nbytes([mmtg]), 30.0 * ms_now.numel()))
+    m3 = (mu, mv, mraw["x_momentum_isentropic"], mraw["y_momentum_isentropic"],
+          perturbed(mraw["x_momentum_isentropic"]), mraw["y_momentum_isentropic"],
+          ms_now, mraw["montgomery_potential"], ms_e, mmtg)
+    got = fused_momentum_step(*m3, **mkw3)
+    ref = fused_momentum_step_plain(*m3, **mkw3)
+    w, rel2 = check_outputs("fused_momentum_step (order 3, 161x7x120)", got, ref, [amax(*ref)] * 2,
+                            KERNEL_TOL)
+    kernels["fused_momentum_step"]["max_abs_err"] = max(kernels["fused_momentum_step"]["max_abs_err"], w)
+    phase("check", f"at 161x7x120: fused_isentropic_diagnostics (mtg) relative error {rel}; "
+          f"fused_momentum_step (order 3) relative errors (su sv) {rel2}")
+    record_also("fused_momentum_step", "order 3, 161x7x120", lambda: fused_momentum_step(*m3, **mkw3),
+                lambda: fused_momentum_step_plain(*m3, **mkw3),
+                bound(nbytes(m3) + nbytes(ref), 150.0 * ms_now.numel()))
     phase("timing", f"profiler sessions with device time {profiler_sessions['recorded']}, "
           f"without {profiler_sessions['empty']}")
     del (fields, fulls, lo, hi, views, got, ref, stage_in, args, flat_in, kin, sin, vin, vq, din,
-         adv_args, adv, mtg_e, mom_args, flat, base, q_now, s_int, state, raw, dycore, physics, domain)
+         adv_args, adv, mtg_e, mom_args, flat, base, q_now, s_int, state, raw, dycore, physics, domain,
+         full1, lo1, hi1, st1, st2, got1, ref1, ms_args, d_in, mdom, mstate, mcore, mdiag, mraw, mu,
+         mv, ms_int, a3, madv, ms_e, mhs, mtg_args, mmtg, m3)
 
     def drive(tag, run, nl_run, per_step, reference, tol_of, zero_tol):
         """One ``run(nl_run)`` from zeroed launch counts: every kernel
@@ -611,8 +833,7 @@ def main() -> int:
         return lambda n: drv.run(n, skip=skip, verbose=False)
 
     # -- 4. the first slice through its kernels --------------------------------
-    slice_launches = {"si_stage": 3, "paste_x_edges_multi": 4, "fused_smoothing": 1}
-    drive("slice", sus(nl.slice_skip), nl, slice_launches, "slice_reference.json",
+    drive("slice", sus(nl.slice_skip), nl, LAUNCHES_PER_STEP["slice"], "slice_reference.json",
           lambda key: SLICE_TOL, SLICE_TOL)
 
     # -- 5. the full flagship step through all seven kernels (the main path) ----
@@ -648,11 +869,55 @@ def main() -> int:
               "(for information)")
         del res
 
+    # -- 8. the deep-domain mountain wave (the unfused dry stage) --------------
+    mwc = MOUNTAIN_WAVE
+    steps = int(round(mwc["hours"] * 3600.0 / mwc["dt"]))
+    mref = json.loads(Path(mw.__file__).with_name("mountain_wave_reference.json").read_text())
+    if (mref["config"]["nx"], mref["config"]["nz"], mref["config"]["steps"]) != (mwc["nx"], mwc["nz"], steps):
+        raise AssertionError("mountain_wave_reference.json is not at phase 8's configuration")
+    torch.cuda.synchronize()
+    _lib.reset_launch_counts()
+    res = mw.run_case(mwc["nx"], mwc["nz"], mwc["hours"], mwc["dt"], theta_top=mwc["theta_top"],
+                      damp_depth=mwc["damp_depth"], damp_max=mwc["damp_max"],
+                      so=StorageOptions(dtype=torch.float32, device=device), verbose=False)
+    counts = dict(_lib.launch_counts)
+    per_step = LAUNCHES_PER_STEP["mountain_wave"]
+    for name in sorted(set(per_step) | set(counts)):
+        if counts.get(name, 0) != steps * per_step.get(name, 0):
+            raise AssertionError(f"mountain wave: {name} launched {counts.get(name, 0)} times, "
+                                 f"expected {steps * per_step.get(name, 0)}")
+    bad = [k for k, fa in res["fields"].items() if not bool(torch.isfinite(fa.data).all())]
+    if bad:
+        raise AssertionError(f"mountain wave: non-finite fields: {bad}")
+    lo_amp, hi_amp = MW_GATE["amplitude_ratio_2a"]
+    if not (res["corr_2a"] >= MW_GATE["corr_2a"] and res["corr_4a"] >= MW_GATE["corr_4a"]
+            and lo_amp < res["amplitude_ratio_2a"] < hi_amp):
+        raise AssertionError(f"mountain wave: analytic gate failed: corr_2a {res['corr_2a']}, "
+                             f"corr_4a {res['corr_4a']}, amplitude ratio {res['amplitude_ratio_2a']}")
+    diffs = []
+    for key, tol in {**MW_ABS_TOL, **MW_REL_TOL}.items():
+        dev = abs(res[key] - mref[key]) / (abs(mref[key]) if key in MW_REL_TOL else 1.0)
+        diffs.append(f"{key}={res[key]:.7g}({dev:.1e})")
+        if not dev <= tol:
+            raise AssertionError(f"mountain wave {key}: {res[key]} vs reference {mref[key]} "
+                                 f"(deviation {dev:.2e} > {tol})")
+    phase("mountain-wave", f"{mwc['nx']}x1x{mwc['nz']} (numerical {mwc['nx']}x7x{mwc['nz']}), "
+          f"theta top {mwc['theta_top']} K, damping depth {mwc['damp_depth']}, {steps} steps of "
+          f"{mwc['dt']} s: {res['ms_per_step']:.3f} ms/step on {card}; launches {counts}")
+    phase("mountain-wave-gate", f"corr_2a {res['corr_2a']:.4f} (>= {MW_GATE['corr_2a']}), corr_3a "
+          f"{res['corr_3a']:.4f}, corr_4a {res['corr_4a']:.4f} (>= {MW_GATE['corr_4a']}), amplitude "
+          f"ratio {res['amplitude_ratio_2a']:.4f} in ({lo_amp}, {hi_amp}); corr_focused "
+          f"{res['corr_focused']:.4f}, rms_err_focused {res['rms_err_focused']:.4g}")
+    phase("mountain-wave-reference", " ".join(diffs))
+    path_counts["mountain_wave"], path_steps["mountain_wave"] = counts, steps
+    del res
+
     # each kernel's launches in the full-size run of the first path that runs
-    # it (the flagship for the seven of the SUS chain), and in every path
+    # it (the flagship for the seven of the SUS chain), and in every path; the
+    # single paste and the Smagorinsky stage alone are on no path
     for name, entry in kernels.items():
-        entry["path"] = next(p for p, n in path_counts.items() if n.get(name, 0))
-        entry["launches"] = path_counts[entry["path"]][name]
+        entry["path"] = next((p for p, n in path_counts.items() if n.get(name, 0)), None)
+        entry["launches"] = path_counts[entry["path"]][name] if entry["path"] else 0
         entry["launches_per_step_by_path"] = {
             p: n.get(name, 0) / path_steps[p] for p, n in path_counts.items()
         }

@@ -1,9 +1,9 @@
 // Shared device helpers of the port's kernels: the relaxed-BC select, the
-// positivity clip, the fifth-order upwind flux and its divergence.  Every
-// formula keeps the operation order of the plain PyTorch versions in
-// tasmania_tpu_torch/ops/, so kernel and plain version differ only by FMA
-// contraction in the stencils; the Montgomery scans match their plain version
-// rounding for rounding (mul_rn/add_rn).
+// positivity clip, the third- and fifth-order upwind fluxes and their
+// divergences.  Every formula keeps the operation order of the plain PyTorch
+// versions in tasmania_tpu_torch/ops/, so kernel and plain version differ
+// only by FMA contraction in the stencils; the column scans keep the
+// roundings of a level-by-level sum (mul_rn/add_rn).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -80,6 +80,41 @@ __device__ __forceinline__ T div5(const T* __restrict__ u, const T* __restrict__
                   phi(cg - nz), phi(cg), phi(cg + nz), phi(cg + 2 * nz));
   }
   return (fx[1] - fx[0]) / dx + (fy[1] - fy[0]) / dy;
+}
+
+// third-order upwind flux at a face with velocity w and the four cell values
+// pm2..pp1 around it (face between pm1 and p0)
+template <typename T>
+__device__ __forceinline__ T flux3(T w, T pm2, T pm1, T p0, T pp1) {
+  T flux4 = w / T(12) * (T(7) * (p0 + pm1) - (pp1 + pm2));
+  T aw = w < T(0) ? -w : w;
+  return flux4 - aw / T(12) * (T(3) * (p0 - pm1) - (pp1 - pm2));
+}
+
+// flux divergence of cell (i, j, k) with upwind fluxes of Order 3 or 5 (the
+// fifth order is div5 itself); needs e <= i, j and i, j < n - e, e = 2 for
+// the third order
+template <int Order, typename T, typename F>
+__device__ __forceinline__ T div_upwind(const T* __restrict__ u, const T* __restrict__ v, F phi,
+                                        int i, int j, int k, int nx, int ny, int nz, T dx, T dy) {
+  static_assert(Order == 3 || Order == 5, "upwind order 3 or 5");
+  if constexpr (Order == 5) {
+    return div5(u, v, phi, i, j, k, nx, ny, nz, dx, dy);
+  } else {
+    const int64_t sx = int64_t(ny) * nz;
+    const int64_t c = int64_t(i) * sx + int64_t(j) * nz + k;
+    T fx[2], fy[2];
+#pragma unroll
+    for (int f = 0; f < 2; ++f) {
+      const int64_t cf = c + f * sx;
+      fx[f] = flux3(u[int64_t(i + f) * sx + int64_t(j) * nz + k], phi(cf - 2 * sx), phi(cf - sx),
+                    phi(cf), phi(cf + sx));
+      const int64_t cg = c + f * nz;
+      fy[f] = flux3(v[(int64_t(i) * (ny + 1) + j + f) * nz + k], phi(cg - 2 * nz), phi(cg - nz),
+                    phi(cg), phi(cg + nz));
+    }
+    return (fx[1] - fx[0]) / dx + (fy[1] - fy[0]) / dy;
+  }
 }
 
 }  // namespace tt

@@ -1,9 +1,15 @@
 """Relaxed (Lehmann/Davies) lateral boundary conditions (counterpart of
-``tasmania_tpu/domain/boundaries/relaxed.py``, two-dimensional grids only).
+``tasmania_tpu/domain/boundaries/relaxed.py``): two-dimensional grids and
+grids one cell deep in y (``ny == 1``); one cell deep in x is not ported.
 
 The tanh relaxation ramp over ``nr <= 8`` layers becomes one host-built
 coefficient matrix γ, kept as a buffer; enforcement is the three-way select
 ``γ == 0 -> φ; γ == 1 -> ref; else φ - γ(φ - ref)``.
+
+On a grid with ``ny == 1`` the numerical grid is ``2·nb + 1`` rows deep in y:
+fields are padded by repeating the physical row, γ relaxes only the x-edges
+of row nb, and enforcement copies row nb over the nb-wide y-frame, so every
+row of the numerical grid carries the same values.
 """
 
 from __future__ import annotations
@@ -15,6 +21,7 @@ from tasmania_tpu_torch.domain.horizontal_boundary import (
     HorizontalBoundary,
     change_dims,
     field_extent,
+    repeat_axis,
 )
 
 
@@ -37,9 +44,12 @@ class Relaxed(HorizontalBoundary):
     """Relaxation toward the reference state over ``nr`` boundary layers."""
 
     def __init__(self, grid, nb, storage_options=None, nr: int = 8):
-        if grid.nx == 1 or grid.ny == 1:
-            raise NotImplementedError("the one-dimensional relaxed boundary is not ported")
-        if not (nr <= grid.nx / 2 and nr <= grid.ny / 2):
+        if grid.nx == 1:
+            raise NotImplementedError("the relaxed boundary of a grid with nx == 1 is not ported")
+        self.one_dx = grid.ny == 1
+        if self.one_dx and not nr <= grid.nx / 2:
+            raise ValueError("nr cannot exceed nx/2")
+        if not self.one_dx and not (nr <= grid.nx / 2 and nr <= grid.ny / 2):
             raise ValueError("nr cannot exceed nx/2, ny/2")
         if nr > 8:
             raise ValueError("nr cannot exceed 8")
@@ -57,7 +67,7 @@ class Relaxed(HorizontalBoundary):
         return self.kwargs["nr"]
 
     ni = property(lambda self: self.nx)
-    nj = property(lambda self: self.ny)
+    nj = property(lambda self: 2 * self.nb + 1 if self.one_dx else self.ny)
 
     def get_numerical_xaxis(self, dims=None):
         return change_dims(self.physical_grid.x, dims)
@@ -66,13 +76,24 @@ class Relaxed(HorizontalBoundary):
         return change_dims(self.physical_grid.x_at_u_locations, dims)
 
     def get_numerical_yaxis(self, dims=None):
+        if self.one_dx:
+            return repeat_axis(self.physical_grid.y, self.nb, dims)
         return change_dims(self.physical_grid.y, dims)
 
     def get_numerical_yaxis_staggered(self, dims=None):
+        if self.one_dx:
+            return repeat_axis(self.physical_grid.y_at_v_locations, self.nb, dims)
         return change_dims(self.physical_grid.y_at_v_locations, dims)
 
     def get_numerical_field(self, field, field_name=None):
-        return field
+        """The host array ``field`` on the numerical grid: with ``ny == 1``
+        its y rows padded by repeating the first and the last."""
+        if not self.one_dx:
+            return field
+        ny = field.shape[1]
+        rows = np.clip(np.arange(-self.nb, ny + self.nb), 0, ny - 1)
+        # numpy lays an index along axis 1 out last: copy to row-major order
+        return np.ascontiguousarray(field[:, rows])
 
     def enforce_field(self, field, field_name=None, field_units=None):
         mi, mj, _ = field_extent(field_name, self.ni, self.nj, self.nz)
@@ -81,7 +102,13 @@ class Relaxed(HorizontalBoundary):
             g = g[..., None]
         ref = self.ref_field(field_name, field_units)
         ref = ref[tuple(slice(0, m) for m in field.shape)]
-        return enforce_relaxed(field, g, ref)
+        out = enforce_relaxed(field, g, ref)
+        if self.one_dx:
+            # the y-frame repeats the enforced row nb (and its mirror)
+            nb = self.nb
+            out[:mi, :nb] = out[:mi, nb : nb + 1]
+            out[:mi, mj - nb : mj] = out[:mi, mj - nb - 1 : mj - nb]
+        return out
 
     def set_outermost_layers_x(self, field, field_name=None, field_units=None):
         mi, mj, _ = field_extent(field_name, self.ni, self.nj, self.nz)
@@ -100,13 +127,20 @@ class Relaxed(HorizontalBoundary):
         return out
 
     def _build_gamma(self) -> np.ndarray:
-        """(nx+1, ny+1) relaxation coefficients over the numerical grid,
+        """(nx+1, nj+1) relaxation coefficients over the numerical grid,
         sliced per field in ``enforce_field``."""
         nb, nr = self.nb, self.nr
-        nx, ny = self.nx, self.ny
+        nx, ny = self.nx, self.nj
         rel = _relaxation_ramp(nr, nb)
         rrel = rel[::-1]
         g = np.zeros((nx + 1, ny + 1))
+        if self.one_dx:
+            # only row nb (and the staggered row above it) relaxes; the
+            # y-frame is overwritten by that row after the select
+            g[:nr, nb : nb + 2] = rel[:, None]
+            g[nx - nr : nx, nb : nb + 2] = rrel[:, None]
+            g[nx, nb : nb + 2] = 1.0
+            return g
         # corner block: gamma[i, j] = rel[min(i, j)]
         xnegyneg = np.zeros((nr, nr))
         for i in range(nr):

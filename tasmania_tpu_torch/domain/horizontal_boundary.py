@@ -10,6 +10,7 @@ from __future__ import annotations
 
 from typing import Any, Dict, Mapping, Optional, Tuple
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -20,6 +21,14 @@ from tasmania_tpu_torch.utils.units import conversion_factor, units_are_same
 
 def change_dims(axis: FieldArray, dims: Optional[str] = None) -> FieldArray:
     return FieldArray(axis.data, axis.units, (dims,) if dims else axis.dims)
+
+
+def repeat_axis(axis: FieldArray, nb: int, dims: Optional[str] = None) -> FieldArray:
+    """A singleton axis (or its two-point staggered companion) padded by
+    repeating its first and last values ``nb`` times."""
+    v = np.asarray(axis.data)
+    out = np.concatenate([np.repeat(v[:1], nb), v, np.repeat(v[-1:], nb)])
+    return FieldArray(out.astype(v.dtype), axis.units, (dims,) if dims else axis.dims)
 
 
 def field_extent(

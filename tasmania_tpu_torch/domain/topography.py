@@ -2,7 +2,8 @@
 
 The profile is host-side numpy; its linear growth over ``time`` is a plain
 float, so a driver can hand the current profile to the model as a tensor.
-Only the profiles the ported configurations use are here (flat, Gaussian)."""
+Only the profiles the ported configurations use are here (flat, Gaussian,
+user-defined)."""
 
 from __future__ import annotations
 
@@ -72,7 +73,20 @@ def _flat(grid):
     return np.zeros((grid.nx, grid.ny))
 
 
-_PROFILES = {"flat": _flat, "gaussian": _gaussian}
+def _user_defined(grid, profile=None):
+    """``profile``: a callable ``f(x, y)`` on the (nx, ny) host arrays of the
+    mass points, an array or a ``FieldArray``; None is flat."""
+    if profile is None:
+        return _flat(grid)
+    if callable(profile):
+        xx, yy = np.meshgrid(np.asarray(grid.x.data), np.asarray(grid.y.data), indexing="ij")
+        return np.asarray(profile(xx, yy))
+    if isinstance(profile, FieldArray):
+        return np.asarray(profile.to_units("m").data)
+    return np.asarray(profile)
+
+
+_PROFILES = {"flat": _flat, "gaussian": _gaussian, "user_defined": _user_defined}
 
 
 class PhysicalTopography(Topography):

@@ -2,9 +2,10 @@
 ``tasmania_tpu/dwarfs/vertical_damping.py``).
 
 ``phi_out = phi_new - dt·rmat·(phi_now - phi_ref)`` with the cosine profile of
-Durran & Klemp over the top ``damp_depth`` levels.  The damping itself is
-applied inside the stage operation (``ops/si_stage.py``); this module owns
-the profile, as a buffer, and its support depth."""
+Durran & Klemp over the top ``damp_depth`` levels.  The fused stages apply it
+inside their kernels (``ops/si_stage.py``, ``ops/advection_step.py``) from the
+profile, a buffer, and its support depth; the unfused stage of a
+one-dimensional boundary calls the damper itself."""
 
 from __future__ import annotations
 
@@ -41,3 +42,8 @@ class Rayleigh(nn.Module):
         #: the levels k < dd hold every nonzero coefficient
         self.dd = int(nonzero[-1]) + 1 if nonzero.size else 0
         self.register_buffer("rmat", torch.as_tensor(r, device=so.device))
+
+    def forward(self, dt: float, field_now, field_new, field_ref):
+        """``field_new`` damped toward ``field_ref`` from ``field_now`` over a
+        timestep of ``dt`` seconds (cell fields, nz levels)."""
+        return field_new - dt * self.rmat * (field_now - field_ref)

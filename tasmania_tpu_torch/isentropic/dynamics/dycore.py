@@ -1,13 +1,18 @@
 """The (moist) isentropic dynamical core (counterpart of
-``tasmania_tpu/isentropic/dynamics/dycore.py``, its fused path
-``_stage_fused`` ``:217-293``).
+``tasmania_tpu/isentropic/dynamics/dycore.py``: its fused path
+``_stage_fused`` ``:217-293`` and its dry unfused path ``_stage_dry``
+``:299-345``, dispatched as ``stage_array_call`` ``:188-193`` does).
 
-Per stage: the stage operation of the prognostic scheme (advection, lateral
-BC, Montgomery, momenta, mass fractions, Rayleigh damping on the last stage
-unless ``damp_at_every_stage``; with tendencies, the two-kernel stage that
-adds them), then the staggered velocities of the stepped state with their
-outermost layers taken from the lateral boundary.  The velocities are
-recomputed after every stage, so the next stage reads the stepped state's.
+Per stage on the fused path: the stage operation of the prognostic scheme
+(advection, lateral BC, Montgomery, momenta, mass fractions, Rayleigh
+damping on the last stage unless ``damp_at_every_stage``; with tendencies,
+the two-kernel stage that adds them).  On the unfused path (a
+one-dimensional relaxed boundary, dry) the prognostic steps s, su and sv,
+and the dycore enforces the lateral BC on all three and damps them toward
+the reference from the step's "now" values.  Then the staggered velocities
+of the stepped state with their outermost layers taken from the lateral
+boundary.  The velocities are recomputed after every stage, so the next
+stage reads the stepped state's.
 """
 
 from __future__ import annotations
@@ -21,7 +26,7 @@ from tasmania_tpu_torch.dwarfs.diagnostics import get_velocity_components
 from tasmania_tpu_torch.dwarfs.vertical_damping import Rayleigh
 from tasmania_tpu_torch.framework.dycore import DynamicalCore
 from tasmania_tpu_torch.framework.options import StorageOptions
-from tasmania_tpu_torch.isentropic.dynamics.prognostic import RK3WSSI, mfcw, mfpw, mfwv
+from tasmania_tpu_torch.isentropic.dynamics.prognostic import RK3WSSI, UNITS, mfcw, mfpw, mfwv
 
 DIMS = ("x", "y", "z")
 DIMS_U = ("x_at_u_locations", "y", "z")
@@ -121,12 +126,15 @@ class IsentropicDynamicalCore(DynamicalCore):
             and self.damper.dd > 0
             and (self.damp_at_every_stage or stage == self.stages - 1)
         )
-        out = self.prognostic.stage_call(
-            stage, timestep, raw_state, raw_tendencies,
-            rmat=self.damper.rmat if damp else None,
-            dd=self.damper.dd if damp else 0,
-            dtf=timestep,
-        )
+        if self.prognostic.fused:
+            out = self.prognostic.stage_call(
+                stage, timestep, raw_state, raw_tendencies,
+                rmat=self.damper.rmat if damp else None,
+                dd=self.damper.dd if damp else 0,
+                dtf=timestep,
+            )
+        else:
+            out = self._stage_dry(stage, raw_state, raw_tendencies, timestep, damp)
         u, v = get_velocity_components(
             out["air_isentropic_density"],
             out["x_momentum_isentropic"],
@@ -138,4 +146,19 @@ class IsentropicDynamicalCore(DynamicalCore):
         out["y_velocity_at_v_locations"] = hb.set_outermost_layers_y(
             v, "y_velocity_at_v_locations", "m s^-1"
         )
+        return out
+
+    def _stage_dry(self, stage, raw_state, raw_tendencies, timestep: float, damp: bool):
+        """The unfused stage's epilogue (``dycore.py:299-333``): the stepped
+        s, su, sv enforced, then damped with the full timestep toward the
+        reference from the values captured at stage 0."""
+        hb = self.horizontal_boundary
+        names = ("air_isentropic_density", "x_momentum_isentropic", "y_momentum_isentropic")
+        if stage == 0:
+            self._damp_now = {n: raw_state[n] for n in names}
+        out = self.prognostic.stage_call(stage, timestep, raw_state, raw_tendencies)
+        out = {n: hb.enforce_field(out[n], n, UNITS[n]) for n in names}
+        if damp:
+            for n in names:
+                out[n] = self.damper(timestep, self._damp_now[n], out[n], hb.ref_field(n, UNITS[n]))
         return out

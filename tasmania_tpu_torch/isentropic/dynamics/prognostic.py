@@ -1,22 +1,29 @@
 """RK3WS-SI stage scheme of the isentropic core (counterpart of
 ``tasmania_tpu/isentropic/dynamics/prognostic.py``: ``RK3WSSI`` ``:1077``,
-``_capture_now`` ``:1019``, the whole-stage path ``:372-530`` and the
-two-kernel path ``stage_call_fused_epilogue`` ``:553-656``).
+``_capture_now`` ``:1019``, the whole-stage path ``:372-530``, the
+two-kernel path ``stage_call_fused_epilogue`` ``:553-656`` and the unfused
+stage ``_si_stage`` ``:981-1017``).
 
 Three semi-implicit Wicker-Skamarock stages of dt/3, dt/2 and dt: density
 and water advection with the relaxed lateral BC, the Montgomery potential of
 the stepped density, the momenta with the off-centred pressure gradient, and
 the epilogue (mass fractions, second enforcement, Rayleigh damping).  The
-"now" fields are captured at stage 0.  Fifth-order upwind fluxes only.
+"now" fields are captured at stage 0.
 
-A stage without tendencies is one call of the whole-stage operation
-``ops/si_stage.py``.  A stage with tendencies (as ``_supports_stage_v2``
-decides, ``prognostic.py:347-348``) takes two: ``fused_advection_fields``
-steps the density (enforced) and the water densities with their
-tendencies, the Montgomery potential of the stepped density is computed
-between them in plain PyTorch (cumulative sums, as the JAX package's XLA
-path), and ``fused_momentum_epilogue`` steps the momenta with theirs and
-runs the epilogue (``ops/advection_step.py``).
+The path is chosen as ``supports_fused_epilogue`` chooses it
+(``prognostic.py:283-334``).  On a two-dimensional relaxed boundary the
+stage is fused, with fifth-order fluxes only: a stage without tendencies is
+one call of the whole-stage operation ``ops/si_stage.py``; a stage with
+tendencies (as ``_supports_stage_v2`` decides, ``prognostic.py:347-348``)
+takes two, ``fused_advection_fields`` (the density enforced, the water
+densities, with their tendencies) and ``fused_momentum_epilogue`` (the
+momenta with theirs and the epilogue), with the Montgomery potential of the
+stepped density between them.  A one-dimensional relaxed boundary is not
+fusable: the dry stage is then ``fused_advection_fields`` on s without the
+boundary, its enforcement, the Montgomery potential and
+``fused_momentum_step``, with third- or fifth-order fluxes and no
+tendencies, and the dycore runs the epilogue (``dycore.py::_stage_dry``).  The Montgomery potential is
+``ops/diagnostics_step.py`` in mode ``"mtg"`` on both paths.
 """
 
 from __future__ import annotations
@@ -30,7 +37,12 @@ from torch import nn
 from tasmania_tpu_torch.framework.field import FieldArray
 from tasmania_tpu_torch.framework.options import StorageOptions
 from tasmania_tpu_torch.isentropic.dynamics.diagnostics import IsentropicDiagnostics
-from tasmania_tpu_torch.ops.advection_step import fused_advection_fields, fused_momentum_epilogue
+from tasmania_tpu_torch.isentropic.dynamics.horizontal_fluxes import extent, flux_order
+from tasmania_tpu_torch.ops.advection_step import (
+    fused_advection_fields,
+    fused_momentum_epilogue,
+    fused_momentum_step,
+)
 from tasmania_tpu_torch.ops.si_stage import StageConstants, si_stage
 
 mfwv = "mass_fraction_of_water_vapor_in_air"
@@ -64,15 +76,21 @@ class RK3WSSI(nn.Module):
         storage_options: Optional[StorageOptions] = None,
     ) -> None:
         super().__init__()
-        if horizontal_flux_scheme != "fifth_order_upwind":
-            raise NotImplementedError(
-                f"horizontal flux {horizontal_flux_scheme!r} is not ported (have 'fifth_order_upwind')"
-            )
         so = storage_options or StorageOptions()
         hb = domain.horizontal_boundary
         grid = domain.numerical_grid
-        if hb.nb < 3:
-            raise ValueError(f"nb={hb.nb} must be >= the flux extent 3")
+        self.order = flux_order(horizontal_flux_scheme)
+        if hb.nb < extent(self.order):
+            raise ValueError(f"nb={hb.nb} must be >= the flux extent {extent(self.order)}")
+        #: whether the stage runs fused (the whole-stage or the two-kernel
+        #: path): on a two-dimensional relaxed boundary, not a one-dimensional one
+        self.fused = not hb.one_dx
+        if self.fused and self.order != 5:
+            raise NotImplementedError(
+                "third-order fluxes on the fused stage kernels are not ported (have 'fifth_order_upwind')"
+            )
+        if not self.fused and moist:
+            raise NotImplementedError("the moist stage on a one-dimensional boundary is not ported")
         if not 0.0 <= eps <= 1.0:
             raise ValueError("off-centering eps must be in [0, 1]")
         self.horizontal_boundary = hb
@@ -99,6 +117,8 @@ class RK3WSSI(nn.Module):
     ) -> Dict[str, Any]:
         """One stage from the captured "now" state; returns the stepped,
         enforced (and, with ``rmat``, damped) s, su, sv and mass fractions.
+        On the unfused path only s is enforced, and ``rmat`` is not read:
+        the dycore enforces and damps the output.
         ``state`` must carry the staggered velocities of the "int" state;
         ``tendencies`` holds raw tendencies of s, su, sv and the mass
         fractions, in the dycore's ``stage_tendency_properties`` units."""
@@ -125,6 +145,10 @@ class RK3WSSI(nn.Module):
             rd=rpc["gas_constant_of_dry_air"],
             pref=rpc["air_pressure_at_sea_level"],
         )
+        if not self.fused:
+            if tendencies:
+                raise NotImplementedError("tendencies on the unfused stage are not ported")
+            return self._stage_unfused(state, hs, c)
         if tendencies:
             return self._stage_with_tendencies(state, tendencies, ref, hs, rmat, c)
         outs = si_stage(
@@ -193,3 +217,26 @@ class RK3WSSI(nn.Module):
             nb=self.nb, c=c,
         )
         return dict(zip(self._out_names, outs))
+
+    def _stage_unfused(self, state, hs, c: StageConstants):
+        """The dry stage without tendencies of a boundary that is not fusable
+        (``_si_stage``, ``prognostic.py:981-1017``): the density stepped
+        without the boundary, then enforced; its Montgomery potential; the
+        momenta."""
+        now = self._now
+        hb = self.horizontal_boundary
+        u, v = state["x_velocity_at_u_locations"], state["y_velocity_at_v_locations"]
+        kw = dict(nb=self.nb, dt=c.dt, dx=c.dx, dy=c.dy, order=self.order)
+        (s_new,) = fused_advection_fields(
+            u, v, [now["air_isentropic_density"]], [state["air_isentropic_density"]], **kw,
+        )
+        s_new = hb.enforce_field(s_new, "air_isentropic_density", UNITS["air_isentropic_density"])
+        mtg = self.diagnostics.get_montgomery_potential(s_new, self.pt, hs)
+        su, sv = fused_momentum_step(
+            u, v, now["x_momentum_isentropic"], now["y_momentum_isentropic"],
+            state["x_momentum_isentropic"], state["y_momentum_isentropic"],
+            now["air_isentropic_density"], now["montgomery_potential"], s_new, mtg,
+            eps=self.eps, **kw,
+        )
+        return {"air_isentropic_density": s_new, "x_momentum_isentropic": su,
+                "y_momentum_isentropic": sv}

@@ -55,8 +55,16 @@ _SIGNATURES = {
     # theta tendency; out: qv, qc, theta tendency)
     "tt_satadj_rk2": (_int, _vp, _vp, _int, _int, _vp, _vp),
     # dtype, inputs (u, v, gamma, ref0, now[nf], int[nf], tnd[nf]), outputs,
-    # nf, q_mask, nx, ny, nz, nb, scalars (dt, dx, dy), stream
-    "tt_advection_fields": (_int, _vp, _vp, _int, _int, _int, _int, _int, _int, _vp, _vp),
+    # nf, q_mask, nx, ny, nz, nb, order, scalars (dt, dx, dy), stream
+    "tt_advection_fields": (_int, _vp, _vp, _int, _int, _int, _int, _int, _int, _int, _vp, _vp),
+    # dtype, inputs (u, v, su/sv now, su/sv int, s and mtg now, s and mtg
+    # new, su/sv tendencies or null), outputs (su, sv), nx, ny, nz, nb,
+    # order, scalars (dt, dx, dy, eps), stream
+    "tt_momentum_step": (_int, _vp, _vp, _int, _int, _int, _int, _int, _vp, _vp),
+    # dtype, inputs (s, hs, theta), outputs (mtg | p, exn, mtg, h[, rho, t]),
+    # ncol, nz, mode (0 mtg, 1 dry, 2 moist), scalars (pt, dz, g, cp, rd,
+    # pref), stream
+    "tt_isentropic_diagnostics": (_int, _vp, _vp, _int, _int, _int, _vp, _vp),
     # dtype, inputs (17 arrays, sq[nq], q_ref[nq]), outputs (s, su, sv,
     # q[nq]), nq, nx, ny, nz, nb, scalars (dt, dtf, dx, dy, eps), stream
     "tt_momentum_epilogue": (_int, _vp, _vp, _int, _int, _int, _int, _int, _vp, _vp),

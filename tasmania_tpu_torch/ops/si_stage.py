@@ -22,6 +22,7 @@ from typing import Optional, Sequence
 import torch
 
 from tasmania_tpu_torch.domain.boundaries.relaxed import enforce_relaxed
+from tasmania_tpu_torch.isentropic.dynamics.horizontal_fluxes import extent, flux3
 from tasmania_tpu_torch.ops import _lib
 from tasmania_tpu_torch.ops.paste import paste_x_edges_multi
 
@@ -57,13 +58,17 @@ def flux5(w, pm3, pm2, pm1, p0, pp1, pp2):
     )
 
 
-def flux_divergence(u, v, phi, nb: int, dx: float, dy: float):
-    """Divergence of the fifth-order upwind fluxes of ``phi`` on the
-    nb-inset interior (nx-2nb, ny-2nb, nz)."""
+def flux_divergence(u, v, phi, nb: int, dx: float, dy: float, order: int = 5):
+    """Divergence of the upwind fluxes of ``order`` (3 or 5) of ``phi`` on
+    the nb-inset interior (nx-2nb, ny-2nb, nz)."""
     nx, ny, _ = phi.shape
+    e = extent(order)
+    flux = flux3 if order == 3 else flux5
     iin, jin = slice(nb, nx - nb), slice(nb, ny - nb)
-    fx = flux5(u[nb : nx - nb + 1, jin], *[phi[nb - 3 + k : nx - nb - 2 + k, jin] for k in range(6)])
-    fy = flux5(v[iin, nb : ny - nb + 1], *[phi[iin, nb - 3 + k : ny - nb - 2 + k] for k in range(6)])
+    fx = flux(u[nb : nx - nb + 1, jin],
+              *[phi[nb - e + k : nx - nb - e + 1 + k, jin] for k in range(2 * e)])
+    fy = flux(v[iin, nb : ny - nb + 1],
+              *[phi[iin, nb - e + k : ny - nb - e + 1 + k] for k in range(2 * e)])
     return (fx[1:] - fx[:-1]) / dx + (fy[:, 1:] - fy[:, :-1]) / dy
 
 
@@ -105,7 +110,7 @@ def rayleigh_damp(phi, now, ref, rmat, dtf):
     return phi if rmat is None else phi - dtf * rmat * (now - ref)
 
 
-def pressure_gradient(s_now, s_e, mtg_now, mtg, nb: int, c: StageConstants):
+def pressure_gradient(s_now, s_e, mtg_now, mtg, nb: int, eps: float, dx: float, dy: float):
     """The semi-implicit pressure gradient (1-eps)·s_now·∇mtg_now +
     eps·s_e·∇mtg on the nb-inset interior, as (x, y) components."""
     nx, ny, _ = s_now.shape
@@ -113,12 +118,12 @@ def pressure_gradient(s_now, s_e, mtg_now, mtg, nb: int, c: StageConstants):
     ip1, im1 = slice(nb + 1, nx - nb + 1), slice(nb - 1, nx - nb - 1)
     jp1, jm1 = slice(nb + 1, ny - nb + 1), slice(nb - 1, ny - nb - 1)
     sn_i, se_i = s_now[iin, jin], s_e[iin, jin]
-    pgx = (1.0 - c.eps) * sn_i * (mtg_now[ip1, jin] - mtg_now[im1, jin]) / (
-        2.0 * c.dx
-    ) + c.eps * se_i * (mtg[ip1, jin] - mtg[im1, jin]) / (2.0 * c.dx)
-    pgy = (1.0 - c.eps) * sn_i * (mtg_now[iin, jp1] - mtg_now[iin, jm1]) / (
-        2.0 * c.dy
-    ) + c.eps * se_i * (mtg[iin, jp1] - mtg[iin, jm1]) / (2.0 * c.dy)
+    pgx = (1.0 - eps) * sn_i * (mtg_now[ip1, jin] - mtg_now[im1, jin]) / (
+        2.0 * dx
+    ) + eps * se_i * (mtg[ip1, jin] - mtg[im1, jin]) / (2.0 * dx)
+    pgy = (1.0 - eps) * sn_i * (mtg_now[iin, jp1] - mtg_now[iin, jm1]) / (
+        2.0 * dy
+    ) + eps * se_i * (mtg[iin, jp1] - mtg[iin, jm1]) / (2.0 * dy)
     return pgx, pgy
 
 
@@ -140,7 +145,7 @@ def si_stage_plain(
     s_res = with_interior(s_now, s_now[iin, jin] - c.dt * div(s_int), nb)
     s_e = enforce_relaxed(s_res, g3, s_ref)
     mtg = stage_montgomery(s_e, hs, theta, c)
-    pgx, pgy = pressure_gradient(s_now, s_e, mtg_now, mtg, nb, c)
+    pgx, pgy = pressure_gradient(s_now, s_e, mtg_now, mtg, nb, c.eps, c.dx, c.dy)
     su_pre = with_interior(su_now, su_now[iin, jin] - c.dt * (div(su_int) + pgx), nb)
     sv_pre = with_interior(sv_now, sv_now[iin, jin] - c.dt * (div(sv_int) + pgy), nb)
 

@@ -1,7 +1,9 @@
 """Both RK2 stages of the conservative Smagorinsky update of (su, sv)
 (counterpart of ``tasmania_tpu/ops/smagorinsky_step.py:261
 fused_smagorinsky_rk2``, whose default path is the one-kernel
-``_smag_rk2_fused`` at ``:149``).
+``_smag_rk2_fused`` at ``:149``), and one stage alone (:func:`smag_stage`,
+counterpart of ``:33 _smag_stage``, which the JAX package takes when
+``nx < tile_x + 8``).
 
 With u = su/s and v = sv/s at the stage's input:
 
@@ -63,7 +65,9 @@ def fused_smagorinsky_rk2_plain(s, su, sv, *, dx, dy, cs, nb, dt):
     return smagorinsky_stage_plain(s, su1, sv1, su, sv, c=dt, **kw)
 
 
-def _stage_kernel(s, su_st, sv_st, su_base, sv_base, su_out, sv_out, *, dx, dy, cs, nb, c):
+def _stage_kernel(s, su_st, sv_st, su_base, sv_base, su_out, sv_out, *, dx, dy, cs, nb, c,
+                  name="fused_smagorinsky_rk2"):
+    """One launch of the stage kernel, counted under the wrapper ``name``."""
     nx, ny, nz = s.shape
     scalars = _lib.scalar_array([c, cs**2 * dx * dy, 2.0 * dx, 2.0 * dy])
     err = _lib.lib().tt_smagorinsky_stage(
@@ -72,16 +76,36 @@ def _stage_kernel(s, su_st, sv_st, su_base, sv_base, su_out, sv_out, *, dx, dy, 
         _lib.pointer_array((su_out, sv_out)),
         nx, ny, nz, nb, scalars, _lib.stream_handle(),
     )
-    _lib.launch_counts["fused_smagorinsky_rk2"] += 1
-    _lib.check(err, "fused_smagorinsky_rk2")
+    _lib.launch_counts[name] += 1
+    _lib.check(err, name)
+
+
+def _check_geometry(name, shape, nb):
+    nx, ny, _ = shape
+    if nb < 2 or nx < 2 * nb + 1 or ny < 2 * nb + 1:
+        raise ValueError(f"{name}: nb={nb} (needs >= 2) on a {nx}x{ny} grid")
+
+
+def smag_stage(s, su_st, sv_st, su_base, sv_base, *, dx: float, dy: float, cs: float, nb: int,
+               c: float):
+    """One stage, ``base + c·s·T(su_st/s, sv_st/s)``, in one kernel launch on
+    a CUDA device.  Returns new tensors (su, sv)."""
+    args = (s, su_st, sv_st, su_base, sv_base)
+    kw = dict(dx=dx, dy=dy, cs=cs, nb=nb, c=c)
+    _check_geometry("smag_stage", s.shape, nb)
+    if not s.is_cuda:
+        return smagorinsky_stage_plain(*args, **kw)
+    _lib.check_cuda_tensors("smag_stage", args, s.dtype, [s.shape] * 5)
+    su_out, sv_out = torch.empty_like(su_st), torch.empty_like(sv_st)
+    _stage_kernel(*args, su_out, sv_out, name="smag_stage", **kw)
+    return su_out, sv_out
 
 
 def fused_smagorinsky_rk2(s, su, sv, *, dx: float, dy: float, cs: float, nb: int, dt: float):
     """RK2 update of (su, sv); two kernel launches on a CUDA device.  Returns
     new tensors."""
     nx, ny, nz = s.shape
-    if nb < 2 or nx < 2 * nb + 1 or ny < 2 * nb + 1:
-        raise ValueError(f"fused_smagorinsky_rk2: nb={nb} (needs >= 2) on a {nx}x{ny} grid")
+    _check_geometry("fused_smagorinsky_rk2", s.shape, nb)
     if not s.is_cuda:
         return fused_smagorinsky_rk2_plain(s, su, sv, dx=dx, dy=dy, cs=cs, nb=nb, dt=dt)
     _lib.check_cuda_tensors("fused_smagorinsky_rk2", (s, su, sv), s.dtype, [(nx, ny, nz)] * 3)

@@ -8,9 +8,12 @@ tendency-carrying stage with the tendencies the fc and lfc couplings pass)
 and that traffic's time at the H100's 3.35 TB/s.  Given the log of a
 ``chip_smoke.py`` run, it adds for each ported kernel its route and source,
 its launches per step on each path that runs it (the full-size runs of
-phases 5 and 7: the flagship's SUS chain and the five other couplings) and
-the times that run measured on the card: kernel, plain version and, where
-one exists, the single PyTorch call computing the same function.
+phases 5, 7 and 8: the flagship's SUS chain, the five other couplings and
+the mountain wave) and the times that run measured on the card: kernel,
+plain version and, where one exists, the single PyTorch call computing the
+same function; a kernel timed also at other shapes or in other modes
+(``also`` in the log: the mountain wave's 161x7x120, the diagnostics'
+modes) gets a row for each, with the bytes and bound of those shapes.
 
 Usage: ``python tests/make_torch_kernel_table.py [CHIP_SMOKE_LOG]``
 """
@@ -40,12 +43,12 @@ KERNELS = [
      12 * STRIP, 12 * STRIP, "6 arrays: 2 nb-wide strips each in, the same out"),
     (3, "ops/smoothing_step.py:44 fused_smoothing", "fused_smoothing",
      6 * CELL, 6 * CELL, "6 fields in, 6 out"),
-    (4, "ops/paste.py:23 paste_x_edges", None, 2 * STRIP, 2 * STRIP,
+    (4, "ops/paste.py:23 paste_x_edges", "paste_x_edges", 2 * STRIP, 2 * STRIP,
      "1 array: 2 strips in, 2 out"),
     (5, "ops/advection_step.py:140 fused_advection_fields", "fused_advection_fields",
      13 * CELL + U + V + PLANE, 4 * CELL,
      "u, v, s and 3 q now, int and tendency, gamma, ref -> 4 fields"),
-    (6, "ops/advection_step.py:282 fused_momentum_step", None,
+    (6, "ops/advection_step.py:282 fused_momentum_step", "fused_momentum_step",
      8 * CELL + U + V, 2 * CELL, "u, v, su/sv now and int, s and mtg now and new -> su, sv"),
     (7, "ops/advection_step.py:422 fused_momentum_epilogue", "fused_momentum_epilogue",
      19 * CELL + U + V + PLANE + NZ * F32, 6 * CELL,
@@ -57,7 +60,7 @@ KERNELS = [
      5 * CELL + 2 * IFACE, 4 * CELL, "rho, T, qv, qc, qr, p_if, exn_if -> qv, qc, qr, theta tendency"),
     (10, "ops/kessler_step.py:204 fused_satadj_rk2", "fused_satadj_rk2",
      4 * CELL + 2 * IFACE, 3 * CELL, "T, qv, qc, theta tendency, p_if, exn_if -> qv, qc, theta tendency"),
-    (11, "ops/smagorinsky_step.py:33 _smag_stage", None,
+    (11, "ops/smagorinsky_step.py:33 _smag_stage", "smag_stage",
      5 * CELL, 2 * CELL, "s, su and sv of the stage and the base -> su, sv"),
     (12, "ops/smagorinsky_step.py:149 _smag_rk2_fused", "fused_smagorinsky_rk2",
      3 * CELL, 2 * CELL, "s, su, sv -> su, sv"),
@@ -68,7 +71,7 @@ KERNELS = [
      "w, s, su, sv, qv, qc, qr -> 6 fields"),
     (15, "ops/vertical_advection_step.py:242 fused_vadv_sedimentation_rk3ws", None,
      8 * CELL + IFACE, 7 * CELL, "w, s, su, sv, 3 q, rho, h_if -> 6 fields, vt"),
-    (16, "ops/diagnostics_step.py:103 fused_isentropic_diagnostics", None,
+    (16, "ops/diagnostics_step.py:103 fused_isentropic_diagnostics", "fused_isentropic_diagnostics",
      CELL + PLANE + (NZ + 1) * F32, 3 * IFACE + 3 * CELL, "s, hs, theta -> p, exn, h, mtg, rho, T"),
     (17, "ops/sedimentation_step.py:123 fused_sedimentation_rk3ws", "fused_sedimentation_rk3ws",
      2 * CELL + IFACE, 2 * CELL, "rho, qr, h_if -> qr, vt"),
@@ -108,6 +111,9 @@ def main(argv) -> None:
         ms, plain, lib = (k["ms"], k["plain_ms"], k["library_ms"]) if k else (None, None, None)
         print(f"| {num} | `{name}` | {status} | {route} | {launches(k) if k else '0'} | {mb:.1f} "
               f"| {bound:.4f} | {fmt(ms)} | {fmt(plain)} | {'none' if lib is None else fmt(lib)} |")
+        for label, a in (k or {}).get("also", {}).items():
+            print(f"| {num} | ↳ {label} | | | | {a['bytes'] / 1e6:.2f} | {a['bound_ms']:.4f} "
+                  f"| {fmt(a['ms'])} | {fmt(a['plain_ms'])} | none |")
 
 
 if __name__ == "__main__":

@@ -5,17 +5,20 @@ machine without them; without a CUDA device they skip.  On the GPU machine::
 
     python -m pytest tests/test_torch_kernels.py -m cuda --noconftest -q
 
-Tolerances, float64: paste bitwise; smoothing and the stage within 1e-12 of
-the largest magnitude of the output (FMA contraction; the stage's column
-scans sum in another order than the plain version's cumulative sums); the
-two kernels of the tendency-carrying stage (advection of the fields, the
-momentum epilogue), the Kessler and saturation-adjustment steps (the pair
-and each alone), Smagorinsky, vertical advection and sedimentation within
-1e-12 of the output's largest magnitude (FMA contraction, and PyTorch's
-division by a scalar on the card, a product with the reciprocal); the
-advection of the fields also in float32, within 1e-5.  The input helpers
-here are shared with ``tests/test_torch_ops.py`` and
-``tests/test_torch_physics_ops.py``.
+Tolerances, float64: paste bitwise (N arrays and one); smoothing and the
+stage within 1e-12 of the largest magnitude of the output (FMA contraction;
+the stage's column scans sum in another order than the plain version's
+cumulative sums); the kernels of the stages that do not run whole
+(advection of the fields at third and fifth order, the momentum step at
+both orders on a two-dimensional grid and on one a single row deep, the
+momentum epilogue), the isentropic diagnostics in their three modes, the
+Kessler and saturation-adjustment steps (the pair and each alone),
+Smagorinsky (both stages, and one stage alone), vertical advection and
+sedimentation within 1e-12 of the output's largest magnitude (FMA
+contraction, and PyTorch's division by a scalar on the card, a product with
+the reciprocal); the advection of the fields and the momentum step also in
+float32, within 1e-5.  The input helpers here are shared with
+``tests/test_torch_ops.py`` and ``tests/test_torch_physics_ops.py``.
 """
 
 from __future__ import annotations
@@ -32,6 +35,12 @@ from tasmania_tpu_torch.ops.advection_step import (
     fused_advection_fields_plain,
     fused_momentum_epilogue,
     fused_momentum_epilogue_plain,
+    fused_momentum_step,
+    fused_momentum_step_plain,
+)
+from tasmania_tpu_torch.ops.diagnostics_step import (
+    fused_isentropic_diagnostics,
+    fused_isentropic_diagnostics_plain,
 )
 from tasmania_tpu_torch.ops.kessler_step import (
     KesslerConstants,
@@ -42,7 +51,7 @@ from tasmania_tpu_torch.ops.kessler_step import (
     fused_satadj_rk2,
     fused_satadj_rk2_plain,
 )
-from tasmania_tpu_torch.ops.paste import paste_x_edges_multi, paste_x_edges_multi_plain
+from tasmania_tpu_torch.ops.paste import paste_x_edges, paste_x_edges_multi, paste_x_edges_multi_plain
 from tasmania_tpu_torch.ops.sedimentation_step import (
     fused_sedimentation_rk3ws,
     fused_sedimentation_rk3ws_plain,
@@ -51,6 +60,8 @@ from tasmania_tpu_torch.ops.si_stage import StageConstants, si_stage, si_stage_p
 from tasmania_tpu_torch.ops.smagorinsky_step import (
     fused_smagorinsky_rk2,
     fused_smagorinsky_rk2_plain,
+    smag_stage,
+    smagorinsky_stage_plain,
 )
 from tasmania_tpu_torch.ops.smoothing_step import fused_smoothing, fused_smoothing_plain
 from tasmania_tpu_torch.ops.vertical_advection_step import (
@@ -164,6 +175,47 @@ def epilogue_args(inp, damp, tendencies, device="cpu"):
         t(inp["su_tnd"]) if tendencies else None,
         t(inp["sv_tnd"]) if tendencies else None,
     )
+
+
+# a grid one cell deep in y, as the one-dimensional relaxed boundary makes it:
+# ny = 2 nb + 1, exactly one interior row
+NY1 = 2 * NB + 1
+
+
+def momentum_step_inputs(seed, ny=NY):
+    """Numpy inputs of ``fused_momentum_step`` at (NX, ny, NZ): u, v (zero
+    when ny is a single interior row, as on the one-dimensional boundary),
+    the momenta now and int, s and mtg now and stepped, the tendencies."""
+    rng = np.random.default_rng(seed)
+    cell = (NX, ny, NZ)
+    v = np.zeros((NX, ny + 1, NZ)) if ny == NY1 else rng.uniform(-6, 6, (NX, ny + 1, NZ))
+    return dict(
+        u=rng.uniform(-4, 12, (NX + 1, ny, NZ)), v=v,
+        su_now=rng.uniform(20, 80, cell), sv_now=rng.uniform(-20, 20, cell),
+        su_int=rng.uniform(20, 80, cell), sv_int=rng.uniform(-20, 20, cell),
+        s_now=rng.uniform(5, 10, cell), mtg_now=rng.uniform(1e5, 3e5, cell),
+        s_new=rng.uniform(5, 10, cell), mtg_new=rng.uniform(1e5, 3e5, cell),
+        su_tnd=rng.normal(0.0, 0.1, cell), sv_tnd=rng.normal(0.0, 0.1, cell),
+    )
+
+
+def momentum_step_args(inp, tendencies, device="cpu"):
+    t = lambda a: tensor(a, device)
+    keys = ("u", "v", "su_now", "sv_now", "su_int", "sv_int", "s_now", "mtg_now", "s_new", "mtg_new")
+    return tuple(t(inp[k]) for k in keys) + (
+        (t(inp["su_tnd"]), t(inp["sv_tnd"])) if tendencies else (None, None))
+
+
+def diagnostics_inputs(seed, ny=NY):
+    """(s, hs, theta) in numpy: a column from θ = 400 K at the top to 300 K
+    at the surface, a density that makes the pressure grow from 2000 Pa to
+    about 1e5 Pa, a topography up to 300 m."""
+    rng = np.random.default_rng(seed)
+    return (rng.uniform(50.0, 150.0, (NX, ny, NZ)), rng.uniform(0.0, 300.0, (NX, ny)),
+            np.linspace(400.0, 300.0, NZ + 1))
+
+
+DIAG_CONSTS = dict(pt=2000.0, dz=12.5, g=9.80665, cp=1004.0, rd=287.05, pref=1e5)
 
 
 def smoothing_inputs(seed, nf=6):
@@ -285,6 +337,18 @@ def test_paste_kernel_bitwise(cuda_device, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_single_paste_kernel_bitwise(cuda_device, dtype):
+    rng = np.random.default_rng(1)
+    mk = lambda *s: torch.as_tensor(rng.normal(size=s), dtype=dtype, device=cuda_device)
+    full, lo, hi = mk(NX, NY, NZ), mk(NB, NY, NZ), mk(NB, NY, NZ)
+    ref = paste_x_edges_multi_plain([full.clone()], [lo], [hi])[0]
+    got = paste_x_edges(full, lo, hi)
+    assert got is full
+    torch.testing.assert_close(got, ref, rtol=0, atol=0)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("order", [1, 2, 3])
 def test_smoothing_kernel_vs_plain(cuda_device, order):
     fields, gamma = smoothing_inputs(seed=order)
@@ -338,17 +402,51 @@ def test_satadj_kernel_vs_plain(cuda_device):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("order", [3, 5])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("tendencies", [True, False])
 @pytest.mark.parametrize("enforce", [True, False])
-def test_advection_fields_kernel_vs_plain(cuda_device, dtype, tendencies, enforce):
+def test_advection_fields_kernel_vs_plain(cuda_device, dtype, tendencies, enforce, order):
     args, kw = advection_args(advection_inputs(seed=8), tendencies, enforce, cuda_device)
+    kw["order"] = order
     args = _cast(args, dtype)
     got = fused_advection_fields(*args, **kw)
     ref = fused_advection_fields_plain(*args, **kw)
     tol = 1e-12 if dtype == torch.float64 else 1e-5
     for k, (a, b) in enumerate(zip(got, ref)):
         assert_scaled(a.double().cpu().numpy(), b.double().cpu().numpy(), tol, f"field {k}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("ny", [NY, NY1])
+@pytest.mark.parametrize("order", [3, 5])
+@pytest.mark.parametrize("tendencies", [True, False])
+def test_momentum_step_kernel_vs_plain(cuda_device, tendencies, order, ny, dtype):
+    args = _cast(momentum_step_args(momentum_step_inputs(seed=order + ny, ny=ny), tendencies,
+                                    cuda_device), dtype)
+    kw = dict(order=order, nb=NB, dt=FRACS[1] * DTF, dx=CONSTS["dx"], dy=CONSTS["dy"], eps=0.5)
+    got = fused_momentum_step(*args, **kw)
+    ref = fused_momentum_step_plain(*args, **kw)
+    tol = 1e-12 if dtype == torch.float64 else 1e-5
+    # su and sv to the momentum vector's scale (float32: the pressure
+    # gradient differences the large Montgomery potential)
+    scale = max(float(r.abs().max()) for r in ref)
+    for k, (a, b) in enumerate(zip(got, ref)):
+        err = float((a.double() - b.double()).abs().max())
+        assert err <= tol * scale, f"output {k}: {err} > {tol} * {scale}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["mtg", "dry", "moist"])
+def test_diagnostics_kernel_vs_plain(cuda_device, mode):
+    s, hs, theta = (tensor(a, cuda_device) for a in diagnostics_inputs(seed=6))
+    got = fused_isentropic_diagnostics(s, hs, theta, mode=mode, **DIAG_CONSTS)
+    ref = fused_isentropic_diagnostics_plain(s, hs, theta, mode=mode, **DIAG_CONSTS)
+    got, ref = ((got,), (ref,)) if mode == "mtg" else (got, ref)
+    assert len(got) == len(ref) == {"mtg": 1, "dry": 4, "moist": 6}[mode]
+    for k, (a, b) in enumerate(zip(got, ref)):
+        assert_scaled(a.cpu().numpy(), b.cpu().numpy(), 1e-12, f"output {k}")
 
 
 @pytest.mark.cuda
@@ -403,5 +501,16 @@ def test_sedimentation_kernel_vs_plain(cuda_device, order, vt_mode):
     args = [tensor(a, cuda_device) for a in sedimentation_inputs(seed=order)]
     got = fused_sedimentation_rk3ws(*args, order=order, dt=5.0, vt_mode=vt_mode)
     ref = fused_sedimentation_rk3ws_plain(*args, order=order, dt=5.0, vt_mode=vt_mode)
+    for k, (a, b) in enumerate(zip(got, ref)):
+        assert_scaled(a.cpu().numpy(), b.cpu().numpy(), 1e-12, f"output {k}")
+
+
+@pytest.mark.cuda
+def test_smagorinsky_stage_kernel_vs_plain(cuda_device):
+    s, su, sv = (tensor(a, cuda_device) for a in smagorinsky_inputs(seed=5))
+    kw = {k: SMAG[k] for k in ("dx", "dy", "cs", "nb")}
+    su1, sv1 = su * 1.01, sv + 0.5 * s
+    got = smag_stage(s, su1, sv1, su, sv, c=SMAG["dt"], **kw)
+    ref = smagorinsky_stage_plain(s, su1, sv1, su, sv, c=SMAG["dt"], **kw)
     for k, (a, b) in enumerate(zip(got, ref)):
         assert_scaled(a.cpu().numpy(), b.cpu().numpy(), 1e-12, f"output {k}")

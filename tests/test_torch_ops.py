@@ -16,6 +16,21 @@ package's Pallas kernels run in interpret mode, in float64.
   ``fused_momentum_epilogue_plain`` vs ``fused_momentum_epilogue(interpret=True)``
   with and without damping and momentum tendencies.  Scaled atol 1e-13 (the
   same terms in the same order; no column scan).
+* The kernels of the unfused stage (the one-dimensional relaxed boundary of
+  the mountain wave): ``fused_advection_fields_plain`` at third order vs the
+  Pallas kernel, on a two-dimensional grid (with the relaxed BC) and on one a
+  single row deep (without, as ``_step_density_and_water`` calls it);
+  ``fused_momentum_step_plain`` vs ``fused_momentum_step(interpret=True)`` at
+  orders 3 and 5, with and without tendencies, on both grids.  Scaled atol
+  1e-12.
+* ``fused_isentropic_diagnostics_plain`` vs
+  ``fused_isentropic_diagnostics(impl="pallas", interpret=True)`` in modes
+  ``"mtg"``, ``"dry"`` and ``"moist"``: scaled atol 1e-12 (triangular matrix
+  products against cumulative sums).
+* ``paste_x_edges`` (one array) vs the Pallas ``paste_x_edges``: bitwise;
+  ``smag_stage``'s plain version vs ``_smag_stage(interpret=True)`` at an nx
+  below ``tile_x + 8``, where the JAX package routes the RK2 update to it:
+  scaled atol 1e-13.
 
 The kernels themselves are tested against these plain versions on the card
 in ``tests/test_torch_kernels.py``.
@@ -31,7 +46,11 @@ import jax.numpy as jnp
 
 from tasmania_tpu.ops.advection_step import fused_advection_fields as jax_advection
 from tasmania_tpu.ops.advection_step import fused_momentum_epilogue as jax_momentum_epilogue
+from tasmania_tpu.ops.advection_step import fused_momentum_step as jax_momentum_step
+from tasmania_tpu.ops.diagnostics_step import fused_isentropic_diagnostics as jax_diagnostics
+from tasmania_tpu.ops.paste import paste_x_edges as jax_paste_one
 from tasmania_tpu.ops.paste import paste_x_edges_multi as jax_paste
+from tasmania_tpu.ops.smagorinsky_step import _smag_stage as jax_smag_stage
 from tasmania_tpu.ops.si_stage import fused_si_stage
 from tasmania_tpu.ops.smoothing_step import fused_smoothing as jax_smoothing
 from tasmania_tpu_torch.ops import _lib
@@ -40,29 +59,43 @@ from tasmania_tpu_torch.ops.advection_step import (
     fused_advection_fields_plain,
     fused_momentum_epilogue,
     fused_momentum_epilogue_plain,
+    fused_momentum_step,
+    fused_momentum_step_plain,
 )
-from tasmania_tpu_torch.ops.paste import paste_x_edges_multi, paste_x_edges_multi_plain
+from tasmania_tpu_torch.ops.diagnostics_step import (
+    fused_isentropic_diagnostics,
+    fused_isentropic_diagnostics_plain,
+)
+from tasmania_tpu_torch.ops.paste import paste_x_edges, paste_x_edges_multi, paste_x_edges_multi_plain
 from tasmania_tpu_torch.ops.si_stage import (
     StageConstants,
     frame_strips,
     si_stage,
     si_stage_plain,
 )
+from tasmania_tpu_torch.ops.smagorinsky_step import smag_stage, smagorinsky_stage_plain
 from tasmania_tpu_torch.ops.smoothing_step import fused_smoothing, fused_smoothing_plain
 from tests.test_torch_kernels import (
     CONSTS,
+    DIAG_CONSTS,
     DTF,
     FRACS,
     NB,
     NR,
     NX,
     NY,
+    NY1,
     NZ,
+    SMAG,
     advection_args,
     advection_inputs,
     assert_scaled,
+    diagnostics_inputs,
     epilogue_args,
+    momentum_step_args,
+    momentum_step_inputs,
     port_args,
+    smagorinsky_inputs,
     smoothing_inputs,
     stage_inputs,
     tensor,
@@ -234,3 +267,102 @@ def test_paste_plain_writes_in_place():
     paste_x_edges_multi_plain([full], [lo], [hi])
     assert float(full[:2].min()) == 1.0 and float(full[-2:].min()) == 2.0
     assert float(full[2:-2].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("tendencies", [True, False])
+@pytest.mark.parametrize("grid", ["2d", "one_row"])
+def test_third_order_advection_plain_vs_pallas(grid, tendencies):
+    """On the two-dimensional grid s and the three mass fractions with the
+    relaxed BC on s; on the grid one row deep, s alone without it."""
+    args, kw = advection_args(advection_inputs(seed=23), tendencies, grid == "2d")
+    kw["order"] = 3
+    u, v, now, intl, tnds, gamma, ref0 = args
+    if grid == "one_row":
+        rows = slice(NB - NB, 2 * NB + 1)
+        u, v = u[:, rows].contiguous(), torch.zeros_like(v[:, : 2 * NB + 2])
+        now, intl = [now[0][:, rows].contiguous()], [intl[0][:, rows].contiguous()]
+        tnds = None if tnds is None else [tnds[0][:, rows].contiguous()]
+        kw["q_product"] = None
+    ref = jax_advection(
+        _jax_or_none(u), _jax_or_none(v), _jax_tuple(now), _jax_tuple(intl), _jax_tuple(tnds),
+        _jax_or_none(gamma), _jax_or_none(ref0), interpret=True,
+        **{k: (tuple(val) if k == "q_product" and val is not None else val) for k, val in kw.items()},
+    )
+    got = fused_advection_fields_plain(u, v, now, intl, tnds, gamma, ref0, **kw)
+    assert len(got) == len(ref) == len(now)
+    for k, (a, b) in enumerate(zip(got, ref)):
+        assert_scaled(a.numpy(), b, 1e-12, f"field {k}")
+
+
+@pytest.mark.parametrize("tendencies", [True, False])
+@pytest.mark.parametrize("order", [3, 5])
+@pytest.mark.parametrize("ny", [NY, NY1])
+def test_momentum_step_plain_vs_pallas(ny, order, tendencies):
+    args = momentum_step_args(momentum_step_inputs(seed=30 + order + ny, ny=ny), tendencies)
+    kw = dict(order=order, nb=NB, dt=FRACS[2] * DTF, dx=CONSTS["dx"], dy=CONSTS["dy"], eps=0.5)
+    ref = jax_momentum_step(*(_jax_or_none(a) for a in args), has_tnd=tendencies, interpret=True, **kw)
+    got = fused_momentum_step_plain(*args, **kw)
+    assert len(got) == len(ref) == 2
+    for k, (a, b) in enumerate(zip(got, ref)):
+        assert_scaled(a.numpy(), b, 1e-12, f"output {k}")
+
+
+@pytest.mark.parametrize("mode", ["mtg", "dry", "moist"])
+def test_diagnostics_plain_vs_pallas(mode):
+    s, hs, theta = diagnostics_inputs(seed=40)
+    ref = jax_diagnostics(jnp.asarray(s), jnp.asarray(hs), jnp.asarray(theta)[None, :], mode=mode,
+                          impl="pallas", interpret=True, **DIAG_CONSTS)
+    got = fused_isentropic_diagnostics_plain(tensor(s), tensor(hs), tensor(theta), mode=mode,
+                                             **DIAG_CONSTS)
+    got, ref = ((got,), (ref,)) if mode == "mtg" else (got, ref)
+    assert len(got) == len(ref) == {"mtg": 1, "dry": 4, "moist": 6}[mode]
+    for k, (a, b) in enumerate(zip(got, ref)):
+        assert_scaled(a.numpy(), b, 1e-12, f"output {k}")
+
+
+def test_single_paste_plain_vs_pallas_bitwise():
+    rng = np.random.default_rng(50)
+    full, lo, hi = rng.normal(size=(NX, NY, NZ)), rng.normal(size=(NB, NY, NZ)), rng.normal(size=(NB, NY, NZ))
+    ref = jax_paste_one(jnp.asarray(full), jnp.asarray(lo), jnp.asarray(hi), interpret=True)
+    t = tensor(full)
+    got = paste_x_edges(t, tensor(lo), tensor(hi))
+    assert got is t
+    np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
+
+
+@pytest.mark.parametrize("stage", [1, 2])
+def test_smagorinsky_stage_plain_vs_pallas(stage):
+    """nx = 17 with nb = 3 and tile_x 32: the tile is 11 columns and
+    17 < 11 + 8, so the JAX ``fused_smagorinsky_rk2`` itself takes ``_smag_stage``."""
+    s, su, sv = smagorinsky_inputs(seed=60 + stage)
+    s, su, sv = s[:17], su[:17], sv[:17]
+    rng = np.random.default_rng(61)
+    su_st = su if stage == 1 else su * (1.0 + rng.normal(0.0, 0.01, su.shape))
+    sv_st = sv if stage == 1 else sv + s * rng.normal(0.0, 0.5, sv.shape)
+    c = 0.5 * SMAG["dt"] if stage == 1 else SMAG["dt"]
+    kw = {k: SMAG[k] for k in ("dx", "dy", "cs", "nb")}
+    ref = jax_smag_stage(*(jnp.asarray(a) for a in (s, su_st, sv_st, su, sv)), c=c, tile_x=32,
+                         interpret=True, **kw)
+    got = smagorinsky_stage_plain(*(tensor(a) for a in (s, su_st, sv_st, su, sv)), c=c, **kw)
+    for k, (a, b) in enumerate(zip(got, ref)):
+        assert_scaled(a.numpy(), b, 1e-13, f"output {k}")
+
+
+def test_unfused_stage_wrappers_take_plain_on_cpu():
+    before = dict(_lib.launch_counts)
+    args = momentum_step_args(momentum_step_inputs(seed=70, ny=NY1), True)
+    kw = dict(order=3, nb=NB, dt=DTF, dx=CONSTS["dx"], dy=CONSTS["dy"], eps=0.5)
+    for a, b in zip(fused_momentum_step(*args, **kw), fused_momentum_step_plain(*args, **kw)):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    s, hs, theta = (tensor(a) for a in diagnostics_inputs(seed=71))
+    for mode in ("mtg", "dry", "moist"):
+        got = fused_isentropic_diagnostics(s, hs, theta, mode=mode, **DIAG_CONSTS)
+        ref = fused_isentropic_diagnostics_plain(s, hs, theta, mode=mode, **DIAG_CONSTS)
+        for a, b in zip((got,) if mode == "mtg" else got, (ref,) if mode == "mtg" else ref):
+            torch.testing.assert_close(a, b, rtol=0, atol=0)
+    s, su, sv = (tensor(a) for a in smagorinsky_inputs(seed=72))
+    kw = {k: SMAG[k] for k in ("dx", "dy", "cs", "nb")}
+    for a, b in zip(smag_stage(s, su, sv, su, sv, c=1.0, **kw),
+                    smagorinsky_stage_plain(s, su, sv, su, sv, c=1.0, **kw)):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    assert dict(_lib.launch_counts) == before
