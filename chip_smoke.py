@@ -5,13 +5,13 @@ printing one line; any failure raises and exits non-zero:
 
 1. the card's name and power limit (``nvidia-smi``); a CUDA device is required;
 2. build the hand-written CUDA kernels from ``tasmania_tpu_torch/csrc``;
-3. each of the fifteen kernels at the flagship shapes (161x161x120 float32) on
+3. each of the seventeen kernels at the flagship shapes (161x161x120 float32) on
    perturbed real states against its plain PyTorch version on the same
    inputs, with the device time of one call of each (``device_ms``: the
    device operations' time over 20 calls under ``torch.profiler``, so ``ms``
-   is device time and not the wrapper's host time; a session that records
-   no device time is repeated, and after three such the time is taken with
-   CUDA events and the kernel's ``timed_by`` says so),
+   is device time and not the wrapper's host time; taken from two sessions
+   that record the same number of device operations, else with CUDA events,
+   which the kernel's ``timed_by`` then says),
    the bytes it must move and its bound at 3.35 TB/s.  Tolerances, as a share
    of the largest magnitude of the plain output (su and sv both of the
    momentum vector's): paste bitwise (N arrays, and one); smoothing 1e-6;
@@ -40,7 +40,14 @@ printing one line; any failure raises and exits non-zero:
    are also held at the mountain wave's shapes (161x7x120: one interior row
    in y), as phase 8 runs them: the advection of s at third order (its
    increment, as above), the Montgomery potential and the momentum step at
-   third order (1e-5), each timed there too (``also`` in the summary);
+   third order (1e-5), each timed there too (``also`` in the summary).
+   The two process merges: smoothing + Smagorinsky RK2 (its smoothed fields
+   1e-6 as the smoothing's, its momenta as Smagorinsky's against the
+   smoothed momenta) and vertical advection + sedimentation (the advected
+   fields as vertical advection's, qr and the fall velocity 1e-5 as
+   sedimentation's; rain everywhere, since where an advected qr lands
+   within rounding of zero the power 0.1346 of max(qr, 0) tells two
+   roundings apart);
 4. the port's first slice (dycore -> diagnostics -> smoothing -> velocities,
    ``namelist_sus.slice_skip``), 1 + 100 steps, with its launch counts and
    agreement with ``tasmania_tpu_torch/drivers/slice_reference.json`` to 1e-4
@@ -97,10 +104,20 @@ printing one line; any failure raises and exits non-zero:
    1e-4 m/s a step through the pressure gradient) moves the wave's extremes:
    the port's float32 run on the CPU came within 7.1e-3 (corr), 2.2e-3 (the
    window correlations), 5.6e-2 (the amplitude ratio) and 1.0e-4 (umax) of
-   that reference.
+   that reference;
+9. the raining run of phase 6 with both process merges
+   (``process_merges=("smooth_smag", "vadv_sed")``) through
+   ``driver_namelist_sus.run``, 1 + 30 steps at 161x161x120: the exact
+   launch counts (``LAUNCHES_PER_STEP["sus_merged"]``: the merged kernels
+   once a step each in place of the smoothing, its paste, the two
+   Smagorinsky stages, vertical advection and sedimentation), finiteness,
+   its step time, and agreement with the JAX package's float32 run with its
+   two merge switches on (``tasmania_tpu_torch/drivers/flagship_merged_reference.json``)
+   to ``MERGED_TOL`` = 6e-4 relative on every number, about twice the
+   port's float32 CPU reading (2.8e-4 on qc_max).
 
 The isentropic diagnostics kernel serves every diagnostics call, so phases
-4-7 count it too (``LAUNCHES_PER_STEP``).  Every phase checks the launch
+4-7 and 9 count it too (``LAUNCHES_PER_STEP``).  Every phase checks the launch
 counts exactly: each kernel of the path as often as its path launches it a
 step, and no other kernel.  The last two
 lines are the card's name and power limit, then ``{"ok": true, "device":
@@ -108,9 +125,9 @@ lines are the card's name and power limit, then ``{"ok": true, "device":
 launches in the full-size run of the first path that runs them (``path``:
 the flagship, phase 5, for the seven of the SUS chain and the diagnostics;
 fc for the two stage kernels, ps for Kessler and saturation adjustment
-alone, the mountain wave for the momentum step; none for the single paste
-and the Smagorinsky stage alone, which no path runs), their launches a step
-on every path, and their times.
+alone, the mountain wave for the momentum step, sus_merged for the two
+merges; none for the single paste and the Smagorinsky stage alone, which no
+path runs), their launches a step on every path, and their times.
 """
 
 from __future__ import annotations
@@ -127,6 +144,12 @@ SLICE_TOL = 1e-4
 FLAGSHIP_TOL = 1e-4
 FLAGSHIP_QC_TOL = 1e-3
 RAIN_TOL = 1e-3
+# phase 9, the rain run with both merges, against flagship_merged_reference.json:
+# about twice the port's float32 CPU reading (make_torch_flagship_reference.py
+# --merges --check-port: 2.8e-4 on qc_max, 2.1e-4 on sv_max, 1.9e-4 on su_max,
+# 4.1e-5 or less on every rain and precipitation number)
+MERGED_TOL = 6e-4
+MERGES = ("smooth_smag", "vadv_sed")
 KERNEL_TOL = 1e-5
 # the density of the isentropic diagnostics, rho = s·dθ/(h[k] - h[k+1]),
 # divides by the difference of two heights summed over up to 120 levels:
@@ -162,10 +185,17 @@ _SUS = {"si_stage": 3, "paste_x_edges_multi": 4, "fused_smoothing": 1, "fused_sm
         "fused_sedimentation_rk3ws": 1, "fused_isentropic_diagnostics": 1}
 _TWO_KERNEL = {"fused_advection_fields": 3, "fused_momentum_epilogue": 3, "fused_smoothing": 1,
                "paste_x_edges_multi": 1}
+# both process merges: one kernel each in place of smoothing (and its x-frame
+# paste) with the two Smagorinsky stages, and of vertical advection with
+# sedimentation
+_MERGED = {"fused_smoothing": 0, "fused_smagorinsky_rk2": 0, "fused_vertical_advection_rk3ws": 0,
+           "fused_sedimentation_rk3ws": 0, "paste_x_edges_multi": 3,
+           "fused_smoothing_smagorinsky_rk2": 1, "fused_vadv_sedimentation_rk3ws": 1}
 LAUNCHES_PER_STEP = {
     "slice": {"si_stage": 3, "paste_x_edges_multi": 4, "fused_smoothing": 1,
               "fused_isentropic_diagnostics": 1},
     "sus": _SUS,
+    "sus_merged": {k: n for k, n in {**_SUS, **_MERGED}.items() if n},
     "ssus": _SUS,
     "fc": {**_TWO_KERNEL, "fused_isentropic_diagnostics": 6},
     "lfc": {**_TWO_KERNEL, "fused_isentropic_diagnostics": 4},
@@ -204,10 +234,10 @@ def phase(name: str, msg: str) -> None:
     print(f"[{name}] {msg}", flush=True)
 
 
-profiler_sessions = {"recorded": 0, "empty": 0}
+profiler_sessions = {"sessions": 0, "empty": 0, "measurements": 0}
 
 
-def device_ms(fn, reps: int = 20, warmup: int = 3, attempts: int = 3) -> tuple[float, str]:
+def device_ms(fn, reps: int = 20, warmup: int = 3, attempts: int = 4) -> tuple[float, str]:
     """Device time of one ``fn()`` and how it was taken.  After warm-up,
     ``reps`` calls under ``torch.profiler``: the sum of the device
     operations' times (kernels and copies) over ``reps``.  The host's work
@@ -215,27 +245,35 @@ def device_ms(fn, reps: int = 20, warmup: int = 3, attempts: int = 3) -> tuple[f
     dispatch) and the device's idle gaps between launches do not count.
 
     A profiler session has been seen to record no device operation at all
-    (once, on an H100, for the 4 us paste kernel).  Such a session is
-    counted in ``profiler_sessions`` and repeated, up to ``attempts``
-    sessions; if none records device time, the time is taken with CUDA
-    events around ``reps`` back-to-back calls, an upper bound that holds
-    the host's work wherever it is longer than the device's.  Returns (ms, "profiler" or "cuda events")."""
+    (once, on an H100, for the 4 us paste kernel), and one that loses some
+    operations would read low.  So a time is taken only from a session
+    whose count of device operations is a multiple of ``reps`` and equals
+    the previous session's; up to ``attempts`` sessions are run (counted in
+    ``profiler_sessions``).  If no two agree, the time is taken with CUDA
+    events around ``reps`` back-to-back calls, an upper bound that holds the
+    host's work wherever it is longer than the device's.  Returns (ms,
+    "profiler" or "cuda events")."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
+    previous = None
     for _ in range(attempts):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        busy_us = sum(e.time_range.elapsed_us() for e in prof.events() if e.device_type == DeviceType.CUDA)
-        if busy_us > 0:
-            profiler_sessions["recorded"] += 1
-            return 1e-3 * busy_us / reps, "profiler"
-        profiler_sessions["empty"] += 1
+        ops = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        profiler_sessions["sessions"] += 1
+        if not ops:
+            profiler_sessions["empty"] += 1
+            continue
+        if len(ops) % reps == 0 and len(ops) == previous:
+            profiler_sessions["measurements"] += 1
+            return 1e-3 * sum(e.time_range.elapsed_us() for e in ops) / reps, "profiler"
+        previous = len(ops)
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
     for _ in range(reps):
@@ -376,11 +414,15 @@ def main() -> int:
     from tasmania_tpu_torch.ops.smagorinsky_step import (
         fused_smagorinsky_rk2,
         fused_smagorinsky_rk2_plain,
+        fused_smoothing_smagorinsky_rk2,
+        fused_smoothing_smagorinsky_rk2_plain,
         smag_stage,
         smagorinsky_stage_plain,
     )
     from tasmania_tpu_torch.ops.smoothing_step import fused_smoothing, fused_smoothing_plain
     from tasmania_tpu_torch.ops.vertical_advection_step import (
+        fused_vadv_sedimentation_rk3ws,
+        fused_vadv_sedimentation_rk3ws_plain,
         fused_vertical_advection_rk3ws,
         fused_vertical_advection_rk3ws_plain,
     )
@@ -631,6 +673,7 @@ def main() -> int:
            "tasmania_tpu/ops/sedimentation_step.py:123", worst,
            lambda: fused_sedimentation_rk3ws(*din, **dkw),
            lambda: fused_sedimentation_rk3ws_plain(*din, **dkw), b)
+
     # Kessler alone and saturation adjustment alone (the parallel splitting's
     # chains): the pair's inputs, and a θ-tendency for the adjustment to add to
     for name, wrapper, plain, kargs, flops, replaces in (
@@ -795,12 +838,64 @@ def main() -> int:
     record_also("fused_momentum_step", "order 3, 161x7x120", lambda: fused_momentum_step(*m3, **mkw3),
                 lambda: fused_momentum_step_plain(*m3, **mkw3),
                 bound(nbytes(m3) + nbytes(ref), 150.0 * ms_now.numel()))
-    phase("timing", f"profiler sessions with device time {profiler_sessions['recorded']}, "
-          f"without {profiler_sessions['empty']}")
+    # the two process merges, last, so that the random inputs of the kernels
+    # above are those of the runs before the merges existed
+    # the merge smoothing + Smagorinsky RK2 on the six smoothed fields, with
+    # the Smagorinsky check's velocity noise: the smoothed fields as the
+    # smoothing kernel's, the momenta as Smagorinsky's (against the smoothed
+    # momenta, the stages' base)
+    mfields = [perturbed(s_now), perturbed(su_now, 0.05), s_now * noise(cell, 2.0)] + fields[3:]
+    mkw = dict(order=smoother.order, **skw)  # the smoothing's nb is the boundary's, as Smagorinsky's
+    got = fused_smoothing_smagorinsky_rk2(mfields, smoother.gamma, **mkw)
+    ref = fused_smoothing_smagorinsky_rk2_plain(mfields, smoother.gamma, **mkw)
+    msm = fused_smoothing_plain(mfields, smoother.gamma, **sm)
+    w1, rel = check_outputs("fused_smoothing_smagorinsky_rk2 (smoothed)", [got[0], *got[3:]],
+                            [ref[0], *ref[3:]], [amax(ref[0])] + [amax(r) for r in ref[3:]], 1e-6)
+    w2, inc = check_increments("fused_smoothing_smagorinsky_rk2 (momenta)", got[1:3], ref[1:3], msm[1:3],
+                               KERNEL_TOL)
+    phase("check", f"fused_smoothing_smagorinsky_rk2 relative errors (s qv qc qr) {rel}; errors as a "
+          f"share of the largest increment (su sv) {inc}")
+    # the smoothing's taps on six fields and both Smagorinsky stages
+    record("fused_smoothing_smagorinsky_rk2", "smooth_smag.cu", "tasmania_tpu/ops/smagorinsky_step.py:303",
+           max(w1, w2), lambda: fused_smoothing_smagorinsky_rk2(mfields, smoother.gamma, **mkw),
+           lambda: fused_smoothing_smagorinsky_rk2_plain(mfields, smoother.gamma, **mkw),
+           bound(nbytes(mfields + [smoother.gamma]) + nbytes(ref),
+                 ((12.0 * smoother.order + 3.0) * len(mfields) + 2 * 100.0) * s_now.numel()))
+    # the same on the unperturbed initial state, whose uniform flow has zero
+    # strain almost everywhere
+    ifields = [raw[n] for n in names]
+    record_also("fused_smoothing_smagorinsky_rk2", "the unperturbed initial state",
+                lambda: fused_smoothing_smagorinsky_rk2(ifields, smoother.gamma, **mkw),
+                lambda: fused_smoothing_smagorinsky_rk2_plain(ifields, smoother.gamma, **mkw),
+                bound(nbytes(ifields + [smoother.gamma]) + nbytes(ref),
+                      ((12.0 * smoother.order + 3.0) * len(ifields) + 2 * 100.0) * s_now.numel()))
+
+    # the merge vertical advection + sedimentation: vertical advection's
+    # inputs with rain everywhere (where an advected qr lands within rounding
+    # of zero, max(qr, 0)^0.1346 tells two roundings apart), the advected
+    # fields as vertical advection's, qr and vt as sedimentation's
+    rain = uniform(cell, 0.1 * ke.a, ke.a)
+    vsin = vin + (vq[0], qc, rain, raw["air_density"], raw["height_on_interface_levels"])
+    vskw = dict(vorder=va.vflux.order, sorder=sed.sflux.nb, dt=5.0, dz=va.dz, vt_mode=sed.vt_mode)
+    got = fused_vadv_sedimentation_rk3ws(*vsin, **vskw)
+    ref = fused_vadv_sedimentation_rk3ws_plain(*vsin, **vskw)
+    w1, inc = check_increments("fused_vadv_sedimentation_rk3ws (advected)", got[:5], ref[:5], vsin[1:6],
+                               KERNEL_TOL)
+    w2, rel = check_outputs("fused_vadv_sedimentation_rk3ws (qr vt)", got[5:], ref[5:],
+                            [amax(r) for r in ref[5:]], KERNEL_TOL)
+    phase("check", "fused_vadv_sedimentation_rk3ws errors as a share of the largest increment "
+          f"(s su sv qv qc) {inc}; relative errors (qr vt) {rel}")
+    record("fused_vadv_sedimentation_rk3ws", "vadv_sed.cu", "tasmania_tpu/ops/vertical_advection_step.py:242",
+           max(w1, w2), lambda: fused_vadv_sedimentation_rk3ws(*vsin, **vskw),
+           lambda: fused_vadv_sedimentation_rk3ws_plain(*vsin, **vskw),
+           bound(nbytes(vsin) + nbytes(ref), (18 * 22.0 + powers * 20.0 + 90.0) * s_now.numel()))
+    phase("timing", f"{profiler_sessions['measurements']} times from pairs of profiler sessions that "
+          f"agree on their device-operation count, in {profiler_sessions['sessions']} sessions "
+          f"({profiler_sessions['empty']} without device time)")
     del (fields, fulls, lo, hi, views, got, ref, stage_in, args, flat_in, kin, sin, vin, vq, din,
          adv_args, adv, mtg_e, mom_args, flat, base, q_now, s_int, state, raw, dycore, physics, domain,
          full1, lo1, hi1, st1, st2, got1, ref1, ms_args, d_in, mdom, mstate, mcore, mdiag, mraw, mu,
-         mv, ms_int, a3, madv, ms_e, mhs, mtg_args, mmtg, m3)
+         mv, ms_int, a3, madv, ms_e, mhs, mtg_args, mmtg, m3, mfields, msm, ifields, rain, vsin)
 
     def drive(tag, run, nl_run, per_step, reference, tol_of, zero_tol):
         """One ``run(nl_run)`` from zeroed launch counts: every kernel
@@ -912,9 +1007,22 @@ def main() -> int:
     path_counts["mountain_wave"], path_steps["mountain_wave"] = counts, steps
     del res
 
+    # -- 9. the rain run with both process merges (sus_merged) -----------------
+    mcfg = json.loads(Path(drv.__file__).with_name("flagship_merged_reference.json").read_text())["config"]
+    if tuple(mcfg["process_merges"]) != MERGES:
+        raise AssertionError("flagship_merged_reference.json is not the run of both merges")
+    nl_merged = load_namelist(relative_humidity=mcfg["relative_humidity"], niter=mcfg["niter"],
+                              process_merges=MERGES)
+    res, counts = drive("sus_merged", sus(()), nl_merged, LAUNCHES_PER_STEP["sus_merged"],
+                        "flagship_merged_reference.json", lambda key: MERGED_TOL, 0.0)
+    path_counts["sus_merged"], path_steps["sus_merged"] = counts, 1 + nl_merged.niter
+    phase("sus_merged-validation", f"umax = {res['umax']:.5f}, vmax = {res['vmax']:.5f} (for information)")
+    del res
+
     # each kernel's launches in the full-size run of the first path that runs
-    # it (the flagship for the seven of the SUS chain), and in every path; the
-    # single paste and the Smagorinsky stage alone are on no path
+    # it (the flagship for the seven of the SUS chain, the merged run for the
+    # two merges), and in every path; the single paste and the Smagorinsky
+    # stage alone are on no path
     for name, entry in kernels.items():
         entry["path"] = next((p for p, n in path_counts.items() if n.get(name, 0)), None)
         entry["launches"] = path_counts[entry["path"]][name] if entry["path"] else 0

@@ -1,6 +1,8 @@
 // Shared device helpers of the port's kernels: the relaxed-BC select, the
 // positivity clip, the third- and fifth-order upwind fluxes and their
-// divergences.  Every formula keeps the operation order of the plain PyTorch
+// divergences, the Shapiro filter and the Smagorinsky strain and tendency
+// (column.cuh holds the column algebra of vertical advection and
+// sedimentation).  Every formula keeps the operation order of the plain PyTorch
 // versions in tasmania_tpu_torch/ops/, so kernel and plain version differ
 // only by FMA contraction in the stencils; the column scans keep the
 // roundings of a level-by-level sum (mul_rn/add_rn).
@@ -115,6 +117,74 @@ __device__ __forceinline__ T div_upwind(const T* __restrict__ u, const T* __rest
     }
     return (fx[1] - fx[0]) / dx + (fy[1] - fy[0]) / dy;
   }
+}
+
+// order-N 2-D Shapiro filter of the cell at index c of phi with the level's
+// coefficient g: (1 - cw g) phi + sum_o w_o g phi(x-shifts), then the
+// y-shifts (sx, sy: the x and y strides), in the order of
+// fused_smoothing_plain (ops/smoothing_step.py: CW_2D, WEIGHTS)
+template <typename T, int N>
+__device__ __forceinline__ T shapiro(const T* __restrict__ phi, int64_t c, int64_t sx, int64_t sy,
+                                     T g) {
+  static_assert(N >= 1 && N <= 3, "Shapiro order 1-3");
+  constexpr T cw = N == 1 ? T(1.0) : (N == 2 ? T(0.75) : T(0.625));
+  constexpr int noff = 2 * N;
+  const int offs1[2] = {-1, 1};
+  const int offs2[4] = {-2, -1, 1, 2};
+  const int offs3[6] = {-3, -2, -1, 1, 2, 3};
+  const T w1[2] = {T(0.25), T(0.25)};
+  const T w2[4] = {T(-0.0625), T(0.25), T(0.25), T(-0.0625)};
+  const T w3[6] = {T(0.015625), T(-0.09375), T(0.234375), T(0.234375), T(-0.09375), T(0.015625)};
+  const int* offs = N == 1 ? offs1 : (N == 2 ? offs2 : offs3);
+  const T* wts = N == 1 ? w1 : (N == 2 ? w2 : w3);
+  T acc = (T(1) - cw * g) * phi[c];
+#pragma unroll
+  for (int o = 0; o < noff; ++o) acc = acc + wts[o] * g * phi[c + offs[o] * sx];
+#pragma unroll
+  for (int o = 0; o < noff; ++o) acc = acc + wts[o] * g * phi[c + offs[o] * sy];
+  return acc;
+}
+
+// the velocity m / s of a momentum and the density, read through cell index c
+template <typename T>
+struct Ratio {
+  const T* __restrict__ m;
+  const T* __restrict__ s;
+  __device__ __forceinline__ T operator()(int64_t c) const { return m[c] / s[c]; }
+};
+
+template <typename T>
+struct Strain {
+  T s00, s01, s11, nu;
+};
+
+// Smagorinsky strain (centred differences; dx2 = 2 dx, dy2 = 2 dy) and eddy
+// viscosity nuc |S| at cell c, from the velocities u, v of its four
+// neighbours (sx, sy: the x and y strides), in the order of
+// smagorinsky_tendency (ops/smagorinsky_step.py)
+template <typename T, typename U, typename V>
+__device__ __forceinline__ Strain<T> smag_strain(U u, V v, int64_t c, int64_t sx, int64_t sy,
+                                                 T nuc, T dx2, T dy2) {
+  Strain<T> r;
+  r.s00 = (u(c + sx) - u(c - sx)) / dx2;
+  r.s01 = T(0.5) * ((u(c + sy) - u(c - sy)) / dy2 + (v(c + sx) - v(c - sx)) / dx2);
+  r.s11 = (v(c + sy) - v(c - sy)) / dy2;
+  r.nu = nuc * sqrt(T(2) * (r.s00 * r.s00 + T(2) * (r.s01 * r.s01) + r.s11 * r.s11));
+  return r;
+}
+
+// the Smagorinsky tendency pair at cell c, 2(dx(nu s00) + dy(nu s01)) and
+// 2(dx(nu s01) + dy(nu s11)), from the strains of its four neighbours (the
+// 13-point velocity diamond of radius 2 around c)
+template <typename T, typename U, typename V>
+__device__ __forceinline__ void smag_tendency(U u, V v, int64_t c, int64_t sx, int64_t sy, T nuc,
+                                              T dx2, T dy2, T& u_tnd, T& v_tnd) {
+  const Strain<T> xp = smag_strain(u, v, c + sx, sx, sy, nuc, dx2, dy2);
+  const Strain<T> xm = smag_strain(u, v, c - sx, sx, sy, nuc, dx2, dy2);
+  const Strain<T> yp = smag_strain(u, v, c + sy, sx, sy, nuc, dx2, dy2);
+  const Strain<T> ym = smag_strain(u, v, c - sy, sx, sy, nuc, dx2, dy2);
+  u_tnd = T(2) * ((xp.nu * xp.s00 - xm.nu * xm.s00) / dx2 + (yp.nu * yp.s01 - ym.nu * ym.s01) / dy2);
+  v_tnd = T(2) * ((xp.nu * xp.s01 - xm.nu * xm.s01) / dx2 + (yp.nu * yp.s11 - ym.nu * ym.s11) / dy2);
 }
 
 }  // namespace tt

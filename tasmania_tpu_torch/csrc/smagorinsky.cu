@@ -11,7 +11,9 @@
 // (i, j+-1); the tendency 2(dx(nu s00) + dy(nu s01)), 2(dx(nu s01) + dy(nu s11));
 // out = base + (c s) tendency.  Every other cell (the nb-frame) gets base, so
 // the output is complete and needs no paste.  Operation order as in
-// smagorinsky_stage_plain (ops/smagorinsky_step.py).
+// smagorinsky_stage_plain (ops/smagorinsky_step.py); the strain and tendency
+// are tt::smag_strain and tt::smag_tendency (common.cuh), shared with
+// smooth_smag.cu.
 //
 // Bound on the H100: bytes.  A stage reads s, su_st, sv_st, su_base, sv_base
 // and writes two fields: 7 x 12.44 MB = 87 MB at the flagship, 26 us at
@@ -24,30 +26,6 @@
 #include "common.cuh"
 
 namespace {
-
-template <typename T>
-struct Strain {
-  T s00, s01, s11, nu;
-};
-
-template <typename T>
-__device__ __forceinline__ T vel(const T* __restrict__ m, const T* __restrict__ s, int64_t c) {
-  return m[c] / s[c];
-}
-
-// strain and viscosity at cell c (needs its four neighbours)
-template <typename T>
-__device__ __forceinline__ Strain<T> strain(const T* __restrict__ s, const T* __restrict__ su,
-                                            const T* __restrict__ sv, int64_t c, int64_t sx,
-                                            int64_t sy, T nuc, T dx2, T dy2) {
-  Strain<T> r;
-  r.s00 = (vel(su, s, c + sx) - vel(su, s, c - sx)) / dx2;
-  r.s01 = T(0.5) * ((vel(su, s, c + sy) - vel(su, s, c - sy)) / dy2 +
-                    (vel(sv, s, c + sx) - vel(sv, s, c - sx)) / dx2);
-  r.s11 = (vel(sv, s, c + sy) - vel(sv, s, c - sy)) / dy2;
-  r.nu = nuc * sqrt(T(2) * (r.s00 * r.s00 + T(2) * (r.s01 * r.s01) + r.s11 * r.s11));
-  return r;
-}
 
 template <typename T>
 __global__ void smagorinsky_stage_kernel(const T* __restrict__ s, const T* __restrict__ su_st,
@@ -68,14 +46,9 @@ __global__ void smagorinsky_stage_kernel(const T* __restrict__ s, const T* __res
       sv_out[e] = sv_base[e];
       continue;
     }
-    const Strain<T> xp = strain(s, su_st, sv_st, e + sx, sx, sy, nuc, dx2, dy2);
-    const Strain<T> xm = strain(s, su_st, sv_st, e - sx, sx, sy, nuc, dx2, dy2);
-    const Strain<T> yp = strain(s, su_st, sv_st, e + sy, sx, sy, nuc, dx2, dy2);
-    const Strain<T> ym = strain(s, su_st, sv_st, e - sy, sx, sy, nuc, dx2, dy2);
-    const T u_tnd = T(2) * ((xp.nu * xp.s00 - xm.nu * xm.s00) / dx2 +
-                            (yp.nu * yp.s01 - ym.nu * ym.s01) / dy2);
-    const T v_tnd = T(2) * ((xp.nu * xp.s01 - xm.nu * xm.s01) / dx2 +
-                            (yp.nu * yp.s11 - ym.nu * ym.s11) / dy2);
+    T u_tnd, v_tnd;
+    tt::smag_tendency(tt::Ratio<T>{su_st, s}, tt::Ratio<T>{sv_st, s}, e, sx, sy, nuc, dx2, dy2,
+                      u_tnd, v_tnd);
     const T cs = c * s[e];
     su_out[e] = su_base[e] + cs * u_tnd;
     sv_out[e] = sv_base[e] + cs * v_tnd;

@@ -2,7 +2,8 @@
 //
 // Replaces: tasmania_tpu/ops/smoothing_step.py:44 fused_smoothing (pallas_call
 // at :108).  Per field f and cell: interior (1 - c*g) phi + g * sum_k w_k
-// (x-shifts + y-shifts), with g = gamma[f, k]; the nb-wide y-frame rows are
+// (x-shifts + y-shifts), with g = gamma[f, k] (tt::shapiro, common.cuh,
+// shared with smooth_smag.cu); the nb-wide y-frame rows are
 // copied.  Only x columns [nb, nx-nb) are written: the wrapper pastes the
 // x-frame columns from the inputs with the paste kernel, as the TPU path does.
 //
@@ -27,18 +28,6 @@ struct FieldPtrs {
 template <typename T, int N>
 __global__ void smoothing_kernel(FieldPtrs<T> ptrs, const T* __restrict__ gamma, int nx, int ny,
                                  int nz, int nb) {
-  // centre factor and (offset, weight) pairs of the order-N filter
-  constexpr T cw = N == 1 ? T(1.0) : (N == 2 ? T(0.75) : T(0.625));
-  constexpr int noff = 2 * N;
-  const int offs1[2] = {-1, 1};
-  const int offs2[4] = {-2, -1, 1, 2};
-  const int offs3[6] = {-3, -2, -1, 1, 2, 3};
-  const T w1[2] = {T(0.25), T(0.25)};
-  const T w2[4] = {T(-0.0625), T(0.25), T(0.25), T(-0.0625)};
-  const T w3[6] = {T(0.015625), T(-0.09375), T(0.234375), T(0.234375), T(-0.09375), T(0.015625)};
-  const int* offs = N == 1 ? offs1 : (N == 2 ? offs2 : offs3);
-  const T* wts = N == 1 ? w1 : (N == 2 ? w2 : w3);
-
   const int f = blockIdx.y;
   const T* __restrict__ phi = ptrs.in[f];
   T* __restrict__ out = ptrs.out[f];
@@ -50,18 +39,11 @@ __global__ void smoothing_kernel(FieldPtrs<T> ptrs, const T* __restrict__ gamma,
     const int j = int((e / nz) % ny);
     const int i = nb + int(e / sx);
     const int64_t c = int64_t(i) * sx + int64_t(j) * nz + k;
-    const T centre = phi[c];
     if (j < nb || j >= ny - nb) {
-      out[c] = centre;
+      out[c] = phi[c];
       continue;
     }
-    const T g = gamma[f * nz + k];
-    T acc = (T(1) - cw * g) * centre;
-#pragma unroll
-    for (int o = 0; o < noff; ++o) acc = acc + wts[o] * g * phi[c + offs[o] * sx];
-#pragma unroll
-    for (int o = 0; o < noff; ++o) acc = acc + wts[o] * g * phi[c + offs[o] * nz];
-    out[c] = acc;
+    out[c] = tt::shapiro<T, N>(phi, c, sx, nz, gamma[f * nz + k]);
   }
 }
 

@@ -21,14 +21,16 @@ re-export ``namelist_sus.py``); the coupling differs:
   dycore, the second half after it.
 
 With tendencies (fc, lfc) the dycore's stages take the two-kernel path
-(``ops/advection_step``); the others take the whole-stage kernel.  The step
-sequence is the JAX driver's: one warm-up step at zero mountain height, then
-``niter`` timed steps with the growing mountain.
+(``ops/advection_step``); the others take the whole-stage kernel.  The
+namelist's ``process_merges`` (``--merge NAME``) apply to the sequential-update
+splittings of sus and ssus; the other couplings raise ``ValueError`` if any
+is set.  The step sequence is the JAX driver's: one warm-up step at zero
+mountain height, then ``niter`` timed steps with the growing mountain.
 
 Usage::
 
     python -m tasmania_tpu_torch.drivers.driver_isentropic_moist --coupling fc
-        [--nx N] [--ny N] [--nz N] [--niter N] [--device cuda|cpu]
+        [--nx N] [--ny N] [--nz N] [--niter N] [--device cuda|cpu] [--merge NAME]
 
 The namelist's device is ``cuda``; without a GPU, ``run`` raises unless the
 namelist names the CPU (``--device cpu`` on the command line).
@@ -67,6 +69,9 @@ def build_variant(nl, coupling: str):
     dt)`` is one timestep."""
     if coupling not in COUPLINGS:
         raise ValueError(f"unknown coupling {coupling!r} (have {COUPLINGS})")
+    if nl.process_merges and coupling not in ("sus", "ssus"):
+        raise ValueError(f"process_merges {tuple(nl.process_merges)}: the {coupling} coupling "
+                         "runs no sequential-update splitting to merge processes in")
     domain, state, pt = build_domain_and_state(nl)
     if coupling == "sus":
         dycore, physics = build_model(nl, domain, pt)
@@ -101,8 +106,8 @@ def build_variant(nl, coupling: str):
     dycore = make_dycore(nl, domain, pt)
     if coupling == "ssus":
         half = len(options) // 2
-        before = SequentialUpdateSplitting(*options[:half])
-        after = SequentialUpdateSplitting(*options[half:])
+        before = SequentialUpdateSplitting(*options[:half], merges=nl.process_merges)
+        after = SequentialUpdateSplitting(*options[half:], merges=nl.process_merges)
         return domain, state, dycore, lambda st, dt: after(dycore(before(st, dt), {}, dt), dt)
 
     if coupling == "ps":

@@ -5,7 +5,10 @@ The dycore steps the state, then the physics chain runs in sequence:
 diagnostics -> smoothing -> Smagorinsky (RK2) -> velocities -> Kessler (RK2)
 -> saturation adjustment (RK2) -> vertical advection (RK3WS) -> fall velocity
 + sedimentation (RK3WS) -> fall velocity + precipitation.  Kessler and
-saturation adjustment run as one fused pair.  ``skip`` leaves processes out
+saturation adjustment run as one fused pair; the namelist's
+``process_merges`` (``--merge NAME``, repeatable) also merge smoothing with
+Smagorinsky (``smooth_smag``) and vertical advection with sedimentation
+(``vadv_sed``), one kernel each.  ``skip`` leaves processes out
 (``namelist_sus.slice_skip`` gives the port's first slice); Coriolis is not
 ported and raises ``NotImplementedError``.  The step sequence is the JAX
 driver's: one step at zero mountain height (the warm-up), then ``niter``
@@ -14,7 +17,8 @@ timed steps with the mountain at ``min((i+1)·dt/1800 s, 1)`` of its height.
 Usage::
 
     python -m tasmania_tpu_torch.drivers.driver_namelist_sus [--nx N] [--ny N]
-        [--nz N] [--niter N] [--device cuda|cpu]
+        [--nz N] [--niter N] [--device cuda|cpu] [--merge smooth_smag]
+        [--merge vadv_sed]
 
 The namelist's device is ``cuda``; without a GPU, ``run`` raises unless the
 namelist names the CPU (``--device cpu`` on the command line).
@@ -192,9 +196,10 @@ def physics_options(nl, c, skip=()):
 
 def build_model(nl, domain, pt, skip=()):
     """Dycore + physics chain, as ``drivers/driver_namelist_sus.py:87-251``
-    builds it.  ``skip`` names processes to leave out."""
+    builds it, with the namelist's ``process_merges``.  ``skip`` names
+    processes to leave out."""
     options = physics_options(nl, build_components(nl, domain, pt), skip)
-    return make_dycore(nl, domain, pt), SequentialUpdateSplitting(*options)
+    return make_dycore(nl, domain, pt), SequentialUpdateSplitting(*options, merges=nl.process_merges)
 
 
 def fields_step(step_impl, field_names, dt_s: float):
@@ -309,13 +314,17 @@ def validation_summary(fields: Dict[str, np.ndarray]) -> Dict[str, float]:
 
 
 def size_parser(description: str) -> argparse.ArgumentParser:
-    """The drivers' command line: grid size, step count and device."""
+    """The drivers' command line: grid size, step count, device and the
+    process merges."""
     parser = argparse.ArgumentParser(description=description)
     parser.add_argument("--nx", type=int, default=None)
     parser.add_argument("--ny", type=int, default=None)
     parser.add_argument("--nz", type=int, default=None)
     parser.add_argument("--niter", type=int, default=None)
     parser.add_argument("--device", type=str, default="cuda")
+    parser.add_argument("--merge", action="append", default=[], metavar="NAME",
+                        help="run a SUS process pair as one kernel: smooth_smag, vadv_sed "
+                             "(repeatable)")
     return parser
 
 
@@ -335,6 +344,8 @@ def namelist_from(parser, cli, load_namelist):
         overrides["nz"] = cli.nz
     if cli.niter:
         overrides["niter"] = cli.niter
+    if cli.merge:
+        overrides["process_merges"] = tuple(cli.merge)
     overrides["so"] = replace(load_namelist().so, device=device)
     return load_namelist(**overrides)
 

@@ -101,6 +101,11 @@ autoconversion_rate = FieldArray(np.asarray(0.001), "s^-1", ())
 collection_rate = FieldArray(np.asarray(2.2), "s^-1", ())
 saturation_rate = FieldArray(np.asarray(0.025), "s^-1", ())
 
+# optional process-pair merges of the SUS chain, each one kernel:
+# "smooth_smag" (smoothing -> Smagorinsky RK2), "vadv_sed" (vertical
+# advection -> sedimentation); off by default, as in the JAX package
+process_merges = ()
+
 # simulation length
 timestep = timedelta(seconds=5)
 niter = 100

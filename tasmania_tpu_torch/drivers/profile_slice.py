@@ -11,8 +11,12 @@ host-clock time per step and the device's busy share of that window.
 Before the trace it times ``--steps`` steps without the profiler (host
 clock around steps that end in a synchronize).
 
+``--merge NAME`` (repeatable: ``smooth_smag``, ``vadv_sed``) sets the
+namelist's ``process_merges`` for the full chain under sus or ssus.
+
 Usage: ``python -m tasmania_tpu_torch.drivers.profile_slice [--steps N]
-[--slice | --coupling C | --mountain-wave]`` (needs a CUDA device).
+[--slice | --coupling C | --mountain-wave] [--merge NAME]`` (needs a CUDA
+device).
 """
 
 from __future__ import annotations
@@ -37,18 +41,22 @@ def main(argv=None) -> None:
     parser.add_argument("--coupling", choices=moist.COUPLINGS, default="sus")
     parser.add_argument("--mountain-wave", action="store_true",
                         help="profile the deep-domain mountain wave (the unfused dry stage)")
+    parser.add_argument("--merge", action="append", default=[], metavar="NAME",
+                        help="a SUS process merge of the full chain (repeatable)")
     cli = parser.parse_args(argv)
     if not torch.cuda.is_available():
         parser.error("needs a CUDA device")
     if (cli.slice or cli.mountain_wave) and cli.coupling != "sus" or cli.slice and cli.mountain_wave:
         parser.error("--slice, --coupling and --mountain-wave exclude each other")
+    if cli.merge and (cli.slice or cli.mountain_wave):
+        parser.error("--merge applies to the full chain")
     if cli.mountain_wave:
         _, state, dycore, diagnostics, pt = mw.build(
             161, 120, theta_top=420.0, damp_depth=60, damp_max=5e-4,
             so=StorageOptions(dtype=torch.float32, device="cuda"))
         names, step = mw.make_step(dycore, diagnostics, pt, state, 20.0)
     else:
-        nl = moist.load_namelist(cli.coupling)
+        nl = moist.load_namelist(cli.coupling, process_merges=tuple(cli.merge))
         if cli.slice:
             domain, state, pt = drv.build_domain_and_state(nl)
             dycore, physics = drv.build_model(nl, domain, pt, nl.slice_skip)
@@ -85,7 +93,7 @@ def main(argv=None) -> None:
     busy_us = sum(t for t, _ in per_name.values())
     calls = sum(n for _, n in per_name.values())
     chain = ("mountain wave" if cli.mountain_wave else "slice" if cli.slice
-             else f"full chain, {cli.coupling}")
+             else f"full chain, {cli.coupling}" + "".join(f", merge {m}" for m in cli.merge))
     print(f"{chain}, {cli.steps} steps: {plain_ms:.3f} ms/step without the profiler; "
           f"{1e3 * wall / cli.steps:.3f} ms/step (host clock) under it, device busy "
           f"{1e-3 * busy_us / cli.steps:.3f} ms/step ({100.0 * busy_us * 1e-6 / wall:.1f}% of the "

@@ -12,17 +12,21 @@ is wrapped in that stepper (``framework/steppers.py``).
 * ``SequentialTendencySplitting``: each process evaluates its tendencies on
   the current state and applies them to the provisional state.
 
-Process-pair fusers let a component module run two ADJACENT processes (both
-steppers with one substep) as one operation, A then B, for example the
-Kessler + saturation-adjustment kernel.  Results agree with the two separate
-processes bitwise where the operation order allows it, and within a stated
-tolerance otherwise (the tests hold each pair to its own).
+Process-pair fusers let a component module run two ADJACENT processes (each
+with one substep) as one operation, A then B, for example the Kessler +
+saturation-adjustment kernel.  Results agree with the two separate processes
+bitwise where the operation order allows it, and within a stated tolerance
+otherwise (the tests hold each pair to its own).  A fuser registered without
+a name is always planned; a named one (a "merge": ``"smooth_smag"``,
+``"vadv_sed"``) only when the caller names it in
+``SequentialUpdateSplitting(..., merges=...)``, the one place that choice is
+made.
 """
 
 from __future__ import annotations
 
 from datetime import timedelta
-from typing import Any, Callable, Dict, List, Mapping, Sequence, Tuple
+from typing import AbstractSet, Any, Callable, Dict, List, Mapping, Optional, Sequence, Tuple
 
 from torch import nn
 
@@ -33,23 +37,31 @@ from tasmania_tpu_torch.framework.field import ensure_timedelta_seconds
 from tasmania_tpu_torch.framework.options import TimeIntegrationOptions
 from tasmania_tpu_torch.framework.steppers import SequentialTendencyStepper, TendencyStepper
 
-# (matcher(stepper_a, stepper_b) -> bool, fuser(stepper_a, stepper_b, state, dt)
-#  -> (diagnostics, stepped))
-_PROCESS_PAIR_FUSERS: List[Tuple[Callable, Callable]] = []
+# (matcher(process_a, process_b) -> bool, fuser(process_a, process_b, state,
+#  dt) -> (diagnostics, stepped), merge name or None for an always-on pair)
+_PROCESS_PAIR_FUSERS: List[Tuple[Callable, Callable, Optional[str]]] = []
 
 
-def register_process_pair_fuser(matcher, fuser) -> None:
-    _PROCESS_PAIR_FUSERS.append((matcher, fuser))
+def register_process_pair_fuser(matcher, fuser, name: Optional[str] = None) -> None:
+    _PROCESS_PAIR_FUSERS.append((matcher, fuser, name))
 
 
-def _pair_plan(processes) -> List[Tuple[Any, ...]]:
-    """``("one", process, substeps)`` and ``("pair", A, B, fuser)`` entries."""
+def merge_names() -> Tuple[str, ...]:
+    """The names of the registered optional merges."""
+    return tuple(name for _, _, name in _PROCESS_PAIR_FUSERS if name is not None)
+
+
+def _pair_plan(processes, merges: AbstractSet[str] = frozenset()) -> List[Tuple[Any, ...]]:
+    """``("one", process, substeps)`` and ``("pair", A, B, fuser)`` entries;
+    named fusers take part only if ``merges`` holds their name."""
     plan: List[Tuple[Any, ...]] = []
     i = 0
     while i < len(processes):
         fused = None
         if i + 1 < len(processes) and processes[i][1] == 1 and processes[i + 1][1] == 1:
-            for matcher, fuser in _PROCESS_PAIR_FUSERS:
+            for matcher, fuser, name in _PROCESS_PAIR_FUSERS:
+                if name is not None and name not in merges:
+                    continue
                 if matcher(processes[i][0], processes[i + 1][0]):
                     fused = ("pair", processes[i][0], processes[i + 1][0], fuser)
                     break
@@ -93,12 +105,20 @@ class _Splitting(nn.Module):
 
 class SequentialUpdateSplitting(_Splitting):
     """Processes applied one after another, each on the state the previous
-    one left."""
+    one left.  ``merges`` names the optional process-pair merges to plan
+    (:func:`merge_names`); an unknown name raises ``ValueError``."""
+
+    def __init__(self, *options: TimeIntegrationOptions, merges: Sequence[str] = ()) -> None:
+        super().__init__(*options)
+        unknown = set(merges) - set(merge_names())
+        if unknown:
+            raise ValueError(f"unknown process merges {sorted(unknown)} (have {sorted(merge_names())})")
+        self.merges = frozenset(merges)
 
     def forward(self, state: Mapping[str, Any], timestep) -> Dict[str, Any]:
         td = timedelta(seconds=ensure_timedelta_seconds(timestep))
         out = dict(state)
-        for entry in _pair_plan(self._processes):
+        for entry in _pair_plan(self._processes, self.merges):
             if entry[0] == "pair":
                 _, a, b, fuser = entry
                 diagnostics, stepped = fuser(a, b, out, td)

@@ -4,12 +4,20 @@ u = su/s, the velocity-form core, tendencies scaled by s.
 
 Under RK2 the stepper takes ``fused_rk_step``: both stages in
 ``ops/smagorinsky_step.fused_smagorinsky_rk2`` (the kernel on the card).
+With the merge ``"smooth_smag"`` (``SequentialUpdateSplitting(...,
+merges=...)``) the smoothing before it and its RK2 step run as one
+operation, ``fused_smoothing_smagorinsky_rk2``.
 """
 
 from __future__ import annotations
 
 from tasmania_tpu_torch.framework.field import FieldArray, get_array_dict
-from tasmania_tpu_torch.ops.smagorinsky_step import fused_smagorinsky_rk2
+from tasmania_tpu_torch.framework.splitting import register_process_pair_fuser
+from tasmania_tpu_torch.isentropic.physics.horizontal_smoothing import IsentropicHorizontalSmoothing
+from tasmania_tpu_torch.ops.smagorinsky_step import (
+    fused_smagorinsky_rk2,
+    fused_smoothing_smagorinsky_rk2,
+)
 from tasmania_tpu_torch.physics.turbulence import Smagorinsky2d, frame_paste, smagorinsky_core
 
 DIMS = ("x", "y", "z")
@@ -59,3 +67,47 @@ class IsentropicSmagorinsky(Smagorinsky2d):
             SU: frame_paste(s.shape, nb, s_in * u_tnd),
             SV: frame_paste(s.shape, nb, s_in * v_tnd),
         }, {}
+
+
+# the SUS process pair [IsentropicHorizontalSmoothing -> IsentropicSmagorinsky(rk2)]
+# as one operation, the merge "smooth_smag" (counterpart of
+# tasmania_tpu/isentropic/physics/turbulence.py:103-199)
+
+
+def _smooth_smag_pair_matches(smoothing, stepper) -> bool:
+    # The JAX matcher also asks nx >= 8 + 2n + 4 for its TPU x-tile; the CUDA
+    # kernel tiles (x, y) itself and needs only the frame conditions below.
+    if not isinstance(smoothing, IsentropicHorizontalSmoothing):
+        return False
+    if getattr(stepper, "name", "") != "rk2" or stepper.enforce_hb:
+        return False
+    comps = stepper.coupling.components
+    if len(comps) != 1 or not isinstance(comps[0], IsentropicSmagorinsky):
+        return False
+    nb, grid = smoothing.nb, smoothing.grid
+    return nb >= max(smoothing.order, 2) and min(grid.nx, grid.ny) >= 2 * nb + 1
+
+
+def _smooth_smag_pair_fuser(smoothing, stepper, state, td):
+    """Smooth every field and RK2-step the smoothed momenta in one operation
+    (``fused_smoothing_smagorinsky_rk2``): the smoothed s and mass fractions
+    as diagnostics, the stepped momenta as the stepped state."""
+    smag = stepper.coupling.components[0]
+    names = list(smoothing.input_properties)
+    raw = get_array_dict(state, smoothing.input_properties)
+    dx, dy = smag.spacings()
+    outs = fused_smoothing_smagorinsky_rk2(
+        [raw[n] for n in names], smoothing.gamma, order=smoothing.order, nb=smoothing.nb,
+        dx=dx, dy=dy, cs=smag.cs, dt=td.total_seconds(),
+    )
+    dprops = smoothing.diagnostic_properties
+    diagnostics = {
+        n: FieldArray(a, dprops[n]["units"], DIMS) for i, (n, a) in enumerate(zip(names, outs))
+        if i not in (1, 2)
+    }
+    oprops = stepper.output_properties
+    stepped = {n: FieldArray(outs[i], oprops[n]["units"], DIMS) for i, n in ((1, SU), (2, SV))}
+    return diagnostics, stepped
+
+
+register_process_pair_fuser(_smooth_smag_pair_matches, _smooth_smag_pair_fuser, "smooth_smag")

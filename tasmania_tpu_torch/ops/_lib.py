@@ -77,6 +77,13 @@ _SIGNATURES = {
     # dtype, inputs (rho, h_if, qr), outputs (qr, vt), ncol, nz, order,
     # vt_step, dt, stream
     "tt_sedimentation_rk3ws": (_int, _vp, _vp, _int, _int, _int, _int, ctypes.c_double, _vp),
+    # dtype, inputs (s, su, sv[, q...]), outputs, gamma, nf, nx, ny, nz, order,
+    # nb, scalars (dt/2, dt, cs^2 dx dy, 2 dx, 2 dy), stream
+    "tt_smoothing_smagorinsky_rk2": (_int, _vp, _vp, _vp, _int, _int, _int, _int, _int, _int, _vp,
+                                     _vp),
+    # dtype, inputs (w, s, su, sv, qv, qc, qr, rho, h_if), outputs (6 fields,
+    # vt), ncol, nz, vorder, sorder, vt_step, scalars (dt, dz), stream
+    "tt_vadv_sedimentation_rk3ws": (_int, _vp, _vp, _int, _int, _int, _int, _int, _vp, _vp),
 }
 
 _loaded = None

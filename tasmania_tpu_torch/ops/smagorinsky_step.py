@@ -18,13 +18,20 @@ stage-1 state).  Kernel: ``csrc/smagorinsky.cu``, one launch per stage (stage
 1 into a scratch pair), each writing the whole array, frame included, so no
 paste follows.  ``fused_smagorinsky_rk2_plain`` is the plain PyTorch version;
 the wrapper takes it for CPU tensors only.
+
+:func:`fused_smoothing_smagorinsky_rk2` runs the SUS pair [smoothing ->
+Smagorinsky RK2] in one launch (``csrc/smooth_smag.cu``), its plain version
+the two plain versions in turn.
 """
 
 from __future__ import annotations
 
+from typing import Sequence
+
 import torch
 
 from tasmania_tpu_torch.ops import _lib
+from tasmania_tpu_torch.ops.smoothing_step import CW_2D, fused_smoothing_plain
 
 
 def smagorinsky_tendency(u, v, dx: float, dy: float, cs: float):
@@ -115,3 +122,46 @@ def fused_smagorinsky_rk2(s, su, sv, *, dx: float, dy: float, cs: float, nb: int
     su2, sv2 = torch.empty_like(su), torch.empty_like(sv)
     _stage_kernel(s, su1, sv1, su, sv, su2, sv2, c=dt, **kw)
     return su2, sv2
+
+
+def fused_smoothing_smagorinsky_rk2_plain(fields, gamma, *, order, nb, dx, dy, cs, dt):
+    """``fused_smoothing_plain`` of every field, then
+    ``fused_smagorinsky_rk2_plain`` of the smoothed (s, su, sv): returns
+    (s smoothed, su and sv stepped, *q smoothed)."""
+    smoothed = fused_smoothing_plain(fields, gamma, order=order, nb=nb)
+    su, sv = fused_smagorinsky_rk2_plain(*smoothed[:3], dx=dx, dy=dy, cs=cs, nb=nb, dt=dt)
+    return (smoothed[0], su, sv) + tuple(smoothed[3:])
+
+
+def fused_smoothing_smagorinsky_rk2(fields: Sequence[torch.Tensor], gamma: torch.Tensor, *,
+                                    order: int, nb: int, dx: float, dy: float, cs: float,
+                                    dt: float):
+    """The SUS pair [smoothing -> Smagorinsky RK2] (counterpart of
+    ``tasmania_tpu/ops/smagorinsky_step.py:303
+    fused_smoothing_smagorinsky_rk2``): ``fields`` is (s, su, sv[, qv, qc,
+    qr]) and ``gamma`` (F, nz) the smoothing's coefficients.  One launch of
+    ``csrc/smooth_smag.cu`` on a CUDA device, which writes every cell, frame
+    included.  Returns new tensors (s smoothed, su and sv stepped, *q
+    smoothed)."""
+    fields = tuple(fields)
+    if len(fields) < 3 or len(fields) > 8:
+        raise ValueError(f"fused_smoothing_smagorinsky_rk2: {len(fields)} fields (3 to 8)")
+    if order not in CW_2D or nb < order:
+        raise ValueError(f"fused_smoothing_smagorinsky_rk2: order {order} with nb={nb}")
+    _check_geometry("fused_smoothing_smagorinsky_rk2", fields[0].shape, nb)
+    kw = dict(order=order, nb=nb, dx=dx, dy=dy, cs=cs, dt=dt)
+    if not fields[0].is_cuda:
+        return fused_smoothing_smagorinsky_rk2_plain(fields, gamma, **kw)
+    nx, ny, nz = fields[0].shape
+    F, dtype = len(fields), fields[0].dtype
+    _lib.check_cuda_tensors("fused_smoothing_smagorinsky_rk2", fields + (gamma,), dtype,
+                            [(nx, ny, nz)] * F + [(F, nz)])
+    outs = tuple(torch.empty_like(phi) for phi in fields)
+    err = _lib.lib().tt_smoothing_smagorinsky_rk2(
+        _lib.DTYPE_CODES[dtype], _lib.pointer_array(fields), _lib.pointer_array(outs),
+        gamma.data_ptr(), F, nx, ny, nz, order, nb,
+        _lib.scalar_array([0.5 * dt, dt, cs**2 * dx * dy, 2.0 * dx, 2.0 * dy]), _lib.stream_handle(),
+    )
+    _lib.launch_counts["fused_smoothing_smagorinsky_rk2"] += 1
+    _lib.check(err, "fused_smoothing_smagorinsky_rk2")
+    return outs

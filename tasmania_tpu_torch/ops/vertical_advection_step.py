@@ -13,6 +13,10 @@ x_i = x_0 + c_i·T(x_{i-1}), c = (dt/3, dt/2, dt).
 Kernel: ``csrc/vertical_advection.cu``, one warp per (x, y) column.
 ``fused_vertical_advection_rk3ws_plain`` is the plain PyTorch version; the
 wrapper takes it for CPU tensors only.
+
+:func:`fused_vadv_sedimentation_rk3ws` runs the SUS pair [vertical advection
+-> fall velocity + sedimentation] in one launch (``csrc/vadv_sed.cu``), its
+plain version the two plain versions in turn.
 """
 
 from __future__ import annotations
@@ -20,6 +24,7 @@ from __future__ import annotations
 import torch
 
 from tasmania_tpu_torch.ops import _lib
+from tasmania_tpu_torch.ops.sedimentation_step import VT_MODES, fused_sedimentation_rk3ws_plain
 
 EXTENT = {1: 1, 2: 1, 3: 2, 5: 3}
 
@@ -103,4 +108,49 @@ def fused_vertical_advection_rk3ws(w, s, su, sv, q=(), *, order: int, dt: float,
     )
     _lib.launch_counts["fused_vertical_advection_rk3ws"] += 1
     _lib.check(err, "fused_vertical_advection_rk3ws")
+    return outs
+
+
+def fused_vadv_sedimentation_rk3ws_plain(w, s, su, sv, qv, qc, qr, rho, h_if, *, vorder: int,
+                                         sorder: int, dt: float, dz: float, vt_mode: str):
+    """``fused_vertical_advection_rk3ws_plain`` of the six fields, then
+    ``fused_sedimentation_rk3ws_plain`` of the advected qr."""
+    adv = fused_vertical_advection_rk3ws_plain(w, s, su, sv, (qv, qc, qr), order=vorder, dt=dt, dz=dz)
+    qr_sed, vt = fused_sedimentation_rk3ws_plain(rho, h_if, adv[5], order=sorder, dt=dt,
+                                                 vt_mode=vt_mode)
+    return adv[:5] + (qr_sed, vt)
+
+
+def fused_vadv_sedimentation_rk3ws(w, s, su, sv, qv, qc, qr, rho, h_if, *, vorder: int, sorder: int,
+                                   dt: float, dz: float, vt_mode: str = "stage"):
+    """The SUS pair [vertical advection RK3WS -> fall velocity +
+    sedimentation RK3WS] (counterpart of
+    ``tasmania_tpu/ops/vertical_advection_step.py:242
+    fused_vadv_sedimentation_rk3ws``): one launch of ``csrc/vadv_sed.cu`` on
+    a CUDA device.  ``rho`` and ``h_if`` (nz + 1 levels) are the state's
+    before the pair.  Returns new tensors (s, su, sv, qv, qc advected, qr
+    advected and sedimented, the stage-1 fall velocity)."""
+    if vorder not in EXTENT:
+        raise ValueError(f"unsupported vertical flux order {vorder}")
+    if sorder not in (1, 2):
+        raise ValueError(f"fused_vadv_sedimentation_rk3ws: sedimentation order {sorder} (have 1, 2)")
+    if vt_mode not in VT_MODES:
+        raise ValueError(f"fused_vadv_sedimentation_rk3ws: vt_mode {vt_mode!r} (have {VT_MODES})")
+    nx, ny, nz = s.shape
+    if nz < 2 * EXTENT[vorder] + 1:
+        raise ValueError(f"fused_vadv_sedimentation_rk3ws: nz={nz} too small for order {vorder}")
+    kw = dict(vorder=vorder, sorder=sorder, dt=dt, dz=dz, vt_mode=vt_mode)
+    if not s.is_cuda:
+        return fused_vadv_sedimentation_rk3ws_plain(w, s, su, sv, qv, qc, qr, rho, h_if, **kw)
+    inputs = (w, s, su, sv, qv, qc, qr, rho, h_if)
+    _lib.check_cuda_tensors("fused_vadv_sedimentation_rk3ws", inputs, s.dtype,
+                            [(nx, ny, nz)] * 8 + [(nx, ny, nz + 1)])
+    outs = tuple(torch.empty_like(s) for _ in range(7))
+    err = _lib.lib().tt_vadv_sedimentation_rk3ws(
+        _lib.DTYPE_CODES[s.dtype], _lib.pointer_array(inputs), _lib.pointer_array(outs),
+        nx * ny, nz, vorder, sorder, int(vt_mode == "step"), _lib.scalar_array([dt, dz]),
+        _lib.stream_handle(),
+    )
+    _lib.launch_counts["fused_vadv_sedimentation_rk3ws"] += 1
+    _lib.check(err, "fused_vadv_sedimentation_rk3ws")
     return outs

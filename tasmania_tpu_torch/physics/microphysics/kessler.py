@@ -11,7 +11,9 @@
 Under RK3WS the chain ``[KesslerFallVelocity, KesslerSedimentation]`` runs as
 one operation (``ops/sedimentation_step``; the kernel on the card), with the
 fall velocity evaluated at every stage (``vt_mode="stage"``) or at stage 1
-only (``"step"``).
+only (``"step"``).  With the merge ``"vadv_sed"`` (``SequentialUpdateSplitting(...,
+merges=...)``) the vertical advection before it and its RK3WS step run as
+one operation, ``fused_vadv_sedimentation_rk3ws``.
 """
 
 from __future__ import annotations
@@ -26,8 +28,11 @@ from tasmania_tpu_torch.framework.core_components import (
     TendencyComponent,
 )
 from tasmania_tpu_torch.framework.field import FieldArray, get_array_dict
+from tasmania_tpu_torch.framework.splitting import register_process_pair_fuser
+from tasmania_tpu_torch.isentropic.physics.vertical_advection import IsentropicVerticalAdvection
 from tasmania_tpu_torch.ops.kessler_step import tetens
 from tasmania_tpu_torch.ops.sedimentation_step import VT_MODES, fused_sedimentation_rk3ws
+from tasmania_tpu_torch.ops.vertical_advection_step import fused_vadv_sedimentation_rk3ws
 from tasmania_tpu_torch.physics.microphysics.utils import SedimentationFlux
 from tasmania_tpu_torch.utils.units import conversion_factor
 
@@ -270,3 +275,45 @@ def _sedimentation_chain_fuser(components, state, dt, output_properties):
 
 
 register_chain_fuser(_sedimentation_chain_matches, _sedimentation_chain_fuser)
+
+
+# the SUS process pair [IsentropicVerticalAdvection(rk3ws) -> [fall velocity,
+# sedimentation](rk3ws)] as one operation, the merge "vadv_sed" (counterpart of
+# tasmania_tpu/physics/microphysics/kessler.py:458-550)
+
+
+def _vadv_sed_pair_matches(stepper_a, stepper_b) -> bool:
+    if getattr(stepper_a, "name", "") != "rk3ws" or getattr(stepper_b, "name", "") != "rk3ws":
+        return False
+    if stepper_a.enforce_hb or stepper_b.enforce_hb:
+        return False
+    comps_a = stepper_a.coupling.components
+    return (
+        len(comps_a) == 1
+        and isinstance(comps_a[0], IsentropicVerticalAdvection)
+        and _sedimentation_chain_matches(tuple(stepper_b.coupling.components), "rk3ws")
+    )
+
+
+def _vadv_sed_pair_fuser(stepper_a, stepper_b, state, td):
+    """Advect the six fields and sediment the advected rain in one operation
+    (``fused_vadv_sedimentation_rk3ws``), with the density and interface
+    heights of the state before the pair, which the pair does not change."""
+    va = stepper_a.coupling.components[0]
+    _, sed = stepper_b.coupling.components
+    raw = get_array_dict(state, va.input_properties)
+    raw_b = get_array_dict(state, {k: sed.input_properties[k]
+                                   for k in ("air_density", "height_on_interface_levels")})
+    names = va.fields
+    outs = fused_vadv_sedimentation_rk3ws(
+        raw["tendency_of_air_potential_temperature"], *(raw[n] for n in names),
+        raw_b["air_density"], raw_b["height_on_interface_levels"],
+        vorder=va.vflux.order, sorder=sed.sflux.nb, dt=td.total_seconds(), dz=va.dz,
+        vt_mode=sed.vt_mode,
+    )
+    units = {**stepper_a.output_properties, mfpw: stepper_b.output_properties[mfpw]}
+    stepped = {n: FieldArray(a, units[n]["units"], DIMS) for n, a in zip(names, outs)}
+    return {"raindrop_fall_velocity": FieldArray(outs[6], "m s^-1", DIMS)}, stepped
+
+
+register_process_pair_fuser(_vadv_sed_pair_matches, _vadv_sed_pair_fuser, "vadv_sed")

@@ -21,15 +21,24 @@ every branch of the Kessler scheme, sedimentation and precipitation run on
 rain.  (At relative humidity 1.2 the full-size run is unstable within 30
 steps: its largest water vapour mass fraction reaches 84.)
 
+``--merges`` makes ``flagship_merged_reference.json``: the raining run
+(relative humidity 1.05, 1 warm-up + 30 steps) with the SUS chain's two
+optional process-pair merges on, [smoothing -> Smagorinsky RK2] and
+[vertical advection -> sedimentation], each one Pallas kernel
+(``fused_smoothing_smagorinsky_rk2``, ``fused_vadv_sedimentation_rk3ws``):
+the JAX package turns them on with ``TASMANIA_FUSE_SMOOTH_SMAG=1`` and
+``TASMANIA_FUSE_VADV_SED=1``, which this script sets in its own process; the
+port's counterpart is the namelist's ``process_merges``.
+
 ``--coupling fc|lfc|ps|sts|ssus`` makes the reference of one of the five
 other physics-dynamics couplings, ``variant_<coupling>_reference.json``: the
 JAX driver's ``build_variant`` (``drivers/driver_isentropic_moist.py``) with
 ``drivers/namelist_<coupling>.py`` (161x161x120) from the raining run's
 supersaturated start (relative humidity 1.05), 1 warm-up + 20 steps.
 
-Usage: ``python tests/make_torch_flagship_reference.py [--rain | --coupling
-C]`` (about five minutes, a minute and a half with ``--rain`` or
-``--coupling``).  With ``--check-port`` it writes nothing:
+Usage: ``python tests/make_torch_flagship_reference.py [--rain | --merges |
+--coupling C]`` (about five minutes, a minute and a half with ``--rain``,
+``--merges`` or ``--coupling``).  With ``--check-port`` it writes nothing:
 it runs the port on the CPU in float32 at the same configuration and prints
 each number's relative deviation from the file, the measurement behind the
 limits ``chip_smoke.py`` holds the card to.
@@ -54,6 +63,9 @@ DRIVERS = ROOT / "tasmania_tpu_torch" / "drivers"
 BACKEND = "pallas:interpret"
 # the raining run: namelist overrides and output file
 RAIN = {"relative_humidity": 1.05, "niter": 30}
+# the merged run: the raining run with both merges (the port's namelist entry)
+MERGES = ("smooth_smag", "vadv_sed")
+JAX_MERGE_SWITCHES = ("TASMANIA_FUSE_SMOOTH_SMAG", "TASMANIA_FUSE_VADV_SED")
 
 
 # the couplings' runs: namelist overrides (``variant_<coupling>_reference.json``)
@@ -61,7 +73,7 @@ VARIANT = {"niter": 20, "relative_humidity": 1.05}
 COUPLINGS = ("fc", "lfc", "ps", "sts", "ssus")
 
 
-def check_port(out, overrides, coupling=None) -> None:
+def check_port(out, overrides, coupling=None, merges=()) -> None:
     import torch
 
     from tasmania_tpu_torch.drivers import driver_isentropic_moist as moist
@@ -72,7 +84,7 @@ def check_port(out, overrides, coupling=None) -> None:
     if coupling is None:
         from tasmania_tpu_torch.drivers.namelist_sus import load_namelist
 
-        res = drv.run(load_namelist(so=so, **overrides), verbose=False)
+        res = drv.run(load_namelist(so=so, process_merges=merges, **overrides), verbose=False)
     else:
         res = moist.run(moist.load_namelist(coupling, so=so, **overrides), coupling, verbose=False)
     got = drv.validation_summary({k: fa.data.numpy() for k, fa in res["fields"].items()})
@@ -99,18 +111,26 @@ def jax_step(nl, coupling):
 def main() -> None:
     argv = sys.argv[1:]
     rain = "--rain" in argv
+    merges = MERGES if "--merges" in argv else ()
     coupling = argv[argv.index("--coupling") + 1] if "--coupling" in argv else None
     if coupling is not None and coupling not in COUPLINGS:
         raise SystemExit(f"--coupling: one of {COUPLINGS}")
+    if sum((rain, bool(merges), coupling is not None)) > 1:
+        raise SystemExit("--rain, --merges and --coupling exclude each other")
     if coupling is not None:
         overrides = VARIANT
         out = DRIVERS / f"variant_{coupling}_reference.json"
+    elif merges:
+        overrides = RAIN
+        out = DRIVERS / "flagship_merged_reference.json"
     else:
         overrides = RAIN if rain else {}
         out = DRIVERS / ("flagship_rain_reference.json" if rain else "flagship_reference.json")
     if "--check-port" in argv:
-        check_port(out, overrides, coupling)
+        check_port(out, overrides, coupling, merges)
         return
+    for switch in JAX_MERGE_SWITCHES if merges else ():
+        os.environ[switch] = "1"
     import importlib
 
     import jax
@@ -158,8 +178,11 @@ def main() -> None:
     }
     if coupling is not None:
         ref["config"]["coupling"] = coupling
+    if merges:
+        ref["config"]["process_merges"] = list(merges)
+        ref["config"]["jax_switches"] = list(JAX_MERGE_SWITCHES)
     ref["command"] = "python tests/make_torch_flagship_reference.py" + (
-        f" --coupling {coupling}" if coupling else " --rain" if rain else ""
+        f" --coupling {coupling}" if coupling else " --rain" if rain else " --merges" if merges else ""
     )
     out.write_text(json.dumps(ref, indent=1) + "\n")
     print(json.dumps(ref, indent=1))

@@ -8,8 +8,8 @@ tendency-carrying stage with the tendencies the fc and lfc couplings pass)
 and that traffic's time at the H100's 3.35 TB/s.  Given the log of a
 ``chip_smoke.py`` run, it adds for each ported kernel its route and source,
 its launches per step on each path that runs it (the full-size runs of
-phases 5, 7 and 8: the flagship's SUS chain, the five other couplings and
-the mountain wave) and the times that run measured on the card: kernel,
+phases 5, 7, 8 and 9: the flagship's SUS chain, the five other couplings,
+the mountain wave and the SUS chain with both process merges, sus_merged) and the times that run measured on the card: kernel,
 plain version and, where one exists, the single PyTorch call computing the
 same function; a kernel timed also at other shapes or in other modes
 (``also`` in the log: the mountain wave's 161x7x120, the diagnostics'
@@ -64,18 +64,22 @@ KERNELS = [
      5 * CELL, 2 * CELL, "s, su and sv of the stage and the base -> su, sv"),
     (12, "ops/smagorinsky_step.py:149 _smag_rk2_fused", "fused_smagorinsky_rk2",
      3 * CELL, 2 * CELL, "s, su, sv -> su, sv"),
-    (13, "ops/smagorinsky_step.py:303 fused_smoothing_smagorinsky_rk2", None,
+    (13, "ops/smagorinsky_step.py:303 fused_smoothing_smagorinsky_rk2", "fused_smoothing_smagorinsky_rk2",
      6 * CELL, 6 * CELL, "6 fields in, 6 out"),
     (14, "ops/vertical_advection_step.py:158 fused_vertical_advection_rk3ws",
      "fused_vertical_advection_rk3ws", 7 * CELL, 6 * CELL,
      "w, s, su, sv, qv, qc, qr -> 6 fields"),
-    (15, "ops/vertical_advection_step.py:242 fused_vadv_sedimentation_rk3ws", None,
+    (15, "ops/vertical_advection_step.py:242 fused_vadv_sedimentation_rk3ws",
+     "fused_vadv_sedimentation_rk3ws",
      8 * CELL + IFACE, 7 * CELL, "w, s, su, sv, 3 q, rho, h_if -> 6 fields, vt"),
     (16, "ops/diagnostics_step.py:103 fused_isentropic_diagnostics", "fused_isentropic_diagnostics",
      CELL + PLANE + (NZ + 1) * F32, 3 * IFACE + 3 * CELL, "s, hs, theta -> p, exn, h, mtg, rho, T"),
     (17, "ops/sedimentation_step.py:123 fused_sedimentation_rk3ws", "fused_sedimentation_rk3ws",
      2 * CELL + IFACE, 2 * CELL, "rho, qr, h_if -> qr, vt"),
 ]
+
+# the one PyTorch call timed beside a kernel
+LIBRARY_CALL = {2: "torch._foreach_copy_", 4: "torch._foreach_copy_"}
 
 
 def chip_kernels(log_path):
@@ -110,7 +114,8 @@ def main(argv) -> None:
         route = f"{k['route'].upper()} → `{k['source'].split('/')[-1]}`" if k else "—"
         ms, plain, lib = (k["ms"], k["plain_ms"], k["library_ms"]) if k else (None, None, None)
         print(f"| {num} | `{name}` | {status} | {route} | {launches(k) if k else '0'} | {mb:.1f} "
-              f"| {bound:.4f} | {fmt(ms)} | {fmt(plain)} | {'none' if lib is None else fmt(lib)} |")
+              f"| {bound:.4f} | {fmt(ms)} | {fmt(plain)} "
+              f"| {'none' if lib is None else f'{fmt(lib)} (`{LIBRARY_CALL[num]}`)'} |")
         for label, a in (k or {}).get("also", {}).items():
             print(f"| {num} | ↳ {label} | | | | {a['bytes'] / 1e6:.2f} | {a['bound_ms']:.4f} "
                   f"| {fmt(a['ms'])} | {fmt(a['plain_ms'])} | none |")

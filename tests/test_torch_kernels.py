@@ -17,8 +17,11 @@ Smagorinsky (both stages, and one stage alone), vertical advection and
 sedimentation within 1e-12 of the output's largest magnitude (FMA
 contraction, and PyTorch's division by a scalar on the card, a product with
 the reciprocal); the advection of the fields and the momentum step also in
-float32, within 1e-5.  The input helpers here are shared with
-``tests/test_torch_ops.py`` and ``tests/test_torch_physics_ops.py``.
+float32, within 1e-5.  The two merged kernels (smoothing + Smagorinsky RK2,
+vertical advection + sedimentation) in float64 within 1e-12 and in float32
+with the gates of the kernels they merge (``chip_smoke.py`` phase 3).  The
+input helpers here are shared with ``tests/test_torch_ops.py``,
+``tests/test_torch_physics_ops.py`` and ``tests/test_torch_merges.py``.
 """
 
 from __future__ import annotations
@@ -60,11 +63,15 @@ from tasmania_tpu_torch.ops.si_stage import StageConstants, si_stage, si_stage_p
 from tasmania_tpu_torch.ops.smagorinsky_step import (
     fused_smagorinsky_rk2,
     fused_smagorinsky_rk2_plain,
+    fused_smoothing_smagorinsky_rk2,
+    fused_smoothing_smagorinsky_rk2_plain,
     smag_stage,
     smagorinsky_stage_plain,
 )
 from tasmania_tpu_torch.ops.smoothing_step import fused_smoothing, fused_smoothing_plain
 from tasmania_tpu_torch.ops.vertical_advection_step import (
+    fused_vadv_sedimentation_rk3ws,
+    fused_vadv_sedimentation_rk3ws_plain,
     fused_vertical_advection_rk3ws,
     fused_vertical_advection_rk3ws_plain,
 )
@@ -304,6 +311,31 @@ def sedimentation_inputs(seed):
     return rho, h_if, qr
 
 
+def smooth_smag_inputs(seed, nf, shape=(33, 21, 8)):
+    """(fields, gamma) in numpy for the merged smoothing + Smagorinsky: a
+    density of 5-10, momenta of a sheared flow with noise, nf - 3 mass
+    fractions of 1e-3, coefficients in [0.2, 0.7)."""
+    rng = np.random.default_rng(seed)
+    nx, ny, nz = shape
+    s = rng.uniform(5.0, 10.0, shape)
+    su = s * (10.0 + 5.0 * np.sin(np.arange(ny) / 3.0)[None, :, None] + rng.normal(0.0, 2.0, shape))
+    sv = s * rng.normal(0.0, 3.0, shape)
+    q = [rng.uniform(0.0, 1e-3, shape) for _ in range(nf - 3)]
+    return [s, su, sv] + q, 0.2 + 0.5 * rng.random((nf, nz))
+
+
+def vadv_sed_inputs(seed):
+    """(w, s, su, sv, qv, qc, qr, rho, h_if) in numpy at 25x21x16 for the
+    merged vertical advection + sedimentation, with rain everywhere: where
+    the advected qr lands within rounding of zero, the fall velocity's
+    max(qr, 0)^0.1346 tells two roundings apart (a difference of 1e-20 in qr
+    is one of 2e-3 in vt)."""
+    w, s, su, sv, qv, qc, _ = vertical_advection_inputs(seed)
+    rho, h_if, _ = sedimentation_inputs(seed + 100)
+    qr = np.random.default_rng(seed + 200).uniform(1e-4, 1e-3, s.shape)
+    return w, s, su, sv, qv, qc, qr, rho, h_if
+
+
 def assert_scaled(got, ref, atol, what):
     ref = np.asarray(ref)
     got = np.asarray(got)
@@ -514,3 +546,64 @@ def test_smagorinsky_stage_kernel_vs_plain(cuda_device):
     ref = smagorinsky_stage_plain(s, su1, sv1, su, sv, c=SMAG["dt"], **kw)
     for k, (a, b) in enumerate(zip(got, ref)):
         assert_scaled(a.cpu().numpy(), b.cpu().numpy(), 1e-12, f"output {k}")
+
+
+def assert_increments(got, ref, base, tol, what, ulps=4):
+    """max|got - ref| <= tol * max|ref - base| plus ``ulps`` units in the last
+    place of max|ref|: a small update on a large field (``chip_smoke.py``'s
+    gate for Smagorinsky and vertical advection)."""
+    err = float((got - ref).abs().max())
+    limit = tol * float((ref - base).abs().max()) + ulps * torch.finfo(ref.dtype).eps * float(ref.abs().max())
+    assert err <= limit, f"{what}: {err} > {limit}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("shape", [(33, 21, 8), (25, 29, 13)])
+@pytest.mark.parametrize("nf", [3, 6])
+@pytest.mark.parametrize("order", [1, 2, 3])
+def test_smooth_smag_kernel_vs_plain(cuda_device, order, nf, shape, dtype):
+    """float64: every output within 1e-12 of its largest magnitude; float32:
+    the smoothed fields within 1e-6 (as the smoothing kernel's), the momenta
+    within 1e-5 of their Smagorinsky update plus 4 ulps (as Smagorinsky's).
+    The second shape leaves partial tiles in x, y and z."""
+    fields, gamma = smooth_smag_inputs(order + nf, nf, shape)
+    tf = [tensor(a, cuda_device).to(dtype) for a in fields]
+    tg = tensor(gamma, cuda_device).to(dtype)
+    kw = dict(order=order, nb=SMAG["nb"], dx=SMAG["dx"], dy=SMAG["dy"], cs=SMAG["cs"], dt=SMAG["dt"])
+    got = fused_smoothing_smagorinsky_rk2(tf, tg, **kw)
+    ref = fused_smoothing_smagorinsky_rk2_plain(tf, tg, **kw)
+    assert len(got) == len(ref) == nf
+    if dtype == torch.float64:
+        for k, (a, b) in enumerate(zip(got, ref)):
+            assert_scaled(a.cpu().numpy(), b.cpu().numpy(), 1e-12, f"output {k}")
+        return
+    smoothed = fused_smoothing_plain(tf, tg, order=order, nb=SMAG["nb"])
+    for k, (a, b) in enumerate(zip(got, ref)):
+        if k in (1, 2):
+            assert_increments(a, b, smoothed[k], 1e-5, f"momentum {k}")
+        else:
+            assert_scaled(a.double().cpu().numpy(), b.double().cpu().numpy(), 1e-6, f"output {k}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("vt_mode", ["stage", "step"])
+@pytest.mark.parametrize("sorder", [1, 2])
+@pytest.mark.parametrize("vorder", [1, 2, 3, 5])
+def test_vadv_sed_kernel_vs_plain(cuda_device, vorder, sorder, vt_mode, dtype):
+    """float64: every output within 1e-12 of its largest magnitude; float32:
+    the advected fields within 1e-5 of their update plus 4 ulps (as vertical
+    advection's), qr and vt within 1e-5 of their largest magnitude (as
+    sedimentation's)."""
+    args = [tensor(a, cuda_device).to(dtype) for a in vadv_sed_inputs(vorder + 10 * sorder)]
+    kw = dict(vorder=vorder, sorder=sorder, dt=5.0, dz=1.0, vt_mode=vt_mode)
+    got = fused_vadv_sedimentation_rk3ws(*args, **kw)
+    ref = fused_vadv_sedimentation_rk3ws_plain(*args, **kw)
+    assert len(got) == len(ref) == 7
+    for k, (a, b) in enumerate(zip(got, ref)):
+        if dtype == torch.float32 and k < 5:
+            assert_increments(a, b, args[1 + k], 1e-5, f"advected output {k}")
+        else:
+            tol = 1e-12 if dtype == torch.float64 else 1e-5
+            assert_scaled(a.double().cpu().numpy(), b.double().cpu().numpy(), tol, f"output {k}")

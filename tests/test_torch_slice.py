@@ -96,9 +96,9 @@ def test_slice_three_steps_agree(both_runs):
 
 def test_port_imports_no_jax():
     """Importing the port and running a CPU step of the full flagship chain
-    (the driver's default), of each coupling of the variant driver and two
-    steps of the mountain-wave driver leaves JAX and the JAX package
-    unloaded."""
+    (the driver's default, and with both process merges), of each coupling
+    of the variant driver (and ssus with both merges) and two steps of the
+    mountain-wave driver leaves JAX and the JAX package unloaded."""
     code = (
         "import sys, torch\n"
         "from tasmania_tpu_torch.drivers import driver_isentropic_moist as moist\n"
@@ -108,8 +108,11 @@ def test_port_imports_no_jax():
         "so = StorageOptions(dtype=torch.float32, device='cpu')\n"
         "size = dict(nx=17, ny=17, nz=8, niter=1, so=so)\n"
         "run(load_namelist(**size), verbose=False)\n"
+        "merges = ('smooth_smag', 'vadv_sed')\n"
+        "run(load_namelist(**size, process_merges=merges), verbose=False)\n"
         "for coupling in moist.COUPLINGS:\n"
         "    moist.run(moist.load_namelist(coupling, **size), coupling, verbose=False)\n"
+        "moist.run(moist.load_namelist('ssus', **size, process_merges=merges), 'ssus', verbose=False)\n"
         "from tasmania_tpu_torch.drivers import driver_mountain_wave as mw\n"
         "mw.run_case(17, 20, 40.0 / 3600.0, 20.0, so=so, verbose=False)\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'tasmania_tpu.')) or m == 'tasmania_tpu')\n"
