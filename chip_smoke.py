@@ -10,12 +10,14 @@ printing one line; any failure raises and exits non-zero:
    inputs, with the device time of one call of each (``device_ms``: the
    device operations' time over 20 calls under ``torch.profiler``, so ``ms``
    is device time and not the wrapper's host time; taken from two sessions
-   that record the same number of device operations, else with CUDA events,
-   which the kernel's ``timed_by`` then says),
+   that record the same operations a call, else with CUDA events, which the
+   kernel's ``timed_by`` then says),
    the bytes it must move and its bound at 3.35 TB/s.  Tolerances, as a share
    of the largest magnitude of the plain output (su and sv both of the
    momentum vector's): paste bitwise (N arrays, and one); smoothing 1e-6;
    each of the three RK3WS stages of si_stage (damping on the last) 1e-5
+   (every cell: the stage and the smoothing write their x-frames
+   themselves, so no paste follows either)
    (FMA contraction in the
    stencils moves the float32 Montgomery potential by a few units of its
    last place, which reaches the momenta through the pressure gradient);
@@ -55,7 +57,7 @@ printing one line; any failure raises and exits non-zero:
 5. the full flagship step (dycore -> diagnostics -> smoothing -> Smagorinsky
    -> velocities -> Kessler + saturation adjustment -> vertical advection ->
    sedimentation -> precipitation), 1 + 100 steps through the entry point
-   ``driver_namelist_sus.run``: the launch counts of all seven kernels,
+   ``driver_namelist_sus.run``: the launch counts of its seven kernels,
    finiteness, and agreement with the JAX package's float32 result
    (``tasmania_tpu_torch/drivers/flagship_reference.json``).  Limits: 1e-4
    relative on every number but qc's, and exactly zero where the reference
@@ -109,8 +111,8 @@ printing one line; any failure raises and exits non-zero:
    (``process_merges=("smooth_smag", "vadv_sed")``) through
    ``driver_namelist_sus.run``, 1 + 30 steps at 161x161x120: the exact
    launch counts (``LAUNCHES_PER_STEP["sus_merged"]``: the merged kernels
-   once a step each in place of the smoothing, its paste, the two
-   Smagorinsky stages, vertical advection and sedimentation), finiteness,
+   once a step each in place of the smoothing, the two Smagorinsky stages,
+   vertical advection and sedimentation), finiteness,
    its step time, and agreement with the JAX package's float32 run with its
    two merge switches on (``tasmania_tpu_torch/drivers/flagship_merged_reference.json``)
    to ``MERGED_TOL`` = 6e-4 relative on every number, about twice the
@@ -123,10 +125,10 @@ step, and no other kernel.  The last two
 lines are the card's name and power limit, then ``{"ok": true, "device":
 {...}}``; the line before them is a JSON summary of the kernels, their
 launches in the full-size run of the first path that runs them (``path``:
-the flagship, phase 5, for the seven of the SUS chain and the diagnostics;
+the flagship, phase 5, for the six of the SUS chain and the diagnostics;
 fc for the two stage kernels, ps for Kessler and saturation adjustment
 alone, the mountain wave for the momentum step, sus_merged for the two
-merges; none for the single paste and the Smagorinsky stage alone, which no
+merges; none for the two pastes and the Smagorinsky stage alone, which no
 path runs), their launches a step on every path, and their times.
 """
 
@@ -180,20 +182,18 @@ VARIANTS = ("fc", "lfc", "ps", "sts", "ssus")
 # diagnostics call: the physics chain's diagnostics once a step on every
 # path; with tendencies also the Montgomery potential of each stage (3 a
 # step) and, in fc, the dycore's fast diagnostics after each stage (3 more)
-_SUS = {"si_stage": 3, "paste_x_edges_multi": 4, "fused_smoothing": 1, "fused_smagorinsky_rk2": 2,
+# no path pastes: the stage and the smoothing write their frames themselves
+_SUS = {"si_stage": 3, "fused_smoothing": 1, "fused_smagorinsky_rk2": 2,
         "fused_kessler_satadj_rk2": 1, "fused_vertical_advection_rk3ws": 1,
         "fused_sedimentation_rk3ws": 1, "fused_isentropic_diagnostics": 1}
-_TWO_KERNEL = {"fused_advection_fields": 3, "fused_momentum_epilogue": 3, "fused_smoothing": 1,
-               "paste_x_edges_multi": 1}
-# both process merges: one kernel each in place of smoothing (and its x-frame
-# paste) with the two Smagorinsky stages, and of vertical advection with
-# sedimentation
+_TWO_KERNEL = {"fused_advection_fields": 3, "fused_momentum_epilogue": 3, "fused_smoothing": 1}
+# both process merges: one kernel each in place of smoothing with the two
+# Smagorinsky stages, and of vertical advection with sedimentation
 _MERGED = {"fused_smoothing": 0, "fused_smagorinsky_rk2": 0, "fused_vertical_advection_rk3ws": 0,
-           "fused_sedimentation_rk3ws": 0, "paste_x_edges_multi": 3,
-           "fused_smoothing_smagorinsky_rk2": 1, "fused_vadv_sedimentation_rk3ws": 1}
+           "fused_sedimentation_rk3ws": 0, "fused_smoothing_smagorinsky_rk2": 1,
+           "fused_vadv_sedimentation_rk3ws": 1}
 LAUNCHES_PER_STEP = {
-    "slice": {"si_stage": 3, "paste_x_edges_multi": 4, "fused_smoothing": 1,
-              "fused_isentropic_diagnostics": 1},
+    "slice": {"si_stage": 3, "fused_smoothing": 1, "fused_isentropic_diagnostics": 1},
     "sus": _SUS,
     "sus_merged": {k: n for k, n in {**_SUS, **_MERGED}.items() if n},
     "ssus": _SUS,
@@ -201,8 +201,7 @@ LAUNCHES_PER_STEP = {
     "lfc": {**_TWO_KERNEL, "fused_isentropic_diagnostics": 4},
     "ps": {**{k: n for k, n in _SUS.items() if k != "fused_kessler_satadj_rk2"},
            "fused_kessler_rk2": 1, "fused_satadj_rk2": 1},
-    "sts": {"si_stage": 3, "paste_x_edges_multi": 4, "fused_smoothing": 1,
-            "fused_isentropic_diagnostics": 1},
+    "sts": {"si_stage": 3, "fused_smoothing": 1, "fused_isentropic_diagnostics": 1},
     # the unfused dry stage: advection of s, the Montgomery potential of the
     # stepped density and the momentum step, thrice, and the driver's
     # Montgomery refresh after the step
@@ -239,20 +238,22 @@ profiler_sessions = {"sessions": 0, "empty": 0, "measurements": 0}
 
 def device_ms(fn, reps: int = 20, warmup: int = 3, attempts: int = 4) -> tuple[float, str]:
     """Device time of one ``fn()`` and how it was taken.  After warm-up,
-    ``reps`` calls under ``torch.profiler``: the sum of the device
-    operations' times (kernels and copies) over ``reps``.  The host's work
-    per call (the ctypes call, argument checks, allocation, PyTorch's
-    dispatch) and the device's idle gaps between launches do not count.
+    ``reps`` calls under ``torch.profiler``: the device operations' times
+    (kernels and copies) per call.  The host's work per call (the ctypes
+    call, argument checks, allocation, PyTorch's dispatch) and the device's
+    idle gaps between launches do not count.
 
     A profiler session has been seen to record no device operation at all
-    (once, on an H100, for the 4 us paste kernel), and one that loses some
-    operations would read low.  So a time is taken only from a session
-    whose count of device operations is a multiple of ``reps`` and equals
-    the previous session's; up to ``attempts`` sessions are run (counted in
-    ``profiler_sessions``).  If no two agree, the time is taken with CUDA
-    events around ``reps`` back-to-back calls, an upper bound that holds the
-    host's work wherever it is longer than the device's.  Returns (ms,
-    "profiler" or "cuda events")."""
+    (once, on an H100, for the 4 us paste kernel), and, after a session of
+    many thousands of operations, to lose one launch of the twenty in every
+    later session (on an H100 80GB HBM3).  So each operation's time is the
+    mean of its name's recorded times, counted round(count / reps) times a
+    call, and a time is taken only from a session whose operations a call
+    agree with the previous session's; up to ``attempts`` sessions are run
+    (counted in ``profiler_sessions``).  If no two agree, the time is taken
+    with CUDA events around ``reps`` back-to-back calls, an upper bound that
+    holds the host's work wherever it is longer than the device's.  Returns
+    (ms, "profiler" or "cuda events")."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -265,15 +266,20 @@ def device_ms(fn, reps: int = 20, warmup: int = 3, attempts: int = 4) -> tuple[f
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        ops = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        per_name: dict = {}
+        for e in prof.events():
+            if e.device_type == DeviceType.CUDA:
+                t, n = per_name.get(e.name, (0.0, 0))
+                per_name[e.name] = (t + e.time_range.elapsed_us(), n + 1)
         profiler_sessions["sessions"] += 1
-        if not ops:
+        if not per_name:
             profiler_sessions["empty"] += 1
             continue
-        if len(ops) % reps == 0 and len(ops) == previous:
+        a_call = {name: round(n / reps) for name, (_, n) in per_name.items()}
+        if a_call == previous:
             profiler_sessions["measurements"] += 1
-            return 1e-3 * sum(e.time_range.elapsed_us() for e in ops) / reps, "profiler"
-        previous = len(ops)
+            return 1e-3 * sum(t / n * a_call[name] for name, (t, n) in per_name.items()), "profiler"
+        previous = a_call
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
     for _ in range(reps):
@@ -890,7 +896,7 @@ def main() -> int:
            lambda: fused_vadv_sedimentation_rk3ws_plain(*vsin, **vskw),
            bound(nbytes(vsin) + nbytes(ref), (18 * 22.0 + powers * 20.0 + 90.0) * s_now.numel()))
     phase("timing", f"{profiler_sessions['measurements']} times from pairs of profiler sessions that "
-          f"agree on their device-operation count, in {profiler_sessions['sessions']} sessions "
+          f"agree on their device operations a call, in {profiler_sessions['sessions']} sessions "
           f"({profiler_sessions['empty']} without device time)")
     del (fields, fulls, lo, hi, views, got, ref, stage_in, args, flat_in, kin, sin, vin, vq, din,
          adv_args, adv, mtg_e, mom_args, flat, base, q_now, s_int, state, raw, dycore, physics, domain,
@@ -931,7 +937,7 @@ def main() -> int:
     drive("slice", sus(nl.slice_skip), nl, LAUNCHES_PER_STEP["slice"], "slice_reference.json",
           lambda key: SLICE_TOL, SLICE_TOL)
 
-    # -- 5. the full flagship step through all seven kernels (the main path) ----
+    # -- 5. the full flagship step through its seven kernels (the main path) ----
     res, counts = drive(
         "flagship", sus(()), nl, LAUNCHES_PER_STEP["sus"], "flagship_reference.json",
         lambda key: FLAGSHIP_QC_TOL if key.startswith("qc_") else FLAGSHIP_TOL, 0.0,
@@ -1020,8 +1026,8 @@ def main() -> int:
     del res
 
     # each kernel's launches in the full-size run of the first path that runs
-    # it (the flagship for the seven of the SUS chain, the merged run for the
-    # two merges), and in every path; the single paste and the Smagorinsky
+    # it (the flagship for the six of the SUS chain, the merged run for the
+    # two merges), and in every path; the two pastes and the Smagorinsky
     # stage alone are on no path
     for name, entry in kernels.items():
         entry["path"] = next((p for p, n in path_counts.items() if n.get(name, 0)), None)

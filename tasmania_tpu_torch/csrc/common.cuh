@@ -1,6 +1,7 @@
 // Shared device helpers of the port's kernels: the relaxed-BC select, the
 // positivity clip, the third- and fifth-order upwind fluxes and their
-// divergences, the Shapiro filter and the Smagorinsky strain and tendency
+// divergences, the Shapiro filter, the Smagorinsky strain and tendency, and
+// the asynchronous staging of a column tile's stencil cross in shared memory
 // (column.cuh holds the column algebra of vertical advection and
 // sedimentation).  Every formula keeps the operation order of the plain PyTorch
 // versions in tasmania_tpu_torch/ops/, so kernel and plain version differ
@@ -10,6 +11,8 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <initializer_list>
 
 namespace tt {
 
@@ -41,12 +44,19 @@ __device__ __forceinline__ float add_rn(float a, float b) { return __fadd_rn(a, 
 __device__ __forceinline__ double add_rn(double a, double b) { return __dadd_rn(a, b); }
 
 // fifth-order upwind flux at a face with velocity w and the six cell values
-// pm3..pp2 around it (face between pm1 and p0)
+// pm3..pp2 around it (face between pm1 and p0): w/60 (...) - |w|/60 (...),
+// with |w|/60 taken as |w/60| (bitwise the same: IEEE division is
+// symmetric in sign), one division instead of two; flux5_scaled takes w/60
+// itself, for a face whose velocity several fields share
+template <typename T>
+__device__ __forceinline__ T flux5_scaled(T w60, T pm3, T pm2, T pm1, T p0, T pp1, T pp2) {
+  const T flux6 = w60 * (T(37) * (p0 + pm1) - T(8) * (pp1 + pm2) + (pp2 + pm3));
+  const T aw60 = w60 < T(0) ? -w60 : w60;
+  return flux6 - aw60 * (T(10) * (p0 - pm1) - T(5) * (pp1 - pm2) + (pp2 - pm3));
+}
 template <typename T>
 __device__ __forceinline__ T flux5(T w, T pm3, T pm2, T pm1, T p0, T pp1, T pp2) {
-  T flux6 = w / T(60) * (T(37) * (p0 + pm1) - T(8) * (pp1 + pm2) + (pp2 + pm3));
-  T aw = w < T(0) ? -w : w;
-  return flux6 - aw / T(60) * (T(10) * (p0 - pm1) - T(5) * (pp1 - pm2) + (pp2 - pm3));
+  return flux5_scaled(w / T(60), pm3, pm2, pm1, p0, pp1, pp2);
 }
 
 // a field read through the cell index c of an (nx, ny, nz) array
@@ -122,10 +132,10 @@ __device__ __forceinline__ T div_upwind(const T* __restrict__ u, const T* __rest
 // order-N 2-D Shapiro filter of the cell at index c of phi with the level's
 // coefficient g: (1 - cw g) phi + sum_o w_o g phi(x-shifts), then the
 // y-shifts (sx, sy: the x and y strides), in the order of
-// fused_smoothing_plain (ops/smoothing_step.py: CW_2D, WEIGHTS)
-template <typename T, int N>
-__device__ __forceinline__ T shapiro(const T* __restrict__ phi, int64_t c, int64_t sx, int64_t sy,
-                                     T g) {
+// fused_smoothing_plain (ops/smoothing_step.py: CW_2D, WEIGHTS); phi is a
+// field in device memory (I = int64_t) or a tile in shared memory (I = int)
+template <typename T, int N, typename I>
+__device__ __forceinline__ T shapiro(const T* __restrict__ phi, I c, I sx, I sy, T g) {
   static_assert(N >= 1 && N <= 3, "Shapiro order 1-3");
   constexpr T cw = N == 1 ? T(1.0) : (N == 2 ? T(0.75) : T(0.625));
   constexpr int noff = 2 * N;
@@ -185,6 +195,77 @@ __device__ __forceinline__ void smag_tendency(U u, V v, int64_t c, int64_t sx, i
   const Strain<T> ym = smag_strain(u, v, c - sy, sx, sy, nuc, dx2, dy2);
   u_tnd = T(2) * ((xp.nu * xp.s00 - xm.nu * xm.s00) / dx2 + (yp.nu * yp.s01 - ym.nu * ym.s01) / dy2);
   v_tnd = T(2) * ((xp.nu * xp.s01 - xm.nu * xm.s01) / dx2 + (yp.nu * yp.s11 - ym.nu * ym.s11) / dy2);
+}
+
+// Bytes (4, 8 or 16) copied from device to shared memory with cp.async (no
+// register holds them; both addresses aligned to Bytes); cp_async_commit
+// closes the thread's group of copies, cp_async_wait<N> waits until at most
+// N of its groups are in flight, and a __syncthreads() must follow before
+// other threads read the copies
+template <int Bytes>
+__device__ __forceinline__ void cp_async(void* smem, const void* gmem) {
+  static_assert(Bytes == 4 || Bytes == 8 || Bytes == 16, "cp.async of 4, 8 or 16 bytes");
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(s), "l"(gmem), "n"(Bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// fn(e) for e = threadIdx.x + r * Threads below n, the trip count known to
+// the compiler (so that a loop of copies is unrolled and all are in flight)
+template <int n, int Threads, typename F>
+__device__ __forceinline__ void strided(F fn) {
+#pragma unroll
+  for (int r = 0; r < (n + Threads - 1) / Threads; ++r) {
+    const int e = int(threadIdx.x) + r * Threads;
+    if (n % Threads == 0 || e < n) fn(e);
+  }
+}
+
+// A column tile's stencil cross in shared memory: the TX x TY columns at
+// (x0, y0) widened by H in x along the tile's rows and by H in y along its
+// columns (the corners, which no x- or y-stencil reads, are left out), levels
+// k0 .. k0 + KL.  It is laid out as the rectangle (TX + 2H) x (TY + 2H) x KL,
+// the level fastest; element (rx, ry, kk) holds cell (x0 - H + rx, y0 - H +
+// ry, k0 + kk).  fn(m, g) is called for each run of V levels of the cross
+// inside the (nx, ny, nz) grid, with m its first element's index in the
+// rectangle and g its first cell's index in the field (32 bits: the caller
+// checks nx ny nz < 2^31).  V divides KL; with V > 1 the caller guarantees
+// that V divides nz (so a run lies wholly above or below nz).  With k the
+// fastest thread index, a warp's runs are contiguous along k.
+template <int TX, int TY, int KL, int H, int V, int Threads, typename F>
+__device__ __forceinline__ void for_cross(int x0, int y0, int k0, int nx, int ny, int nz, F fn) {
+  static_assert(KL % V == 0, "whole runs of V levels");
+  constexpr int RY = TY + 2 * H, KV = KL / V;
+  const int sx = ny * nz;
+  strided<(TX + 2 * H) * TY * KV, Threads>([&](int e) {  // the tile's rows, widened in x
+    const int kk = e % KV * V, col = e / KV;
+    const int rx = col / TY, ry = H + col % TY;
+    const int i = x0 - H + rx, j = y0 - H + ry, k = k0 + kk;
+    if (i >= 0 && i < nx && j < ny && k < nz) fn((rx * RY + ry) * KL + kk, i * sx + j * nz + k);
+  });
+  strided<TX * 2 * H * KV, Threads>([&](int e) {  // the tile's columns, widened in y
+    const int kk = e % KV * V, col = e / KV;
+    const int rx = H + col % TX, q = col / TX;
+    const int ry = q < H ? q : TY + q;
+    const int i = x0 - H + rx, j = y0 - H + ry, k = k0 + kk;
+    if (i < nx && j >= 0 && j < ny && k < nz) fn((rx * RY + ry) * KL + kk, i * sx + j * nz + k);
+  });
+}
+
+// whether every pointer is aligned to 16 bytes and nz is a whole number of
+// 16-byte runs of T: the condition of for_cross's and the kernels' 16-byte
+// copies
+template <typename T>
+inline bool runs_of_16(int nz, std::initializer_list<const void*> ptrs) {
+  if (nz % (16 / int(sizeof(T))) != 0) return false;
+  for (const void* p : ptrs)
+    if (p != nullptr && reinterpret_cast<uintptr_t>(p) % 16 != 0) return false;
+  return true;
 }
 
 }  // namespace tt

@@ -1,4 +1,5 @@
-// One whole semi-implicit (RK3WS-SI) stage of the isentropic core.
+// One whole semi-implicit (RK3WS-SI) stage of the isentropic core, every
+// cell written.
 //
 // Replaces: tasmania_tpu/ops/si_stage.py:146 fused_si_stage (pallas_call at
 // :733).  The algebra, per cell:
@@ -9,32 +10,79 @@
 //   q     = clip(clip(sq_now - dt div(u, v, clip(s_int q_int))) / s_e)
 //   then enforce every field (s a second time) and Rayleigh-damp s, su, sv on
 //   the top dd levels toward the reference, from the step-start values.
+//   The frame is the nb-wide ring outside [nb, nx-nb) x [nb, ny-nb).
 //
 // Bound on the H100: bytes.  One 161x161x120 f32 field is 12.4 MB; a stage
-// reads ~22 fields (u, v, 6 now, 6 int, mtg_now, 6 references, and s_e and
-// mtg twice) and writes 8, about 370 MB, ~0.11 ms at 3.35 TB/s; the
-// arithmetic (four 5th-order divergences per cell plus one powf per cell)
-// is well under the FP32 rate.  Design: the TPU kernel's x-tiles, VMEM
-// windows, edge-duplicate pads and MXU triangular scans are Mosaic artefacts
-// and are not carried over.  Three launches on one stream instead:
-//   A  one thread per cell (k fastest, so stencil reads coalesce along k):
-//      advect s, keep "now" on the frame, enforce -> s_e (scratch);
-//   B  one thread per (i, j) column: the forward pressure scan, Exner, and
-//      the backward Montgomery scan -> mtg (scratch); sequential in k, with
-//      the roundings of the plain version (no FMA contraction), since f32
-//      summation noise in mtg (~0.03 at 3e5) would reach the momenta through
-//      the pressure gradient;
-//   C  one thread per cell of x columns [nb, nx-nb): momenta, water species
-//      and the whole epilogue.  The nb-wide x-frame columns are composed by
-//      the wrapper from "now" values and pasted with the paste kernel.
-// The intermediates cost two extra field round trips (s_e, mtg): fusing them
-// away (shared-memory column tiles) is later work.
+// reads u, v, 6 "now", 6 "int", mtg_now and 6 references and writes 6
+// fields, 336 MB, 0.100 ms at 3.35 TB/s; the scratch s_e and mtg add about
+// 100 MB of round trips.  The arithmetic (five 5th-order divergences and one
+// powf a cell) is well under the FP32 rate, but its instructions are not
+// free: index arithmetic, bounds tests and divisions cost more issue slots
+// than the fluxes.  Design: the TPU kernel's x-tiles, VMEM windows,
+// edge-duplicate pads and MXU triangular scans are Mosaic artefacts and are
+// not carried over.  Two launches on one stream, each tiled in (x, y) by
+// blockIdx with 32-bit indices and no division of a flat index.  The
+// stencil inputs are staged in shared memory with cp.async (tt::for_cross: a
+// tile's cross of halo 3, the level fastest; 16-byte copies where nz and the
+// pointers allow).  Each thread has a fixed place in the tile (Lane): its
+// level, row and columns, and the faces whose fluxes it computes, each face
+// once in the block (tt::flux5) into shared memory, where each divergence
+// is taken in div5's order.
+//   A  density + Montgomery: a block owns an 8 x 4 tile of columns over all
+//      levels, one cell a thread in each run of 8 levels.  Three runs are in
+//      flight: s_int's cross, u's and v's faces, s_now and s_ref of the next
+//      two runs copy while this one computes s_e = enforce(s_now - dt div)
+//      (enforce(s_now) on the frame) to device memory and to a column buffer
+//      in shared memory (column stride nz rounded up to odd, so that the
+//      scanning threads hit distinct banks).  Then one thread per column
+//      runs the forward pressure scan, all threads the Exner powf of every
+//      level, one thread per column the backward Montgomery scan, with the
+//      roundings of the plain version (mul_rn/add_rn, no FMA: float32 noise
+//      in mtg reaches the momenta through the pressure gradient); mtg leaves
+//      coalesced along k.
+//   B  momenta + water + epilogue: a block owns an 8 x 8 tile x 8 levels, two
+//      cells a thread, the level run the fastest block index (blocks in
+//      flight together read whole columns).  s_int's cross stays in shared
+//      memory for the products, mtg's and mtg_now's crosses of halo 1 for
+//      the pressure gradient, u's and v's faces (each thread divides its
+//      own faces by 60 once, for all five fields: tt::flux5_scaled); the
+//      advected fields su_int, sv_int and clip(s_int q_int) (the product
+//      formed once, after the copy) pass through two buffers, the next one's
+//      copy in flight while the current one's fluxes and divergences are
+//      computed.  Then the epilogue of the thread's cells, frame included
+//      ("now" values there, as in the plain version): no frame composition
+//      and no paste follow.
+// Shared memory: A 44 KB a block in float32 at nz = 120 (88 KB in float64),
+// B 34 KB (67 KB).
+// Measured on the H100 (161x161x120 float32): deeper copy pipelines, more
+// threads a block, longer level runs and staging the epilogue's inputs all
+// cost occupancy and were slower; what paid was the level run as the
+// fastest block index and fewer divisions.
 
 #include "common.cuh"
 
 namespace {
 
 constexpr int kMaxQ = 3;
+constexpr int kMaxAdv = 2 + kMaxQ;  // su, sv and the water densities
+constexpr int kH = 3;               // the fifth-order stencil's reach
+constexpr int kRunsInFlight = 3;    // A's level runs in flight: this one and the next two
+
+// a block's tile: TX x TY columns, KL levels (the fastest thread index), and
+// its threads; the cross of s_int or of an advected field (RX x RY x KL), the
+// x faces of the tile's rows (u, fluxes: (TX + 1) x TY x KL) and the y faces
+// of its columns (v, fluxes: TX x (TY + 1) x KL), the level fastest in each
+template <int TX_, int TY_, int KL_, int Threads_>
+struct Shape {
+  static constexpr int TX = TX_, TY = TY_, KL = KL_, Threads = Threads_;
+  static constexpr int RY = TY + 2 * kH;
+  static constexpr int kRect = (TX + 2 * kH) * RY * KL;
+  static constexpr int kFX = (TX + 1) * TY * KL;
+  static constexpr int kFY = TX * (TY + 1) * KL;
+  static constexpr int kCells = TX * TY * KL;
+};
+using ShapeA = Shape<8, 4, 8, 256>;  // 256 cells a level run: one a thread
+using ShapeB = Shape<8, 8, 8, 256>;  // 512 cells: two a thread
 
 template <typename T>
 struct Params {
@@ -51,118 +99,409 @@ struct Fields {
   T *s_e, *mtg, *s_out, *su_out, *sv_out;
 };
 
-template <typename T>
-__global__ void stage_density(Fields<T> f, Params<T> p) {
-  const int64_t total = int64_t(p.nx) * p.ny * p.nz;
-  for (int64_t c = int64_t(blockIdx.x) * blockDim.x + threadIdx.x; c < total;
-       c += int64_t(gridDim.x) * blockDim.x) {
-    const int k = int(c % p.nz);
-    const int j = int((c / p.nz) % p.ny);
-    const int i = int(c / (int64_t(p.ny) * p.nz));
-    T res = f.s_now[c];
-    if (i >= p.nb && i < p.nx - p.nb && j >= p.nb && j < p.ny - p.nb) {
-      res = res - p.dt * tt::div5(f.u, f.v, tt::Plain<T>{f.s_int}, i, j, k, p.nx, p.ny, p.nz,
-                                  p.dx, p.dy);
-    }
-    f.s_e[c] = tt::enforce(res, f.gamma[int64_t(i) * p.ny + j], f.s_ref[c]);
+// the tile's place: its first column and level, and the grid
+struct Tile {
+  int x0, y0, k0, nx, ny, nz, nb;
+  __device__ bool interior(int i, int j) const {
+    return i >= nb && i < nx - nb && j >= nb && j < ny - nb;
   }
+};
+
+// A thread's place in the tile, fixed for the block: level kk of row ty in
+// the columns tx = txg + G p (p < P), and the faces whose fluxes it computes,
+// each face once in the block: the x faces tx_p of its row (the last group
+// also the tile's right face TX) and the y faces ty of its columns (the last
+// row also the tile's top face TY).  A face is computed where an interior
+// cell reads it: x face i (between cells i-1 and i) of row j for nb <= i <=
+// nx-nb, nb <= j < ny-nb; y face j of column i for nb <= i < nx-nb, nb <= j
+// <= ny-nb.  Their stencils lie inside the grid.
+template <class S>
+struct Lane {
+  static constexpr int G = S::Threads / (S::KL * S::TY);
+  static constexpr int P = S::TX / G;
+  static_assert(G * S::KL * S::TY == S::Threads && G * P == S::TX, "the threads tile the block");
+  int kk, ty, txg;
+  unsigned fx_ok = 0;  // bit p: x face tx_p; bit P: the right face
+  unsigned fy_ok = 0;  // bit p: y face ty of column p; bit P + p: its top face
+  __device__ explicit Lane(const Tile& t)
+      : kk(threadIdx.x % S::KL), ty(threadIdx.x / S::KL % S::TY), txg(threadIdx.x / (S::KL * S::TY)) {
+    const int j = t.y0 + ty;
+    const bool row = j >= t.nb && j < t.ny - t.nb;
+    const bool xface_cols = t.x0 + S::TX >= t.nb && t.x0 + S::TX <= t.nx - t.nb;
+    const bool top = ty == S::TY - 1 && t.y0 + S::TY >= t.nb && t.y0 + S::TY <= t.ny - t.nb;
+#pragma unroll
+    for (int p = 0; p < P; ++p) {
+      const int i = t.x0 + tx(p);
+      if (row && i >= t.nb && i <= t.nx - t.nb) fx_ok |= 1u << p;
+      if (i >= t.nb && i < t.nx - t.nb) {
+        if (j >= t.nb && j <= t.ny - t.nb) fy_ok |= 1u << p;
+        if (top) fy_ok |= 1u << (P + p);
+      }
+    }
+    if (txg == G - 1 && row && xface_cols) fx_ok |= 1u << P;
+  }
+  __device__ int tx(int p) const { return txg + G * p; }
+};
+
+// xface(fx) for each x face and yface(tx, fy) for each y face of the thread
+template <class S, typename XF, typename YF>
+__device__ __forceinline__ void lane_faces(const Lane<S>& L, XF xface, YF yface) {
+#pragma unroll
+  for (int p = 0; p < L.P; ++p) {
+    if (L.fx_ok >> p & 1u) xface(L.tx(p));
+    if (L.fy_ok >> p & 1u) yface(L.tx(p), L.ty);
+    if (L.fy_ok >> (L.P + p) & 1u) yface(L.tx(p), S::TY);
+  }
+  if (L.fx_ok >> L.P & 1u) xface(S::TX);
+}
+
+// the index of x face fx and y face (tx, fy) of the thread's row and level
+// in U, FX and V, FY
+template <class S>
+__device__ __forceinline__ int xface_at(const Lane<S>& L, int fx) {
+  return (fx * S::TY + L.ty) * S::KL + L.kk;
+}
+template <class S>
+__device__ __forceinline__ int yface_at(const Lane<S>& L, int tx, int fy) {
+  return (tx * (S::TY + 1) + fy) * S::KL + L.kk;
+}
+
+// u/60 and v/60 in place at the thread's faces, once for every field a
+// block advects (each face is the same thread's in every field)
+template <class S, typename T>
+__device__ __forceinline__ void lane_scale_faces(const Lane<S>& L, bool level, T* U, T* V) {
+  if (!level) return;
+  lane_faces(L, [&](int fx) { U[xface_at(L, fx)] /= T(60); },
+             [&](int tx, int fy) { V[yface_at(L, tx, fy)] /= T(60); });
+}
+
+// the fluxes of phi's cross (R) at the thread's faces, from u's and v's
+// faces (U, V; divided by 60 already where Scaled), into FX and FY
+template <bool Scaled, class S, typename T>
+__device__ __forceinline__ void lane_fluxes(const Lane<S>& L, bool level, const T* R, const T* U,
+                                            const T* V, T* FX, T* FY) {
+  if (!level) return;
+  auto flux = [](T w, const T* q, int s) {
+    const T w60 = Scaled ? w : w / T(60);
+    return tt::flux5_scaled(w60, q[0], q[s], q[2 * s], q[3 * s], q[4 * s], q[5 * s]);
+  };
+  lane_faces(
+      L,
+      [&](int fx) {  // from cell i - 3 of the row
+        const int e = xface_at(L, fx);
+        FX[e] = flux(U[e], &R[(fx * S::RY + L.ty + kH) * S::KL + L.kk], S::RY * S::KL);
+      },
+      [&](int tx, int fy) {  // from cell j - 3 of the column
+        const int e = yface_at(L, tx, fy);
+        FY[e] = flux(V[e], &R[((tx + kH) * S::RY + fy) * S::KL + L.kk], S::KL);
+      });
+}
+
+// the flux divergence of the thread's cell in column tx_p, in div5's order
+template <class S, typename T>
+__device__ __forceinline__ T lane_div(const Lane<S>& L, int p, const T* FX, const T* FY, T dx, T dy) {
+  const int tx = L.tx(p);
+  const int x = (tx * S::TY + L.ty) * S::KL + L.kk;
+  const int y = (tx * (S::TY + 1) + L.ty) * S::KL + L.kk;
+  return (FX[x + S::TY * S::KL] - FX[x]) / dx + (FY[y + S::KL] - FY[y]) / dy;
+}
+
+// copies of runs of V levels (16 bytes where V > 1) into shared memory
+template <class S, int V, typename T>
+__device__ __forceinline__ void copy_cross(T* dst, const T* __restrict__ src, const Tile& t) {
+  tt::for_cross<S::TX, S::TY, S::KL, kH, V, S::Threads>(
+      t.x0, t.y0, t.k0, t.nx, t.ny, t.nz,
+      [&](int m, int g) { tt::cp_async<V * sizeof(T)>(&dst[m], &src[g]); });
+}
+
+// the tile's faces of u ((nx+1, ny, nz)) and v ((nx, ny+1, nz)), laid out as
+// the x and y fluxes
+template <class S, int V, typename T>
+__device__ __forceinline__ void copy_faces(T* U, T* Vf, const T* __restrict__ u,
+                                           const T* __restrict__ v, const Tile& t) {
+  constexpr int KV = S::KL / V;
+  tt::strided<S::kFX / V, S::Threads>([&](int e) {
+    const int col = e / KV, k = t.k0 + e % KV * V;
+    const int i = t.x0 + col / S::TY, j = t.y0 + col % S::TY;
+    if (i <= t.nx && j < t.ny && k < t.nz)
+      tt::cp_async<V * sizeof(T)>(&U[e * V], &u[(i * t.ny + j) * t.nz + k]);
+  });
+  tt::strided<S::kFY / V, S::Threads>([&](int e) {
+    const int col = e / KV, k = t.k0 + e % KV * V;
+    const int i = t.x0 + col / (S::TY + 1), j = t.y0 + col % (S::TY + 1);
+    if (i < t.nx && j <= t.ny && k < t.nz)
+      tt::cp_async<V * sizeof(T)>(&Vf[e * V], &v[(i * (t.ny + 1) + j) * t.nz + k]);
+  });
+}
+
+// the tile's cells of a cell field, laid out [tx][ty][kk]
+template <class S, int V, typename T>
+__device__ __forceinline__ void copy_cells(T* dst, const T* __restrict__ src, const Tile& t) {
+  constexpr int KV = S::KL / V;
+  tt::strided<S::kCells / V, S::Threads>([&](int e) {
+    const int col = e / KV, k = t.k0 + e % KV * V;
+    const int i = t.x0 + col / S::TY, j = t.y0 + col % S::TY;
+    if (i < t.nx && j < t.ny && k < t.nz)
+      tt::cp_async<V * sizeof(T)>(&dst[e * V], &src[(i * t.ny + j) * t.nz + k]);
+  });
 }
 
 template <typename T>
-__global__ void stage_montgomery(Fields<T> f, Params<T> p) {
-  const int64_t ncol = int64_t(p.nx) * p.ny;
-  for (int64_t col = int64_t(blockIdx.x) * blockDim.x + threadIdx.x; col < ncol;
-       col += int64_t(gridDim.x) * blockDim.x) {
-    const T* s = f.s_e + col * p.nz;
-    T* m = f.mtg + col * p.nz;
-    // forward: p[k+1] = p[k] + g dz s[k]; m[k] holds exn[k+1] for now
-    T pk = p.pt;
-    for (int k = 0; k < p.nz; ++k) {
-      pk = tt::add_rn(pk, tt::mul_rn(p.gdz, s[k]));
-      m[k] = tt::mul_rn(p.cp, tt::tpow(tt::mul_rn(pk, p.inv_pref), p.rdcp));
+size_t smem_a(int nz) {
+  using S = ShapeA;
+  return sizeof(T) * (size_t(kRunsInFlight) * (S::kRect + S::kFX + S::kFY + 2 * S::kCells) + S::kFX +
+                      S::kFY + size_t(S::TX * S::TY) * (nz | 1));
+}
+
+// B's cross of mtg_now and mtg: the tile widened by 1 in x and y
+constexpr int kRectB1 = (ShapeB::TX + 2) * (ShapeB::TY + 2) * ShapeB::KL;
+// B's advected fields in flight: the one whose fluxes are computed and the
+// next
+constexpr int kAdvBufs = 2;
+
+template <typename T>
+constexpr size_t smem_b() {
+  using S = ShapeB;
+  return sizeof(T) * ((1 + kAdvBufs) * S::kRect + 2 * (S::kFX + S::kFY) + 2 * kRectB1);
+}
+
+template <typename T, int V>
+__global__ void __launch_bounds__(ShapeA::Threads, 4) stage_density_montgomery(Fields<T> f, Params<T> p) {
+  using S = ShapeA;
+  static_assert(Lane<S>::P == 1, "one column a thread");
+  constexpr int kBuf = S::kRect + S::kFX + S::kFY + 2 * S::kCells;  // s_int, u, v, s_now, s_ref
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* const ring = reinterpret_cast<T*>(smem_raw);  // kRunsInFlight level runs' inputs
+  T* const FX = ring + kRunsInFlight * kBuf;
+  T* const FY = FX + S::kFX;
+  T* const C = FY + S::kFY;  // the columns' s_e, then p, Exner, mtg: column stride nzp
+  const int nzp = p.nz | 1;
+  Tile t{int(blockIdx.x) * S::TX, int(blockIdx.y) * S::TY, 0, p.nx, p.ny, p.nz, p.nb};
+  const Lane<S> L(t);
+  const int i = t.x0 + L.tx(0), j = t.y0 + L.ty, col = L.tx(0) * S::TY + L.ty;
+  const bool live = i < p.nx && j < p.ny, inner = t.interior(i, j);
+  const T gm = live ? f.gamma[i * p.ny + j] : T(0);
+  const int sx = p.ny * p.nz;
+  const int runs = (p.nz + S::KL - 1) / S::KL;
+
+  auto copy_run = [&](int run) {
+    T* b = ring + run % kRunsInFlight * kBuf;
+    Tile r = t;
+    r.k0 = run * S::KL;
+    copy_cross<S, V>(b, f.s_int, r);
+    copy_faces<S, V>(b + S::kRect, b + S::kRect + S::kFX, f.u, f.v, r);
+    copy_cells<S, V>(b + S::kRect + S::kFX + S::kFY, f.s_now, r);
+    copy_cells<S, V>(b + S::kRect + S::kFX + S::kFY + S::kCells, f.s_ref, r);
+  };
+#pragma unroll
+  for (int run = 0; run < kRunsInFlight - 1; ++run) {
+    if (run < runs) copy_run(run);
+    tt::cp_async_commit();
+  }
+  for (int run = 0; run < runs; ++run) {
+    if (run + kRunsInFlight - 1 < runs) copy_run(run + kRunsInFlight - 1);
+    tt::cp_async_commit();
+    tt::cp_async_wait<kRunsInFlight - 1>();
+    __syncthreads();
+    const T* b = ring + run % kRunsInFlight * kBuf;
+    t.k0 = run * S::KL;
+    const int k = t.k0 + L.kk;
+    lane_fluxes<false>(L, k < p.nz, b, b + S::kRect, b + S::kRect + S::kFX, FX, FY);
+    __syncthreads();
+    if (live && k < p.nz) {
+      const int cell = col * S::KL + L.kk;
+      const T* sn = b + S::kRect + S::kFX + S::kFY;
+      T res = sn[cell];
+      if (inner) res = res - p.dt * lane_div(L, 0, FX, FY, p.dx, p.dy);
+      const T se = tt::enforce(res, gm, sn[S::kCells + cell]);
+      f.s_e[i * sx + j * p.nz + k] = se;
+      C[col * nzp + k] = se;
     }
-    // backward: mtg[nz-1] = theta_s exn[nz] + g hs + dz/2 exn[nz];
-    // mtg[k] = mtg[nz-1] + dz sum_{l=k+1}^{nz-1} exn[l]
+    __syncthreads();  // the next run refills the oldest buffer and rewrites FX, FY
+  }
+
+  // forward: p[k+1] = p[k] + g dz s[k], kept in place of s[k]
+  constexpr int ncol = S::TX * S::TY;
+  const int sc = threadIdx.x, si = t.x0 + sc / S::TY, sj = t.y0 + sc % S::TY;
+  const bool scans = sc < ncol && si < p.nx && sj < p.ny;
+  if (scans) {
+    T* m = C + sc * nzp;
+    T pk = p.pt;
+#pragma unroll 4
+    for (int k = 0; k < p.nz; ++k) {
+      pk = tt::add_rn(pk, tt::mul_rn(p.gdz, m[k]));
+      m[k] = pk;
+    }
+  }
+  __syncthreads();
+  // exn[k+1] = cp (p[k+1] / pref)^(rd/cp) of every level, by all threads
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  for (int w = warp; w < ncol; w += S::Threads / 32) {
+    if (t.x0 + w / S::TY >= p.nx || t.y0 + w % S::TY >= p.ny) continue;
+    T* m = C + w * nzp;
+    for (int k = lane; k < p.nz; k += 32)
+      m[k] = tt::mul_rn(p.cp, tt::tpow(tt::mul_rn(m[k], p.inv_pref), p.rdcp));
+  }
+  __syncthreads();
+  // backward: mtg[nz-1] = theta_s exn[nz] + g hs + dz/2 exn[nz];
+  // mtg[k] = mtg[nz-1] + dz sum_{l=k+1}^{nz-1} exn[l]
+  if (scans) {
+    T* m = C + sc * nzp;
     const T exn_s = m[p.nz - 1];
-    const T base = tt::add_rn(tt::add_rn(tt::mul_rn(f.theta[p.nz], exn_s), tt::mul_rn(p.g, f.hs[col])),
-                              tt::mul_rn(tt::mul_rn(T(0.5), p.dz), exn_s));
+    const T base =
+        tt::add_rn(tt::add_rn(tt::mul_rn(f.theta[p.nz], exn_s), tt::mul_rn(p.g, f.hs[si * p.ny + sj])),
+                   tt::mul_rn(tt::mul_rn(T(0.5), p.dz), exn_s));
     m[p.nz - 1] = base;
     T r = T(0);
+#pragma unroll 4
     for (int k = p.nz - 2; k >= 0; --k) {
       r = tt::add_rn(r, tt::mul_rn(p.dz, m[k]));
       m[k] = tt::add_rn(base, r);
     }
   }
+  __syncthreads();
+  for (int w = warp; w < ncol; w += S::Threads / 32) {
+    const int wi = t.x0 + w / S::TY, wj = t.y0 + w % S::TY;
+    if (wi >= p.nx || wj >= p.ny) continue;
+    for (int k = lane; k < p.nz; k += 32) f.mtg[wi * sx + wj * p.nz + k] = C[w * nzp + k];
+  }
 }
 
-template <typename T>
-__global__ void stage_momentum_epilogue(Fields<T> f, Params<T> p) {
-  const int64_t sx = int64_t(p.ny) * p.nz;
-  const int64_t total = int64_t(p.nx - 2 * p.nb) * sx;
-  for (int64_t e = int64_t(blockIdx.x) * blockDim.x + threadIdx.x; e < total;
-       e += int64_t(gridDim.x) * blockDim.x) {
-    const int k = int(e % p.nz);
-    const int j = int((e / p.nz) % p.ny);
-    const int i = p.nb + int(e / sx);
-    const int64_t c = int64_t(i) * sx + int64_t(j) * p.nz + k;
-    const bool inner = j >= p.nb && j < p.ny - p.nb;
-    const bool damp = k < p.dd;
-    const T rm = damp ? f.rmat[k] : T(0);
-    const T gm = f.gamma[int64_t(i) * p.ny + j];
-    const T sn = f.s_now[c];
-    const T se = f.s_e[c];
+template <typename T, int V>
+__global__ void __launch_bounds__(ShapeB::Threads) stage_momenta_epilogue(Fields<T> f, Params<T> p) {
+  using S = ShapeB;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* const SI = reinterpret_cast<T*>(smem_raw);  // s_int's cross, kept
+  T* const PHI = SI + S::kRect;                   // the advected fields' crosses, a ring
+  T* const U = PHI + kAdvBufs * S::kRect;
+  T* const Vf = U + S::kFX;
+  T* const FX = Vf + S::kFY;
+  T* const FY = FX + S::kFX;
+  T* const MN = FY + S::kFY;  // mtg_now's and mtg's crosses of halo 1
+  T* const MG = MN + kRectB1;
+  // the level run is the fastest block index: blocks that run together read
+  // whole columns
+  const Tile t{int(blockIdx.y) * S::TX, int(blockIdx.z) * S::TY, int(blockIdx.x) * S::KL,
+               p.nx, p.ny, p.nz, p.nb};
+  const Lane<S> L(t);
+  const int k = t.k0 + L.kk;
+  const int na = 2 + p.nq;
+  auto source = [&](int a) { return a == 0 ? f.su_int : a == 1 ? f.sv_int : f.q_int[a - 2]; };
+
+  copy_cross<S, V>(SI, f.s_int, t);
+  copy_faces<S, V>(U, Vf, f.u, f.v, t);
+  tt::for_cross<S::TX, S::TY, S::KL, 1, V, S::Threads>(
+      t.x0, t.y0, t.k0, t.nx, t.ny, t.nz, [&](int m, int g) {
+        tt::cp_async<V * sizeof(T)>(&MN[m], &f.mtg_now[g]);
+        tt::cp_async<V * sizeof(T)>(&MG[m], &f.mtg[g]);
+      });
+#pragma unroll
+  for (int a = 0; a < kAdvBufs; ++a) {  // a group each, the first with the inputs above
+    if (a < na) copy_cross<S, V>(PHI + a * S::kRect, source(a), t);
+    tt::cp_async_commit();
+  }
+  T d[kMaxAdv][Lane<S>::P];  // the divergences of su, sv and the water densities
+#pragma unroll
+  for (int a = 0; a < kMaxAdv; ++a) {
+    if (a >= na) break;
+    T* const phi = PHI + a % kAdvBufs * S::kRect;
+    tt::cp_async_wait<kAdvBufs - 1>();
+    __syncthreads();
+    if (a == 0) lane_scale_faces(L, k < p.nz, U, Vf);
+    if (a >= 2) {  // the water density clip(s_int q_int), formed once
+      tt::for_cross<S::TX, S::TY, S::KL, kH, V, S::Threads>(
+          t.x0, t.y0, t.k0, t.nx, t.ny, t.nz, [&](int m, int) {
+#pragma unroll
+            for (int w = 0; w < V; ++w) phi[m + w] = tt::clip_pos(SI[m + w] * phi[m + w]);
+          });
+      __syncthreads();
+    }
+    lane_fluxes<true>(L, k < p.nz, phi, U, Vf, FX, FY);
+    __syncthreads();
+#pragma unroll
+    for (int q = 0; q < L.P; ++q)
+      d[a][q] = t.interior(t.x0 + L.tx(q), t.y0 + L.ty) ? lane_div(L, q, FX, FY, p.dx, p.dy) : T(0);
+    // every thread's fluxes of phi are done (the barrier above): refill it
+    if (a + kAdvBufs < na) copy_cross<S, V>(phi, source(a + kAdvBufs), t);
+    tt::cp_async_commit();
+  }
+
+  const int sx = p.ny * p.nz;
+  const int j = t.y0 + L.ty;
+  const bool damp = k < p.dd;
+  const T rm = damp ? f.rmat[k] : T(0);
+#pragma unroll
+  for (int q = 0; q < L.P; ++q) {
+    const int i = t.x0 + L.tx(q);
+    if (i >= p.nx || j >= p.ny || k >= p.nz) continue;
+    const int c = i * sx + j * p.nz + k;
+    const bool inner = t.interior(i, j);
+    const T gm = f.gamma[i * p.ny + j];
+    const T sn = f.s_now[c], se = f.s_e[c], s_ref = f.s_ref[c];
 
     // density: second enforcement, then damping
-    T sf = tt::enforce(se, gm, f.s_ref[c]);
-    if (damp) sf = sf - p.dtf * rm * (sn - f.s_ref[c]);
+    T sf = tt::enforce(se, gm, s_ref);
+    if (damp) sf = sf - p.dtf * rm * (sn - s_ref);
     f.s_out[c] = sf;
 
     // momenta with the semi-implicit pressure gradient
-    const T sun = f.su_now[c];
-    const T svn = f.sv_now[c];
+    const T sun = f.su_now[c], svn = f.sv_now[c], su_ref = f.su_ref[c], sv_ref = f.sv_ref[c];
     T sup = sun, svp = svn;
     if (inner) {
-      const T pgx = (T(1) - p.eps) * sn * (f.mtg_now[c + sx] - f.mtg_now[c - sx]) / (T(2) * p.dx) +
-                    p.eps * se * (f.mtg[c + sx] - f.mtg[c - sx]) / (T(2) * p.dx);
-      const T pgy =
-          (T(1) - p.eps) * sn * (f.mtg_now[c + p.nz] - f.mtg_now[c - p.nz]) / (T(2) * p.dy) +
-          p.eps * se * (f.mtg[c + p.nz] - f.mtg[c - p.nz]) / (T(2) * p.dy);
-      const T dsu = tt::div5(f.u, f.v, tt::Plain<T>{f.su_int}, i, j, k, p.nx, p.ny, p.nz, p.dx, p.dy);
-      const T dsv = tt::div5(f.u, f.v, tt::Plain<T>{f.sv_int}, i, j, k, p.nx, p.ny, p.nz, p.dx, p.dy);
-      sup = sun - p.dt * (dsu + pgx);
-      svp = svn - p.dt * (dsv + pgy);
+      constexpr int mx = (S::TY + 2) * S::KL, my = S::KL;
+      const int m = ((L.tx(q) + 1) * (S::TY + 2) + L.ty + 1) * S::KL + L.kk;
+      const T pgx = (T(1) - p.eps) * sn * (MN[m + mx] - MN[m - mx]) / (T(2) * p.dx) +
+                    p.eps * se * (MG[m + mx] - MG[m - mx]) / (T(2) * p.dx);
+      const T pgy = (T(1) - p.eps) * sn * (MN[m + my] - MN[m - my]) / (T(2) * p.dy) +
+                    p.eps * se * (MG[m + my] - MG[m - my]) / (T(2) * p.dy);
+      sup = sun - p.dt * (d[0][q] + pgx);
+      svp = svn - p.dt * (d[1][q] + pgy);
     }
-    T suf = tt::enforce(sup, gm, f.su_ref[c]);
-    T svf = tt::enforce(svp, gm, f.sv_ref[c]);
+    T suf = tt::enforce(sup, gm, su_ref);
+    T svf = tt::enforce(svp, gm, sv_ref);
     if (damp) {
-      suf = suf - p.dtf * rm * (sun - f.su_ref[c]);
-      svf = svf - p.dtf * rm * (svn - f.sv_ref[c]);
+      suf = suf - p.dtf * rm * (sun - su_ref);
+      svf = svf - p.dtf * rm * (svn - sv_ref);
     }
     f.su_out[c] = suf;
     f.sv_out[c] = svf;
 
     // water species: advect the densities, back to clipped mass fractions
-    for (int q = 0; q < p.nq; ++q) {
-      const T sqn = tt::clip_pos(sn * f.q_now[q][c]);
-      T sqr = sqn;
-      if (inner) {
-        sqr = sqn - p.dt * tt::div5(f.u, f.v, tt::ClipProduct<T>{f.s_int, f.q_int[q]}, i, j, k,
-                                    p.nx, p.ny, p.nz, p.dx, p.dy);
-      }
-      f.q_out[q][c] = tt::enforce(tt::clip_pos(sqr / se), gm, f.q_ref[q][c]);
+#pragma unroll
+    for (int w = 0; w < kMaxQ; ++w) {
+      if (w >= p.nq) break;
+      const T sqn = tt::clip_pos(sn * f.q_now[w][c]);
+      const T sqr = inner ? sqn - p.dt * d[2 + w][q] : sqn;
+      f.q_out[w][c] = tt::enforce(tt::clip_pos(sqr / se), gm, f.q_ref[w][c]);
     }
   }
 }
 
-unsigned blocks_for(int64_t n, int threads) {
-  int64_t b = (n + threads - 1) / threads;
-  return unsigned(b > 65535 ? 65535 : b);
+template <typename T, int V>
+int launch_kernels(const Fields<T>& f, const Params<T>& p, cudaStream_t stream) {
+  // A's column buffer grows with nz: above the card's 227 KB a block the
+  // attribute is refused and the error returned
+  const int sa = int(smem_a<T>(p.nz)), sb = int(smem_b<T>());
+  int err = int(cudaFuncSetAttribute(stage_density_montgomery<T, V>,
+                                     cudaFuncAttributeMaxDynamicSharedMemorySize, sa));
+  if (err) return err;
+  err = int(cudaFuncSetAttribute(stage_momenta_epilogue<T, V>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize, sb));
+  if (err) return err;
+  const dim3 ga((p.nx + ShapeA::TX - 1) / ShapeA::TX, (p.ny + ShapeA::TY - 1) / ShapeA::TY);
+  stage_density_montgomery<T, V><<<ga, ShapeA::Threads, sa, stream>>>(f, p);
+  err = int(cudaGetLastError());
+  if (err) return err;
+  const dim3 gb((p.nz + ShapeB::KL - 1) / ShapeB::KL, (p.nx + ShapeB::TX - 1) / ShapeB::TX,
+                (p.ny + ShapeB::TY - 1) / ShapeB::TY);
+  stage_momenta_epilogue<T, V><<<gb, ShapeB::Threads, sb, stream>>>(f, p);
+  return int(cudaGetLastError());
 }
 
 template <typename T>
 int launch(const void* const* ptrs, void* const* outs, int nq, int nx, int ny, int nz, int nb,
            int dd, const double* scalars, cudaStream_t stream) {
-  Fields<T> f;
+  Fields<T> f = {};
   const T** in[] = {&f.u, &f.v, &f.s_now, &f.s_int, &f.su_now, &f.sv_now, &f.su_int,
                     &f.sv_int, &f.mtg_now, &f.hs, &f.theta, &f.gamma, &f.s_ref, &f.su_ref,
                     &f.sv_ref, &f.rmat};
@@ -184,16 +523,10 @@ int launch(const void* const* ptrs, void* const* outs, int nq, int nx, int ny, i
   p.cp = T(scalars[8]); p.rdcp = T(scalars[9] / scalars[8]); p.inv_pref = T(1.0 / scalars[10]);
   p.gdz = T(scalars[7] * scalars[6]);
 
-  const int threads = 256;
-  stage_density<T><<<blocks_for(int64_t(nx) * ny * nz, threads), threads, 0, stream>>>(f, p);
-  int err = int(cudaGetLastError());
-  if (err) return err;
-  stage_montgomery<T><<<blocks_for(int64_t(nx) * ny, 128), 128, 0, stream>>>(f, p);
-  err = int(cudaGetLastError());
-  if (err) return err;
-  stage_momentum_epilogue<T>
-      <<<blocks_for(int64_t(nx - 2 * nb) * ny * nz, threads), threads, 0, stream>>>(f, p);
-  return int(cudaGetLastError());
+  // 16-byte copies where every staged field's columns are whole 16-byte runs
+  const bool vec = tt::runs_of_16<T>(nz, {f.u, f.v, f.s_now, f.s_int, f.s_ref, f.su_int, f.sv_int,
+                                          f.mtg_now, f.mtg, f.q_int[0], f.q_int[1], f.q_int[2]});
+  return vec ? launch_kernels<T, 16 / sizeof(T)>(f, p, stream) : launch_kernels<T, 1>(f, p, stream);
 }
 
 }  // namespace
@@ -206,7 +539,8 @@ int launch(const void* const* ptrs, void* const* outs, int nq, int nx, int ny, i
 extern "C" int tt_si_stage(int dtype, const void* const* ptrs, void* const* outs, int nq, int nx,
                            int ny, int nz, int nb, int dd, const double* scalars,
                            cudaStream_t stream) {
-  if (nq < 0 || nq > kMaxQ || nb < 3 || nx < 2 * nb + 1 || ny < 2 * nb + 1) {
+  if (nq < 0 || nq > kMaxQ || nb < 3 || nx < 2 * nb + 1 || ny < 2 * nb + 1 || nz < 1 ||
+      int64_t(nx + 1) * (ny + 1) * nz > INT32_MAX) {
     return int(cudaErrorInvalidValue);
   }
   if (dtype == tt::kFloat32) return launch<float>(ptrs, outs, nq, nx, ny, nz, nb, dd, scalars, stream);

@@ -84,7 +84,10 @@ def _smooth_smag_pair_matches(smoothing, stepper) -> bool:
     comps = stepper.coupling.components
     if len(comps) != 1 or not isinstance(comps[0], IsentropicSmagorinsky):
         return False
-    nb, grid = smoothing.nb, smoothing.grid
+    # the merged kernel runs both processes with one nb: the boundary's, which
+    # the separate Smagorinsky uses; the smoothing's own nb is max(order,
+    # hb.nb), so the merge holds only where that is the boundary's too
+    nb, grid = smoothing.horizontal_boundary.nb, smoothing.grid
     return nb >= max(smoothing.order, 2) and min(grid.nx, grid.ny) >= 2 * nb + 1
 
 
@@ -97,7 +100,7 @@ def _smooth_smag_pair_fuser(smoothing, stepper, state, td):
     raw = get_array_dict(state, smoothing.input_properties)
     dx, dy = smag.spacings()
     outs = fused_smoothing_smagorinsky_rk2(
-        [raw[n] for n in names], smoothing.gamma, order=smoothing.order, nb=smoothing.nb,
+        [raw[n] for n in names], smoothing.gamma, order=smoothing.order, nb=smag.nb,
         dx=dx, dy=dy, cs=smag.cs, dt=td.total_seconds(),
     )
     dprops = smoothing.diagnostic_properties

@@ -1,12 +1,11 @@
 """One whole semi-implicit stage of the isentropic core (counterpart of
 ``tasmania_tpu/ops/si_stage.py:146 fused_si_stage``).
 
-Kernel: ``csrc/si_stage.cu`` (three launches on one stream: density,
-Montgomery column scans, momenta + water species + epilogue) over x columns
-[nb, nx-nb); the nb-wide x-frame columns are composed from "now" values by
-:func:`frame_strips` and pasted with the paste kernel.  :func:`si_stage_plain`
-is the plain PyTorch version of the whole stage; the wrapper takes it for CPU
-tensors only.
+Kernel: ``csrc/si_stage.cu`` (two launches on one stream: density +
+Montgomery column scans, then momenta + water species + epilogue), which
+writes every cell, frame included: no frame composition and no paste follow.
+:func:`si_stage_plain` is the plain PyTorch version of the whole stage; the
+wrapper takes it for CPU tensors only.
 
 Layout: cell fields (nx, ny, nz), u (nx+1, ny, nz), v (nx, ny+1, nz), θ on
 the nz+1 interfaces, γ and the topography (nx, ny), the Rayleigh profile
@@ -24,7 +23,6 @@ import torch
 from tasmania_tpu_torch.domain.boundaries.relaxed import enforce_relaxed
 from tasmania_tpu_torch.isentropic.dynamics.horizontal_fluxes import extent, flux3
 from tasmania_tpu_torch.ops import _lib
-from tasmania_tpu_torch.ops.paste import paste_x_edges_multi
 
 
 @dataclass(frozen=True)
@@ -160,24 +158,6 @@ def si_stage_plain(
     return (s_f, su_f, sv_f, *q_f)
 
 
-def frame_strips(sl, s_now, su_now, sv_now, q_now, gamma, s_ref, su_ref, sv_ref, q_refs, rmat, dtf):
-    """The stage's values on the x-column slice ``sl`` of the frame, composed
-    from "now" values (advection keeps "now" there): the same algebra as
-    :func:`si_stage_plain`, so the kernel path's pasted frame is bitwise the
-    plain version's."""
-    g = gamma[sl][:, :, None]
-    sn = s_now[sl]
-    s_e = enforce_relaxed(sn, g, s_ref[sl])
-    s_f = rayleigh_damp(enforce_relaxed(s_e, g, s_ref[sl]), sn, s_ref[sl], rmat, dtf)
-    su_f = rayleigh_damp(enforce_relaxed(su_now[sl], g, su_ref[sl]), su_now[sl], su_ref[sl], rmat, dtf)
-    sv_f = rayleigh_damp(enforce_relaxed(sv_now[sl], g, sv_ref[sl]), sv_now[sl], sv_ref[sl], rmat, dtf)
-    q_f = [
-        enforce_relaxed(clip_pos(clip_pos(sn * qn[sl]) / s_e), g, qref[sl])
-        for qn, qref in zip(q_now, q_refs)
-    ]
-    return [s_f, su_f, sv_f, *q_f]
-
-
 def si_stage(
     u, v, s_now, s_int, q_now: Sequence, q_int: Sequence, su_now, sv_now, su_int,
     sv_int, mtg_now, hs, theta, gamma, s_ref, su_ref, sv_ref, q_refs: Sequence,
@@ -185,7 +165,10 @@ def si_stage(
 ):
     """One stage; returns new tensors (s, su, sv, *q).  On a CUDA device it
     runs the kernel; ``rmat[dd:]`` must then be zero (damping is applied on
-    the levels k < dd only), as it is for a Rayleigh profile of depth dd."""
+    the levels k < dd only), as it is for a Rayleigh profile of depth dd.
+    The kernel keeps a block's columns of the stepped density in shared
+    memory, so nz is bounded (about 1680 levels in float32, 780 in float64):
+    beyond that the launch is refused and this raises."""
     if not s_now.is_cuda:
         return si_stage_plain(
             u, v, s_now, s_int, q_now, q_int, su_now, sv_now, su_int, sv_int,
@@ -225,8 +208,4 @@ def si_stage(
     )
     _lib.launch_counts["si_stage"] += 1
     _lib.check(err, "si_stage")
-    strip_args = (s_now, su_now, sv_now, q_now, gamma, s_ref, su_ref, sv_ref, q_refs,
-                  rmat, c.dtf)
-    lo = frame_strips(slice(0, nb), *strip_args)
-    hi = frame_strips(slice(nx - nb, nx), *strip_args)
-    return paste_x_edges_multi(outs, lo, hi)
+    return tuple(outs)

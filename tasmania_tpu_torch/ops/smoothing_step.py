@@ -1,10 +1,9 @@
 """Multi-field Shapiro smoothing (counterpart of
 ``tasmania_tpu/ops/smoothing_step.py:44 fused_smoothing``).
 
-Kernel: ``csrc/smoothing.cu`` over x columns [nb, nx-nb), then the x-frame
-columns are pasted from the inputs with the paste kernel.
-``fused_smoothing_plain`` is the plain PyTorch version; the wrapper takes it
-for CPU tensors only.
+Kernel: ``csrc/smoothing.cu``, which writes every cell (the nb-wide frame
+copied): no paste follows.  ``fused_smoothing_plain`` is the plain PyTorch
+version; the wrapper takes it for CPU tensors only.
 """
 
 from __future__ import annotations
@@ -14,7 +13,6 @@ from typing import Sequence
 import torch
 
 from tasmania_tpu_torch.ops import _lib
-from tasmania_tpu_torch.ops.paste import paste_x_edges_multi
 
 CW_2D = {1: 1.0, 2: 0.75, 3: 0.625}
 WEIGHTS = {
@@ -80,6 +78,4 @@ def fused_smoothing(
     )
     _lib.launch_counts["fused_smoothing"] += 1
     _lib.check(err, "fused_smoothing")
-    return paste_x_edges_multi(
-        outs, [phi[:nb] for phi in fields], [phi[nx - nb :] for phi in fields]
-    )
+    return outs

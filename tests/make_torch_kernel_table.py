@@ -9,11 +9,13 @@ and that traffic's time at the H100's 3.35 TB/s.  Given the log of a
 ``chip_smoke.py`` run, it adds for each ported kernel its route and source,
 its launches per step on each path that runs it (the full-size runs of
 phases 5, 7, 8 and 9: the flagship's SUS chain, the five other couplings,
-the mountain wave and the SUS chain with both process merges, sus_merged) and the times that run measured on the card: kernel,
-plain version and, where one exists, the single PyTorch call computing the
-same function; a kernel timed also at other shapes or in other modes
-(``also`` in the log: the mountain wave's 161x7x120, the diagnostics'
-modes) gets a row for each, with the bytes and bound of those shapes.
+the mountain wave and the SUS chain with both process merges, sus_merged)
+and the times that run measured on the card: kernel, plain version and,
+where one exists, the single PyTorch call computing the same function; a
+kernel timed also at other shapes or in other modes (``also`` in the log:
+the mountain wave's 161x7x120, the diagnostics' modes) gets a row for each,
+with the bytes and bound of those shapes, and a kernel whose code changed
+since an earlier reading a row with that reading (``EARLIER``).
 
 Usage: ``python tests/make_torch_kernel_table.py [CHIP_SMOKE_LOG]``
 """
@@ -81,6 +83,21 @@ KERNELS = [
 # the one PyTorch call timed beside a kernel
 LIBRARY_CALL = {2: "torch._foreach_copy_", 4: "torch._foreach_copy_"}
 
+# a kernel's earlier reading, kept beside its new time: (label, kernel ms,
+# plain ms), from chip_smoke.py's last log before its code changed (H100
+# 80GB HBM3, 700 W); the advection kernels changed only in tt::flux5, which
+# now divides the velocity by 60 once (bitwise as before)
+_FLUX5 = "before `tt::flux5` divided once (another call)"
+EARLIER = {
+    1: ("the design before the redesign (three launches, the frame composed and pasted)",
+        1.038, 4.585),
+    3: ("the design before the redesign (a thread a cell from device memory, the frame pasted)",
+        0.745, 1.200),
+    5: (_FLUX5, 0.493, 2.025),
+    6: (_FLUX5, 0.255, 1.071),
+    7: (_FLUX5, 0.306, 1.623),
+}
+
 
 def chip_kernels(log_path):
     """The ``{"kernels": [...]}`` line of a chip_smoke.py log, by name."""
@@ -119,6 +136,10 @@ def main(argv) -> None:
         for label, a in (k or {}).get("also", {}).items():
             print(f"| {num} | ↳ {label} | | | | {a['bytes'] / 1e6:.2f} | {a['bound_ms']:.4f} "
                   f"| {fmt(a['ms'])} | {fmt(a['plain_ms'])} | none |")
+        if num in EARLIER:
+            label, earlier_ms, earlier_plain = EARLIER[num]
+            print(f"| {num} | ↳ {label} | | | | {mb:.1f} | {bound:.4f} | {fmt(earlier_ms)} "
+                  f"| {fmt(earlier_plain)} | none |")
 
 
 if __name__ == "__main__":

@@ -25,6 +25,12 @@ on the CPU in float64.
   unknown name, or merges under a coupling without sequential-update
   splitting, raise ``ValueError``.  Each wrapper takes its plain version for
   CPU tensors and counts no launch.
+* ``smooth_smag`` is planned exactly where the JAX matcher merges, for the
+  boundary's nb 2 and 3 and smoothing orders 1-3 at 21x21 (wide enough for
+  the JAX kernel's x-tile): only where nb >= max(order, 2), since the merged
+  kernel runs the smoothing and Smagorinsky with one nb, the boundary's.
+  With third-order smoothing and nb 3 the merged chain stays bitwise the
+  unmerged one.
 """
 
 from __future__ import annotations
@@ -48,6 +54,7 @@ from tasmania_tpu.ops.vertical_advection_step import (
 from tasmania_tpu_torch.drivers import driver_isentropic_moist as port_moist
 from tasmania_tpu_torch.drivers import driver_namelist_sus as port_driver
 from tasmania_tpu_torch.drivers.namelist_sus import load_namelist
+from tasmania_tpu_torch.dwarfs.horizontal_smoothing import ORDERS
 from tasmania_tpu_torch.framework.options import StorageOptions
 from tasmania_tpu_torch.framework.splitting import SequentialUpdateSplitting, _pair_plan
 from tasmania_tpu_torch.interop import state_to_numpy
@@ -179,8 +186,9 @@ def run_jax_merged(coupling):
 
 
 @functools.lru_cache(maxsize=None)
-def run_port(coupling, merges):
-    nl = port_moist.load_namelist(coupling, **SIZE, niter=NSTEPS, so=CPU64, process_merges=merges)
+def run_port(coupling, merges, smooth_type="second_order"):
+    nl = port_moist.load_namelist(coupling, **SIZE, niter=NSTEPS, so=CPU64, process_merges=merges,
+                                  smooth_type=smooth_type)
     res = port_moist.run(nl, coupling, verbose=False)
     return {k: a for k, (a, _) in state_to_numpy(res["fields"]).items()}
 
@@ -205,16 +213,18 @@ def test_merges_leave_the_cpu_result_unchanged(coupling):
 
 
 @functools.lru_cache(maxsize=None)
-def _sus_processes():
-    nl = load_namelist(**SIZE, so=CPU64)
+def _sus_processes(**overrides):
+    """The SUS physics chain's processes (no dycore: its fifth-order fluxes
+    need nb >= 3)."""
+    nl = load_namelist(**{**SIZE, **overrides}, so=CPU64)
     domain, _, pt = port_driver.build_domain_and_state(nl)
-    _, physics = port_driver.build_model(nl, domain, pt)
-    return physics._processes
+    options = port_driver.physics_options(nl, port_driver.build_components(nl, domain, pt))
+    return SequentialUpdateSplitting(*options)._processes
 
 
-def _merged_pairs(merges):
+def _merged_pairs(merges, **overrides):
     """The first process of each pair the plan makes, by type."""
-    pairs = [e for e in _pair_plan(_sus_processes(), frozenset(merges)) if e[0] == "pair"]
+    pairs = [e for e in _pair_plan(_sus_processes(**overrides), frozenset(merges)) if e[0] == "pair"]
     out = set()
     for _, a, b, _ in pairs:
         if isinstance(a, IsentropicHorizontalSmoothing):
@@ -241,3 +251,50 @@ def test_merges_without_sequential_update_splitting_raise(coupling):
     nl = port_moist.load_namelist(coupling, **SIZE, so=CPU64, process_merges=("vadv_sed",))
     with pytest.raises(ValueError, match="process_merges"):
         port_moist.build_variant(nl, coupling)
+
+
+def _jax_merges_smooth_smag(nb, smooth_type, n):
+    """Whether the JAX package's planner merges its smoothing and its
+    Smagorinsky RK2 stepper (``"pallas:interpret"``, the merge switch on) on
+    an n x n grid with the boundary's ``nb``."""
+    from tasmania_tpu.domain import Domain as JaxDomain
+    from tasmania_tpu.framework import TimeIntegrationOptions as JaxOptions
+    from tasmania_tpu.framework.splitting import SequentialUpdateSplitting as JaxSplitting
+    from tasmania_tpu.framework.splitting import _pair_plan as jax_pair_plan
+    from tasmania_tpu.isentropic.physics import IsentropicHorizontalSmoothing as JaxSmoothing
+    from tasmania_tpu.isentropic.physics import IsentropicSmagorinsky as JaxSmagorinsky
+
+    nl = jax_namelist("sus", "pallas:interpret", nx=n, ny=n, nb=nb)
+    common = dict(backend=nl.backend, backend_options=nl.bo, storage_options=nl.so)
+    domain = JaxDomain(
+        nl.domain_x, n, nl.domain_y, n, nl.domain_z, nl.nz, horizontal_boundary_type=nl.hb_type,
+        nb=nb, horizontal_boundary_kwargs=nl.hb_kwargs, topography_type=nl.topo_type,
+        topography_kwargs=nl.topo_kwargs, **common,
+    )
+    smoothing = JaxSmoothing(domain, smooth_type, nl.smooth_coeff, nl.smooth_coeff_max,
+                             nl.smooth_damp_depth, moist=True, **common)
+    smag = JaxSmagorinsky(domain, nl.smagorinsky_constant, **common)
+    with jax_merges_on():
+        split = JaxSplitting(JaxOptions(component=smoothing), JaxOptions(component=smag, scheme="rk2"))
+        return any(e[0] == "pair" for e in jax_pair_plan(split._steppers))
+
+
+@pytest.mark.parametrize("smooth_type", ["first_order", "second_order", "third_order"])
+@pytest.mark.parametrize("nb", [2, 3])
+def test_smooth_smag_planned_where_the_jax_matcher_merges(nb, smooth_type):
+    n = 21  # the JAX matcher asks nx >= 8 + 2 order + 4 for its x-tile
+    expected = nb >= max(ORDERS[smooth_type], 2)
+    assert _jax_merges_smooth_smag(nb, smooth_type, n) == expected
+    merged = "smooth_smag" in _merged_pairs(("smooth_smag",), nx=n, ny=n, nb=nb, smooth_type=smooth_type)
+    assert merged == expected
+
+
+def test_third_order_merge_leaves_the_cpu_result_unchanged():
+    """nb 3, third-order smoothing: the pair is planned, and the merged
+    chain is bitwise the unmerged one."""
+    assert "smooth_smag" in _merged_pairs(("smooth_smag",), smooth_type="third_order")
+    merged = run_port("sus", ("smooth_smag",), "third_order")
+    plain = run_port("sus", (), "third_order")
+    assert set(merged) == set(plain)
+    for name in sorted(plain):
+        np.testing.assert_array_equal(merged[name], plain[name], err_msg=name)

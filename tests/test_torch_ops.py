@@ -67,12 +67,7 @@ from tasmania_tpu_torch.ops.diagnostics_step import (
     fused_isentropic_diagnostics_plain,
 )
 from tasmania_tpu_torch.ops.paste import paste_x_edges, paste_x_edges_multi, paste_x_edges_multi_plain
-from tasmania_tpu_torch.ops.si_stage import (
-    StageConstants,
-    frame_strips,
-    si_stage,
-    si_stage_plain,
-)
+from tasmania_tpu_torch.ops.si_stage import StageConstants, si_stage, si_stage_plain
 from tasmania_tpu_torch.ops.smagorinsky_step import smag_stage, smagorinsky_stage_plain
 from tasmania_tpu_torch.ops.smoothing_step import fused_smoothing, fused_smoothing_plain
 from tests.test_torch_kernels import (
@@ -127,23 +122,6 @@ def test_si_stage_plain_vs_pallas(stage, damp):
     assert len(got) == len(ref) == 6
     for k, (a, b) in enumerate(zip(got, ref)):
         assert_scaled(a.numpy(), b, 1e-12, f"output {k}, stage {stage}, damp {damp}")
-
-
-@pytest.mark.parametrize("damp", [True, False])
-def test_frame_strips_match_plain_stage_bitwise(damp):
-    """The kernel path composes the x-frame with ``frame_strips``: it must be
-    bitwise the plain stage's frame columns."""
-    inp = stage_inputs(seed=3)
-    c = StageConstants(dt=FRACS[1] * DTF, dtf=DTF, **CONSTS)
-    args = port_args(inp, damp)
-    full = si_stage_plain(*args, nb=NB, c=c)
-    (u, v, s_now, s_int, q_now, q_int, su_now, sv_now, su_int, sv_int, mtg_now, hs,
-     theta, gamma, s_ref, su_ref, sv_ref, q_refs, rmat) = args
-    for sl in (slice(0, NB), slice(NX - NB, NX)):
-        strips = frame_strips(sl, s_now, su_now, sv_now, q_now, gamma, s_ref, su_ref,
-                              sv_ref, q_refs, rmat, DTF)
-        for k, (a, b) in enumerate(zip(strips, full)):
-            torch.testing.assert_close(a, b[sl], rtol=0, atol=0, msg=f"output {k}")
 
 
 def test_si_stage_wrapper_takes_plain_on_cpu():
