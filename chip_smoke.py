@@ -182,13 +182,14 @@ VARIANTS = ("fc", "lfc", "ps", "sts", "ssus")
 # diagnostics call: the physics chain's diagnostics once a step on every
 # path; with tendencies also the Montgomery potential of each stage (3 a
 # step) and, in fc, the dycore's fast diagnostics after each stage (3 more)
-# no path pastes: the stage and the smoothing write their frames themselves
-_SUS = {"si_stage": 3, "fused_smoothing": 1, "fused_smagorinsky_rk2": 2,
+# no path pastes: the stage and the smoothing write their frames themselves;
+# Smagorinsky RK2 runs both its stages in one launch
+_SUS = {"si_stage": 3, "fused_smoothing": 1, "fused_smagorinsky_rk2": 1,
         "fused_kessler_satadj_rk2": 1, "fused_vertical_advection_rk3ws": 1,
         "fused_sedimentation_rk3ws": 1, "fused_isentropic_diagnostics": 1}
 _TWO_KERNEL = {"fused_advection_fields": 3, "fused_momentum_epilogue": 3, "fused_smoothing": 1}
-# both process merges: one kernel each in place of smoothing with the two
-# Smagorinsky stages, and of vertical advection with sedimentation
+# both process merges: one kernel each in place of smoothing with Smagorinsky
+# RK2, and of vertical advection with sedimentation
 _MERGED = {"fused_smoothing": 0, "fused_smagorinsky_rk2": 0, "fused_vertical_advection_rk3ws": 0,
            "fused_sedimentation_rk3ws": 0, "fused_smoothing_smagorinsky_rk2": 1,
            "fused_vadv_sedimentation_rk3ws": 1}
@@ -227,6 +228,19 @@ MW_REL_TOL = {"amplitude_ratio": 0.1, "amplitude_ratio_2a": 0.1, "umax": 2e-4}
 def variant_tol(coupling: str, key: str) -> float:
     default = VARIANT_QC_TOL if key.startswith("qc_") else VARIANT_TOL
     return VARIANT_LOOSER.get((coupling, key), default)
+
+
+def stack_frames(log: str) -> str:
+    """The kernels of an ``nvcc -Xptxas=-v`` log with a stack frame or
+    spills (a local-memory array, such as a parameter struct indexed at run
+    time), or that there are none."""
+    nonzero, current = [], None
+    for line in log.splitlines():
+        if "Function properties for" in line:
+            current = line.split("Function properties for")[-1].strip()
+        elif "bytes stack frame" in line and not line.strip().startswith("0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads"):
+            nonzero.append(f"{current}: {line.strip()}")
+    return "; ".join(nonzero) if nonzero else "none in any kernel"
 
 
 def phase(name: str, msg: str) -> None:
@@ -444,6 +458,7 @@ def main() -> int:
     ptxas = [ln.strip() for ln in info["log"].splitlines() if "registers" in ln]
     phase("build", f"{time.perf_counter() - t0:.1f} s (nvcc {info['seconds']:.1f} s, "
           f"cached={info['cached']}) -> {info['path']}; ptxas: {' | '.join(ptxas)}")
+    phase("build", f"stack frames and spills: {stack_frames(info['log'])}")
 
     # -- 3. kernels against their plain versions at the flagship shapes --------
     nl = load_namelist()

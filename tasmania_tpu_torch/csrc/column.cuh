@@ -1,7 +1,8 @@
-// The column algebra of the vertical kernels, one warp per (x, y) column:
-// the three RK3WS stages of vertical advection (vertical_advection.cu) and
-// of sedimentation with the Kessler fall velocity (sedimentation.cu), and
-// both in turn on one column (vadv_sed.cu).  Each function keeps the
+// The column algebra of the vertical kernels: the flux coefficients of
+// vertical advection (vertical_advection.cu and vadv_sed.cu), and, one warp
+// per (x, y) column, the three RK3WS stages of vertical advection and of
+// sedimentation with the Kessler fall velocity (sedimentation.cu), and both
+// in turn on one column (vadv_sed.cu).  Each function keeps the
 // operation order of its plain PyTorch version in tasmania_tpu_torch/ops/.
 #pragma once
 

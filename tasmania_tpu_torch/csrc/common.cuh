@@ -155,14 +155,6 @@ __device__ __forceinline__ T shapiro(const T* __restrict__ phi, I c, I sx, I sy,
   return acc;
 }
 
-// the velocity m / s of a momentum and the density, read through cell index c
-template <typename T>
-struct Ratio {
-  const T* __restrict__ m;
-  const T* __restrict__ s;
-  __device__ __forceinline__ T operator()(int64_t c) const { return m[c] / s[c]; }
-};
-
 template <typename T>
 struct Strain {
   T s00, s01, s11, nu;

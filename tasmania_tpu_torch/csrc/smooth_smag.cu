@@ -9,9 +9,9 @@
 // never reach device memory.  The algebra is that of fused_smoothing (the
 // interior [nb, nx-nb) x [nb, ny-nb) filtered, the frame passed through)
 // followed by fused_smagorinsky_rk2 (each stage's frame keeps the base, the
-// smoothed momenta, which there are the raw ones): tt::shapiro,
-// tt::smag_strain and tt::smag_tendency (common.cuh) as smoothing.cu and
-// smagorinsky.cu use them, in the order of fused_smoothing_plain and
+// smoothed momenta, which there are the raw ones): tt::shapiro (common.cuh)
+// as smoothing.cu uses it, tt::smag_strain and tt::smag_tendency
+// (common.cuh), in the order of fused_smoothing_plain and
 // smagorinsky_stage_plain.  Every output cell is written here, frame
 // included: no paste follows.
 //

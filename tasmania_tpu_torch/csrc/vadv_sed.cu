@@ -5,7 +5,7 @@
 // fused_vadv_sedimentation_rk3ws (pallas_call at :308), the SUS process pair
 // [IsentropicVerticalAdvection(rk3ws) -> [KesslerFallVelocity,
 // KesslerSedimentation](rk3ws)].  Both are column-local, so one warp runs a
-// column through tt::vadv_rk3ws_column (vertical_advection.cu's algebra),
+// column through tt::vadv_rk3ws_column (vertical advection's algebra),
 // keeps the advected qr in shared memory, and runs it through
 // tt::sed_rk3ws_column (sedimentation.cu's) with the density and interface
 // heights of the state before the pair.  Outputs: the advected s, su, sv,
@@ -17,8 +17,8 @@
 // Bound on the H100: bytes.  At the flagship (161x161x120 float32, third-
 // order advection, second-order sedimentation) it reads w, s, su, sv, qv,
 // qc, qr, rho and the interface heights and writes seven fields: 199 MB,
-// 59 us at 3.35 TB/s.  Design: vertical_advection.cu's, one warp per (x, y)
-// column with the column's stage values in shared memory, plus one column of
+// 59 us at 3.35 TB/s.  Design: one warp per (x, y) column with the
+// column's stage values in shared memory, plus one column of
 // qr between the two parts; the sedimentation's seven columns reuse the
 // advection's shared memory.
 

@@ -17,7 +17,7 @@ class StorageOptions:
     """Type and device of every tensor a component allocates."""
 
     dtype: torch.dtype = torch.float64
-    device: torch.device | str = "cpu"
+    device: torch.device | str = "cuda"
 
     @property
     def np_dtype(self):

@@ -68,6 +68,9 @@ _SIGNATURES = {
     # dtype, inputs (17 arrays, sq[nq], q_ref[nq]), outputs (s, su, sv,
     # q[nq]), nq, nx, ny, nz, nb, scalars (dt, dtf, dx, dy, eps), stream
     "tt_momentum_epilogue": (_int, _vp, _vp, _int, _int, _int, _int, _int, _vp, _vp),
+    # dtype, inputs (s, su, sv), outputs (su, sv), nx, ny, nz, nb, scalars
+    # (dt/2, dt, nu factor, 2 dx, 2 dy), stream
+    "tt_smagorinsky_rk2": (_int, _vp, _vp, _int, _int, _int, _int, _vp, _vp),
     # dtype, inputs (s, su_stage, sv_stage, su_base, sv_base), outputs (su, sv),
     # nx, ny, nz, nb, scalars (c, nu factor, 2 dx, 2 dy), stream
     "tt_smagorinsky_stage": (_int, _vp, _vp, _int, _int, _int, _int, _vp, _vp),

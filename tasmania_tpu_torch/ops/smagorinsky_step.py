@@ -14,10 +14,11 @@ With u = su/s and v = sv/s at the stage's input:
   keeps the base state (the stage-1 frame too),
 
 with c = dt/2 at stage 1 (on the base state) and c = dt at stage 2 (on the
-stage-1 state).  Kernel: ``csrc/smagorinsky.cu``, one launch per stage (stage
-1 into a scratch pair), each writing the whole array, frame included, so no
-paste follows.  ``fused_smagorinsky_rk2_plain`` is the plain PyTorch version;
-the wrapper takes it for CPU tensors only.
+stage-1 state).  Kernel: ``csrc/smagorinsky.cu``, one launch for both stages
+(the stage-1 values stay in shared memory) or for one stage, writing the
+whole array, frame included, so no paste follows.
+``fused_smagorinsky_rk2_plain`` and ``smagorinsky_stage_plain`` are the
+plain PyTorch versions; the wrappers take them for CPU tensors only.
 
 :func:`fused_smoothing_smagorinsky_rk2` runs the SUS pair [smoothing ->
 Smagorinsky RK2] in one launch (``csrc/smooth_smag.cu``), its plain version
@@ -72,21 +73,6 @@ def fused_smagorinsky_rk2_plain(s, su, sv, *, dx, dy, cs, nb, dt):
     return smagorinsky_stage_plain(s, su1, sv1, su, sv, c=dt, **kw)
 
 
-def _stage_kernel(s, su_st, sv_st, su_base, sv_base, su_out, sv_out, *, dx, dy, cs, nb, c,
-                  name="fused_smagorinsky_rk2"):
-    """One launch of the stage kernel, counted under the wrapper ``name``."""
-    nx, ny, nz = s.shape
-    scalars = _lib.scalar_array([c, cs**2 * dx * dy, 2.0 * dx, 2.0 * dy])
-    err = _lib.lib().tt_smagorinsky_stage(
-        _lib.DTYPE_CODES[s.dtype],
-        _lib.pointer_array((s, su_st, sv_st, su_base, sv_base)),
-        _lib.pointer_array((su_out, sv_out)),
-        nx, ny, nz, nb, scalars, _lib.stream_handle(),
-    )
-    _lib.launch_counts[name] += 1
-    _lib.check(err, name)
-
-
 def _check_geometry(name, shape, nb):
     nx, ny, _ = shape
     if nb < 2 or nx < 2 * nb + 1 or ny < 2 * nb + 1:
@@ -103,25 +89,34 @@ def smag_stage(s, su_st, sv_st, su_base, sv_base, *, dx: float, dy: float, cs: f
     if not s.is_cuda:
         return smagorinsky_stage_plain(*args, **kw)
     _lib.check_cuda_tensors("smag_stage", args, s.dtype, [s.shape] * 5)
-    su_out, sv_out = torch.empty_like(su_st), torch.empty_like(sv_st)
-    _stage_kernel(*args, su_out, sv_out, name="smag_stage", **kw)
-    return su_out, sv_out
+    outs = (torch.empty_like(su_st), torch.empty_like(sv_st))
+    nx, ny, nz = s.shape
+    err = _lib.lib().tt_smagorinsky_stage(
+        _lib.DTYPE_CODES[s.dtype], _lib.pointer_array(args), _lib.pointer_array(outs),
+        nx, ny, nz, nb, _lib.scalar_array([c, cs**2 * dx * dy, 2.0 * dx, 2.0 * dy]), _lib.stream_handle(),
+    )
+    _lib.launch_counts["smag_stage"] += 1
+    _lib.check(err, "smag_stage")
+    return outs
 
 
 def fused_smagorinsky_rk2(s, su, sv, *, dx: float, dy: float, cs: float, nb: int, dt: float):
-    """RK2 update of (su, sv); two kernel launches on a CUDA device.  Returns
+    """RK2 update of (su, sv); one kernel launch on a CUDA device.  Returns
     new tensors."""
     nx, ny, nz = s.shape
     _check_geometry("fused_smagorinsky_rk2", s.shape, nb)
     if not s.is_cuda:
         return fused_smagorinsky_rk2_plain(s, su, sv, dx=dx, dy=dy, cs=cs, nb=nb, dt=dt)
     _lib.check_cuda_tensors("fused_smagorinsky_rk2", (s, su, sv), s.dtype, [(nx, ny, nz)] * 3)
-    kw = dict(dx=dx, dy=dy, cs=cs, nb=nb)
-    su1, sv1 = torch.empty_like(su), torch.empty_like(sv)
-    _stage_kernel(s, su, sv, su, sv, su1, sv1, c=0.5 * dt, **kw)
-    su2, sv2 = torch.empty_like(su), torch.empty_like(sv)
-    _stage_kernel(s, su1, sv1, su, sv, su2, sv2, c=dt, **kw)
-    return su2, sv2
+    outs = (torch.empty_like(su), torch.empty_like(sv))
+    err = _lib.lib().tt_smagorinsky_rk2(
+        _lib.DTYPE_CODES[s.dtype], _lib.pointer_array((s, su, sv)), _lib.pointer_array(outs),
+        nx, ny, nz, nb, _lib.scalar_array([0.5 * dt, dt, cs**2 * dx * dy, 2.0 * dx, 2.0 * dy]),
+        _lib.stream_handle(),
+    )
+    _lib.launch_counts["fused_smagorinsky_rk2"] += 1
+    _lib.check(err, "fused_smagorinsky_rk2")
+    return outs
 
 
 def fused_smoothing_smagorinsky_rk2_plain(fields, gamma, *, order, nb, dx, dy, cs, dt):

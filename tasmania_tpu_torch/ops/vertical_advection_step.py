@@ -10,7 +10,9 @@ bottom levels (e = 1, 1, 2, 3 for orders 1, 2, 3, 5).  The mass fractions are
 advected as s·q and divided by the stage's density.  Stages:
 x_i = x_0 + c_i·T(x_{i-1}), c = (dt/3, dt/2, dt).
 
-Kernel: ``csrc/vertical_advection.cu``, one warp per (x, y) column.
+Kernel: ``csrc/vertical_advection.cu``, a column's levels a thread each (a
+few a thread where nz > 128; nz up to 1024), its state in registers and its
+fluxes in shared memory for the three stages.
 ``fused_vertical_advection_rk3ws_plain`` is the plain PyTorch version; the
 wrapper takes it for CPU tensors only.
 

@@ -83,6 +83,9 @@ KERNELS = [
 # the one PyTorch call timed beside a kernel
 LIBRARY_CALL = {2: "torch._foreach_copy_", 4: "torch._foreach_copy_"}
 
+# what a launch is, where a call's time covers more than one step of work
+LAUNCH_NOTE = {12: "one launch a call, both stages"}
+
 # a kernel's earlier reading, kept beside its new time: (label, kernel ms,
 # plain ms), from chip_smoke.py's last log before its code changed (H100
 # 80GB HBM3, 700 W); the advection kernels changed only in tt::flux5, which
@@ -96,6 +99,9 @@ EARLIER = {
     5: (_FLUX5, 0.493, 2.025),
     6: (_FLUX5, 0.255, 1.071),
     7: (_FLUX5, 0.306, 1.623),
+    12: ("the design before the redesign (a thread a cell, one launch a stage, the stage-1 pair "
+         "through device memory)", 0.549, 0.873),
+    14: ("the design before the redesign (a warp a column, its loads in series)", 0.368, 2.798),
 }
 
 
@@ -130,7 +136,8 @@ def main(argv) -> None:
         k = chip.get(key) if key else None
         route = f"{k['route'].upper()} → `{k['source'].split('/')[-1]}`" if k else "—"
         ms, plain, lib = (k["ms"], k["plain_ms"], k["library_ms"]) if k else (None, None, None)
-        print(f"| {num} | `{name}` | {status} | {route} | {launches(k) if k else '0'} | {mb:.1f} "
+        note = f" ({LAUNCH_NOTE[num]})" if num in LAUNCH_NOTE else ""
+        print(f"| {num} | `{name}` | {status} | {route} | {launches(k) if k else '0'}{note} | {mb:.1f} "
               f"| {bound:.4f} | {fmt(ms)} | {fmt(plain)} "
               f"| {'none' if lib is None else f'{fmt(lib)} (`{LIBRARY_CALL[num]}`)'} |")
         for label, a in (k or {}).get("also", {}).items():

@@ -21,12 +21,15 @@ from tasmania_tpu_torch.domain.domain import Domain
 from tasmania_tpu_torch.dwarfs.horizontal_smoothing import build_damped_coeff
 from tasmania_tpu_torch.dwarfs.vertical_damping import Rayleigh
 from tasmania_tpu_torch.framework.field import FieldArray
+from tasmania_tpu_torch.framework.options import StorageOptions
 from tasmania_tpu_torch.interop import state_from_numpy, state_to_numpy
 from tasmania_tpu_torch.isentropic.state import (
     get_isentropic_state_from_brunt_vaisala_frequency,
 )
 
 NX, NY, NZ = 17, 19, 8
+# the port's components allocate on the card unless told otherwise
+CPU64 = StorageOptions(dtype=torch.float64, device="cpu")
 
 
 def _domains(nb=3, nr=6, time=timedelta(seconds=1800)):
@@ -46,7 +49,7 @@ def _domains(nb=3, nr=6, time=timedelta(seconds=1800)):
                    topography_kwargs=jax_topo, **common)
     pd = Domain((-176e3, 176e3), NX, (-150e3, 150e3), NY,
                 FieldArray(np.array([400.0, 280.0]), "K", ("z",)), NZ,
-                topography_kwargs=port_topo, **common)
+                topography_kwargs=port_topo, storage_options=CPU64, **common)
     return jd, pd
 
 
@@ -86,7 +89,7 @@ def test_relaxed_gamma_matches(nb, nr):
 def test_rayleigh_profile_matches(depth):
     jd, pd = _domains()
     jr = VerticalDamping.factory("rayleigh", jd.numerical_grid, depth, 0.0005, "s")
-    pr = Rayleigh(pd.numerical_grid, depth, 0.0005)
+    pr = Rayleigh(pd.numerical_grid, depth, 0.0005, storage_options=CPU64)
     ref = np.asarray(jr._rmat[False][0, 0, :])
     np.testing.assert_array_equal(pr.rmat.numpy(), ref)
     nz = np.nonzero(ref)[0]
@@ -114,7 +117,7 @@ def _states():
         pd.numerical_grid, *args,
         FieldArray(np.asarray(22.5), "m s^-1", ()), FieldArray(np.asarray(1.5), "m s^-1", ()),
         FieldArray(np.asarray(0.015), "s^-1", ()),
-        moist=True, precipitation=True, relative_humidity=0.95,
+        moist=True, precipitation=True, relative_humidity=0.95, storage_options=CPU64,
     )
     return jax_state, port_state
 
@@ -197,6 +200,12 @@ def test_relaxed_enforcement_matches(name, units):
         phb.set_outermost_layers_y(t, name, units).numpy(),
         np.asarray(jhb.set_outermost_layers_y(field, name, units)),
     )
+
+
+def test_storage_defaults_to_the_card():
+    """A component built without storage options allocates on the card:
+    the port's entry points run there unless the caller names the CPU."""
+    assert torch.device(StorageOptions().device).type == "cuda"
 
 
 def test_unported_options_raise():

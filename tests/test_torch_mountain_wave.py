@@ -214,7 +214,7 @@ def test_user_defined_topography_matches_jax():
     arr = np.linspace(0.0, 2.0, 23)[:, None]
     d = Domain((0.0, 1e5), 23, (0.0, 1.0), 1, FieldArray(np.array([360.0, 300.0]), "K", ("z",)), 6,
                horizontal_boundary_type="relaxed", nb=3, horizontal_boundary_kwargs={"nr": 6},
-               topography_type="user_defined", topography_kwargs={"profile": arr})
+               topography_type="user_defined", topography_kwargs={"profile": arr}, storage_options=CPU64)
     np.testing.assert_array_equal(np.asarray(d.physical_grid.topography.steady_profile.data), arr)
 
 
