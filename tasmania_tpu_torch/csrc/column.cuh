@@ -1,8 +1,8 @@
 // The column algebra of the vertical kernels: the flux coefficients of
 // vertical advection (vertical_advection.cu and vadv_sed.cu), and, one warp
 // per (x, y) column, the three RK3WS stages of vertical advection and of
-// sedimentation with the Kessler fall velocity (sedimentation.cu), and both
-// in turn on one column (vadv_sed.cu).  Each function keeps the
+// sedimentation with the Kessler fall velocity, both in turn on one column
+// (vadv_sed.cu; sedimentation.cu keeps the same algebra a thread a level).  Each function keeps the
 // operation order of its plain PyTorch version in tasmania_tpu_torch/ops/.
 #pragma once
 
@@ -147,9 +147,6 @@ __device__ __forceinline__ void vadv_rk3ws_column(const VadvFields<T>& p, int nf
     nxt = t;
   }
 }
-
-template <typename T>
-__device__ __forceinline__ T tsqrt(T x) { return sqrt(x); }
 
 // shared memory of one warp's sed_rk3ws_column, in values of T
 __host__ __device__ constexpr size_t sed_smem_values(int nz) { return 7 * size_t(nz); }

@@ -35,6 +35,8 @@ __device__ __forceinline__ T clip_pos(T x) {
 
 __device__ __forceinline__ float tpow(float a, float b) { return powf(a, b); }
 __device__ __forceinline__ double tpow(double a, double b) { return pow(a, b); }
+template <typename T>
+__device__ __forceinline__ T tsqrt(T x) { return sqrt(x); }
 
 // a product and a sum rounded separately, never contracted into an FMA: the
 // column scans keep the roundings of their plain PyTorch version

@@ -8,54 +8,221 @@
 // only when vt_step), rqv = rho qr vt, the divergence on levels [nb, nz), and
 // qr_i = qr_0 + c_i T(qr_{i-1}), c = (dt/3, dt/2, dt).  Outputs: qr_3 and the
 // stage-1 vt.  Operation order as in fused_sedimentation_rk3ws_plain
-// (ops/sedimentation_step.py); the power is powf/pow and the root sqrt, as
-// PyTorch's `** 0.5` is.  The column algebra is tt::sed_rk3ws_column
-// (column.cuh), shared with vadv_sed.cu.
+// (ops/sedimentation_step.py) and tt::sed_rk3ws_column (column.cuh, the
+// column of the merged kernel vadv_sed.cu); the power is powf/pow and the
+// root sqrt, as PyTorch's `** 0.5` is, and each division an IEEE division.
 //
 // Bound on the H100: bytes.  At the flagship (161x161x120 float32) it reads
 // rho, qr and the interface heights and writes qr and vt: 62 MB, 19 us at
 // 3.35 TB/s; one or three powers a cell are about 10 Mflop of special
-// functions.  Design: one warp per (x, y) column, z contiguous so the loads
-// are coalesced; the column's coefficients and stage values live in shared
-// memory (7 x nz values, 3.4 KB a warp in float32), __syncwarp() between the
-// two halves of a stage (rqv of all levels, then the divergence).
+// functions, but with five IEEE divisions and a root a level the
+// instructions issued come close to the bytes.  Design
+// (vertical_advection.cu's): tpc threads own a column (a multiple of 32, from
+// nz at launch: 128 at nz = 120), a thread R of its levels, k = lane + r tpc;
+// a block of 256 threads holds 256 / tpc columns, and kWaves blocks a
+// resident slot of the card step their columns in turn, the next column's
+// loads in flight while one is stepped.  Each thread issues all its loads at
+// once (rho, qr0, the two interface heights of each of its levels, and the
+// surface density) and keeps its levels' state in registers for the three
+// stages: rho, qr0, the stage's qr, vt, the main-level height and the
+// coefficients.  A stage: (a) each level's rho qr vt into shared memory, vt
+// formed at stage 1 only under vt_step and at every stage otherwise (at
+// stage 1 also the main-level height); (b) one barrier of the block; (c)
+// each level's divergence and new qr in registers (at stage 1 first its
+// coefficients, from the heights of levels k-1 and k-2 in shared memory),
+// written out at the last stage.  rho qr vt alternates between two buffers,
+// so one barrier a stage suffices: a thread writes a buffer again only after
+// every thread has passed the barrier that follows its last reading.
+// Nothing but the inputs and the outputs touches device memory.
 
-#include "column.cuh"
+#include "common.cuh"
 
 namespace {
 
-template <typename T, int ORDER>
-__global__ void sedimentation_kernel(const T* __restrict__ rho_g, const T* __restrict__ hif_g,
-                                     const T* __restrict__ qr_g, T* __restrict__ qr_out,
-                                     T* __restrict__ vt_out, int ncol, int nz, bool vt_step,
-                                     double dt) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int64_t col = int64_t(blockIdx.x) * (blockDim.x / 32) + warp;
-  if (col >= ncol) return;  // whole warps leave together
-  T* smem = reinterpret_cast<T*>(smem_raw) + int64_t(warp) * tt::sed_smem_values(nz);
-  const int64_t base = col * nz;
-  tt::sed_rk3ws_column<T, ORDER>(rho_g + base, hif_g + col * (nz + 1), qr_g + base, qr_out + base,
-                                 vt_out + base, nz, vt_step, dt, smem, lane);
+constexpr int kThreads = 256;
+// the most threads a column while a thread takes fewer than kMaxR levels;
+// at kMaxR a column may take the whole block, so nz up to kThreads kMaxR
+// (the registers of kMaxR levels a thread hold without a spill in float64)
+constexpr int kMaxTpc = 128;
+constexpr int kMaxR = 8;
+// blocks a resident slot of the card: each block steps its columns in turn,
+// timed as variants on the H100 (PERF.md)
+constexpr int kWaves = 2;
+// levels a thread up to which the next column's loads are in flight while
+// one is stepped (their registers taken twice)
+constexpr int kPrefetchR = 2;
+
+// shared memory of one column, in values: the main-level heights and two
+// buffers of rho qr vt
+__host__ __device__ constexpr int column_values(int nz) { return 3 * nz; }
+
+// a column's inputs as a thread holds them: its levels' rho, qr0 and the
+// two interface heights around each, and the surface density
+template <typename T, int R>
+struct ColumnIn {
+  T rho[R], q0[R], top[R], bottom[R], rho_s;
+};
+
+template <typename T, int R>
+__device__ __forceinline__ void load_column(ColumnIn<T, R>& in, const T* __restrict__ rho_g,
+                                            const T* __restrict__ hif_g, const T* __restrict__ qr_g,
+                                            int col, int ncol, int nz, int tpc, int lane) {
+  const bool live = col < ncol;
+  const int64_t base = int64_t(col) * nz;
+  const T* hif = hif_g + int64_t(col) * (nz + 1);
+  in.rho_s = live ? rho_g[base + nz - 1] : T(1);
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int k = lane + r * tpc;
+    const bool level = live && k < nz;
+    in.rho[r] = level ? rho_g[base + k] : T(1);
+    in.q0[r] = level ? qr_g[base + k] : T(0);
+    in.top[r] = level ? hif[k] : T(0);
+    in.bottom[r] = level ? hif[k + 1] : T(0);
+  }
 }
 
-template <typename T, int ORDER>
-int launch_order(const void* const* in, void* const* out, int ncol, int nz, bool vt_step,
-                 double dt, cudaStream_t stream) {
-  const size_t per_warp = sizeof(T) * tt::sed_smem_values(nz);
-  const int wpb = tt::warps_per_block(per_warp);
-  const size_t smem = per_warp * wpb;
-  auto kernel = sedimentation_kernel<T, ORDER>;
+template <typename T, int ORDER, int R>
+__global__ void __launch_bounds__(kThreads)
+    sedimentation_kernel(const T* __restrict__ rho_g, const T* __restrict__ hif_g,
+                         const T* __restrict__ qr_g, T* __restrict__ qr_out,
+                         T* __restrict__ vt_out, int ncol, int nz, int tpc, bool vt_step, T c0,
+                         T c1, T c2) {
+  constexpr int nb = ORDER;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int cpb = blockDim.x / tpc;
+  const int lc = threadIdx.x / tpc, lane = threadIdx.x % tpc;
+  T* hm = reinterpret_cast<T*>(smem_raw) + lc * column_values(nz);  // hm[k]
+  T* const rq0 = hm + nz;  // rho qr vt of the even stages (counted over the
+  T* const rq1 = rq0 + nz;  // block's columns), and of the odd ones
+  const int stride = gridDim.x * cpb;
+
+  constexpr bool prefetch = R <= kPrefetchR;
+  ColumnIn<T, R> in, next;
+  load_column(in, rho_g, hif_g, qr_g, blockIdx.x * cpb + lc, ncol, nz, tpc, lane);
+  bool odd = false;
+  // the block's columns in turn (the next column's loads in flight while
+  // this one is stepped, up to kPrefetchR levels a thread); every thread of
+  // the block takes each turn, a thread past the last column only joining
+  // the barriers
+  for (int first = blockIdx.x * cpb; first < ncol; first += stride) {
+    const int col = first + lc;
+    const bool live = col < ncol;
+    const int64_t base = int64_t(col) * nz;
+    if (prefetch) load_column(next, rho_g, hif_g, qr_g, col + stride, ncol, nz, tpc, lane);
+
+    T q[R], h[R], vt[R], ca[R], cb[R], cc[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      h[r] = T(0.5) * (in.top[r] + in.bottom[r]);
+      q[r] = in.q0[r];
+      vt[r] = ca[r] = cb[r] = cc[r] = T(0);
+    }
+#pragma unroll
+    for (int stage = 0; stage < 3; ++stage) {
+      const T c = stage == 0 ? c0 : (stage == 1 ? c1 : c2);
+      T* rqv = odd ? rq1 : rq0;
+      odd = !odd;
+      // (a) the fall velocity and rho qr vt of each level
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        const int k = lane + r * tpc;
+        if (k >= nz) continue;
+        if (stage == 0 || !vt_step) {
+          const T qk = q[r];
+          const T wsq = T(36.34) * tt::tsqrt(in.rho_s / in.rho[r]);
+          vt[r] = wsq * tt::tpow(T(1.0e-3) * in.rho[r] * (qk > T(0) ? qk : T(0)), T(0.1346));
+          if (stage == 0 && live) vt_out[base + k] = vt[r];
+        }
+        rqv[k] = in.rho[r] * q[r] * vt[r];
+        if (stage == 0) hm[k] = h[r];
+      }
+      // (b) one barrier: a buffer is written again two stages later, after
+      // the barrier that follows its last reading
+      __syncthreads();
+      // (c) the coefficients (once), the divergence and the stage's qr
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        const int k = lane + r * tpc;
+        if (k >= nz) continue;
+        if (stage == 0 && k >= nb) {
+          const T inv_rho = T(1) / in.rho[r];
+          if (ORDER == 1) {
+            ca[r] = inv_rho / (hm[k - 1] - h[r]);
+          } else {
+            const T h2 = h[r], h1 = hm[k - 1], h0 = hm[k - 2];
+            const T d1 = h1 - h2, d2 = h0 - h2, d3 = h0 - h1;
+            ca[r] = (T(2) * h2 - h1 - h0) / (d1 * d2) * inv_rho;
+            cb[r] = d2 / (d1 * d3) * inv_rho;
+            cc[r] = (h2 - h1) / (d2 * d3) * inv_rho;
+          }
+        }
+        T tnd = T(0);
+        if (k >= nb) {
+          const T rk = in.rho[r] * q[r] * vt[r];  // rqv[k], this thread's own
+          tnd = ORDER == 1 ? ca[r] * (rqv[k - 1] - rk)
+                           : ca[r] * rk + cb[r] * rqv[k - 1] + cc[r] * rqv[k - 2];
+        }
+        const T x = in.q0[r] + c * tnd;
+        if (stage == 2) {
+          if (live) qr_out[base + k] = x;
+        } else {
+          q[r] = x;
+        }
+      }
+    }
+    if (prefetch) {
+      in = next;
+    } else {
+      load_column(in, rho_g, hif_g, qr_g, col + stride, ncol, nz, tpc, lane);
+    }
+  }
+}
+
+// the launch of R levels a thread at tpc threads a column: at most kWaves
+// blocks a resident slot of the card
+template <typename T, int ORDER, int R>
+int launch_r(const void* const* in, void* const* out, int ncol, int nz, int tpc, bool vt_step,
+             double dt, cudaStream_t stream) {
+  const int cpb = kThreads / tpc;  // columns a block
+  const size_t smem = sizeof(T) * size_t(cpb) * column_values(nz);
+  auto kernel = sedimentation_kernel<T, ORDER, R>;
   if (smem > 48 * 1024) {
     const cudaError_t err =
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
     if (err != cudaSuccess) return int(err);
   }
-  const int64_t blocks = (int64_t(ncol) + wpb - 1) / wpb;
-  kernel<<<static_cast<unsigned>(blocks), 32 * wpb, smem, stream>>>(
+  int device = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, cpb * tpc, smem);
+  if (err != cudaSuccess) return int(err);
+  const int64_t slots = int64_t(kWaves) * sms * (per_sm > 0 ? per_sm : 1);
+  const int blocks = int(slots < (ncol + cpb - 1) / cpb ? slots : (ncol + cpb - 1) / cpb);
+  kernel<<<blocks, cpb * tpc, smem, stream>>>(
       static_cast<const T*>(in[0]), static_cast<const T*>(in[1]), static_cast<const T*>(in[2]),
-      static_cast<T*>(out[0]), static_cast<T*>(out[1]), ncol, nz, vt_step, dt);
+      static_cast<T*>(out[0]), static_cast<T*>(out[1]), ncol, nz, tpc, vt_step, T(dt / 3.0),
+      T(dt / 2.0), T(dt));
   return int(cudaGetLastError());
+}
+
+// R levels a thread, the fewest that keep a column within kMaxTpc threads
+// (within kThreads at kMaxR); tpc the levels a thread's R leaves, rounded up
+// to whole warps
+template <typename T, int ORDER>
+int launch_order(const void* const* in, void* const* out, int ncol, int nz, bool vt_step,
+                 double dt, cudaStream_t stream) {
+  int r = 1;
+  while (r < kMaxR && (nz + r - 1) / r > kMaxTpc) r *= 2;
+  const int tpc = ((nz + r - 1) / r + 31) / 32 * 32;
+  if (tpc > kThreads) return int(cudaErrorInvalidValue);
+  switch (r) {
+    case 1: return launch_r<T, ORDER, 1>(in, out, ncol, nz, tpc, vt_step, dt, stream);
+    case 2: return launch_r<T, ORDER, 2>(in, out, ncol, nz, tpc, vt_step, dt, stream);
+    case 4: return launch_r<T, ORDER, 4>(in, out, ncol, nz, tpc, vt_step, dt, stream);
+    default: return launch_r<T, ORDER, 8>(in, out, ncol, nz, tpc, vt_step, dt, stream);
+  }
 }
 
 template <typename T>
@@ -68,10 +235,12 @@ int launch(const void* const* in, void* const* out, int ncol, int nz, int order,
 
 }  // namespace
 
-// in: rho, h_if (nz + 1 levels), qr; out: qr, vt (stage 1)
+// in: rho, h_if (nz + 1 levels), qr; out: qr, vt (stage 1); nz up to
+// kThreads kMaxR (2048)
 extern "C" int tt_sedimentation_rk3ws(int dtype, const void* const* in, void* const* out,
                                       int ncol, int nz, int order, int vt_step, double dt,
                                       cudaStream_t stream) {
+  if (ncol < 1 || nz < 1 || nz > kThreads * kMaxR) return int(cudaErrorInvalidValue);
   if (dtype == tt::kFloat32)
     return launch<float>(in, out, ncol, nz, order, vt_step != 0, dt, stream);
   return launch<double>(in, out, ncol, nz, order, vt_step != 0, dt, stream);

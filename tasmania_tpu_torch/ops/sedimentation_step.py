@@ -13,7 +13,8 @@ Per column, with the surface the LAST level:
   vt is evaluated at stage 1 and reused, with ``"stage"`` at every stage.
 
 Returns the stepped qr and the stage-1 vt.  Kernel:
-``csrc/sedimentation.cu``, one warp per column;
+``csrc/sedimentation.cu``, a thread a level (a few where nz > 128; nz up to
+2048), the column's state in registers;
 ``fused_sedimentation_rk3ws_plain`` is the plain PyTorch version, which the
 wrapper takes for CPU tensors only.
 """
@@ -25,6 +26,8 @@ import torch
 from tasmania_tpu_torch.ops import _lib
 
 VT_MODES = ("stage", "step")
+# the tallest column of the kernel (256 threads of 8 levels)
+MAX_NZ = 2048
 
 
 def fused_sedimentation_rk3ws_plain(rho, h_if, qr, *, order: int, dt: float, vt_mode: str):
@@ -76,6 +79,8 @@ def fused_sedimentation_rk3ws(rho, h_if, qr, *, order: int, dt: float, vt_mode: 
         raise ValueError(f"fused_sedimentation_rk3ws: nz={nz} too small for order {order}")
     if not qr.is_cuda:
         return fused_sedimentation_rk3ws_plain(rho, h_if, qr, order=order, dt=dt, vt_mode=vt_mode)
+    if nz > MAX_NZ:
+        raise ValueError(f"fused_sedimentation_rk3ws: nz={nz} above the kernel's {MAX_NZ}")
     inputs = (rho, h_if, qr)
     _lib.check_cuda_tensors(
         "fused_sedimentation_rk3ws", inputs, qr.dtype, [(nx, ny, nz), (nx, ny, nz + 1), (nx, ny, nz)]

@@ -86,22 +86,30 @@ LIBRARY_CALL = {2: "torch._foreach_copy_", 4: "torch._foreach_copy_"}
 # what a launch is, where a call's time covers more than one step of work
 LAUNCH_NOTE = {12: "one launch a call, both stages"}
 
-# a kernel's earlier reading, kept beside its new time: (label, kernel ms,
-# plain ms), from chip_smoke.py's last log before its code changed (H100
-# 80GB HBM3, 700 W); the advection kernels changed only in tt::flux5, which
-# now divides the velocity by 60 once (bitwise as before)
+# a kernel's earlier readings, kept beside its new time: (label, kernel ms,
+# plain ms, MB moved or None for the kernel's own), from chip_smoke.py's last
+# log before its code changed (H100 80GB HBM3, 700 W); the advection kernels
+# changed only in tt::flux5, which now divides the velocity by 60 once
+# (bitwise as before)
 _FLUX5 = "before `tt::flux5` divided once (another call)"
+_DIAG = "the design before the redesign (a warp of 32 columns, 31-level chunks, p and exn read back)"
 EARLIER = {
-    1: ("the design before the redesign (three launches, the frame composed and pasted)",
-        1.038, 4.585),
-    3: ("the design before the redesign (a thread a cell from device memory, the frame pasted)",
-        0.745, 1.200),
-    5: (_FLUX5, 0.493, 2.025),
-    6: (_FLUX5, 0.255, 1.071),
-    7: (_FLUX5, 0.306, 1.623),
-    12: ("the design before the redesign (a thread a cell, one launch a stage, the stage-1 pair "
-         "through device memory)", 0.549, 0.873),
-    14: ("the design before the redesign (a warp a column, its loads in series)", 0.368, 2.798),
+    1: [("the design before the redesign (three launches, the frame composed and pasted)",
+         1.038, 4.585, None)],
+    3: [("the design before the redesign (a thread a cell from device memory, the frame pasted)",
+         0.745, 1.200, None)],
+    5: [(_FLUX5, 0.493, 2.025, None)],
+    6: [(_FLUX5, 0.255, 1.071, None)],
+    7: [(_FLUX5, 0.306, 1.623, None)],
+    12: [("the design before the redesign (a thread a cell, one launch a stage, the stage-1 pair "
+          "through device memory)", 0.549, 0.873, None)],
+    14: [("the design before the redesign (a warp a column, its loads in series)", 0.368, 2.798, None)],
+    16: [(f"{_DIAG}, moist", 0.147, 0.342, None),
+         (f"{_DIAG}, mtg, 161x161x120", 0.048, 0.133, 24.99),
+         (f"{_DIAG}, dry, 161x161x120", 0.095, 0.276, 62.63),
+         (f"{_DIAG}, mtg, 161x7x120", 0.044, 0.038, 1.09)],
+    17: [("the design before the redesign (a warp a column in phases, coefficients from device "
+          "memory)", 0.066, 0.617, None)],
 }
 
 
@@ -143,9 +151,9 @@ def main(argv) -> None:
         for label, a in (k or {}).get("also", {}).items():
             print(f"| {num} | ↳ {label} | | | | {a['bytes'] / 1e6:.2f} | {a['bound_ms']:.4f} "
                   f"| {fmt(a['ms'])} | {fmt(a['plain_ms'])} | none |")
-        if num in EARLIER:
-            label, earlier_ms, earlier_plain = EARLIER[num]
-            print(f"| {num} | ↳ {label} | | | | {mb:.1f} | {bound:.4f} | {fmt(earlier_ms)} "
+        for label, earlier_ms, earlier_plain, earlier_mb in EARLIER.get(num, []):
+            emb = mb if earlier_mb is None else earlier_mb
+            print(f"| {num} | ↳ {label} | | | | {emb:.{1 if earlier_mb is None else 2}f} | {1e9 * emb / HBM:.4f} | {fmt(earlier_ms)} "
                   f"| {fmt(earlier_plain)} | none |")
 
 

@@ -18,7 +18,10 @@ sedimentation within 1e-12 of the output's largest magnitude (FMA
 contraction, and PyTorch's division by a scalar on the card, a product with
 the reciprocal); the advection of the fields and the momentum step also in
 float32, within 1e-5; Smagorinsky and vertical advection also in float32
-and on the ragged shape, within 1e-5 of their update plus 4 ulps.  The two merged kernels (smoothing + Smagorinsky RK2,
+and on the ragged shape, within 1e-5 of their update plus 4 ulps; the
+diagnostics also in float32 (1e-5, rho 4e-5), at 130 levels, on one row
+and, in float64, at 600 levels; sedimentation also in float32 (1e-5), on
+the ragged shape and at 150 levels.  The two merged kernels (smoothing + Smagorinsky RK2,
 vertical advection + sedimentation) in float64 within 1e-12 and in float32
 with the gates of the kernels they merge (``chip_smoke.py`` phase 3).  The
 input helpers here are shared with ``tests/test_torch_ops.py``,
@@ -218,13 +221,15 @@ def momentum_step_args(inp, tendencies, device="cpu"):
         (t(inp["su_tnd"]), t(inp["sv_tnd"])) if tendencies else (None, None))
 
 
-def diagnostics_inputs(seed, ny=NY):
-    """(s, hs, theta) in numpy: a column from θ = 400 K at the top to 300 K
-    at the surface, a density that makes the pressure grow from 2000 Pa to
-    about 1e5 Pa, a topography up to 300 m."""
+def diagnostics_inputs(seed, ny=NY, shape=None):
+    """(s, hs, theta) in numpy at (NX, ny, NZ) (or ``shape``): a column from
+    θ = 400 K at the top to 300 K at the surface, a density that makes the
+    pressure grow from 2000 Pa by about 1.2e4 Pa a level (to about 1e5 Pa at
+    NZ levels), a topography up to 300 m."""
     rng = np.random.default_rng(seed)
-    return (rng.uniform(50.0, 150.0, (NX, ny, NZ)), rng.uniform(0.0, 300.0, (NX, ny)),
-            np.linspace(400.0, 300.0, NZ + 1))
+    nx, ny, nz = shape or (NX, ny, NZ)
+    return (rng.uniform(50.0, 150.0, (nx, ny, nz)), rng.uniform(0.0, 300.0, (nx, ny)),
+            np.linspace(400.0, 300.0, nz + 1))
 
 
 DIAG_CONSTS = dict(pt=2000.0, dz=12.5, g=9.80665, cp=1004.0, rd=287.05, pref=1e5)
@@ -302,16 +307,17 @@ def vertical_advection_inputs(seed, shape=(PX, PY, PZ)):
     return w, s, su, sv, qv, qc, qr
 
 
-def sedimentation_inputs(seed):
+def sedimentation_inputs(seed, shape=(PX, PY, PZ)):
     """(rho, h_if, qr) in numpy: density growing and heights falling towards
     the surface (the last level), qr with zeros and a few negatives."""
     rng = np.random.default_rng(seed)
-    cell = (PX, PY, PZ)
+    cell = shape
+    nx, ny, nz = shape
     rho = np.sort(rng.uniform(0.3, 1.3, cell), axis=-1)
-    dh = rng.uniform(100.0, 400.0, (PX, PY, PZ))
-    h_if = np.zeros((PX, PY, PZ + 1))
-    h_if[..., PZ] = rng.uniform(0.0, 500.0, (PX, PY))
-    h_if[..., :PZ] = h_if[..., PZ:] + np.cumsum(dh[..., ::-1], axis=-1)[..., ::-1]
+    dh = rng.uniform(100.0, 400.0, cell)
+    h_if = np.zeros((nx, ny, nz + 1))
+    h_if[..., nz] = rng.uniform(0.0, 500.0, (nx, ny))
+    h_if[..., :nz] = h_if[..., nz:] + np.cumsum(dh[..., ::-1], axis=-1)[..., ::-1]
     qr = rng.uniform(-1e-6, 2e-3, cell) * (rng.uniform(size=cell) > 0.3)
     return rho, h_if, qr
 
@@ -498,16 +504,34 @@ def test_momentum_step_kernel_vs_plain(cuda_device, tendencies, order, ny, dtype
         assert err <= tol * scale, f"output {k}: {err} > {tol} * {scale}"
 
 
+# the diagnostics' shapes on the card: the test geometry; columns of 130
+# levels (a column's run of s is not a whole number of 16-byte copies, so the
+# tiles start at every alignment); the mountain wave's one interior row; a
+# column so tall (nz = 600 in float64) that fewer columns than the kernel's
+# default fill a block
+DIAG_SHAPES = [
+    *[pytest.param(shape, dtype, id=f"{name}-{str(dtype)[6:]}")
+      for name, shape in (("19x21x8", (NX, NY, NZ)), ("23x19x130", (23, 19, 130)),
+                          ("19x7x8", (NX, NY1, NZ)))
+      for dtype in (torch.float32, torch.float64)],
+    pytest.param((7, 5, 600), torch.float64, id="7x5x600-float64"),
+]
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("shape, dtype", DIAG_SHAPES)
 @pytest.mark.parametrize("mode", ["mtg", "dry", "moist"])
-def test_diagnostics_kernel_vs_plain(cuda_device, mode):
-    s, hs, theta = (tensor(a, cuda_device) for a in diagnostics_inputs(seed=6))
+def test_diagnostics_kernel_vs_plain(cuda_device, mode, shape, dtype):
+    """float64 within 1e-12 of each output's largest magnitude; float32 with
+    ``chip_smoke.py``'s gates: 1e-5, and 4e-5 on rho (``DIAG_RHO_TOL``)."""
+    s, hs, theta = (tensor(a, cuda_device).to(dtype) for a in diagnostics_inputs(seed=6, shape=shape))
     got = fused_isentropic_diagnostics(s, hs, theta, mode=mode, **DIAG_CONSTS)
     ref = fused_isentropic_diagnostics_plain(s, hs, theta, mode=mode, **DIAG_CONSTS)
     got, ref = ((got,), (ref,)) if mode == "mtg" else (got, ref)
     assert len(got) == len(ref) == {"mtg": 1, "dry": 4, "moist": 6}[mode]
     for k, (a, b) in enumerate(zip(got, ref)):
-        assert_scaled(a.cpu().numpy(), b.cpu().numpy(), 1e-12, f"output {k}")
+        tol = 1e-12 if dtype == torch.float64 else (4e-5 if k == 4 else 1e-5)
+        assert_scaled(a.double().cpu().numpy(), b.double().cpu().numpy(), tol, f"output {k}")
 
 
 @pytest.mark.cuda
@@ -575,14 +599,19 @@ def test_vertical_advection_kernel_vs_plain(cuda_device, order, moist, shape, dt
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("shape", [(PX, PY, PZ), RAGGED, (9, 7, 150)])
 @pytest.mark.parametrize("order", [1, 2])
 @pytest.mark.parametrize("vt_mode", ["stage", "step"])
-def test_sedimentation_kernel_vs_plain(cuda_device, order, vt_mode):
-    args = [tensor(a, cuda_device) for a in sedimentation_inputs(seed=order)]
+def test_sedimentation_kernel_vs_plain(cuda_device, order, vt_mode, shape, dtype):
+    """float64 within 1e-12 of each output's largest magnitude, float32 within
+    ``chip_smoke.py``'s 1e-5; at nz = 150 a thread takes two levels."""
+    args = [tensor(a, cuda_device).to(dtype) for a in sedimentation_inputs(order, shape)]
     got = fused_sedimentation_rk3ws(*args, order=order, dt=5.0, vt_mode=vt_mode)
     ref = fused_sedimentation_rk3ws_plain(*args, order=order, dt=5.0, vt_mode=vt_mode)
+    tol = 1e-12 if dtype == torch.float64 else 1e-5
     for k, (a, b) in enumerate(zip(got, ref)):
-        assert_scaled(a.cpu().numpy(), b.cpu().numpy(), 1e-12, f"output {k}")
+        assert_scaled(a.double().cpu().numpy(), b.double().cpu().numpy(), tol, f"output {k}")
 
 
 @pytest.mark.cuda
