@@ -756,6 +756,15 @@ def main() -> int:
            max(w1, w2), lambda: fused_momentum_epilogue(*mom_args, nb=nl.nb, c=c),
            lambda: fused_momentum_epilogue_plain(*mom_args, nb=nl.nb, c=c),
            bound(nbytes(flat) + nbytes(ref), 160.0 * s_now.numel()))
+    # the epilogue's spread within one call: three more profiler
+    # measurements and CUDA events around twenty back-to-back calls (two
+    # calls of an earlier design read 0.145 and 0.289 ms)
+    repeats = [device_ms(lambda: fused_momentum_epilogue(*mom_args, nb=nl.nb, c=c)) for _ in range(3)]
+    events = device_ms(lambda: fused_momentum_epilogue(*mom_args, nb=nl.nb, c=c), attempts=0)[0]
+    kernels["fused_momentum_epilogue"]["repeats_ms"] = [ms for ms, _ in repeats]
+    kernels["fused_momentum_epilogue"]["events_ms"] = events
+    phase("kernel", "fused_momentum_epilogue again: "
+          f"{' '.join(f'{ms:.3f} ms ({how})' for ms, how in repeats)}; CUDA events {events:.3f} ms")
     # the momentum step of the unfused stage at the flagship shapes, fifth
     # order, without and with momentum tendencies: from the stepped density
     # of the tendency-carrying stage and its Montgomery potential

@@ -1,9 +1,12 @@
 // Shared device helpers of the port's kernels: the relaxed-BC select, the
 // positivity clip, the third- and fifth-order upwind fluxes and their
-// divergences, the Shapiro filter, the Smagorinsky strain and tendency, and
-// the asynchronous staging of a column tile's stencil cross in shared memory
-// (column.cuh holds the column algebra of vertical advection and
-// sedimentation).  Every formula keeps the operation order of the plain PyTorch
+// divergences, the Shapiro filter, the Smagorinsky strain and tendency, the
+// asynchronous staging of a column tile's stencil cross in shared memory,
+// and the tiling of the flux-form advection kernels (si_stage.cu's second
+// launch, advection.cu's advection of the fields and momentum epilogue: a
+// tile's faces, each face flux once a block; column.cuh holds the column
+// algebra of vertical advection and sedimentation).  Every formula keeps
+// the operation order of the plain PyTorch
 // versions in tasmania_tpu_torch/ops/, so kernel and plain version differ
 // only by FMA contraction in the stencils; the column scans keep the
 // roundings of a level-by-level sum (mul_rn/add_rn).
@@ -260,6 +263,175 @@ inline bool runs_of_16(int nz, std::initializer_list<const void*> ptrs) {
   for (const void* p : ptrs)
     if (p != nullptr && reinterpret_cast<uintptr_t>(p) % 16 != 0) return false;
   return true;
+}
+
+// ---- the tiling of the flux-form advection kernels -------------------------
+
+// a block's tile: TX x TY columns, KL levels (the fastest thread index), and
+// its threads; H is the upwind stencil's reach (3 for the fifth order, 2 for
+// the third); the cross of an advected field (RX x RY x KL, for_cross's
+// rectangle), the x faces of the tile's rows (u, fluxes: (TX + 1) x TY x KL)
+// and the y faces of its columns (v, fluxes: TX x (TY + 1) x KL), the level
+// fastest in each
+template <int TX_, int TY_, int KL_, int Threads_, int H_ = 3>
+struct Shape {
+  static_assert(H_ == 2 || H_ == 3, "third- or fifth-order stencils");
+  static constexpr int TX = TX_, TY = TY_, KL = KL_, Threads = Threads_, H = H_;
+  static constexpr int RY = TY + 2 * H;
+  static constexpr int kRect = (TX + 2 * H) * RY * KL;
+  static constexpr int kFX = (TX + 1) * TY * KL;
+  static constexpr int kFY = TX * (TY + 1) * KL;
+  static constexpr int kCells = TX * TY * KL;
+};
+
+// the tile's place: its first column and level, and the grid
+struct Tile {
+  int x0, y0, k0, nx, ny, nz, nb;
+  __device__ bool interior(int i, int j) const {
+    return i >= nb && i < nx - nb && j >= nb && j < ny - nb;
+  }
+};
+
+// A thread's place in the tile, fixed for the block: level kk of row ty in
+// the columns tx = txg + G p (p < P), and the faces whose fluxes it computes,
+// each face once in the block: the x faces tx_p of its row (the last group
+// also the tile's right face TX) and the y faces ty of its columns (the last
+// row also the tile's top face TY).  A face is computed where an interior
+// cell reads it: x face i (between cells i-1 and i) of row j for nb <= i <=
+// nx-nb, nb <= j < ny-nb; y face j of column i for nb <= i < nx-nb, nb <= j
+// <= ny-nb.  Their stencils lie inside the grid (nb >= H).
+template <class S>
+struct Lane {
+  static constexpr int G = S::Threads / (S::KL * S::TY);
+  static constexpr int P = S::TX / G;
+  static_assert(G * S::KL * S::TY == S::Threads && G * P == S::TX, "the threads tile the block");
+  int kk, ty, txg;
+  unsigned fx_ok = 0;  // bit p: x face tx_p; bit P: the right face
+  unsigned fy_ok = 0;  // bit p: y face ty of column p; bit P + p: its top face
+  __device__ explicit Lane(const Tile& t)
+      : kk(threadIdx.x % S::KL), ty(threadIdx.x / S::KL % S::TY), txg(threadIdx.x / (S::KL * S::TY)) {
+    const int j = t.y0 + ty;
+    const bool row = j >= t.nb && j < t.ny - t.nb;
+    const bool xface_cols = t.x0 + S::TX >= t.nb && t.x0 + S::TX <= t.nx - t.nb;
+    const bool top = ty == S::TY - 1 && t.y0 + S::TY >= t.nb && t.y0 + S::TY <= t.ny - t.nb;
+#pragma unroll
+    for (int p = 0; p < P; ++p) {
+      const int i = t.x0 + tx(p);
+      if (row && i >= t.nb && i <= t.nx - t.nb) fx_ok |= 1u << p;
+      if (i >= t.nb && i < t.nx - t.nb) {
+        if (j >= t.nb && j <= t.ny - t.nb) fy_ok |= 1u << p;
+        if (top) fy_ok |= 1u << (P + p);
+      }
+    }
+    if (txg == G - 1 && row && xface_cols) fx_ok |= 1u << P;
+  }
+  __device__ int tx(int p) const { return txg + G * p; }
+};
+
+// xface(fx) for each x face and yface(tx, fy) for each y face of the thread
+template <class S, typename XF, typename YF>
+__device__ __forceinline__ void lane_faces(const Lane<S>& L, XF xface, YF yface) {
+#pragma unroll
+  for (int p = 0; p < L.P; ++p) {
+    if (L.fx_ok >> p & 1u) xface(L.tx(p));
+    if (L.fy_ok >> p & 1u) yface(L.tx(p), L.ty);
+    if (L.fy_ok >> (L.P + p) & 1u) yface(L.tx(p), S::TY);
+  }
+  if (L.fx_ok >> L.P & 1u) xface(S::TX);
+}
+
+// the index of x face fx and y face (tx, fy) of the thread's row and level
+// in U, FX and V, FY
+template <class S>
+__device__ __forceinline__ int xface_at(const Lane<S>& L, int fx) {
+  return (fx * S::TY + L.ty) * S::KL + L.kk;
+}
+template <class S>
+__device__ __forceinline__ int yface_at(const Lane<S>& L, int tx, int fy) {
+  return (tx * (S::TY + 1) + fy) * S::KL + L.kk;
+}
+
+// u/60 and v/60 in place at the thread's faces, once for every field a
+// block advects (each face is the same thread's in every field); fifth order
+template <class S, typename T>
+__device__ __forceinline__ void lane_scale_faces(const Lane<S>& L, bool level, T* U, T* V) {
+  static_assert(S::H == 3, "the fifth-order flux takes w/60");
+  if (!level) return;
+  lane_faces(L, [&](int fx) { U[xface_at(L, fx)] /= T(60); },
+             [&](int tx, int fy) { V[yface_at(L, tx, fy)] /= T(60); });
+}
+
+// the fluxes of phi's cross (R) at the thread's faces, from u's and v's
+// faces (U, V; divided by 60 already where Scaled), into FX and FY; the
+// third order (H = 2) takes the velocities themselves (tt::flux3, as
+// div_upwind does)
+template <bool Scaled, class S, typename T>
+__device__ __forceinline__ void lane_fluxes(const Lane<S>& L, bool level, const T* R, const T* U,
+                                            const T* V, T* FX, T* FY) {
+  static_assert(S::H == 3 || !Scaled, "only the fifth-order flux takes scaled velocities");
+  if (!level) return;
+  auto flux = [](T w, const T* q, int s) {
+    if constexpr (S::H == 3) {
+      const T w60 = Scaled ? w : w / T(60);
+      return flux5_scaled(w60, q[0], q[s], q[2 * s], q[3 * s], q[4 * s], q[5 * s]);
+    } else {
+      return flux3(w, q[0], q[s], q[2 * s], q[3 * s]);
+    }
+  };
+  lane_faces(
+      L,
+      [&](int fx) {  // from cell i - H of the row
+        const int e = xface_at(L, fx);
+        FX[e] = flux(U[e], &R[(fx * S::RY + L.ty + S::H) * S::KL + L.kk], S::RY * S::KL);
+      },
+      [&](int tx, int fy) {  // from cell j - H of the column
+        const int e = yface_at(L, tx, fy);
+        FY[e] = flux(V[e], &R[((tx + S::H) * S::RY + fy) * S::KL + L.kk], S::KL);
+      });
+}
+
+// the flux divergence of the thread's cell in column tx_p, in div5's order
+template <class S, typename T>
+__device__ __forceinline__ T lane_div(const Lane<S>& L, int p, const T* FX, const T* FY, T dx, T dy) {
+  const int tx = L.tx(p);
+  const int x = (tx * S::TY + L.ty) * S::KL + L.kk;
+  const int y = (tx * (S::TY + 1) + L.ty) * S::KL + L.kk;
+  return (FX[x + S::TY * S::KL] - FX[x]) / dx + (FY[y + S::KL] - FY[y]) / dy;
+}
+
+// copies of a field's cross of halo H, runs of V levels (16 bytes where V >
+// 1), into shared memory
+template <class S, int V, typename T>
+__device__ __forceinline__ void copy_cross(T* dst, const T* __restrict__ src, const Tile& t) {
+  for_cross<S::TX, S::TY, S::KL, S::H, V, S::Threads>(
+      t.x0, t.y0, t.k0, t.nx, t.ny, t.nz,
+      [&](int m, int g) { cp_async<V * sizeof(T)>(&dst[m], &src[g]); });
+}
+
+// the tile's faces of u ((nx+1, ny, nz)) and v ((nx, ny+1, nz)), laid out as
+// the x and y fluxes
+template <class S, int V, typename T>
+__device__ __forceinline__ void copy_faces(T* U, T* Vf, const T* __restrict__ u,
+                                           const T* __restrict__ v, const Tile& t) {
+  constexpr int KV = S::KL / V;
+  strided<S::kFX / V, S::Threads>([&](int e) {
+    const int col = e / KV, k = t.k0 + e % KV * V;
+    const int i = t.x0 + col / S::TY, j = t.y0 + col % S::TY;
+    if (i <= t.nx && j < t.ny && k < t.nz)
+      cp_async<V * sizeof(T)>(&U[e * V], &u[(i * t.ny + j) * t.nz + k]);
+  });
+  strided<S::kFY / V, S::Threads>([&](int e) {
+    const int col = e / KV, k = t.k0 + e % KV * V;
+    const int i = t.x0 + col / (S::TY + 1), j = t.y0 + col % (S::TY + 1);
+    if (i < t.nx && j <= t.ny && k < t.nz)
+      cp_async<V * sizeof(T)>(&Vf[e * V], &v[(i * (t.ny + 1) + j) * t.nz + k]);
+  });
+}
+
+// whether the (nx, ny, nz) grid and its staggered u and v fit the tiles'
+// 32-bit indices
+inline bool fits_int32(int nx, int ny, int nz) {
+  return int64_t(nx + 1) * (ny + 1) * nz <= INT32_MAX;
 }
 
 }  // namespace tt

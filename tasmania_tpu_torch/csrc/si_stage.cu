@@ -24,10 +24,11 @@
 // blockIdx with 32-bit indices and no division of a flat index.  The
 // stencil inputs are staged in shared memory with cp.async (tt::for_cross: a
 // tile's cross of halo 3, the level fastest; 16-byte copies where nz and the
-// pointers allow).  Each thread has a fixed place in the tile (Lane): its
-// level, row and columns, and the faces whose fluxes it computes, each face
-// once in the block (tt::flux5) into shared memory, where each divergence
-// is taken in div5's order.
+// pointers allow).  Each thread has a fixed place in the tile (tt::Lane):
+// its level, row and columns, and the faces whose fluxes it computes, each
+// face once in the block (tt::flux5) into shared memory, where each
+// divergence is taken in div5's order.  This tiling (common.cuh) also
+// serves advection.cu's advection of the fields and momentum epilogue.
 //   A  density + Montgomery: a block owns an 8 x 4 tile of columns over all
 //      levels, one cell a thread in each run of 8 levels.  Three runs are in
 //      flight: s_int's cross, u's and v's faces, s_now and s_ref of the next
@@ -65,24 +66,10 @@ namespace {
 
 constexpr int kMaxQ = 3;
 constexpr int kMaxAdv = 2 + kMaxQ;  // su, sv and the water densities
-constexpr int kH = 3;               // the fifth-order stencil's reach
 constexpr int kRunsInFlight = 3;    // A's level runs in flight: this one and the next two
 
-// a block's tile: TX x TY columns, KL levels (the fastest thread index), and
-// its threads; the cross of s_int or of an advected field (RX x RY x KL), the
-// x faces of the tile's rows (u, fluxes: (TX + 1) x TY x KL) and the y faces
-// of its columns (v, fluxes: TX x (TY + 1) x KL), the level fastest in each
-template <int TX_, int TY_, int KL_, int Threads_>
-struct Shape {
-  static constexpr int TX = TX_, TY = TY_, KL = KL_, Threads = Threads_;
-  static constexpr int RY = TY + 2 * kH;
-  static constexpr int kRect = (TX + 2 * kH) * RY * KL;
-  static constexpr int kFX = (TX + 1) * TY * KL;
-  static constexpr int kFY = TX * (TY + 1) * KL;
-  static constexpr int kCells = TX * TY * KL;
-};
-using ShapeA = Shape<8, 4, 8, 256>;  // 256 cells a level run: one a thread
-using ShapeB = Shape<8, 8, 8, 256>;  // 512 cells: two a thread
+using ShapeA = tt::Shape<8, 4, 8, 256>;  // 256 cells a level run: one a thread
+using ShapeB = tt::Shape<8, 8, 8, 256>;  // 512 cells: two a thread
 
 template <typename T>
 struct Params {
@@ -99,144 +86,9 @@ struct Fields {
   T *s_e, *mtg, *s_out, *su_out, *sv_out;
 };
 
-// the tile's place: its first column and level, and the grid
-struct Tile {
-  int x0, y0, k0, nx, ny, nz, nb;
-  __device__ bool interior(int i, int j) const {
-    return i >= nb && i < nx - nb && j >= nb && j < ny - nb;
-  }
-};
-
-// A thread's place in the tile, fixed for the block: level kk of row ty in
-// the columns tx = txg + G p (p < P), and the faces whose fluxes it computes,
-// each face once in the block: the x faces tx_p of its row (the last group
-// also the tile's right face TX) and the y faces ty of its columns (the last
-// row also the tile's top face TY).  A face is computed where an interior
-// cell reads it: x face i (between cells i-1 and i) of row j for nb <= i <=
-// nx-nb, nb <= j < ny-nb; y face j of column i for nb <= i < nx-nb, nb <= j
-// <= ny-nb.  Their stencils lie inside the grid.
-template <class S>
-struct Lane {
-  static constexpr int G = S::Threads / (S::KL * S::TY);
-  static constexpr int P = S::TX / G;
-  static_assert(G * S::KL * S::TY == S::Threads && G * P == S::TX, "the threads tile the block");
-  int kk, ty, txg;
-  unsigned fx_ok = 0;  // bit p: x face tx_p; bit P: the right face
-  unsigned fy_ok = 0;  // bit p: y face ty of column p; bit P + p: its top face
-  __device__ explicit Lane(const Tile& t)
-      : kk(threadIdx.x % S::KL), ty(threadIdx.x / S::KL % S::TY), txg(threadIdx.x / (S::KL * S::TY)) {
-    const int j = t.y0 + ty;
-    const bool row = j >= t.nb && j < t.ny - t.nb;
-    const bool xface_cols = t.x0 + S::TX >= t.nb && t.x0 + S::TX <= t.nx - t.nb;
-    const bool top = ty == S::TY - 1 && t.y0 + S::TY >= t.nb && t.y0 + S::TY <= t.ny - t.nb;
-#pragma unroll
-    for (int p = 0; p < P; ++p) {
-      const int i = t.x0 + tx(p);
-      if (row && i >= t.nb && i <= t.nx - t.nb) fx_ok |= 1u << p;
-      if (i >= t.nb && i < t.nx - t.nb) {
-        if (j >= t.nb && j <= t.ny - t.nb) fy_ok |= 1u << p;
-        if (top) fy_ok |= 1u << (P + p);
-      }
-    }
-    if (txg == G - 1 && row && xface_cols) fx_ok |= 1u << P;
-  }
-  __device__ int tx(int p) const { return txg + G * p; }
-};
-
-// xface(fx) for each x face and yface(tx, fy) for each y face of the thread
-template <class S, typename XF, typename YF>
-__device__ __forceinline__ void lane_faces(const Lane<S>& L, XF xface, YF yface) {
-#pragma unroll
-  for (int p = 0; p < L.P; ++p) {
-    if (L.fx_ok >> p & 1u) xface(L.tx(p));
-    if (L.fy_ok >> p & 1u) yface(L.tx(p), L.ty);
-    if (L.fy_ok >> (L.P + p) & 1u) yface(L.tx(p), S::TY);
-  }
-  if (L.fx_ok >> L.P & 1u) xface(S::TX);
-}
-
-// the index of x face fx and y face (tx, fy) of the thread's row and level
-// in U, FX and V, FY
-template <class S>
-__device__ __forceinline__ int xface_at(const Lane<S>& L, int fx) {
-  return (fx * S::TY + L.ty) * S::KL + L.kk;
-}
-template <class S>
-__device__ __forceinline__ int yface_at(const Lane<S>& L, int tx, int fy) {
-  return (tx * (S::TY + 1) + fy) * S::KL + L.kk;
-}
-
-// u/60 and v/60 in place at the thread's faces, once for every field a
-// block advects (each face is the same thread's in every field)
-template <class S, typename T>
-__device__ __forceinline__ void lane_scale_faces(const Lane<S>& L, bool level, T* U, T* V) {
-  if (!level) return;
-  lane_faces(L, [&](int fx) { U[xface_at(L, fx)] /= T(60); },
-             [&](int tx, int fy) { V[yface_at(L, tx, fy)] /= T(60); });
-}
-
-// the fluxes of phi's cross (R) at the thread's faces, from u's and v's
-// faces (U, V; divided by 60 already where Scaled), into FX and FY
-template <bool Scaled, class S, typename T>
-__device__ __forceinline__ void lane_fluxes(const Lane<S>& L, bool level, const T* R, const T* U,
-                                            const T* V, T* FX, T* FY) {
-  if (!level) return;
-  auto flux = [](T w, const T* q, int s) {
-    const T w60 = Scaled ? w : w / T(60);
-    return tt::flux5_scaled(w60, q[0], q[s], q[2 * s], q[3 * s], q[4 * s], q[5 * s]);
-  };
-  lane_faces(
-      L,
-      [&](int fx) {  // from cell i - 3 of the row
-        const int e = xface_at(L, fx);
-        FX[e] = flux(U[e], &R[(fx * S::RY + L.ty + kH) * S::KL + L.kk], S::RY * S::KL);
-      },
-      [&](int tx, int fy) {  // from cell j - 3 of the column
-        const int e = yface_at(L, tx, fy);
-        FY[e] = flux(V[e], &R[((tx + kH) * S::RY + fy) * S::KL + L.kk], S::KL);
-      });
-}
-
-// the flux divergence of the thread's cell in column tx_p, in div5's order
-template <class S, typename T>
-__device__ __forceinline__ T lane_div(const Lane<S>& L, int p, const T* FX, const T* FY, T dx, T dy) {
-  const int tx = L.tx(p);
-  const int x = (tx * S::TY + L.ty) * S::KL + L.kk;
-  const int y = (tx * (S::TY + 1) + L.ty) * S::KL + L.kk;
-  return (FX[x + S::TY * S::KL] - FX[x]) / dx + (FY[y + S::KL] - FY[y]) / dy;
-}
-
-// copies of runs of V levels (16 bytes where V > 1) into shared memory
-template <class S, int V, typename T>
-__device__ __forceinline__ void copy_cross(T* dst, const T* __restrict__ src, const Tile& t) {
-  tt::for_cross<S::TX, S::TY, S::KL, kH, V, S::Threads>(
-      t.x0, t.y0, t.k0, t.nx, t.ny, t.nz,
-      [&](int m, int g) { tt::cp_async<V * sizeof(T)>(&dst[m], &src[g]); });
-}
-
-// the tile's faces of u ((nx+1, ny, nz)) and v ((nx, ny+1, nz)), laid out as
-// the x and y fluxes
-template <class S, int V, typename T>
-__device__ __forceinline__ void copy_faces(T* U, T* Vf, const T* __restrict__ u,
-                                           const T* __restrict__ v, const Tile& t) {
-  constexpr int KV = S::KL / V;
-  tt::strided<S::kFX / V, S::Threads>([&](int e) {
-    const int col = e / KV, k = t.k0 + e % KV * V;
-    const int i = t.x0 + col / S::TY, j = t.y0 + col % S::TY;
-    if (i <= t.nx && j < t.ny && k < t.nz)
-      tt::cp_async<V * sizeof(T)>(&U[e * V], &u[(i * t.ny + j) * t.nz + k]);
-  });
-  tt::strided<S::kFY / V, S::Threads>([&](int e) {
-    const int col = e / KV, k = t.k0 + e % KV * V;
-    const int i = t.x0 + col / (S::TY + 1), j = t.y0 + col % (S::TY + 1);
-    if (i < t.nx && j <= t.ny && k < t.nz)
-      tt::cp_async<V * sizeof(T)>(&Vf[e * V], &v[(i * (t.ny + 1) + j) * t.nz + k]);
-  });
-}
-
 // the tile's cells of a cell field, laid out [tx][ty][kk]
 template <class S, int V, typename T>
-__device__ __forceinline__ void copy_cells(T* dst, const T* __restrict__ src, const Tile& t) {
+__device__ __forceinline__ void copy_cells(T* dst, const T* __restrict__ src, const tt::Tile& t) {
   constexpr int KV = S::KL / V;
   tt::strided<S::kCells / V, S::Threads>([&](int e) {
     const int col = e / KV, k = t.k0 + e % KV * V;
@@ -268,7 +120,7 @@ constexpr size_t smem_b() {
 template <typename T, int V>
 __global__ void __launch_bounds__(ShapeA::Threads, 4) stage_density_montgomery(Fields<T> f, Params<T> p) {
   using S = ShapeA;
-  static_assert(Lane<S>::P == 1, "one column a thread");
+  static_assert(tt::Lane<S>::P == 1, "one column a thread");
   constexpr int kBuf = S::kRect + S::kFX + S::kFY + 2 * S::kCells;  // s_int, u, v, s_now, s_ref
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* const ring = reinterpret_cast<T*>(smem_raw);  // kRunsInFlight level runs' inputs
@@ -276,8 +128,8 @@ __global__ void __launch_bounds__(ShapeA::Threads, 4) stage_density_montgomery(F
   T* const FY = FX + S::kFX;
   T* const C = FY + S::kFY;  // the columns' s_e, then p, Exner, mtg: column stride nzp
   const int nzp = p.nz | 1;
-  Tile t{int(blockIdx.x) * S::TX, int(blockIdx.y) * S::TY, 0, p.nx, p.ny, p.nz, p.nb};
-  const Lane<S> L(t);
+  tt::Tile t{int(blockIdx.x) * S::TX, int(blockIdx.y) * S::TY, 0, p.nx, p.ny, p.nz, p.nb};
+  const tt::Lane<S> L(t);
   const int i = t.x0 + L.tx(0), j = t.y0 + L.ty, col = L.tx(0) * S::TY + L.ty;
   const bool live = i < p.nx && j < p.ny, inner = t.interior(i, j);
   const T gm = live ? f.gamma[i * p.ny + j] : T(0);
@@ -286,10 +138,10 @@ __global__ void __launch_bounds__(ShapeA::Threads, 4) stage_density_montgomery(F
 
   auto copy_run = [&](int run) {
     T* b = ring + run % kRunsInFlight * kBuf;
-    Tile r = t;
+    tt::Tile r = t;
     r.k0 = run * S::KL;
-    copy_cross<S, V>(b, f.s_int, r);
-    copy_faces<S, V>(b + S::kRect, b + S::kRect + S::kFX, f.u, f.v, r);
+    tt::copy_cross<S, V>(b, f.s_int, r);
+    tt::copy_faces<S, V>(b + S::kRect, b + S::kRect + S::kFX, f.u, f.v, r);
     copy_cells<S, V>(b + S::kRect + S::kFX + S::kFY, f.s_now, r);
     copy_cells<S, V>(b + S::kRect + S::kFX + S::kFY + S::kCells, f.s_ref, r);
   };
@@ -306,13 +158,13 @@ __global__ void __launch_bounds__(ShapeA::Threads, 4) stage_density_montgomery(F
     const T* b = ring + run % kRunsInFlight * kBuf;
     t.k0 = run * S::KL;
     const int k = t.k0 + L.kk;
-    lane_fluxes<false>(L, k < p.nz, b, b + S::kRect, b + S::kRect + S::kFX, FX, FY);
+    tt::lane_fluxes<false>(L, k < p.nz, b, b + S::kRect, b + S::kRect + S::kFX, FX, FY);
     __syncthreads();
     if (live && k < p.nz) {
       const int cell = col * S::KL + L.kk;
       const T* sn = b + S::kRect + S::kFX + S::kFY;
       T res = sn[cell];
-      if (inner) res = res - p.dt * lane_div(L, 0, FX, FY, p.dx, p.dy);
+      if (inner) res = res - p.dt * tt::lane_div(L, 0, FX, FY, p.dx, p.dy);
       const T se = tt::enforce(res, gm, sn[S::kCells + cell]);
       f.s_e[i * sx + j * p.nz + k] = se;
       C[col * nzp + k] = se;
@@ -381,15 +233,15 @@ __global__ void __launch_bounds__(ShapeB::Threads) stage_momenta_epilogue(Fields
   T* const MG = MN + kRectB1;
   // the level run is the fastest block index: blocks that run together read
   // whole columns
-  const Tile t{int(blockIdx.y) * S::TX, int(blockIdx.z) * S::TY, int(blockIdx.x) * S::KL,
+  const tt::Tile t{int(blockIdx.y) * S::TX, int(blockIdx.z) * S::TY, int(blockIdx.x) * S::KL,
                p.nx, p.ny, p.nz, p.nb};
-  const Lane<S> L(t);
+  const tt::Lane<S> L(t);
   const int k = t.k0 + L.kk;
   const int na = 2 + p.nq;
   auto source = [&](int a) { return a == 0 ? f.su_int : a == 1 ? f.sv_int : f.q_int[a - 2]; };
 
-  copy_cross<S, V>(SI, f.s_int, t);
-  copy_faces<S, V>(U, Vf, f.u, f.v, t);
+  tt::copy_cross<S, V>(SI, f.s_int, t);
+  tt::copy_faces<S, V>(U, Vf, f.u, f.v, t);
   tt::for_cross<S::TX, S::TY, S::KL, 1, V, S::Threads>(
       t.x0, t.y0, t.k0, t.nx, t.ny, t.nz, [&](int m, int g) {
         tt::cp_async<V * sizeof(T)>(&MN[m], &f.mtg_now[g]);
@@ -397,32 +249,32 @@ __global__ void __launch_bounds__(ShapeB::Threads) stage_momenta_epilogue(Fields
       });
 #pragma unroll
   for (int a = 0; a < kAdvBufs; ++a) {  // a group each, the first with the inputs above
-    if (a < na) copy_cross<S, V>(PHI + a * S::kRect, source(a), t);
+    if (a < na) tt::copy_cross<S, V>(PHI + a * S::kRect, source(a), t);
     tt::cp_async_commit();
   }
-  T d[kMaxAdv][Lane<S>::P];  // the divergences of su, sv and the water densities
+  T d[kMaxAdv][tt::Lane<S>::P];  // the divergences of su, sv and the water densities
 #pragma unroll
   for (int a = 0; a < kMaxAdv; ++a) {
     if (a >= na) break;
     T* const phi = PHI + a % kAdvBufs * S::kRect;
     tt::cp_async_wait<kAdvBufs - 1>();
     __syncthreads();
-    if (a == 0) lane_scale_faces(L, k < p.nz, U, Vf);
+    if (a == 0) tt::lane_scale_faces(L, k < p.nz, U, Vf);
     if (a >= 2) {  // the water density clip(s_int q_int), formed once
-      tt::for_cross<S::TX, S::TY, S::KL, kH, V, S::Threads>(
+      tt::for_cross<S::TX, S::TY, S::KL, S::H, V, S::Threads>(
           t.x0, t.y0, t.k0, t.nx, t.ny, t.nz, [&](int m, int) {
 #pragma unroll
             for (int w = 0; w < V; ++w) phi[m + w] = tt::clip_pos(SI[m + w] * phi[m + w]);
           });
       __syncthreads();
     }
-    lane_fluxes<true>(L, k < p.nz, phi, U, Vf, FX, FY);
+    tt::lane_fluxes<true>(L, k < p.nz, phi, U, Vf, FX, FY);
     __syncthreads();
 #pragma unroll
     for (int q = 0; q < L.P; ++q)
-      d[a][q] = t.interior(t.x0 + L.tx(q), t.y0 + L.ty) ? lane_div(L, q, FX, FY, p.dx, p.dy) : T(0);
+      d[a][q] = t.interior(t.x0 + L.tx(q), t.y0 + L.ty) ? tt::lane_div(L, q, FX, FY, p.dx, p.dy) : T(0);
     // every thread's fluxes of phi are done (the barrier above): refill it
-    if (a + kAdvBufs < na) copy_cross<S, V>(phi, source(a + kAdvBufs), t);
+    if (a + kAdvBufs < na) tt::copy_cross<S, V>(phi, source(a + kAdvBufs), t);
     tt::cp_async_commit();
   }
 
@@ -540,7 +392,7 @@ extern "C" int tt_si_stage(int dtype, const void* const* ptrs, void* const* outs
                            int ny, int nz, int nb, int dd, const double* scalars,
                            cudaStream_t stream) {
   if (nq < 0 || nq > kMaxQ || nb < 3 || nx < 2 * nb + 1 || ny < 2 * nb + 1 || nz < 1 ||
-      int64_t(nx + 1) * (ny + 1) * nz > INT32_MAX) {
+      !tt::fits_int32(nx, ny, nz)) {
     return int(cudaErrorInvalidValue);
   }
   if (dtype == tt::kFloat32) return launch<float>(ptrs, outs, nq, nx, ny, nz, nb, dd, scalars, stream);

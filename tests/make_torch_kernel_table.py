@@ -14,8 +14,8 @@ and the times that run measured on the card: kernel, plain version and,
 where one exists, the single PyTorch call computing the same function; a
 kernel timed also at other shapes or in other modes (``also`` in the log:
 the mountain wave's 161x7x120, the diagnostics' modes) gets a row for each,
-with the bytes and bound of those shapes, and a kernel whose code changed
-since an earlier reading a row with that reading (``EARLIER``).
+with the bytes and bound of those shapes, and a redesigned kernel a row
+with its reading before the redesign (``EARLIER``).
 
 Usage: ``python tests/make_torch_kernel_table.py [CHIP_SMOKE_LOG]``
 """
@@ -86,27 +86,23 @@ LIBRARY_CALL = {2: "torch._foreach_copy_", 4: "torch._foreach_copy_"}
 # what a launch is, where a call's time covers more than one step of work
 LAUNCH_NOTE = {12: "one launch a call, both stages"}
 
-# a kernel's earlier readings, kept beside its new time: (label, kernel ms,
-# plain ms, MB moved or None for the kernel's own), from chip_smoke.py's last
-# log before its code changed (H100 80GB HBM3, 700 W); the advection kernels
-# changed only in tt::flux5, which now divides the velocity by 60 once
-# (bitwise as before)
-_FLUX5 = "before `tt::flux5` divided once (another call)"
+# a redesigned kernel's reading before its redesign, kept beside its new
+# time: (label, kernel ms, plain ms, MB moved or None for the kernel's own),
+# from chip_smoke.py's last log before its code changed (H100 80GB HBM3,
+# 700 W)
 _DIAG = "the design before the redesign (a warp of 32 columns, 31-level chunks, p and exn read back)"
+_CELL = "the design before the redesign (a thread a cell from device memory, each face flux twice)"
 EARLIER = {
     1: [("the design before the redesign (three launches, the frame composed and pasted)",
          1.038, 4.585, None)],
     3: [("the design before the redesign (a thread a cell from device memory, the frame pasted)",
          0.745, 1.200, None)],
-    5: [(_FLUX5, 0.493, 2.025, None)],
-    6: [(_FLUX5, 0.255, 1.071, None)],
-    7: [(_FLUX5, 0.306, 1.623, None)],
+    5: [(_CELL, 0.455, 2.033, None), (f"{_CELL}, order 3, s alone, 161x7x120", 0.005, 0.051, 2.79)],
+    7: [(_CELL, 0.299, 1.630, None)],
     12: [("the design before the redesign (a thread a cell, one launch a stage, the stage-1 pair "
           "through device memory)", 0.549, 0.873, None)],
     14: [("the design before the redesign (a warp a column, its loads in series)", 0.368, 2.798, None)],
     16: [(f"{_DIAG}, moist", 0.147, 0.342, None),
-         (f"{_DIAG}, mtg, 161x161x120", 0.048, 0.133, 24.99),
-         (f"{_DIAG}, dry, 161x161x120", 0.095, 0.276, 62.63),
          (f"{_DIAG}, mtg, 161x7x120", 0.044, 0.038, 1.09)],
     17: [("the design before the redesign (a warp a column in phases, coefficients from device "
           "memory)", 0.066, 0.617, None)],
