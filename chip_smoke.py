@@ -49,7 +49,11 @@ printing one line; any failure raises and exits non-zero:
    fields as vertical advection's, qr and the fall velocity 1e-5 as
    sedimentation's; rain everywhere, since where an advected qr lands
    within rounding of zero the power 0.1346 of max(qr, 0) tells two
-   roundings apart);
+   roundings apart).  Each merge is also run as its pair apart (the
+   smoothing kernel then Smagorinsky's; vertical advection's then
+   sedimentation's), timed the same way (``also``), and the merge's largest
+   difference from the pair is printed: the merges share their parts'
+   device code, so it should be zero;
 4. the port's first slice (dycore -> diagnostics -> smoothing -> velocities,
    ``namelist_sus.slice_skip``), 1 + 100 steps, with its launch counts and
    agreement with ``tasmania_tpu_torch/drivers/slice_reference.json`` to 1e-4
@@ -891,6 +895,21 @@ def main() -> int:
            lambda: fused_smoothing_smagorinsky_rk2_plain(mfields, smoother.gamma, **mkw),
            bound(nbytes(mfields + [smoother.gamma]) + nbytes(ref),
                  ((12.0 * smoother.order + 3.0) * len(mfields) + 2 * 100.0) * s_now.numel()))
+    # the pair run apart: the smoothing kernel, then Smagorinsky's on the
+    # smoothed (s, su, sv); the merge shares their device code, so it should
+    # give their bits
+    def smooth_smag_apart(fs):
+        smoothed = fused_smoothing(fs, smoother.gamma, **sm)
+        return (smoothed[0], *fused_smagorinsky_rk2(*smoothed[:3], **skw), *smoothed[3:])
+
+    apart = smooth_smag_apart(mfields)
+    phase("check", "fused_smoothing_smagorinsky_rk2 against fused_smoothing then fused_smagorinsky_rk2: "
+          f"largest difference {max(float((a - b).abs().max()) for a, b in zip(got, apart))}")
+    record_also("fused_smoothing_smagorinsky_rk2", "the pair apart (fused_smoothing, then fused_smagorinsky_rk2)",
+                lambda: smooth_smag_apart(mfields),
+                lambda: fused_smoothing_smagorinsky_rk2_plain(mfields, smoother.gamma, **mkw),
+                bound(nbytes(mfields + [smoother.gamma]) + nbytes(ref),
+                      ((12.0 * smoother.order + 3.0) * len(mfields) + 2 * 100.0) * s_now.numel()))
     # the same on the unperturbed initial state, whose uniform flow has zero
     # strain almost everywhere
     ifields = [raw[n] for n in names]
@@ -919,13 +938,29 @@ def main() -> int:
            max(w1, w2), lambda: fused_vadv_sedimentation_rk3ws(*vsin, **vskw),
            lambda: fused_vadv_sedimentation_rk3ws_plain(*vsin, **vskw),
            bound(nbytes(vsin) + nbytes(ref), (18 * 22.0 + powers * 20.0 + 90.0) * s_now.numel()))
+    # the pair run apart: vertical advection's kernel, then sedimentation's on
+    # the advected qr, at the merge's vt_mode
+
+    def vadv_sed_apart():
+        adv = fused_vertical_advection_rk3ws(*vsin[:4], vsin[4:7], order=vskw["vorder"], dt=vskw["dt"],
+                                             dz=vskw["dz"])
+        return (*adv[:5], *fused_sedimentation_rk3ws(vsin[7], vsin[8], adv[5], order=vskw["sorder"],
+                                                      dt=vskw["dt"], vt_mode=vskw["vt_mode"]))
+
+    apart = vadv_sed_apart()
+    phase("check", "fused_vadv_sedimentation_rk3ws against fused_vertical_advection_rk3ws then "
+          f"fused_sedimentation_rk3ws: largest difference {max(float((a - b).abs().max()) for a, b in zip(got, apart))}")
+    record_also("fused_vadv_sedimentation_rk3ws",
+                "the pair apart (fused_vertical_advection_rk3ws, then fused_sedimentation_rk3ws)",
+                vadv_sed_apart, lambda: fused_vadv_sedimentation_rk3ws_plain(*vsin, **vskw),
+                bound(nbytes(vsin) + nbytes(ref), (18 * 22.0 + powers * 20.0 + 90.0) * s_now.numel()))
     phase("timing", f"{profiler_sessions['measurements']} times from pairs of profiler sessions that "
           f"agree on their device operations a call, in {profiler_sessions['sessions']} sessions "
           f"({profiler_sessions['empty']} without device time)")
     del (fields, fulls, lo, hi, views, got, ref, stage_in, args, flat_in, kin, sin, vin, vq, din,
          adv_args, adv, mtg_e, mom_args, flat, base, q_now, s_int, state, raw, dycore, physics, domain,
          full1, lo1, hi1, st1, st2, got1, ref1, ms_args, d_in, mdom, mstate, mcore, mdiag, mraw, mu,
-         mv, ms_int, a3, madv, ms_e, mhs, mtg_args, mmtg, m3, mfields, msm, ifields, rain, vsin)
+         mv, ms_int, a3, madv, ms_e, mhs, mtg_args, mmtg, m3, mfields, msm, ifields, rain, vsin, apart)
 
     def drive(tag, run, nl_run, per_step, reference, tol_of, zero_tol):
         """One ``run(nl_run)`` from zeroed launch counts: every kernel

@@ -1,9 +1,11 @@
-// The column algebra of the vertical kernels: the flux coefficients of
-// vertical advection (vertical_advection.cu and vadv_sed.cu), and, one warp
-// per (x, y) column, the three RK3WS stages of vertical advection and of
-// sedimentation with the Kessler fall velocity, both in turn on one column
-// (vadv_sed.cu; sedimentation.cu keeps the same algebra a thread a level).  Each function keeps the
-// operation order of its plain PyTorch version in tasmania_tpu_torch/ops/.
+// The column algebra of the vertical kernels, a thread R levels of a column
+// (k = lane + r tpc, tpc threads a column): the three RK3WS stages of
+// vertical advection (vertical_advection.cu) and of sedimentation with the
+// Kessler fall velocity (sedimentation.cu), and both in turn on one column
+// (vadv_sed.cu), whose advected qr stays in the thread's registers.  Each
+// keeps the operation order of its plain PyTorch version in
+// tasmania_tpu_torch/ops/, so the merged kernel gives the bits of the two
+// kernels run in turn.
 #pragma once
 
 #include "common.cuh"
@@ -60,177 +62,265 @@ __device__ __forceinline__ void flux_coefficients(T wf, T* g) {
   }
 }
 
-template <typename T>
-struct VadvFields {
-  const T* in[7];  // w, s, su, sv[, qv, qc, qr]
-  T* out[6];
+// a column block's fields: in w, s, su, sv[, qv, qc, qr], out the NF
+// stepped fields
+template <typename T, int NF>
+struct Columns {
+  const T* in[NF + 1];
+  T* out[NF];
 };
 
-// shared memory of one warp's vadv_rk3ws_column, in values of T: the flux
-// coefficients of the interfaces [e, nz+1-e) and two stage buffers
-template <int ORDER>
-__host__ __device__ constexpr size_t vadv_smem_values(int nf, int nz) {
-  return size_t(Flux<ORDER>::n) * (nz + 1 - 2 * Flux<ORDER>::e) + 2 * size_t(nf) * nz;
+// a column's advection inputs as a thread holds them: its levels of the NF
+// fields, and the velocities below and above each of its interfaces
+// (interface m = k, between levels k-1 and k)
+template <typename T, int NF, int R>
+struct VadvIn {
+  T x0[NF][R], wm[R], wk[R];
+};
+
+// every load of the thread at once, from the column at offset base (the
+// flux coefficients come after, in VadvLevels's constructor, so that a
+// caller's other loads are issued first)
+template <int ORDER, typename T, int NF, int R>
+__device__ __forceinline__ void load_vadv(VadvIn<T, NF, R>& in, const Columns<T, NF>& p, int base,
+                                          bool live, int lane, int tpc, int nz) {
+  constexpr int e = Flux<ORDER>::e;
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int k = lane + r * tpc;
+    const bool level = live && k < nz;
+    const bool face = level && k >= e && k <= nz - e;
+#pragma unroll
+    for (int f = 0; f < NF; ++f) in.x0[f][r] = level ? p.in[1 + f][base + k] : T(0);
+    in.wm[r] = face ? p.in[0][base + k - 1] : T(0);
+    in.wk[r] = face ? p.in[0][base + k] : T(0);
+  }
 }
 
-// Vertical advection of the column at offset base: the interface velocity
-// wf[m] = (w[m-1] + w[m]) / 2 and the flux coefficients once, then
-// x_i = x_0 + c_i T(x_{i-1}), c = (dt/3, dt/2, dt), with
-// T(phi)[k] = (f[k+1] - f[k]) / dz on levels [e, nz-e) and 0 outside, the
-// mass fractions advected as s q and divided by the stage's density
-// (fused_vertical_advection_rk3ws_plain).  The last stage goes to
-// p.out[f][base + k], and field 5 (qr) to keep[k] instead where keep is not
-// null.  Ends with __syncwarp().
-template <typename T, int ORDER>
-__device__ __forceinline__ void vadv_rk3ws_column(const VadvFields<T>& p, int nf, int64_t base,
-                                                  int nz, double dt, T dz, T* smem, int lane,
-                                                  T* keep) {
+// Vertical advection of a column, R levels a thread: the interface velocity
+// wf[m] = (w[m-1] + w[m]) / 2 and the flux coefficients g_d[m] (flux f[m] =
+// sum_d g_d[m] phi[m+d]) once, then x_i = x_0 + c_i T(x_{i-1}), c = (dt/3,
+// dt/2, dt), with T(phi)[k] = (f[k+1] - f[k]) / dz on levels [e, nz-e) and 0
+// outside, the mass fractions advected as s q and divided by the stage's
+// density (fused_vertical_advection_rk3ws_plain, whose division by dz
+// PyTorch takes on the card as a product with 1/dz: so does this).  The
+// initial state x0, the stage's state x and the coefficients stay in
+// registers; a stage forms (a) each level's advected quantity, phi or s q
+// (once), in shared memory, (b) each interface's flux once, in shared
+// memory, (c) each level's tendency and new value, a barrier of the block
+// between (a), (b) and (c).  In shared memory a level's NF values lie
+// together at an odd stride P, so that every access is a constant offset
+// from the thread's level and the threads of consecutive levels reach
+// distinct banks.
+template <typename T, int ORDER, int NF, int R>
+struct VadvLevels {
   using F = Flux<ORDER>;
-  constexpr int e = F::e;
-  const int nif = nz + 1 - 2 * e;  // interfaces [e, nz+1-e)
-  T* g = smem;                  // g[i * nif + (m - e)]
-  T* cur = g + F::n * nif;      // cur[f * nz + k]: the stage's input
-  T* nxt = cur + nf * nz;
+  static constexpr int e = F::e, P = NF | 1;
+  // shared memory of one column, in values: phi of the NF fields on the nz
+  // levels, their fluxes at the nz + 1 interfaces
+  __host__ __device__ static constexpr int column_values(int nz) { return P * (2 * nz + 1); }
 
-  const T* w = p.in[0] + base;
-  for (int mi = lane; mi < nif; mi += 32) {
-    const int m = mi + e;
-    T gm[F::n];
-    flux_coefficients<T, ORDER>(T(0.5) * (w[m - 1] + w[m]), gm);
+  T x0[NF][R], x[NF][R], g[F::n][R];
+
+  // the initial state and the flux coefficients of the thread's interfaces
+  __device__ explicit VadvLevels(const VadvIn<T, NF, R>& in) {
 #pragma unroll
-    for (int i = 0; i < F::n; ++i) g[i * nif + mi] = gm[i];
+    for (int r = 0; r < R; ++r) {
+#pragma unroll
+      for (int f = 0; f < NF; ++f) x0[f][r] = x[f][r] = in.x0[f][r];
+      T gm[F::n];
+      flux_coefficients<T, ORDER>(T(0.5) * (in.wm[r] + in.wk[r]), gm);
+#pragma unroll
+      for (int i = 0; i < F::n; ++i) g[i][r] = gm[i];
+    }
   }
-  for (int f = 0; f < nf; ++f)
-    for (int k = lane; k < nz; k += 32) cur[f * nz + k] = p.in[1 + f][base + k];
-  __syncwarp();
 
-  for (int stage = 0; stage < 3; ++stage) {
-    const T c = T(stage == 0 ? dt / 3.0 : (stage == 1 ? dt / 2.0 : dt));
-    const T* s_st = cur;  // the stage's density, field 0
-    for (int f = 0; f < nf; ++f) {
-      const T* phi = cur + f * nz;
-      const bool q = f >= 3;
-      for (int k = lane; k < nz; k += 32) {
-        const T x0 = p.in[1 + f][base + k];
-        T tnd = T(0);
-        if (k >= e && k < nz - e) {
-          T flux[2];
+  // the three stages through the column's shared memory (column_values);
+  // store(f, k, value) takes each level's last stage
+  template <typename Store>
+  __device__ void stages(T* smem, int lane, int tpc, int nz, T c0, T c1, T c2, T dz, Store store) {
+    T* phi = smem;           // phi[k P + f]
+    T* flux = phi + nz * P;  // flux[m P + f]
+    const T rdz = T(1) / dz;  // PyTorch divides by the scalar dz on the card as a product with this
 #pragma unroll
-          for (int h = 0; h < 2; ++h) {
-            const int m = k + h;  // interface above (h = 0) and below (h = 1) level k
-            T acc = T(0);
+    for (int stage = 0; stage < 3; ++stage) {
+      const T c = stage == 0 ? c0 : (stage == 1 ? c1 : c2);
+      // (a) the advected quantities: phi, s q for the mass fractions
 #pragma unroll
-            for (int i = 0; i < F::n; ++i) {
-              const int j = m + F::off(i);
-              const T v = q ? s_st[j] * phi[j] : phi[j];
-              const T term = g[i * nif + (m - e)] * v;
-              acc = i == 0 ? term : acc + term;
-            }
-            flux[h] = acc;
-          }
-          tnd = (flux[1] - flux[0]) / dz;
-          if (q) tnd = tnd * (T(1) / s_st[k]);
+      for (int r = 0; r < R; ++r) {
+        const int k = lane + r * tpc;
+        if (k < nz) {
+#pragma unroll
+          for (int f = 0; f < NF; ++f) phi[k * P + f] = f >= 3 ? x[0][r] * x[f][r] : x[f][r];
         }
-        const T x = x0 + c * tnd;
-        if (stage < 2) {
-          nxt[f * nz + k] = x;
-        } else if (f == 5 && keep != nullptr) {
-          keep[k] = x;
-        } else {
-          p.out[f][base + k] = x;
+      }
+      __syncthreads();
+      // (b) the flux at each interface m = k in [e, nz - e], once
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        const int m = lane + r * tpc;
+        if (m >= e && m <= nz - e) {
+#pragma unroll
+          for (int f = 0; f < NF; ++f) {
+            const T* q = phi + m * P + f;
+            T acc = g[0][r] * q[F::off(0) * P];
+#pragma unroll
+            for (int i = 1; i < F::n; ++i) acc = acc + g[i][r] * q[F::off(i) * P];
+            flux[m * P + f] = acc;
+          }
+        }
+      }
+      __syncthreads();
+      // (c) the tendencies on levels [e, nz - e) and the stage's new values
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        const int k = lane + r * tpc;
+        if (k >= nz) continue;
+        const bool inner = k >= e && k < nz - e;
+        const T inv_s = NF > 3 && inner ? T(1) / x[0][r] : T(0);  // the stage's density
+#pragma unroll
+        for (int f = 0; f < NF; ++f) {
+          T tnd = T(0);
+          if (inner) {
+            const T* fl = flux + k * P + f;
+            tnd = (fl[P] - fl[0]) * rdz;
+            if (f >= 3) tnd = tnd * inv_s;
+          }
+          x[f][r] = x0[f][r] + c * tnd;
+          if (stage == 2) store(f, k, x[f][r]);
         }
       }
     }
-    __syncwarp();
-    T* t = cur;
-    cur = nxt;
-    nxt = t;
+  }
+};
+
+// a column's sedimentation inputs as a thread holds them: its levels' rho,
+// qr0 and the two interface heights around each, and the surface density
+template <typename T, int R>
+struct SedColumn {
+  T rho[R], q0[R], top[R], bottom[R], rho_s;
+};
+
+// the loads of column col (rho and qr (nz levels), h_if (nz + 1)); with
+// Q0 = false qr0 is left to the caller
+template <bool Q0, typename T, int R>
+__device__ __forceinline__ void load_sed(SedColumn<T, R>& in, const T* __restrict__ rho_g,
+                                         const T* __restrict__ hif_g, const T* __restrict__ qr_g,
+                                         int col, int ncol, int nz, int tpc, int lane) {
+  const bool live = col < ncol;
+  const int64_t base = int64_t(col) * nz;
+  const T* hif = hif_g + int64_t(col) * (nz + 1);
+  in.rho_s = live ? rho_g[base + nz - 1] : T(1);
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int k = lane + r * tpc;
+    const bool level = live && k < nz;
+    in.rho[r] = level ? rho_g[base + k] : T(1);
+    if (Q0) in.q0[r] = level ? qr_g[base + k] : T(0);
+    in.top[r] = level ? hif[k] : T(0);
+    in.bottom[r] = level ? hif[k + 1] : T(0);
   }
 }
 
-// shared memory of one warp's sed_rk3ws_column, in values of T
-__host__ __device__ constexpr size_t sed_smem_values(int nz) { return 7 * size_t(nz); }
+// shared memory of one column's sedimentation, in values: the main-level
+// heights and two buffers of rho qr vt
+__host__ __device__ constexpr int sed_column_values(int nz) { return 3 * nz; }
 
-// Sedimentation of one column (surface = last level): rho, the interface
-// heights hif (nz + 1) and the step's initial qr0 in; the stage-invariant
-// factors once (main-level heights, 1e-3 rho, 36.34 sqrt(rho_s / rho), the
-// upwind height coefficients ca, cb, cc with 1/rho folded in); then per stage
-// vt = wsq (mrho max(qr, 0))^0.1346 (at stage 1 only when vt_step),
-// rqv = rho qr vt, the divergence on levels [nb, nz), and
-// qr_i = qr_0 + c_i T(qr_{i-1}), c = (dt/3, dt/2, dt)
-// (fused_sedimentation_rk3ws_plain).  Writes qr_3 to qr_out and the stage-1
-// vt to vt_out.  qr0 may lie in device or shared memory, apart from smem.
-template <typename T, int ORDER>
-__device__ __forceinline__ void sed_rk3ws_column(const T* __restrict__ rho_g,
-                                                 const T* __restrict__ hif,
-                                                 const T* __restrict__ qr0,
-                                                 T* __restrict__ qr_out, T* __restrict__ vt_out,
-                                                 int nz, bool vt_step, double dt, T* smem,
-                                                 int lane) {
+// Sedimentation of one column (surface = last level), R levels a thread:
+// the stage-invariant factors once (main-level heights, 1e-3 rho, 36.34
+// sqrt(rho_s / rho), the upwind height coefficients ca, cb, cc with 1/rho
+// folded in); then per stage vt = wsq (mrho max(qr, 0))^0.1346 (at stage 1
+// only when vt_step), rqv = rho qr vt, the divergence on levels [nb, nz),
+// and qr_i = qr_0 + c_i T(qr_{i-1}), c = (dt/3, dt/2, dt)
+// (fused_sedimentation_rk3ws_plain; the power is powf/pow and the root sqrt,
+// as PyTorch's `** 0.5` is, each division an IEEE division).  A stage: (a)
+// each level's rho qr vt into shared memory (at stage 1 also the main-level
+// height); (b) one barrier of the block; (c) each level's divergence and new
+// qr in registers (at stage 1 first its coefficients, from the heights of
+// levels k-1 and k-2 in shared memory).  rho qr vt alternates between rq0
+// and rq1 (odd says which comes first; the parity after the three stages is
+// returned, for the block's next column), so one barrier a stage suffices: a
+// thread writes a buffer again only after every thread has passed the
+// barrier that follows its last reading.  qr_3 goes to qr_out[k] and the
+// stage-1 vt to vt_out[k] where live.
+template <typename T, int ORDER, int R>
+__device__ __forceinline__ bool sed_stages(const SedColumn<T, R>& in, T* hm, T* rq0, T* rq1,
+                                           bool odd, bool live, int lane, int tpc, int nz,
+                                           bool vt_step, T c0, T c1, T c2, T* __restrict__ qr_out,
+                                           T* __restrict__ vt_out) {
   constexpr int nb = ORDER;
-  T* rho = smem;            // rho[k]
-  T* ca = rho + nz;         // coefficients of level k (k >= nb)
-  T* cb = ca + nz;
-  T* cc = cb + nz;
-  T* vt = cc + nz;          // the fall velocity in use
-  T* rqv = vt + nz;         // rho qr vt of the stage
-  T* q = rqv + nz;          // qr of the stage
-  const T rho_s = rho_g[nz - 1];
-
-  for (int k = lane; k < nz; k += 32) {
-    rho[k] = rho_g[k];
-    q[k] = qr0[k];
+  T q[R], h[R], vt[R], ca[R], cb[R], cc[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    h[r] = T(0.5) * (in.top[r] + in.bottom[r]);
+    q[r] = in.q0[r];
+    vt[r] = ca[r] = cb[r] = cc[r] = T(0);
   }
-  __syncwarp();
-  for (int k = lane; k < nz; k += 32) {
-    if (k < nb) continue;
-    const T inv_rho = T(1) / rho[k];
-    auto h = [&](int l) { return T(0.5) * (hif[l] + hif[l + 1]); };
-    if (ORDER == 1) {
-      ca[k] = inv_rho / (h(k - 1) - h(k));
-    } else {
-      const T h2 = h(k), h1 = h(k - 1), h0 = h(k - 2);
-      const T d1 = h1 - h2, d2 = h0 - h2, d3 = h0 - h1;
-      ca[k] = (T(2) * h2 - h1 - h0) / (d1 * d2) * inv_rho;
-      cb[k] = d2 / (d1 * d3) * inv_rho;
-      cc[k] = (h2 - h1) / (d2 * d3) * inv_rho;
-    }
-  }
-
+#pragma unroll
   for (int stage = 0; stage < 3; ++stage) {
-    const T c = T(stage == 0 ? dt / 3.0 : (stage == 1 ? dt / 2.0 : dt));
-    for (int k = lane; k < nz; k += 32) {
+    const T c = stage == 0 ? c0 : (stage == 1 ? c1 : c2);
+    T* rqv = odd ? rq1 : rq0;
+    odd = !odd;
+    // (a) the fall velocity and rho qr vt of each level
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const int k = lane + r * tpc;
+      if (k >= nz) continue;
       if (stage == 0 || !vt_step) {
-        const T qk = q[k];
-        const T wsq = T(36.34) * tsqrt(rho_s / rho[k]);
-        vt[k] = wsq * tpow(T(1.0e-3) * rho[k] * (qk > T(0) ? qk : T(0)), T(0.1346));
-        if (stage == 0) vt_out[k] = vt[k];
+        const T qk = q[r];
+        const T wsq = T(36.34) * tsqrt(in.rho_s / in.rho[r]);
+        vt[r] = wsq * tpow(T(1.0e-3) * in.rho[r] * (qk > T(0) ? qk : T(0)), T(0.1346));
+        if (stage == 0 && live) vt_out[k] = vt[r];
       }
-      rqv[k] = rho[k] * q[k] * vt[k];
+      rqv[k] = in.rho[r] * q[r] * vt[r];
+      if (stage == 0) hm[k] = h[r];
     }
-    __syncwarp();
-    for (int k = lane; k < nz; k += 32) {
+    // (b) one barrier: a buffer is written again two stages later, after
+    // the barrier that follows its last reading
+    __syncthreads();
+    // (c) the coefficients (once), the divergence and the stage's qr
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const int k = lane + r * tpc;
+      if (k >= nz) continue;
+      if (stage == 0 && k >= nb) {
+        const T inv_rho = T(1) / in.rho[r];
+        if (ORDER == 1) {
+          ca[r] = inv_rho / (hm[k - 1] - h[r]);
+        } else {
+          const T h2 = h[r], h1 = hm[k - 1], h0 = hm[k - 2];
+          const T d1 = h1 - h2, d2 = h0 - h2, d3 = h0 - h1;
+          ca[r] = (T(2) * h2 - h1 - h0) / (d1 * d2) * inv_rho;
+          cb[r] = d2 / (d1 * d3) * inv_rho;
+          cc[r] = (h2 - h1) / (d2 * d3) * inv_rho;
+        }
+      }
       T tnd = T(0);
       if (k >= nb) {
-        tnd = ORDER == 1 ? ca[k] * (rqv[k - 1] - rqv[k])
-                         : ca[k] * rqv[k] + cb[k] * rqv[k - 1] + cc[k] * rqv[k - 2];
+        const T rk = in.rho[r] * q[r] * vt[r];  // rqv[k], this thread's own
+        tnd = ORDER == 1 ? ca[r] * (rqv[k - 1] - rk)
+                         : ca[r] * rk + cb[r] * rqv[k - 1] + cc[r] * rqv[k - 2];
       }
-      const T x = qr0[k] + c * tnd;
+      const T x = in.q0[r] + c * tnd;
       if (stage == 2) {
-        qr_out[k] = x;
+        if (live) qr_out[k] = x;
       } else {
-        q[k] = x;  // each lane rewrites only its own levels, read above
+        q[r] = x;
       }
     }
-    __syncwarp();
   }
+  return odd;
 }
 
-// warps a block of a one-warp-per-column kernel: as many as 48 KB of shared
-// memory holds, between 1 and 4
-inline int warps_per_block(size_t bytes_per_warp) {
-  const int wpb = int((48 * 1024) / bytes_per_warp);
-  return wpb < 1 ? 1 : (wpb > 4 ? 4 : wpb);
+// R levels a thread, the fewest that keep a column within MaxTpc threads
+// (within Threads at MaxR); tpc the levels a thread's R leaves, rounded up to
+// whole warps; false where nz needs more than Threads threads at MaxR
+template <int Threads, int MaxTpc, int MaxR>
+inline bool column_split(int nz, int& r, int& tpc) {
+  r = 1;
+  while (r < MaxR && (nz + r - 1) / r > MaxTpc) r *= 2;
+  tpc = ((nz + r - 1) / r + 31) / 32 * 32;
+  return tpc <= Threads;
 }
 
 }  // namespace tt

@@ -1,15 +1,17 @@
 // Shared device helpers of the port's kernels: the relaxed-BC select, the
 // positivity clip, the third- and fifth-order upwind fluxes and their
-// divergences, the Shapiro filter, the Smagorinsky strain and tendency, the
+// divergences, the Shapiro filter (smoothing.cu, smooth_smag.cu), the
 // asynchronous staging of a column tile's stencil cross in shared memory,
 // and the tiling of the flux-form advection kernels (si_stage.cu's second
 // launch, advection.cu's advection of the fields and momentum epilogue: a
-// tile's faces, each face flux once a block; column.cuh holds the column
-// algebra of vertical advection and sedimentation).  Every formula keeps
-// the operation order of the plain PyTorch
-// versions in tasmania_tpu_torch/ops/, so kernel and plain version differ
-// only by FMA contraction in the stencils; the column scans keep the
-// roundings of a level-by-level sum (mul_rn/add_rn).
+// tile's faces, each face flux once a block).  smag.cuh holds the
+// Smagorinsky tile of smagorinsky.cu and smooth_smag.cu, column.cuh the
+// column algebra of vertical advection and sedimentation.  Every formula
+// keeps the operation order of the plain PyTorch versions in
+// tasmania_tpu_torch/ops/, so kernel and plain version differ only by FMA
+// contraction in the stencils; the column scans keep the roundings of a
+// level-by-level sum (mul_rn/add_rn).  A merged kernel calls the same
+// helpers as the kernels it merges, so it gives their bits.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -71,14 +73,6 @@ struct Plain {
   __device__ __forceinline__ T operator()(int64_t c) const { return p[c]; }
 };
 
-// the water density clip(s * q), formed on the fly from s and q
-template <typename T>
-struct ClipProduct {
-  const T* s;
-  const T* q;
-  __device__ __forceinline__ T operator()(int64_t c) const { return clip_pos(s[c] * q[c]); }
-};
-
 // flux divergence of cell (i, j, k): x faces i and i+1 (u is (nx+1, ny, nz)),
 // y faces j and j+1 (v is (nx, ny+1, nz)); needs 3 <= i, j and i, j < n - 3
 template <typename T, typename F>
@@ -134,77 +128,63 @@ __device__ __forceinline__ T div_upwind(const T* __restrict__ u, const T* __rest
   }
 }
 
-// order-N 2-D Shapiro filter of the cell at index c of phi with the level's
-// coefficient g: (1 - cw g) phi + sum_o w_o g phi(x-shifts), then the
-// y-shifts (sx, sy: the x and y strides), in the order of
-// fused_smoothing_plain (ops/smoothing_step.py: CW_2D, WEIGHTS); phi is a
-// field in device memory (I = int64_t) or a tile in shared memory (I = int)
-template <typename T, int N, typename I>
-__device__ __forceinline__ T shapiro(const T* __restrict__ phi, I c, I sx, I sy, T g) {
+// order-N 2-D Shapiro filter with the level's coefficient g from its 4N + 1
+// taps, tap(0) the cell, tap(1 + o) and tap(1 + 2N + o) its x- and
+// y-shifts by Shapiro<N>::off(o): (1 - cw g) phi + sum_o w_o g phi(x-shifts),
+// then the y-shifts, in the order of fused_smoothing_plain
+// (ops/smoothing_step.py: CW_2D, WEIGHTS)
+template <int N>
+struct Shapiro {
   static_assert(N >= 1 && N <= 3, "Shapiro order 1-3");
+  static constexpr int taps = 4 * N + 1;
+  __device__ static constexpr int off(int o) { return o < N ? o - N : o - N + 1; }
+};
+template <typename T, int N, typename F>
+__device__ __forceinline__ T shapiro_taps(F tap, T g) {
   constexpr T cw = N == 1 ? T(1.0) : (N == 2 ? T(0.75) : T(0.625));
   constexpr int noff = 2 * N;
-  const int offs1[2] = {-1, 1};
-  const int offs2[4] = {-2, -1, 1, 2};
-  const int offs3[6] = {-3, -2, -1, 1, 2, 3};
   const T w1[2] = {T(0.25), T(0.25)};
   const T w2[4] = {T(-0.0625), T(0.25), T(0.25), T(-0.0625)};
   const T w3[6] = {T(0.015625), T(-0.09375), T(0.234375), T(0.234375), T(-0.09375), T(0.015625)};
-  const int* offs = N == 1 ? offs1 : (N == 2 ? offs2 : offs3);
   const T* wts = N == 1 ? w1 : (N == 2 ? w2 : w3);
-  T acc = (T(1) - cw * g) * phi[c];
+  T acc = (T(1) - cw * g) * tap(0);
 #pragma unroll
-  for (int o = 0; o < noff; ++o) acc = acc + wts[o] * g * phi[c + offs[o] * sx];
+  for (int o = 0; o < noff; ++o) acc = acc + wts[o] * g * tap(1 + o);
 #pragma unroll
-  for (int o = 0; o < noff; ++o) acc = acc + wts[o] * g * phi[c + offs[o] * sy];
+  for (int o = 0; o < noff; ++o) acc = acc + wts[o] * g * tap(1 + noff + o);
   return acc;
 }
 
-template <typename T>
-struct Strain {
-  T s00, s01, s11, nu;
-};
-
-// Smagorinsky strain (centred differences; dx2 = 2 dx, dy2 = 2 dy) and eddy
-// viscosity nuc |S| at cell c, from the velocities u, v of its four
-// neighbours (sx, sy: the x and y strides), in the order of
-// smagorinsky_tendency (ops/smagorinsky_step.py)
-template <typename T, typename U, typename V>
-__device__ __forceinline__ Strain<T> smag_strain(U u, V v, int64_t c, int64_t sx, int64_t sy,
-                                                 T nuc, T dx2, T dy2) {
-  Strain<T> r;
-  r.s00 = (u(c + sx) - u(c - sx)) / dx2;
-  r.s01 = T(0.5) * ((u(c + sy) - u(c - sy)) / dy2 + (v(c + sx) - v(c - sx)) / dx2);
-  r.s11 = (v(c + sy) - v(c - sy)) / dy2;
-  r.nu = nuc * sqrt(T(2) * (r.s00 * r.s00 + T(2) * (r.s01 * r.s01) + r.s11 * r.s11));
-  return r;
-}
-
-// the Smagorinsky tendency pair at cell c, 2(dx(nu s00) + dy(nu s01)) and
-// 2(dx(nu s01) + dy(nu s11)), from the strains of its four neighbours (the
-// 13-point velocity diamond of radius 2 around c)
-template <typename T, typename U, typename V>
-__device__ __forceinline__ void smag_tendency(U u, V v, int64_t c, int64_t sx, int64_t sy, T nuc,
-                                              T dx2, T dy2, T& u_tnd, T& v_tnd) {
-  const Strain<T> xp = smag_strain(u, v, c + sx, sx, sy, nuc, dx2, dy2);
-  const Strain<T> xm = smag_strain(u, v, c - sx, sx, sy, nuc, dx2, dy2);
-  const Strain<T> yp = smag_strain(u, v, c + sy, sx, sy, nuc, dx2, dy2);
-  const Strain<T> ym = smag_strain(u, v, c - sy, sx, sy, nuc, dx2, dy2);
-  u_tnd = T(2) * ((xp.nu * xp.s00 - xm.nu * xm.s00) / dx2 + (yp.nu * yp.s01 - ym.nu * ym.s01) / dy2);
-  v_tnd = T(2) * ((xp.nu * xp.s01 - xm.nu * xm.s01) / dx2 + (yp.nu * yp.s11 - ym.nu * ym.s11) / dy2);
+// the filter of the cell at index c of phi (sx, sy: the x and y strides); phi
+// is a field in device memory (I = int64_t) or a tile in shared memory (I =
+// int)
+template <typename T, int N, typename I>
+__device__ __forceinline__ T shapiro(const T* __restrict__ phi, I c, I sx, I sy, T g) {
+  return shapiro_taps<T, N>(
+      [&](int t) {
+        if (t == 0) return phi[c];
+        return t <= 2 * N ? phi[c + Shapiro<N>::off(t - 1) * sx] : phi[c + Shapiro<N>::off(t - 1 - 2 * N) * sy];
+      },
+      g);
 }
 
 // Bytes (4, 8 or 16) copied from device to shared memory with cp.async (no
-// register holds them; both addresses aligned to Bytes); cp_async_commit
+// register holds them; both addresses aligned to Bytes), cached in L1 and
+// L2 or, with L2Only and 16 bytes, in L2 alone (cp.async.cg: a block that
+// stages whole crosses leaves L1 to its other loads); cp_async_commit
 // closes the thread's group of copies, cp_async_wait<N> waits until at most
 // N of its groups are in flight, and a __syncthreads() must follow before
 // other threads read the copies
-template <int Bytes>
+template <int Bytes, bool L2Only = false>
 __device__ __forceinline__ void cp_async(void* smem, const void* gmem) {
   static_assert(Bytes == 4 || Bytes == 8 || Bytes == 16, "cp.async of 4, 8 or 16 bytes");
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(s), "l"(gmem), "n"(Bytes)
-               : "memory");
+  if constexpr (L2Only && Bytes == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], %2;\n" ::"r"(s), "l"(gmem), "n"(Bytes)
+                 : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(s), "l"(gmem), "n"(Bytes)
+                 : "memory");
 }
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
 template <int N>
@@ -226,7 +206,8 @@ __device__ __forceinline__ void strided(F fn) {
 // A column tile's stencil cross in shared memory: the TX x TY columns at
 // (x0, y0) widened by H in x along the tile's rows and by H in y along its
 // columns (the corners, which no x- or y-stencil reads, are left out), levels
-// k0 .. k0 + KL.  It is laid out as the rectangle (TX + 2H) x (TY + 2H) x KL,
+// k0 .. k0 + KL; the tile may reach past the grid on any side (a tile
+// widened by a ring).  It is laid out as the rectangle (TX + 2H) x (TY + 2H) x KL,
 // the level fastest; element (rx, ry, kk) holds cell (x0 - H + rx, y0 - H +
 // ry, k0 + kk).  fn(m, g) is called for each run of V levels of the cross
 // inside the (nx, ny, nz) grid, with m its first element's index in the
@@ -243,14 +224,16 @@ __device__ __forceinline__ void for_cross(int x0, int y0, int k0, int nx, int ny
     const int kk = e % KV * V, col = e / KV;
     const int rx = col / TY, ry = H + col % TY;
     const int i = x0 - H + rx, j = y0 - H + ry, k = k0 + kk;
-    if (i >= 0 && i < nx && j < ny && k < nz) fn((rx * RY + ry) * KL + kk, i * sx + j * nz + k);
+    if (unsigned(i) < unsigned(nx) && unsigned(j) < unsigned(ny) && k < nz)
+      fn((rx * RY + ry) * KL + kk, i * sx + j * nz + k);
   });
   strided<TX * 2 * H * KV, Threads>([&](int e) {  // the tile's columns, widened in y
     const int kk = e % KV * V, col = e / KV;
     const int rx = H + col % TX, q = col / TX;
     const int ry = q < H ? q : TY + q;
     const int i = x0 - H + rx, j = y0 - H + ry, k = k0 + kk;
-    if (i < nx && j >= 0 && j < ny && k < nz) fn((rx * RY + ry) * KL + kk, i * sx + j * nz + k);
+    if (unsigned(i) < unsigned(nx) && unsigned(j) < unsigned(ny) && k < nz)
+      fn((rx * RY + ry) * KL + kk, i * sx + j * nz + k);
   });
 }
 

@@ -8,9 +8,8 @@
 // only when vt_step), rqv = rho qr vt, the divergence on levels [nb, nz), and
 // qr_i = qr_0 + c_i T(qr_{i-1}), c = (dt/3, dt/2, dt).  Outputs: qr_3 and the
 // stage-1 vt.  Operation order as in fused_sedimentation_rk3ws_plain
-// (ops/sedimentation_step.py) and tt::sed_rk3ws_column (column.cuh, the
-// column of the merged kernel vadv_sed.cu); the power is powf/pow and the
-// root sqrt, as PyTorch's `** 0.5` is, and each division an IEEE division.
+// (ops/sedimentation_step.py); the power is powf/pow and the root sqrt, as
+// PyTorch's `** 0.5` is, and each division an IEEE division.
 //
 // Bound on the H100: bytes.  At the flagship (161x161x120 float32) it reads
 // rho, qr and the interface heights and writes qr and vt: 62 MB, 19 us at
@@ -23,19 +22,14 @@
 // resident slot of the card step their columns in turn, the next column's
 // loads in flight while one is stepped.  Each thread issues all its loads at
 // once (rho, qr0, the two interface heights of each of its levels, and the
-// surface density) and keeps its levels' state in registers for the three
-// stages: rho, qr0, the stage's qr, vt, the main-level height and the
-// coefficients.  A stage: (a) each level's rho qr vt into shared memory, vt
-// formed at stage 1 only under vt_step and at every stage otherwise (at
-// stage 1 also the main-level height); (b) one barrier of the block; (c)
-// each level's divergence and new qr in registers (at stage 1 first its
-// coefficients, from the heights of levels k-1 and k-2 in shared memory),
-// written out at the last stage.  rho qr vt alternates between two buffers,
-// so one barrier a stage suffices: a thread writes a buffer again only after
-// every thread has passed the barrier that follows its last reading.
-// Nothing but the inputs and the outputs touches device memory.
+// surface density: tt::load_sed) and keeps its levels' state in registers
+// for the three stages of tt::sed_stages (column.cuh, which vadv_sed.cu runs
+// after its advection): the coefficients from the heights of levels k-1 and
+// k-2 in shared memory, rho qr vt through two alternating buffers, one
+// barrier of the block a stage.  Nothing but the inputs and the outputs
+// touches device memory.
 
-#include "common.cuh"
+#include "column.cuh"
 
 namespace {
 
@@ -52,54 +46,23 @@ constexpr int kWaves = 2;
 // one is stepped (their registers taken twice)
 constexpr int kPrefetchR = 2;
 
-// shared memory of one column, in values: the main-level heights and two
-// buffers of rho qr vt
-__host__ __device__ constexpr int column_values(int nz) { return 3 * nz; }
-
-// a column's inputs as a thread holds them: its levels' rho, qr0 and the
-// two interface heights around each, and the surface density
-template <typename T, int R>
-struct ColumnIn {
-  T rho[R], q0[R], top[R], bottom[R], rho_s;
-};
-
-template <typename T, int R>
-__device__ __forceinline__ void load_column(ColumnIn<T, R>& in, const T* __restrict__ rho_g,
-                                            const T* __restrict__ hif_g, const T* __restrict__ qr_g,
-                                            int col, int ncol, int nz, int tpc, int lane) {
-  const bool live = col < ncol;
-  const int64_t base = int64_t(col) * nz;
-  const T* hif = hif_g + int64_t(col) * (nz + 1);
-  in.rho_s = live ? rho_g[base + nz - 1] : T(1);
-#pragma unroll
-  for (int r = 0; r < R; ++r) {
-    const int k = lane + r * tpc;
-    const bool level = live && k < nz;
-    in.rho[r] = level ? rho_g[base + k] : T(1);
-    in.q0[r] = level ? qr_g[base + k] : T(0);
-    in.top[r] = level ? hif[k] : T(0);
-    in.bottom[r] = level ? hif[k + 1] : T(0);
-  }
-}
-
 template <typename T, int ORDER, int R>
 __global__ void __launch_bounds__(kThreads)
     sedimentation_kernel(const T* __restrict__ rho_g, const T* __restrict__ hif_g,
                          const T* __restrict__ qr_g, T* __restrict__ qr_out,
                          T* __restrict__ vt_out, int ncol, int nz, int tpc, bool vt_step, T c0,
                          T c1, T c2) {
-  constexpr int nb = ORDER;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int cpb = blockDim.x / tpc;
   const int lc = threadIdx.x / tpc, lane = threadIdx.x % tpc;
-  T* hm = reinterpret_cast<T*>(smem_raw) + lc * column_values(nz);  // hm[k]
+  T* hm = reinterpret_cast<T*>(smem_raw) + lc * tt::sed_column_values(nz);  // hm[k]
   T* const rq0 = hm + nz;  // rho qr vt of the even stages (counted over the
   T* const rq1 = rq0 + nz;  // block's columns), and of the odd ones
   const int stride = gridDim.x * cpb;
 
   constexpr bool prefetch = R <= kPrefetchR;
-  ColumnIn<T, R> in, next;
-  load_column(in, rho_g, hif_g, qr_g, blockIdx.x * cpb + lc, ncol, nz, tpc, lane);
+  tt::SedColumn<T, R> in, next;
+  tt::load_sed<true>(in, rho_g, hif_g, qr_g, blockIdx.x * cpb + lc, ncol, nz, tpc, lane);
   bool odd = false;
   // the block's columns in turn (the next column's loads in flight while
   // this one is stepped, up to kPrefetchR levels a thread); every thread of
@@ -107,74 +70,14 @@ __global__ void __launch_bounds__(kThreads)
   // the barriers
   for (int first = blockIdx.x * cpb; first < ncol; first += stride) {
     const int col = first + lc;
-    const bool live = col < ncol;
     const int64_t base = int64_t(col) * nz;
-    if (prefetch) load_column(next, rho_g, hif_g, qr_g, col + stride, ncol, nz, tpc, lane);
-
-    T q[R], h[R], vt[R], ca[R], cb[R], cc[R];
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      h[r] = T(0.5) * (in.top[r] + in.bottom[r]);
-      q[r] = in.q0[r];
-      vt[r] = ca[r] = cb[r] = cc[r] = T(0);
-    }
-#pragma unroll
-    for (int stage = 0; stage < 3; ++stage) {
-      const T c = stage == 0 ? c0 : (stage == 1 ? c1 : c2);
-      T* rqv = odd ? rq1 : rq0;
-      odd = !odd;
-      // (a) the fall velocity and rho qr vt of each level
-#pragma unroll
-      for (int r = 0; r < R; ++r) {
-        const int k = lane + r * tpc;
-        if (k >= nz) continue;
-        if (stage == 0 || !vt_step) {
-          const T qk = q[r];
-          const T wsq = T(36.34) * tt::tsqrt(in.rho_s / in.rho[r]);
-          vt[r] = wsq * tt::tpow(T(1.0e-3) * in.rho[r] * (qk > T(0) ? qk : T(0)), T(0.1346));
-          if (stage == 0 && live) vt_out[base + k] = vt[r];
-        }
-        rqv[k] = in.rho[r] * q[r] * vt[r];
-        if (stage == 0) hm[k] = h[r];
-      }
-      // (b) one barrier: a buffer is written again two stages later, after
-      // the barrier that follows its last reading
-      __syncthreads();
-      // (c) the coefficients (once), the divergence and the stage's qr
-#pragma unroll
-      for (int r = 0; r < R; ++r) {
-        const int k = lane + r * tpc;
-        if (k >= nz) continue;
-        if (stage == 0 && k >= nb) {
-          const T inv_rho = T(1) / in.rho[r];
-          if (ORDER == 1) {
-            ca[r] = inv_rho / (hm[k - 1] - h[r]);
-          } else {
-            const T h2 = h[r], h1 = hm[k - 1], h0 = hm[k - 2];
-            const T d1 = h1 - h2, d2 = h0 - h2, d3 = h0 - h1;
-            ca[r] = (T(2) * h2 - h1 - h0) / (d1 * d2) * inv_rho;
-            cb[r] = d2 / (d1 * d3) * inv_rho;
-            cc[r] = (h2 - h1) / (d2 * d3) * inv_rho;
-          }
-        }
-        T tnd = T(0);
-        if (k >= nb) {
-          const T rk = in.rho[r] * q[r] * vt[r];  // rqv[k], this thread's own
-          tnd = ORDER == 1 ? ca[r] * (rqv[k - 1] - rk)
-                           : ca[r] * rk + cb[r] * rqv[k - 1] + cc[r] * rqv[k - 2];
-        }
-        const T x = in.q0[r] + c * tnd;
-        if (stage == 2) {
-          if (live) qr_out[base + k] = x;
-        } else {
-          q[r] = x;
-        }
-      }
-    }
+    if (prefetch) tt::load_sed<true>(next, rho_g, hif_g, qr_g, col + stride, ncol, nz, tpc, lane);
+    odd = tt::sed_stages<T, ORDER, R>(in, hm, rq0, rq1, odd, col < ncol, lane, tpc, nz, vt_step, c0,
+                                      c1, c2, qr_out + base, vt_out + base);
     if (prefetch) {
       in = next;
     } else {
-      load_column(in, rho_g, hif_g, qr_g, col + stride, ncol, nz, tpc, lane);
+      tt::load_sed<true>(in, rho_g, hif_g, qr_g, col + stride, ncol, nz, tpc, lane);
     }
   }
 }
@@ -185,7 +88,7 @@ template <typename T, int ORDER, int R>
 int launch_r(const void* const* in, void* const* out, int ncol, int nz, int tpc, bool vt_step,
              double dt, cudaStream_t stream) {
   const int cpb = kThreads / tpc;  // columns a block
-  const size_t smem = sizeof(T) * size_t(cpb) * column_values(nz);
+  const size_t smem = sizeof(T) * size_t(cpb) * tt::sed_column_values(nz);
   auto kernel = sedimentation_kernel<T, ORDER, R>;
   if (smem > 48 * 1024) {
     const cudaError_t err =
@@ -207,16 +110,12 @@ int launch_r(const void* const* in, void* const* out, int ncol, int nz, int tpc,
   return int(cudaGetLastError());
 }
 
-// R levels a thread, the fewest that keep a column within kMaxTpc threads
-// (within kThreads at kMaxR); tpc the levels a thread's R leaves, rounded up
-// to whole warps
+// R levels a thread and tpc threads a column (tt::column_split)
 template <typename T, int ORDER>
 int launch_order(const void* const* in, void* const* out, int ncol, int nz, bool vt_step,
                  double dt, cudaStream_t stream) {
-  int r = 1;
-  while (r < kMaxR && (nz + r - 1) / r > kMaxTpc) r *= 2;
-  const int tpc = ((nz + r - 1) / r + 31) / 32 * 32;
-  if (tpc > kThreads) return int(cudaErrorInvalidValue);
+  int r = 1, tpc = 32;
+  if (!tt::column_split<kThreads, kMaxTpc, kMaxR>(nz, r, tpc)) return int(cudaErrorInvalidValue);
   switch (r) {
     case 1: return launch_r<T, ORDER, 1>(in, out, ncol, nz, tpc, vt_step, dt, stream);
     case 2: return launch_r<T, ORDER, 2>(in, out, ncol, nz, tpc, vt_step, dt, stream);

@@ -9,36 +9,51 @@
 // never reach device memory.  The algebra is that of fused_smoothing (the
 // interior [nb, nx-nb) x [nb, ny-nb) filtered, the frame passed through)
 // followed by fused_smagorinsky_rk2 (each stage's frame keeps the base, the
-// smoothed momenta, which there are the raw ones): tt::shapiro (common.cuh)
-// as smoothing.cu uses it, tt::smag_strain and tt::smag_tendency
-// (common.cuh), in the order of fused_smoothing_plain and
-// smagorinsky_stage_plain.  Every output cell is written here, frame
-// included: no paste follows.
+// smoothed momenta, which there are the raw ones), in the order of
+// fused_smoothing_plain and smagorinsky_stage_plain: the filter is
+// tt::shapiro_taps (common.cuh), as smoothing.cu's, and the Smagorinsky
+// phases are tt::SmagBlock's (smag.cuh), as smagorinsky.cu's, so the kernel
+// gives the bits of those two kernels run in turn.  Every output cell is
+// written here, frame included: no paste follows.
 //
 // Bound on the H100: bytes.  At the flagship (161x161x120 float32, six
 // fields) it reads six fields and writes six, 149 MB, 45 us at 3.35 TB/s;
 // about 60 flops a field and cell of smoothing and 200 of the two
-// Smagorinsky stages are far below the float32 rate.  Design: one block per
-// 12 x 12 cell tile in (x, y) and 8 levels, 256 threads with the level
-// fastest, so a warp's loads are 32-byte runs along the contiguous z axis.
-// Through shared memory: the smoothed (s, su, sv) on the tile widened by 4
-// (the stage-1 ring of 2 and its tendency's reach of 2), held as s and the
-// velocities su/s, sv/s; the smoothed momenta (the stages' base) and the
-// stage-1 velocities on the tile widened by 2; then the stage-2 update on
-// the tile.  The smoothing reads its 2n+1-point cross from device memory
-// (the neighbours hit L1/L2, as in smoothing.cu).  71 KB of shared memory a
-// block in float32, 142 KB in float64.
+// Smagorinsky stages are far below the float32 rate.  Design:
+// smagorinsky.cu's tile (columns by two 16-byte level runs, 512 threads, a
+// thread a column's run at a time), 13 x 15 columns, with the smoothing in
+// front of its phases.  It copies with cp.async, cached in L2 alone, each
+// moist field's cross of halo n around the tile (group 0) and the raw s,
+// su, sv on the cross that the filter of the tile + 4 reads (tt::for_cross
+// with the widened tile, halo n; group 1).  While the raw copies land it
+// smooths the moist fields on the tile and writes them out; then it smooths
+// s, su and sv on the tile + 4 into the Smagorinsky window, a field at a
+// time, in the moist crosses' place, writes the tile's s, and runs
+// tt::SmagBlock's phases (the velocities, the products on the tile + 3, the
+// stage-1 velocities on the tile + 2, the products on the tile + 1, the
+// output on the tile), the base momenta and the products in the raw
+// crosses' place.  111 KB of shared memory a block at order 2 and 64
+// registers a thread: two blocks an SM.  Each input element leaves device
+// memory once for its own block (its halo copies come from L2), and nothing
+// between the two processes reaches it.  The time goes to the tile's ring
+// of 4, on which s, su and sv are filtered and the first stage computed
+// (2.5 times the tile's columns), to shared-memory traffic and to the
+// rounds of each phase; on the H100 12 x 12, 16 x 12, 14 x 14 and 16 x 16
+// tiles, one block an SM, one run a block, 32-byte runs, copies cached in
+// L1, the base momenta in a place of their own (so that the filter could
+// put the velocities), the moist fields in one round and the filter two
+// columns a thread were all slower or spilled.
 
-#include "common.cuh"
+#include "smag.cuh"
 
 namespace {
 
-constexpr int kTile = 12;                   // a block's output cells in x and in y
-constexpr int kLevels = 8;                  // a block's levels, the fastest thread index
-constexpr int kThreads = 256;
-constexpr int kCells = kThreads / kLevels;  // cells a block's threads cover at once
-constexpr int kW4 = kTile + 8;              // the tile widened by 4: smoothed fields
-constexpr int kW2 = kTile + 4;              // the tile widened by 2: stage-1 values
+// a block's tile: 13 x 15 columns by two level runs, its phases' rounds in
+// rolled loops; two blocks an SM (64 registers a thread) in float32 at
+// orders 1 and 2 with 16-byte copies, one otherwise (order 3, float64, and
+// columns that are not whole 16-byte runs would spill at 64 registers)
+template <typename T, int N, int Run>
+using TileOf = tt::SmagTile<13, 15, 2, N == 3 || sizeof(T) == 8 || Run == 1 ? 1 : 2, true>;
 constexpr int kMaxFields = 8;
 
 template <typename T>
@@ -47,146 +62,193 @@ struct Fields {
   T* out[kMaxFields];       // s smoothed, su, sv stepped[, q smoothed...]
 };
 
-template <typename T>
-constexpr size_t smem_bytes() {
-  return sizeof(T) * size_t(kLevels) * (3 * kW4 * kW4 + 4 * kW2 * kW2);
+// a cross of halo N around a tile of TX x TY columns, laid out as
+// tt::for_cross's rectangle: RX x RY columns of Par Levels
+template <int TX, int TY, int N, int Par>
+struct Cross {
+  static constexpr int RX = TX + 2 * N, RY = TY + 2 * N, levels = RX * RY * Par;
+  // the element of column (x, y) of the tile and level run r
+  __device__ static int at(int x, int y, int r) { return ((x + N) * RY + y + N) * Par + r; }
+};
+
+// shared memory in Levels: first the nq moist fields' crosses, until they
+// are smoothed, then tt::SmagBlock's s, u, v in their place; then the raw
+// crosses of s, su, sv (the filter's cross around the tile + 4), whose place
+// the base momenta and the products take once the filter has read them
+template <typename T, int N, int Run>
+struct Layout {
+  using Tile = TileOf<T, N, Run>;
+  using B = tt::SmagBlock<Tile, T, 2, Run>;
+  using Raw = Cross<Tile::TX + 8, Tile::TY + 8, N, Tile::Par>;
+  using Moist = Cross<Tile::TX, Tile::TY, N, Tile::Par>;
+  static constexpr int kShared =
+      3 * Raw::levels > B::kBaseProducts ? 3 * Raw::levels : B::kBaseProducts;
+  // the first region (the raw crosses' offset), and all of it
+  __host__ __device__ static constexpr int first(int nq) {
+    return nq * Moist::levels > B::kSUV ? nq * Moist::levels : B::kSUV;
+  }
+  __host__ __device__ static constexpr int levels(int nq) { return first(nq) + kShared; }
+};
+
+// the order-N filter of element c of a staged cross R (strides sx, sy in
+// Levels), each level with its coefficient in g
+template <int N, class C>
+__device__ __forceinline__ C filtered(const C* R, int c, int sx, int sy, const C& g) {
+  using Sh = tt::Shapiro<N>;
+  C t[Sh::taps];
+  t[0] = R[c];
+#pragma unroll
+  for (int o = 0; o < 2 * N; ++o) {
+    t[1 + o] = R[c + Sh::off(o) * sx];
+    t[1 + 2 * N + o] = R[c + Sh::off(o) * sy];
+  }
+  C out;
+#pragma unroll
+  for (int l = 0; l < C::n; ++l)
+    out.v[l] = tt::shapiro_taps<typename C::value_type, N>([&](int i) { return t[i].v[l]; }, g.v[l]);
+  return out;
 }
 
-template <typename T, int N>
-__global__ void __launch_bounds__(kThreads)
-    smooth_smag_kernel(Fields<T> p, const T* __restrict__ gamma, int nf, int nx, int ny, int nz,
+// the coefficients of field f at the levels of run r (0 past the last level)
+template <class B, typename T>
+__device__ __forceinline__ typename B::C coefficients(const T* __restrict__ gamma, int f, int r, int nz) {
+  typename B::C g;
+#pragma unroll
+  for (int l = 0; l < B::KL; ++l) {
+    const int k = B::k0(r) + l;
+    g.v[l] = k < nz ? gamma[f * nz + k] : T(0);
+  }
+  return g;
+}
+
+template <typename T, int N, int Run>
+__global__ void __launch_bounds__(TileOf<T, N, Run>::Threads, TileOf<T, N, Run>::Blocks)
+    smooth_smag_kernel(Fields<T> p, const T* __restrict__ gamma, int nq, int nx, int ny, int nz,
                        int nb, T c1, T c2, T nuc, T dx2, T dy2) {
+  using L = Layout<T, N, Run>;
+  using Tile = typename L::Tile;
+  using B = typename L::B;
+  using C = typename B::C;
+  using Raw = typename L::Raw;
+  using Moist = typename L::Moist;
+  constexpr int Par = Tile::Par, KL = B::KL;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  constexpr int n4 = kW4 * kW4 * kLevels, n2 = kW2 * kW2 * kLevels;
-  T* S = reinterpret_cast<T*>(smem_raw);  // smoothed s on the tile + 4
-  T* U0 = S + n4;                         // smoothed su, then su/s, on the tile + 4
-  T* V0 = U0 + n4;
-  T* BU = V0 + n4;                        // smoothed su on the tile + 2: the base
-  T* BV = BU + n2;
-  T* U1 = BV + n2;                        // stage-1 velocities on the tile + 2
-  T* V1 = U1 + n2;
+  B blk(reinterpret_cast<C*>(smem_raw), nx, ny, nz, nb, nuc, dx2, dy2);
+  C* const moist = blk.S;                    // the moist crosses, then s, u, v
+  C* const raw = blk.S + L::first(nq);       // the raw s, su, sv, then the base and products
+  const int k0 = int(blockIdx.x) * Par * KL;  // the block's first level
+  const int r = int(threadIdx.x) % Par;       // the thread's level run, in every element it takes
+  // the fields' pointers, out of the kernel argument (which a lambda's
+  // reference would copy to local memory)
+  const T *s_in = p.in[0], *su_in = p.in[1], *sv_in = p.in[2];
+  T *s_out = p.out[0], *su_out = p.out[1], *sv_out = p.out[2];
 
-  const int kk = threadIdx.x % kLevels, cl = threadIdx.x / kLevels;
-  const int k = blockIdx.z * kLevels + kk;
-  const bool live = k < nz;  // a thread past the last level only joins the barriers
-  const int x0 = blockIdx.x * kTile, y0 = blockIdx.y * kTile;
-  const int64_t sy = nz, sx = int64_t(ny) * nz;
-  auto inside = [&](int i, int j) { return i >= 0 && i < nx && j >= 0 && j < ny; };
-  auto interior = [&](int i, int j) { return i >= nb && i < nx - nb && j >= nb && j < ny - nb; };
-  auto cell = [&](int i, int j) { return int64_t(i) * sx + int64_t(j) * sy + k; };
-
-  // 1. smooth s, su, sv on the tile + 4 (cells outside the grid get s = 1,
-  //    velocities 0: finite, and never read by a cell that is written); the
-  //    tile's s and the moist fields go out now
-  for (int c = cl; c < kW4 * kW4; c += kCells) {
-    const int i = x0 - 4 + c / kW4, j = y0 - 4 + c % kW4;
-    T vs = T(1), vu = T(0), vv = T(0);
-    if (live && inside(i, j)) {
-      const int64_t e = cell(i, j);
-      if (interior(i, j)) {
-        vs = tt::shapiro<T, N>(p.in[0], e, sx, sy, gamma[k]);
-        vu = tt::shapiro<T, N>(p.in[1], e, sx, sy, gamma[nz + k]);
-        vv = tt::shapiro<T, N>(p.in[2], e, sx, sy, gamma[2 * nz + k]);
-      } else {
-        vs = p.in[0][e];
-        vu = p.in[1][e];
-        vv = p.in[2][e];
-      }
-      if (i >= x0 && i < x0 + kTile && j >= y0 && j < y0 + kTile) p.out[0][e] = vs;
+  // 1. the moist fields' crosses (group 0), then the raw (s, su, sv) crosses
+  //    (group 1); the moist loops run over constant field indices, so the
+  //    pointers are picked without local memory
+#pragma unroll
+  for (int q = 0; q < kMaxFields - 3; ++q) {
+    if (q < nq) {
+      const T* src = p.in[3 + q];
+      T* dst = reinterpret_cast<T*>(moist + q * Moist::levels);
+      tt::for_cross<Tile::TX, Tile::TY, Par * KL, N, Run, Tile::Threads>(
+          blk.x0, blk.y0, k0, nx, ny, nz,
+          [&](int m, int g) { tt::cp_async<Run * sizeof(T), true>(dst + m, &src[g]); });
     }
-    const int m = c * kLevels + kk;
-    S[m] = vs;
-    U0[m] = vu;
-    V0[m] = vv;
   }
-  for (int c = cl; c < kTile * kTile; c += kCells) {
-    const int i = x0 + c / kTile, j = y0 + c % kTile;
-    if (!live || !inside(i, j)) continue;
-    const int64_t e = cell(i, j);
-    const bool in = interior(i, j);
-    for (int f = 3; f < nf; ++f)
-      p.out[f][e] = in ? tt::shapiro<T, N>(p.in[f], e, sx, sy, gamma[f * nz + k]) : p.in[f][e];
+  tt::cp_async_commit();
+  tt::for_cross<Tile::TX + 8, Tile::TY + 8, Par * KL, N, Run, Tile::Threads>(
+      blk.x0 - 4, blk.y0 - 4, k0, nx, ny, nz, [&](int m, int g) {
+        T* dst = reinterpret_cast<T*>(raw) + m;
+        tt::cp_async<Run * sizeof(T), true>(dst, &s_in[g]);
+        tt::cp_async<Run * sizeof(T), true>(dst + Raw::levels * KL, &su_in[g]);
+        tt::cp_async<Run * sizeof(T), true>(dst + 2 * Raw::levels * KL, &sv_in[g]);
+      });
+  tt::cp_async_commit();
+
+  // 2. the moist fields smoothed on the tile while the raw copies land
+  tt::cp_async_wait<1>();
+  __syncthreads();
+#pragma unroll
+  for (int q = 0; q < kMaxFields - 3; ++q) {
+    if (q < nq) {
+      T* dst = p.out[3 + q];
+      const C* Q = moist + q * Moist::levels;
+      B::template each<tt::Window<Tile, 0>>([&](int, int x, int y, int) {
+        if (!blk.in_grid(x, y)) return;
+        const int m = Moist::at(x, y, r);
+        const C v = blk.interior(x, y)
+                        ? filtered<N>(Q, m, Moist::RY * Par, Par, coefficients<B>(gamma, 3 + q, r, nz))
+                        : Q[m];
+        blk.store(dst, blk.cell(x, y, r), r, v);
+      });
+    }
   }
+  tt::cp_async_wait<0>();
   __syncthreads();
 
-  // 2. the base momenta on the tile + 2, then the velocities in place (each
-  //    thread reads and rewrites only its own cells here)
-  for (int c = cl; c < kW4 * kW4; c += kCells) {
-    const int rx = c / kW4, ry = c % kW4;
-    const int m = c * kLevels + kk;
-    if (rx >= 2 && rx < kW4 - 2 && ry >= 2 && ry < kW4 - 2) {
-      const int b = ((rx - 2) * kW2 + (ry - 2)) * kLevels + kk;
-      BU[b] = U0[m];
-      BV[b] = V0[m];
+  // 3. s, su, sv smoothed on the tile + 4 into the Smagorinsky window, a
+  //    field at a time (cells outside the grid, and levels past the last,
+  //    s = 1 and zero momenta; the coefficients from L1), the tile's s
+  //    written out
+  using WS = typename B::WS;
+  tt::strided<WS::cols * Par, Tile::Threads>([&](int c) {  // unrolled, whatever Tile::Rolled
+    const int x = c / Par / WS::WY - 4, y = c / Par % WS::WY - 4;
+    const bool column = blk.in_grid(x, y), inner = column && blk.interior(x, y);
+    const int m = Raw::at(x + 4, y + 4, r);
+    C* const window[3] = {blk.S, blk.U, blk.V};
+#pragma unroll
+    for (int f = 0; f < 3; ++f) {
+      const C* R = raw + f * Raw::levels;
+      C v = inner ? filtered<N>(R, m, Raw::RY * Par, Par, coefficients<B>(gamma, f, r, nz)) : R[m];
+#pragma unroll
+      for (int l = 0; l < KL; ++l)
+        if (!column || B::k0(r) + l >= nz) v.v[l] = f == 0 ? T(1) : T(0);
+      window[f][c] = v;
+      if (f == 0 && column && x >= 0 && x < Tile::TX && y >= 0 && y < Tile::TY)
+        blk.store(s_out, blk.cell(x, y, r), r, v);
     }
-    U0[m] = U0[m] / S[m];
-    V0[m] = V0[m] / S[m];
-  }
+  });
   __syncthreads();
 
-  // 3. stage 1 on the tile + 2: su1 = base + (c1 s) T(u0, v0) inside the
-  //    frame, the base on it; kept as velocities su1/s
-  constexpr int64_t s4x = kW4 * kLevels, s2x = kW2 * kLevels;
-  for (int c = cl; c < kW2 * kW2; c += kCells) {
-    const int rx = c / kW2, ry = c % kW2;
-    const int i = x0 - 2 + rx, j = y0 - 2 + ry;
-    const int m4 = ((rx + 2) * kW4 + ry + 2) * kLevels + kk;
-    const int m2 = c * kLevels + kk;
-    T su1 = BU[m2], sv1 = BV[m2];
-    if (live && interior(i, j)) {
-      T ut, vt;
-      tt::smag_tendency(tt::Plain<T>{U0}, tt::Plain<T>{V0}, m4, s4x, int64_t(kLevels), nuc, dx2,
-                        dy2, ut, vt);
-      const T cs = c1 * S[m4];
-      su1 = BU[m2] + cs * ut;
-      sv1 = BV[m2] + cs * vt;
-    }
-    U1[m2] = su1 / S[m4];
-    V1[m2] = sv1 / S[m4];
-  }
-  __syncthreads();
+  // 4. the two Smagorinsky stages of the smoothed (s, su, sv)
+  blk.velocities();
+  blk.stages(c1, c2, su_out, sv_out);
+}
 
-  // 4. stage 2 on the tile: base + (c2 s) T(u1, v1) inside the frame, the
-  //    base on it
-  for (int c = cl; c < kTile * kTile; c += kCells) {
-    const int tx = c / kTile, ty = c % kTile;
-    const int i = x0 + tx, j = y0 + ty;
-    if (!live || !inside(i, j)) continue;
-    const int m4 = ((tx + 4) * kW4 + ty + 4) * kLevels + kk;
-    const int m2 = ((tx + 2) * kW2 + ty + 2) * kLevels + kk;
-    T su = BU[m2], sv = BV[m2];
-    if (interior(i, j)) {
-      T ut, vt;
-      tt::smag_tendency(tt::Plain<T>{U1}, tt::Plain<T>{V1}, m2, s2x, int64_t(kLevels), nuc, dx2,
-                        dy2, ut, vt);
-      const T cs = c2 * S[m4];
-      su = BU[m2] + cs * ut;
-      sv = BV[m2] + cs * vt;
-    }
-    const int64_t e = cell(i, j);
-    p.out[1][e] = su;
-    p.out[2][e] = sv;
-  }
+template <typename T, int N, int Run>
+int launch_runs(const Fields<T>& p, const T* gamma, int nq, int nx, int ny, int nz, int nb,
+                const double* sc, cudaStream_t stream) {
+  using B = typename Layout<T, N, Run>::B;
+  constexpr int KL = B::KL;
+  auto kernel = smooth_smag_kernel<T, N, Run>;
+  using Tile = typename Layout<T, N, Run>::Tile;
+  const int smem = int(sizeof(typename B::C)) * Layout<T, N, Run>::levels(nq);
+  const cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return int(err);
+  const int runs = (nz + KL - 1) / KL;
+  const dim3 grid((runs + Tile::Par - 1) / Tile::Par, (nx + Tile::TX - 1) / Tile::TX,
+                  (ny + Tile::TY - 1) / Tile::TY);
+  kernel<<<grid, Tile::Threads, smem, stream>>>(p, gamma, nq, nx, ny, nz, nb, T(sc[0]), T(sc[1]),
+                                                T(sc[2]), T(sc[3]), T(sc[4]));
+  return int(cudaGetLastError());
 }
 
 template <typename T, int N>
 int launch_order(const Fields<T>& p, const T* gamma, int nf, int nx, int ny, int nz, int nb,
                  const double* sc, cudaStream_t stream) {
-  auto kernel = smooth_smag_kernel<T, N>;
-  const size_t smem = smem_bytes<T>();
-  const cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
-  if (err != cudaSuccess) return int(err);
-  const dim3 grid((nx + kTile - 1) / kTile, (ny + kTile - 1) / kTile, (nz + kLevels - 1) / kLevels);
-  kernel<<<grid, kThreads, smem, stream>>>(p, gamma, nf, nx, ny, nz, nb, T(sc[0]), T(sc[1]),
-                                           T(sc[2]), T(sc[3]), T(sc[4]));
-  return int(cudaGetLastError());
+  // 16-byte copies and stores where every field's columns are whole 16-byte runs
+  bool vec = true;
+  for (int f = 0; f < nf; ++f) vec = vec && tt::runs_of_16<T>(nz, {p.in[f], p.out[f]});
+  if (vec) return launch_runs<T, N, tt::Levels<T>::n>(p, gamma, nf - 3, nx, ny, nz, nb, sc, stream);
+  return launch_runs<T, N, 1>(p, gamma, nf - 3, nx, ny, nz, nb, sc, stream);
 }
 
 template <typename T>
 int launch(const void* const* in, void* const* out, const void* gamma, int nf, int nx, int ny,
            int nz, int order, int nb, const double* sc, cudaStream_t stream) {
-  Fields<T> p;
+  Fields<T> p{};
   for (int f = 0; f < nf; ++f) {
     p.in[f] = static_cast<const T*>(in[f]);
     p.out[f] = static_cast<T*>(out[f]);
@@ -207,7 +269,7 @@ extern "C" int tt_smoothing_smagorinsky_rk2(int dtype, const void* const* in, vo
                                             int order, int nb, const double* scalars,
                                             cudaStream_t stream) {
   if (nf < 3 || nf > kMaxFields || order < 1 || order > 3 || nb < order || nb < 2 ||
-      nx < 2 * nb + 1 || ny < 2 * nb + 1)
+      nx < 2 * nb + 1 || ny < 2 * nb + 1 || nz < 1 || int64_t(nx) * ny * nz > INT32_MAX)
     return int(cudaErrorInvalidValue);
   if (dtype == tt::kFloat32)
     return launch<float>(in, out, gamma, nf, nx, ny, nz, order, nb, scalars, stream);

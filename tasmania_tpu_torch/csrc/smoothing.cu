@@ -3,7 +3,7 @@
 // Replaces: tasmania_tpu/ops/smoothing_step.py:44 fused_smoothing (pallas_call
 // at :108).  Per field f and cell: on the interior [nb, nx-nb) x [nb, ny-nb)
 // (1 - c*g) phi + g * sum_k w_k (x-shifts + y-shifts), with g = gamma[f, k]
-// (tt::shapiro, common.cuh, shared with smooth_smag.cu); the nb-wide frame is
+// (tt::shapiro_taps, common.cuh, shared with smooth_smag.cu); the nb-wide frame is
 // copied.  No paste follows.
 //
 // Bound on the H100: bytes.  At the flagship 6 fields x 12.4 MB are read and

@@ -19,19 +19,15 @@
 // at launch: 128 at nz = 120), a thread R of its levels, k = lane + r tpc; a
 // block of 256 threads holds 256 / tpc columns.  The field count NF is a
 // template parameter, so the fields' pointers are picked with constant
-// indices and stay out of local memory.  Each thread issues all its loads
-// at once (NF fields and two velocities a level, unrolled) into registers,
-// where the initial state stays for the three stages, and forms the flux
-// coefficients of its interfaces (interface m = k, between levels k-1 and
-// k) once.  A stage: (a) each level's advected quantity, phi or s q for a
-// mass fraction (formed once), into shared memory; (b) each interface's
-// flux once, into shared memory; (c) each level's tendency and new value, in
-// registers and, at the last stage, written out.  A barrier of the block
-// between (a), (b) and (c); nothing but the inputs and the outputs touches
-// device memory.  In
-// shared memory a level's NF values lie together at an odd stride, so that
-// every access is a constant offset from the thread's level and the
-// threads of consecutive levels reach distinct banks.
+// indices and stay out of local memory.  The stages are tt::VadvLevels
+// (column.cuh), which vadv_sed.cu runs before its sedimentation: each
+// thread issues all its loads at once (NF fields and two velocities a level,
+// unrolled) into registers, where the initial state stays for the three
+// stages, and forms the flux coefficients of its interfaces once; a stage
+// forms each level's advected quantity (phi or s q, once) and each
+// interface's flux once in shared memory, then each level's tendency and
+// new value in registers, written out at the last stage.  Nothing but the
+// inputs and the outputs touches device memory.
 
 #include "column.cuh"
 
@@ -43,117 +39,30 @@ constexpr int kThreads = 256;
 constexpr int kMaxTpc = 128;
 constexpr int kMaxR = 8;
 
-template <typename T, int NF>
-struct Columns {
-  const T* in[NF + 1];  // w, s, su, sv[, qv, qc, qr]
-  T* out[NF];
-};
-
-// a level's stride in shared memory, the fields fastest: odd, so that the
-// threads of consecutive levels reach distinct banks
-template <int NF>
-__host__ __device__ constexpr int level_stride() {
-  return NF | 1;
-}
-
-// shared memory of one column, in values: phi of the NF fields on the nz
-// levels, their fluxes at the nz + 1 interfaces
-template <int NF>
-__host__ __device__ constexpr int column_values(int nz) {
-  return level_stride<NF>() * (2 * nz + 1);
-}
-
 template <typename T, int ORDER, int NF, int R>
 __global__ void __launch_bounds__(kThreads)
-    vertical_advection_kernel(Columns<T, NF> p, int ncol, int nz, int tpc, T c0, T c1, T c2, T dz) {
-  using F = tt::Flux<ORDER>;
-  constexpr int e = F::e;
+    vertical_advection_kernel(tt::Columns<T, NF> p, int ncol, int nz, int tpc, T c0, T c1, T c2,
+                              T dz) {
+  using V = tt::VadvLevels<T, ORDER, NF, R>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int lc = threadIdx.x / tpc, lane = threadIdx.x % tpc;
   const int col = blockIdx.x * (blockDim.x / tpc) + lc;
   const bool live = col < ncol;  // a thread past the last column only joins the barriers
-  constexpr int P = level_stride<NF>();
-  T* phi = reinterpret_cast<T*>(smem_raw) + lc * column_values<NF>(nz);  // phi[k P + f]
-  T* flux = phi + nz * P;                                                 // flux[m P + f]
   const int base = col * nz;
-  const T rdz = T(1) / dz;  // PyTorch divides by the scalar dz on the card as a product with this
-
-  // every load of the thread at once: its levels of the fields, and the two
-  // velocities of each of its interfaces
-  T x0[NF][R], x[NF][R], g[F::n][R];
-#pragma unroll
-  for (int r = 0; r < R; ++r) {
-    const int k = lane + r * tpc;
-    const bool level = live && k < nz;
-    const bool face = level && k >= e && k <= nz - e;
-#pragma unroll
-    for (int f = 0; f < NF; ++f) x0[f][r] = level ? p.in[1 + f][base + k] : T(0);
-    const T wm = face ? p.in[0][base + k - 1] : T(0);
-    const T wk = face ? p.in[0][base + k] : T(0);
-    T gm[F::n];
-    tt::flux_coefficients<T, ORDER>(T(0.5) * (wm + wk), gm);
-#pragma unroll
-    for (int i = 0; i < F::n; ++i) g[i][r] = gm[i];
-#pragma unroll
-    for (int f = 0; f < NF; ++f) x[f][r] = x0[f][r];
-  }
-
-#pragma unroll
-  for (int stage = 0; stage < 3; ++stage) {
-    const T c = stage == 0 ? c0 : (stage == 1 ? c1 : c2);
-    // (a) the advected quantities: phi, s q for the mass fractions
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      const int k = lane + r * tpc;
-      if (k < nz) {
-#pragma unroll
-        for (int f = 0; f < NF; ++f) phi[k * P + f] = f >= 3 ? x[0][r] * x[f][r] : x[f][r];
-      }
-    }
-    __syncthreads();
-    // (b) the flux at each interface m = k in [e, nz - e], once
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      const int m = lane + r * tpc;
-      if (m >= e && m <= nz - e) {
-#pragma unroll
-        for (int f = 0; f < NF; ++f) {
-          const T* q = phi + m * P + f;
-          T acc = g[0][r] * q[F::off(0) * P];
-#pragma unroll
-          for (int i = 1; i < F::n; ++i) acc = acc + g[i][r] * q[F::off(i) * P];
-          flux[m * P + f] = acc;
-        }
-      }
-    }
-    __syncthreads();
-    // (c) the tendencies on levels [e, nz - e) and the stage's new values
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      const int k = lane + r * tpc;
-      if (k >= nz) continue;
-      const bool inner = k >= e && k < nz - e;
-      const T inv_s = NF > 3 && inner ? T(1) / x[0][r] : T(0);  // the stage's density
-#pragma unroll
-      for (int f = 0; f < NF; ++f) {
-        T tnd = T(0);
-        if (inner) {
-          const T* fl = flux + k * P + f;
-          tnd = (fl[P] - fl[0]) * rdz;
-          if (f >= 3) tnd = tnd * inv_s;
-        }
-        x[f][r] = x0[f][r] + c * tnd;
-        if (stage == 2 && live) p.out[f][base + k] = x[f][r];
-      }
-    }
-  }
+  tt::VadvIn<T, NF, R> in;
+  tt::load_vadv<ORDER>(in, p, base, live, lane, tpc, nz);
+  V adv(in);
+  adv.stages(reinterpret_cast<T*>(smem_raw) + lc * V::column_values(nz), lane, tpc, nz, c0, c1,
+             c2, dz, [&](int f, int k, T x) {
+               if (live) p.out[f][base + k] = x;
+             });
 }
 
 template <typename T, int ORDER, int NF, int R>
-int launch_r(const Columns<T, NF>& p, int ncol, int nz, int tpc, const double* sc,
+int launch_r(const tt::Columns<T, NF>& p, int ncol, int nz, int tpc, const double* sc,
              cudaStream_t stream) {
   const int cpb = kThreads / tpc;  // columns a block
-  const size_t smem = sizeof(T) * size_t(cpb) * column_values<NF>(nz);
+  const size_t smem = sizeof(T) * size_t(cpb) * tt::VadvLevels<T, ORDER, NF, R>::column_values(nz);
   auto kernel = vertical_advection_kernel<T, ORDER, NF, R>;
   if (smem > 48 * 1024) {
     const cudaError_t err =
@@ -167,18 +76,16 @@ int launch_r(const Columns<T, NF>& p, int ncol, int nz, int tpc, const double* s
   return int(cudaGetLastError());
 }
 
-// R levels a thread, the fewest that keep a column within kMaxTpc threads;
-// tpc the levels a thread's R leaves, rounded up to whole warps
+// R levels a thread and tpc threads a column (tt::column_split, a column
+// within kMaxTpc threads)
 template <typename T, int ORDER, int NF>
 int launch_fields(const void* const* in, void* const* out, int ncol, int nz, const double* sc,
                   cudaStream_t stream) {
-  Columns<T, NF> p;
+  tt::Columns<T, NF> p;
   for (int f = 0; f < NF + 1; ++f) p.in[f] = static_cast<const T*>(in[f]);
   for (int f = 0; f < NF; ++f) p.out[f] = static_cast<T*>(out[f]);
-  int r = 1;
-  while (r < kMaxR && (nz + r - 1) / r > kMaxTpc) r *= 2;
-  const int tpc = ((nz + r - 1) / r + 31) / 32 * 32;
-  if (tpc > kMaxTpc) return int(cudaErrorInvalidValue);
+  int r = 1, tpc = 32;
+  if (!tt::column_split<kMaxTpc, kMaxTpc, kMaxR>(nz, r, tpc)) return int(cudaErrorInvalidValue);
   switch (r) {
     case 1: return launch_r<T, ORDER, NF, 1>(p, ncol, nz, tpc, sc, stream);
     case 2: return launch_r<T, ORDER, NF, 2>(p, ncol, nz, tpc, sc, stream);

@@ -136,7 +136,8 @@ def fused_smoothing_smagorinsky_rk2(fields: Sequence[torch.Tensor], gamma: torch
     fused_smoothing_smagorinsky_rk2``): ``fields`` is (s, su, sv[, qv, qc,
     qr]) and ``gamma`` (F, nz) the smoothing's coefficients.  One launch of
     ``csrc/smooth_smag.cu`` on a CUDA device, which writes every cell, frame
-    included.  Returns new tensors (s smoothed, su and sv stepped, *q
+    included, and gives the bits of ``fused_smoothing`` followed by
+    :func:`fused_smagorinsky_rk2`.  Returns new tensors (s smoothed, su and sv stepped, *q
     smoothed)."""
     fields = tuple(fields)
     if len(fields) < 3 or len(fields) > 8:

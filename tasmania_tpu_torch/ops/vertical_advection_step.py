@@ -129,8 +129,10 @@ def fused_vadv_sedimentation_rk3ws(w, s, su, sv, qv, qc, qr, rho, h_if, *, vorde
     sedimentation RK3WS] (counterpart of
     ``tasmania_tpu/ops/vertical_advection_step.py:242
     fused_vadv_sedimentation_rk3ws``): one launch of ``csrc/vadv_sed.cu`` on
-    a CUDA device.  ``rho`` and ``h_if`` (nz + 1 levels) are the state's
-    before the pair.  Returns new tensors (s, su, sv, qv, qc advected, qr
+    a CUDA device (a block a column, nz up to 1024), which gives the bits of
+    :func:`fused_vertical_advection_rk3ws` followed by
+    ``fused_sedimentation_rk3ws``.  ``rho`` and ``h_if`` (nz + 1 levels) are
+    the state's before the pair.  Returns new tensors (s, su, sv, qv, qc advected, qr
     advected and sedimented, the stage-1 fall velocity)."""
     if vorder not in EXTENT:
         raise ValueError(f"unsupported vertical flux order {vorder}")

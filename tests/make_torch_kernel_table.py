@@ -14,8 +14,9 @@ and the times that run measured on the card: kernel, plain version and,
 where one exists, the single PyTorch call computing the same function; a
 kernel timed also at other shapes or in other modes (``also`` in the log:
 the mountain wave's 161x7x120, the diagnostics' modes) gets a row for each,
-with the bytes and bound of those shapes, and a redesigned kernel a row
-with its reading before the redesign (``EARLIER``).
+with the bytes and bound of those shapes (a merge's pair run apart with the
+merge's), and a redesigned kernel a row with its reading before the
+redesign (``EARLIER``).
 
 Usage: ``python tests/make_torch_kernel_table.py [CHIP_SMOKE_LOG]``
 """
@@ -92,6 +93,8 @@ LAUNCH_NOTE = {12: "one launch a call, both stages"}
 # 700 W)
 _DIAG = "the design before the redesign (a warp of 32 columns, 31-level chunks, p and exn read back)"
 _CELL = "the design before the redesign (a thread a cell from device memory, each face flux twice)"
+_MERGE13 = ("the design before the redesign (a thread a cell and level, the filter's taps from device "
+            "memory, each strain formed four times)")
 EARLIER = {
     1: [("the design before the redesign (three launches, the frame composed and pasted)",
          1.038, 4.585, None)],
@@ -101,7 +104,10 @@ EARLIER = {
     7: [(_CELL, 0.299, 1.630, None)],
     12: [("the design before the redesign (a thread a cell, one launch a stage, the stage-1 pair "
           "through device memory)", 0.549, 0.873, None)],
+    13: [(f"{_MERGE13}", 0.450, 2.081, None), (f"{_MERGE13}, the unperturbed initial state", 0.711, 2.081, None)],
     14: [("the design before the redesign (a warp a column, its loads in series)", 0.368, 2.798, None)],
+    15: [("the design before the redesign (a warp a column, its levels in series, the inputs read at "
+          "every stage)", 0.381, 3.405, None)],
     16: [(f"{_DIAG}, moist", 0.147, 0.342, None),
          (f"{_DIAG}, mtg, 161x7x120", 0.044, 0.038, 1.09)],
     17: [("the design before the redesign (a warp a column in phases, coefficients from device "

@@ -26,7 +26,9 @@ diagnostics also in float32 (1e-5, rho 4e-5), at 130 levels, on one row
 and, in float64, at 600 levels; sedimentation also in float32 (1e-5), on
 the ragged shape and at 150 levels.  The two merged kernels (smoothing + Smagorinsky RK2,
 vertical advection + sedimentation) in float64 within 1e-12 and in float32
-with the gates of the kernels they merge (``chip_smoke.py`` phase 3).  The
+with the gates of the kernels they merge (``chip_smoke.py`` phase 3), on the
+shapes their tiles make hard (37x37x121; 121, 130 and 260 levels), and bit
+for bit against their two kernels run in turn, whose device code they share.  The
 input helpers here are shared with ``tests/test_torch_ops.py``,
 ``tests/test_torch_physics_ops.py`` and ``tests/test_torch_merges.py``.
 """
@@ -340,14 +342,14 @@ def smooth_smag_inputs(seed, nf, shape=(33, 21, 8)):
     return [s, su, sv] + q, 0.2 + 0.5 * rng.random((nf, nz))
 
 
-def vadv_sed_inputs(seed):
-    """(w, s, su, sv, qv, qc, qr, rho, h_if) in numpy at 25x21x16 for the
-    merged vertical advection + sedimentation, with rain everywhere: where
-    the advected qr lands within rounding of zero, the fall velocity's
-    max(qr, 0)^0.1346 tells two roundings apart (a difference of 1e-20 in qr
-    is one of 2e-3 in vt)."""
-    w, s, su, sv, qv, qc, _ = vertical_advection_inputs(seed)
-    rho, h_if, _ = sedimentation_inputs(seed + 100)
+def vadv_sed_inputs(seed, shape=(PX, PY, PZ)):
+    """(w, s, su, sv, qv, qc, qr, rho, h_if) in numpy (25x21x16 unless
+    ``shape``) for the merged vertical advection + sedimentation, with rain
+    everywhere: where the advected qr lands within rounding of zero, the fall
+    velocity's max(qr, 0)^0.1346 tells two roundings apart (a difference of
+    1e-20 in qr is one of 2e-3 in vt)."""
+    w, s, su, sv, qv, qc, _ = vertical_advection_inputs(seed, shape)
+    rho, h_if, _ = sedimentation_inputs(seed + 100, shape)
     qr = np.random.default_rng(seed + 200).uniform(1e-4, 1e-3, s.shape)
     return w, s, su, sv, qv, qc, qr, rho, h_if
 
@@ -689,16 +691,23 @@ def assert_increments(got, ref, base, tol, what, ulps=4):
     assert err <= limit, f"{what}: {err} > {limit}"
 
 
+# the merged kernels' hard shapes: smoothing + Smagorinsky's tiles (12 x 12
+# columns, 16-byte level runs) partial in x, y and z; vertical advection +
+# sedimentation at two and four levels a thread (nz 130 and 260)
+SMOOTH_SMAG_SHAPES = [(33, 21, 8), (25, 29, 13), (37, 37, 121)]
+VADV_SED_SHAPES = [(PX, PY, PZ), (7, 5, 121), (5, 4, 130), (3, 3, 260)]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("shape", [(33, 21, 8), (25, 29, 13)])
-@pytest.mark.parametrize("nf", [3, 6])
+@pytest.mark.parametrize("shape", SMOOTH_SMAG_SHAPES)
+@pytest.mark.parametrize("nf", [3, 6, 8])
 @pytest.mark.parametrize("order", [1, 2, 3])
 def test_smooth_smag_kernel_vs_plain(cuda_device, order, nf, shape, dtype):
     """float64: every output within 1e-12 of its largest magnitude; float32:
     the smoothed fields within 1e-6 (as the smoothing kernel's), the momenta
     within 1e-5 of their Smagorinsky update plus 4 ulps (as Smagorinsky's).
-    The second shape leaves partial tiles in x, y and z."""
+    The second and third shapes leave partial tiles in x, y and z."""
     fields, gamma = smooth_smag_inputs(order + nf, nf, shape)
     tf = [tensor(a, cuda_device).to(dtype) for a in fields]
     tg = tensor(gamma, cuda_device).to(dtype)
@@ -720,15 +729,36 @@ def test_smooth_smag_kernel_vs_plain(cuda_device, order, nf, shape, dtype):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("shape", SMOOTH_SMAG_SHAPES)
+@pytest.mark.parametrize("nf, order", [(3, 1), (6, 2), (8, 3)])
+def test_smooth_smag_kernel_matches_pair(cuda_device, order, nf, shape, dtype):
+    """The merge against its two kernels run in turn (the smoothing, then
+    Smagorinsky's RK2 on the smoothed s, su, sv): bit for bit, since both
+    run the same device code (tt::shapiro_taps, tt::SmagBlock)."""
+    fields, gamma = smooth_smag_inputs(order + nf, nf, shape)
+    tf = [tensor(a, cuda_device).to(dtype) for a in fields]
+    tg = tensor(gamma, cuda_device).to(dtype)
+    kw = dict(dx=SMAG["dx"], dy=SMAG["dy"], cs=SMAG["cs"], nb=SMAG["nb"], dt=SMAG["dt"])
+    got = fused_smoothing_smagorinsky_rk2(tf, tg, order=order, **kw)
+    smoothed = fused_smoothing(tf, tg, order=order, nb=SMAG["nb"])
+    pair = (smoothed[0], *fused_smagorinsky_rk2(*smoothed[:3], **kw), *smoothed[3:])
+    for k, (a, b) in enumerate(zip(got, pair)):
+        assert torch.equal(a, b), f"output {k}: max|d| = {float((a - b).abs().max())}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("shape", VADV_SED_SHAPES)
 @pytest.mark.parametrize("vt_mode", ["stage", "step"])
 @pytest.mark.parametrize("sorder", [1, 2])
 @pytest.mark.parametrize("vorder", [1, 2, 3, 5])
-def test_vadv_sed_kernel_vs_plain(cuda_device, vorder, sorder, vt_mode, dtype):
+def test_vadv_sed_kernel_vs_plain(cuda_device, vorder, sorder, vt_mode, shape, dtype):
     """float64: every output within 1e-12 of its largest magnitude; float32:
     the advected fields within 1e-5 of their update plus 4 ulps (as vertical
     advection's), qr and vt within 1e-5 of their largest magnitude (as
-    sedimentation's)."""
-    args = [tensor(a, cuda_device).to(dtype) for a in vadv_sed_inputs(vorder + 10 * sorder)]
+    sedimentation's).  At nz = 130 and 260 a thread takes two and four
+    levels."""
+    args = [tensor(a, cuda_device).to(dtype) for a in vadv_sed_inputs(vorder + 10 * sorder, shape)]
     kw = dict(vorder=vorder, sorder=sorder, dt=5.0, dz=1.0, vt_mode=vt_mode)
     got = fused_vadv_sedimentation_rk3ws(*args, **kw)
     ref = fused_vadv_sedimentation_rk3ws_plain(*args, **kw)
@@ -739,3 +769,22 @@ def test_vadv_sed_kernel_vs_plain(cuda_device, vorder, sorder, vt_mode, dtype):
         else:
             tol = 1e-12 if dtype == torch.float64 else 1e-5
             assert_scaled(a.double().cpu().numpy(), b.double().cpu().numpy(), tol, f"output {k}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("shape", VADV_SED_SHAPES)
+@pytest.mark.parametrize("vt_mode", ["stage", "step"])
+@pytest.mark.parametrize("vorder, sorder", [(1, 1), (2, 2), (3, 2), (5, 1)])
+def test_vadv_sed_kernel_matches_pair(cuda_device, vorder, sorder, vt_mode, shape, dtype):
+    """The merge against its two kernels run in turn (vertical advection,
+    then sedimentation of the advected qr): bit for bit, since both run the
+    same device code (tt::VadvLevels, tt::sed_stages)."""
+    args = [tensor(a, cuda_device).to(dtype) for a in vadv_sed_inputs(vorder + 10 * sorder, shape)]
+    got = fused_vadv_sedimentation_rk3ws(*args, vorder=vorder, sorder=sorder, dt=5.0, dz=1.0,
+                                         vt_mode=vt_mode)
+    adv = fused_vertical_advection_rk3ws(*args[:4], args[4:7], order=vorder, dt=5.0, dz=1.0)
+    pair = (*adv[:5], *fused_sedimentation_rk3ws(args[7], args[8], adv[5], order=sorder, dt=5.0,
+                                                 vt_mode=vt_mode))
+    for k, (a, b) in enumerate(zip(got, pair)):
+        assert torch.equal(a, b), f"output {k}: max|d| = {float((a - b).abs().max())}"
