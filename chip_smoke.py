@@ -53,7 +53,15 @@ printing one line; any failure raises and exits non-zero:
    smoothing kernel then Smagorinsky's; vertical advection's then
    sedimentation's), timed the same way (``also``), and the merge's largest
    difference from the pair is printed: the merges share their parts'
-   device code, so it should be zero;
+   device code, so it should be zero.  Last, the tall path of the three
+   column kernels (``csrc/tall_column.cu``, which takes the columns above
+   the fused kernels' 1024 levels, 2048 for sedimentation): against the
+   fused kernels on the flagship's inputs (the largest difference printed),
+   then on 41x41 of the flagship's columns interpolated to 1100 levels (2100
+   for sedimentation), rain everywhere, against the plain versions with the
+   fused kernels' gates, each tall helper counted under its own name
+   (``vertical_advection_tall``, ``sedimentation_tall``; the merge's tall
+   path counts both) and each call timed as an ``also`` entry of its kernel;
 4. the port's first slice (dycore -> diagnostics -> smoothing -> velocities,
    ``namelist_sus.slice_skip``), 1 + 100 steps, with its launch counts and
    agreement with ``tasmania_tpu_torch/drivers/slice_reference.json`` to 1e-4
@@ -120,12 +128,24 @@ printing one line; any failure raises and exits non-zero:
    its step time, and agreement with the JAX package's float32 run with its
    two merge switches on (``tasmania_tpu_torch/drivers/flagship_merged_reference.json``)
    to ``MERGED_TOL`` = 6e-4 relative on every number, about twice the
-   port's float32 CPU reading (2.8e-4 on qc_max).
+   port's float32 CPU reading (2.8e-4 on qc_max);
+10. the fused loop (``--fused-loop``): the runs of phases 5 (the flagship,
+   1 + 100 steps), 9 (sus_merged, 1 + 30), 7's fc (1 + 20) and 8 (the
+   mountain wave, 1800 steps) again with ``fused_loop=True``, their timed
+   steps replays of one CUDA graph of the step: each final field equal to
+   the eager run's bit for bit, and the launch counts exact per capture (a
+   replay counts nothing, so each kernel twice its launches a step: the
+   eager warm-up step and the capture; ``launches_per_step`` of the
+   captured step equal to ``LAUNCHES_PER_STEP``).  Then the ms/step of
+   eager and graph runs, in ``FUSED_PAIRS`` alternating pairs in this call
+   (eager, graph, graph, eager, ...), of ``FUSED_TIMED_STEPS`` timed steps
+   a run (the mountain wave ``FUSED_TIMED_MW``), each model built once, as
+   a phase line each and one JSON line (``fused_loop_timing``).
 
 The isentropic diagnostics kernel serves every diagnostics call, so phases
-4-7 and 9 count it too (``LAUNCHES_PER_STEP``).  Every phase checks the launch
+4-7, 9 and 10 count it too (``LAUNCHES_PER_STEP``).  Every phase checks the launch
 counts exactly: each kernel of the path as often as its path launches it a
-step, and no other kernel.  The last two
+step (phase 10: a step's launches twice), and no other kernel.  The last two
 lines are the card's name and power limit, then ``{"ok": true, "device":
 {...}}``; the line before them is a JSON summary of the kernels, their
 launches in the full-size run of the first path that runs them (``path``:
@@ -143,6 +163,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from types import SimpleNamespace
 
 import torch
 
@@ -156,6 +177,10 @@ RAIN_TOL = 1e-3
 # 4.1e-5 or less on every rain and precipitation number)
 MERGED_TOL = 6e-4
 MERGES = ("smooth_smag", "vadv_sed")
+# phase 10's paired timing of eager and graph runs in this call
+FUSED_PAIRS = 5
+FUSED_TIMED_STEPS = 50
+FUSED_TIMED_MW = 200
 KERNEL_TOL = 1e-5
 # the density of the isentropic diagnostics, rho = s·dθ/(h[k] - h[k+1]),
 # divides by the difference of two heights summed over up to 120 levels:
@@ -227,6 +252,11 @@ MW_GATE = {"corr_2a": 0.95, "corr_4a": 0.93, "amplitude_ratio_2a": (0.7, 1.2)}
 MW_ABS_TOL = {"corr": 1.5e-2, "corr_focused": 5e-3, "corr_2a": 5e-3, "corr_3a": 5e-3,
               "corr_4a": 5e-3}
 MW_REL_TOL = {"amplitude_ratio": 0.1, "amplitude_ratio_2a": 0.1, "umax": 2e-4}
+# phase 3's tall columns: the column kernels' tall path above their fused
+# kernels' heights (1024 levels; 2048 for sedimentation)
+TALL_COLUMNS = (41, 41)
+TALL_NZ = 1100
+TALL_SED_NZ = 2100
 
 
 def variant_tol(coupling: str, key: str) -> float:
@@ -433,6 +463,7 @@ def main() -> int:
     from tasmania_tpu_torch.ops.sedimentation_step import (
         fused_sedimentation_rk3ws,
         fused_sedimentation_rk3ws_plain,
+        sedimentation_tall,
     )
     from tasmania_tpu_torch.ops.si_stage import StageConstants, clip_pos, si_stage, si_stage_plain
     from tasmania_tpu_torch.ops.smagorinsky_step import (
@@ -449,6 +480,7 @@ def main() -> int:
         fused_vadv_sedimentation_rk3ws_plain,
         fused_vertical_advection_rk3ws,
         fused_vertical_advection_rk3ws_plain,
+        vertical_advection_tall,
     )
     from tasmania_tpu_torch.physics.microphysics.kessler import (
         KesslerMicrophysics,
@@ -954,6 +986,90 @@ def main() -> int:
                 "the pair apart (fused_vertical_advection_rk3ws, then fused_sedimentation_rk3ws)",
                 vadv_sed_apart, lambda: fused_vadv_sedimentation_rk3ws_plain(*vsin, **vskw),
                 bound(nbytes(vsin) + nbytes(ref), (18 * 22.0 + powers * 20.0 + 90.0) * s_now.numel()))
+
+    # the tall path of the three column kernels (csrc/tall_column.cu, one
+    # launch a stage): first against the fused kernels on the flagship's
+    # inputs above (the tall functions called directly; the largest
+    # difference printed, not gated: FMA contraction may differ),
+    # then above the fused kernels' heights, on TALL_COLUMNS of the
+    # flagship's columns interpolated linearly to TALL_NZ levels
+    # (TALL_SED_NZ for sedimentation) with the inputs of the checks above
+    # (w of a few hundredths of K/s, the mass fractions, rain everywhere),
+    # against the plain versions with the fused kernels' gates; each tall
+    # helper counted under its own name (vertical_advection_tall,
+    # sedimentation_tall) and each call timed as an ``also`` entry of its kernel
+    sedkw = dict(order=sed.sflux.nb, dt=5.0, vt_mode=sed.vt_mode)  # sedimentation's, as above
+    tall_vs_fused = [
+        (vertical_advection_tall(vin + vq, **vkw), fused_vertical_advection_rk3ws(*vin, vq, **vkw)),
+        (sedimentation_tall(din, **sedkw), fused_sedimentation_rk3ws(*din, **sedkw)),
+    ]
+    tadv = vertical_advection_tall(vsin[:7], order=vskw["vorder"], dt=vskw["dt"], dz=vskw["dz"])
+    tall_vs_fused.append((tadv[:5] + sedimentation_tall((vsin[7], vsin[8], tadv[5]), order=vskw["sorder"],
+                                                        dt=vskw["dt"], vt_mode=vskw["vt_mode"]),
+                          fused_vadv_sedimentation_rk3ws(*vsin, **vskw)))
+    phase("check", "tall path against the fused kernels at 161x161x120, largest differences "
+          "(vertical advection, sedimentation, their merge): " + " ".join(
+              f"{max(float((a - b).abs().max()) for a, b in zip(t, f)):.3g}" for t, f in tall_vs_fused))
+    del tall_vs_fused, tadv
+    tcols = (slice(60, 60 + TALL_COLUMNS[0]), slice(60, 60 + TALL_COLUMNS[1]))
+
+    def stretched(t, n):
+        """The tall columns of ``t``: linear interpolation over its levels to n."""
+        x = t[tcols].reshape(-1, 1, t.shape[-1])
+        return torch.nn.functional.interpolate(x, size=n, mode="linear", align_corners=True).reshape(
+            *TALL_COLUMNS, n).contiguous()
+
+    def tall_column(nz):
+        shape = (*TALL_COLUMNS, nz)
+        return (noise(shape, 0.02), perturbed(stretched(s_now, nz)), perturbed(stretched(su_now, nz)),
+                perturbed(stretched(sv_now, nz)) + 1.0, perturbed(stretched(raw[qn[0]], nz)),
+                uniform(shape, 0.0, 2.0 * ke.a), uniform(shape, 0.1 * ke.a, ke.a),
+                stretched(raw["air_density"], nz), stretched(raw["height_on_interface_levels"], nz + 1))
+
+    def counted(fn, *names):
+        """``fn()``, which must count each of ``names`` once and nothing else."""
+        before = dict(_lib.launch_counts)
+        out = fn()
+        counts = {k: n - before.get(k, 0) for k, n in _lib.launch_counts.items() if n != before.get(k, 0)}
+        if counts != dict.fromkeys(names, 1):
+            raise AssertionError(f"{names}: the call launched {counts}")
+        return out
+
+    tv = tall_column(TALL_NZ)
+    got = counted(lambda: fused_vertical_advection_rk3ws(*tv[:4], tv[4:7], **vkw),
+                  "vertical_advection_tall")
+    ref = fused_vertical_advection_rk3ws_plain(*tv[:4], tv[4:7], **vkw)
+    _, inc = check_increments("fused_vertical_advection_rk3ws (tall)", got, ref, tv[1:7], KERNEL_TOL)
+    record_also("fused_vertical_advection_rk3ws", f"tall path, {TALL_COLUMNS[0]}x{TALL_COLUMNS[1]}x{TALL_NZ}",
+                lambda: fused_vertical_advection_rk3ws(*tv[:4], tv[4:7], **vkw),
+                lambda: fused_vertical_advection_rk3ws_plain(*tv[:4], tv[4:7], **vkw),
+                bound(nbytes(tv[:7]) + nbytes(ref), 18 * 22.0 * tv[1].numel()))
+    got = counted(lambda: fused_vadv_sedimentation_rk3ws(*tv, **vskw), "vertical_advection_tall",
+                  "sedimentation_tall")
+    ref = fused_vadv_sedimentation_rk3ws_plain(*tv, **vskw)
+    _, inc2 = check_increments("fused_vadv_sedimentation_rk3ws (tall, advected)", got[:5], ref[:5], tv[1:6],
+                               KERNEL_TOL)
+    _, rel2 = check_outputs("fused_vadv_sedimentation_rk3ws (tall, qr vt)", got[5:], ref[5:],
+                            [amax(r) for r in ref[5:]], KERNEL_TOL)
+    record_also("fused_vadv_sedimentation_rk3ws",
+                f"tall path (the two tall paths in turn), {TALL_COLUMNS[0]}x{TALL_COLUMNS[1]}x{TALL_NZ}",
+                lambda: fused_vadv_sedimentation_rk3ws(*tv, **vskw),
+                lambda: fused_vadv_sedimentation_rk3ws_plain(*tv, **vskw),
+                bound(nbytes(tv) + nbytes(ref), (18 * 22.0 + powers * 20.0 + 90.0) * tv[1].numel()))
+    del tv
+    ts = tall_column(TALL_SED_NZ)
+    tdin = (ts[7], ts[8], ts[6])
+    got = counted(lambda: fused_sedimentation_rk3ws(*tdin, **sedkw), "sedimentation_tall")
+    ref = fused_sedimentation_rk3ws_plain(*tdin, **sedkw)
+    _, rel3 = check_outputs("fused_sedimentation_rk3ws (tall)", got, ref, [amax(r) for r in ref], KERNEL_TOL)
+    record_also("fused_sedimentation_rk3ws", f"tall path, {TALL_COLUMNS[0]}x{TALL_COLUMNS[1]}x{TALL_SED_NZ}",
+                lambda: fused_sedimentation_rk3ws(*tdin, **sedkw),
+                lambda: fused_sedimentation_rk3ws_plain(*tdin, **sedkw),
+                bound(nbytes(tdin) + nbytes(ref), (powers * 20.0 + 90.0) * ts[6].numel()))
+    phase("check", f"tall path: fused_vertical_advection_rk3ws errors as a share of the largest "
+          f"increment {inc}; fused_vadv_sedimentation_rk3ws {inc2}, relative (qr vt) {rel2}; "
+          f"fused_sedimentation_rk3ws relative (qr vt) {rel3}")
+    del ts, tdin
     phase("timing", f"{profiler_sessions['measurements']} times from pairs of profiler sessions that "
           f"agree on their device operations a call, in {profiler_sessions['sessions']} sessions "
           f"({profiler_sessions['empty']} without device time)")
@@ -1005,6 +1121,8 @@ def main() -> int:
     phase("validation", f"umax = {res['umax']:.5f}, vmax = {res['vmax']:.5f} "
           f"(the TPU's: umax = {TPU_VALIDATION['umax']:.5f}, vmax = {TPU_VALIDATION['vmax']:.5f}; "
           "for information)")
+    # the eager runs' final fields, which phase 10's graph runs must equal
+    eager_fields = {"sus": res["fields"]}
     del res
 
     # -- 6. the full step on rain ----------------------------------------------
@@ -1027,6 +1145,8 @@ def main() -> int:
         path_counts[coupling], path_steps[coupling] = counts, 1 + nl_v.niter
         phase(f"{coupling}-validation", f"umax = {res['umax']:.5f}, vmax = {res['vmax']:.5f} "
               "(for information)")
+        if coupling == "fc":
+            eager_fields["fc"], nl_fc = res["fields"], nl_v
         del res
 
     # -- 8. the deep-domain mountain wave (the unfused dry stage) --------------
@@ -1070,6 +1190,7 @@ def main() -> int:
           f"{res['corr_focused']:.4f}, rms_err_focused {res['rms_err_focused']:.4g}")
     phase("mountain-wave-reference", " ".join(diffs))
     path_counts["mountain_wave"], path_steps["mountain_wave"] = counts, steps
+    eager_fields["mountain_wave"] = res["fields"]
     del res
 
     # -- 9. the rain run with both process merges (sus_merged) -----------------
@@ -1082,7 +1203,81 @@ def main() -> int:
                         "flagship_merged_reference.json", lambda key: MERGED_TOL, 0.0)
     path_counts["sus_merged"], path_steps["sus_merged"] = counts, 1 + nl_merged.niter
     phase("sus_merged-validation", f"umax = {res['umax']:.5f}, vmax = {res['vmax']:.5f} (for information)")
+    eager_fields["sus_merged"] = res["fields"]
     del res
+
+    # -- 10. the fused loop: the runs of phases 5, 9, 7 (fc) and 8 as CUDA graphs
+    def mountain_wave(hours, fused):
+        return mw.run_case(mwc["nx"], mwc["nz"], hours, mwc["dt"], theta_top=mwc["theta_top"],
+                           damp_depth=mwc["damp_depth"], damp_max=mwc["damp_max"],
+                           so=StorageOptions(dtype=torch.float32, device=device), verbose=False,
+                           fused_loop=fused)
+
+    graph_runs = {
+        "sus": lambda: drv.run(nl, verbose=False, fused_loop=True),
+        "sus_merged": lambda: drv.run(nl_merged, verbose=False, fused_loop=True),
+        "fc": lambda: moist.run(nl_fc, "fc", verbose=False, fused_loop=True),
+        "mountain_wave": lambda: mountain_wave(mwc["hours"], True),
+    }
+    steps_of = {"sus": 1 + nl.niter, "sus_merged": 1 + nl_merged.niter, "fc": 1 + nl_fc.niter,
+                "mountain_wave": steps}
+    for path, run_graph in graph_runs.items():
+        per_step = LAUNCHES_PER_STEP[path]
+        torch.cuda.synchronize()
+        _lib.reset_launch_counts()
+        res = run_graph()
+        counts = dict(_lib.launch_counts)
+        # a replay counts nothing: the warm-up step and the capture, once each
+        for name in sorted(set(per_step) | set(counts)):
+            if counts.get(name, 0) != 2 * per_step.get(name, 0):
+                raise AssertionError(f"fused loop, {path}: {name} launched {counts.get(name, 0)} times "
+                                     f"in the warm-up and the capture, expected {2 * per_step.get(name, 0)}")
+        if res["launches_per_step"] != per_step:
+            raise AssertionError(f"fused loop, {path}: the captured step launched {res['launches_per_step']}")
+        eager = eager_fields.pop(path)
+        if set(res["fields"]) != set(eager):
+            raise AssertionError(f"fused loop, {path}: fields {sorted(res['fields'])} vs {sorted(eager)}")
+        diff = max(float((res["fields"][k].data - fa.data).abs().max()) for k, fa in eager.items())
+        unequal = sorted(k for k, fa in eager.items() if not torch.equal(res["fields"][k].data, fa.data))
+        if unequal:
+            raise AssertionError(f"fused loop, {path}: {unequal} differ from the eager run's "
+                                 f"(largest difference {diff})")
+        phase("fused-loop", f"{path}: {steps_of[path]} steps, the "
+              f"graph's final fields equal the eager run's bit for bit ({len(eager)} fields, largest "
+              f"difference {diff}); capture {res['capture_s']:.3f} s, {res['ms_per_step']:.3f} ms/step; "
+              f"launches {counts} (the warm-up step and the capture)")
+        del res, eager
+
+    # paired timing in this call: eager, graph, graph, eager, ... (FUSED_PAIRS
+    # pairs), FUSED_TIMED_STEPS timed steps a run after the warm-up step (the
+    # mountain wave FUSED_TIMED_MW of its 20 s steps), each model built once
+    timing = {}
+    models = {"sus": (nl, "sus"), "sus_merged": (nl_merged, "sus"), "fc": (nl_fc, "fc")}
+    for path in ("sus", "sus_merged", "fc", "mountain_wave"):
+        if path == "mountain_wave":
+            hours = (1 + FUSED_TIMED_MW) * mwc["dt"] / 3600.0
+
+            def timed(fused):
+                return mountain_wave(hours, fused)["ms_per_step"]
+        else:
+            nl_t, coupling = models[path]
+            nl_t = SimpleNamespace(**{**vars(nl_t), "niter": FUSED_TIMED_STEPS})
+            _, t_state, t_dycore, t_step = moist.build_variant(nl_t, coupling)
+
+            def timed(fused):
+                return drv.run_steps(nl_t, t_state, t_step, t_dycore.topography_steady, verbose=False,
+                                     fused_loop=fused)["ms_per_step"]
+        runs = {False: [], True: []}
+        for i in range(FUSED_PAIRS):
+            for fused in ((False, True) if i % 2 == 0 else (True, False)):
+                runs[fused].append(timed(fused))
+        timing[path] = {"eager_ms_per_step": runs[False], "graph_ms_per_step": runs[True]}
+        med = {f: sorted(r)[len(r) // 2] for f, r in runs.items()}
+        phase("fused-loop-timing", f"{path}, {FUSED_TIMED_MW if path == 'mountain_wave' else FUSED_TIMED_STEPS} "
+              f"timed steps a run, {FUSED_PAIRS} pairs on {card}: eager ms/step "
+              f"{' '.join(f'{t:.3f}' for t in runs[False])} (median {med[False]:.3f}); graph "
+              f"{' '.join(f'{t:.3f}' for t in runs[True])} (median {med[True]:.3f})")
+    print(json.dumps({"fused_loop_timing": timing, "card": card}))
 
     # each kernel's launches in the full-size run of the first path that runs
     # it (the flagship for the six of the SUS chain, the merged run for the

@@ -26,11 +26,15 @@ namelist's ``process_merges`` (``--merge NAME``) apply to the sequential-update
 splittings of sus and ssus; the other couplings raise ``ValueError`` if any
 is set.  The step sequence is the JAX driver's: one warm-up step at zero
 mountain height, then ``niter`` timed steps with the growing mountain.
+``--fused-loop`` runs the timed steps as replays of one CUDA graph of the
+coupling's step, the counterpart of the JAX driver's per-step ``jax.jit``
+(``driver_namelist_sus.run_steps``).
 
 Usage::
 
     python -m tasmania_tpu_torch.drivers.driver_isentropic_moist --coupling fc
         [--nx N] [--ny N] [--nz N] [--niter N] [--device cuda|cpu] [--merge NAME]
+        [--fused-loop]
 
 The namelist's device is ``cuda``; without a GPU, ``run`` raises unless the
 namelist names the CPU (``--device cpu`` on the command line).
@@ -122,13 +126,15 @@ def build_variant(nl, coupling: str):
     return domain, state, dycore, step
 
 
-def run(nl, coupling: str, *, verbose: bool = True) -> Dict[str, Any]:
+def run(nl, coupling: str, *, verbose: bool = True, fused_loop: bool = False) -> Dict[str, Any]:
     """Build the coupling's model, run the warm-up step and ``nl.niter``
-    timed steps on the namelist's device; the result of
-    ``driver_namelist_sus.run`` (validation numbers, timing, final fields)."""
-    check_device(nl.so.device)
+    timed steps on the namelist's device (with ``fused_loop``, as replays of
+    a CUDA graph of the step); the result of ``driver_namelist_sus.run``
+    (validation numbers, timing, final fields, launches a step)."""
+    check_device(nl.so.device, fused_loop=fused_loop)
     _, state, dycore, step = build_variant(nl, coupling)
-    return run_steps(nl, state, step, dycore.topography_steady, verbose=verbose)
+    return run_steps(nl, state, step, dycore.topography_steady, verbose=verbose,
+                     fused_loop=fused_loop)
 
 
 def load_namelist(coupling: str, **overrides):
@@ -142,7 +148,7 @@ def main(argv=None):
     parser.add_argument("--coupling", choices=COUPLINGS, default="sus")
     cli = parser.parse_args(argv)
     nl = namelist_from(parser, cli, lambda **kw: load_namelist(cli.coupling, **kw))
-    res = run(nl, cli.coupling)
+    res = run(nl, cli.coupling, fused_loop=cli.fused_loop)
     print("Simulation successfully completed.")
     return res
 

@@ -24,19 +24,21 @@ Usage::
     python -m tasmania_tpu_torch.drivers.driver_mountain_wave [--nx 81] [--nz 60]
         [--hours 5] [--dt 20] [--growth-hours 0] [--x-half 2e5] [--theta-top 360]
         [--damp-depth N] [--damp-max 5e-4] [--dtype float32|float64]
-        [--device cuda|cpu]
+        [--device cuda|cpu] [--fused-loop]
 
 The device defaults to ``cuda``; without a GPU the run raises unless the CPU
 is named (``--device cpu``).  The first of the steps is a warm-up; the rest
 are timed on the host clock, ending in a device synchronisation, and the
-driver prints their ms/step.
+driver prints their ms/step.  ``--fused-loop`` (the JAX driver always runs
+its steps in one jitted loop) runs the timed steps as replays of one CUDA
+graph of the step, captured after the warm-up (``driver_namelist_sus.step_sequence``;
+CUDA only).
 """
 
 from __future__ import annotations
 
 import argparse
 import json
-import time
 from datetime import datetime, timedelta
 from typing import Any, Dict, Optional
 
@@ -44,7 +46,7 @@ import numpy as np
 import torch
 
 from tasmania_tpu_torch.domain.domain import Domain
-from tasmania_tpu_torch.drivers.driver_namelist_sus import check_device, synchronize
+from tasmania_tpu_torch.drivers.driver_namelist_sus import check_device, step_sequence
 from tasmania_tpu_torch.framework.field import FieldArray
 from tasmania_tpu_torch.framework.options import StorageOptions
 from tasmania_tpu_torch.isentropic.dynamics.diagnostics import IsentropicDiagnostics
@@ -162,13 +164,16 @@ def make_step(core, diagnostics, pt: float, state, dt: float):
 def run_case(nx: int, nz: int, hours: float, dt: float, growth_hours: float = 0.0, *,
              x_half: float = 2e5, theta_top: float = 360.0, damp_depth: Optional[int] = None,
              damp_max: float = 5e-4, so: Optional[StorageOptions] = None,
-             verbose: bool = True) -> Dict[str, Any]:
+             verbose: bool = True, fused_loop: bool = False) -> Dict[str, Any]:
     """The JAX ``run_case``'s ``round(hours·3600 / dt)`` steps on the storage
-    device (cuda by default).  Returns :func:`validation`'s numbers, the grid
-    size, ``ms_per_step`` (all but the first step, timed) and the final
-    ``fields``."""
+    device (cuda by default); with ``fused_loop`` all but the first as
+    replays of one CUDA graph of the step (``ValueError`` on a CPU device).
+    Returns :func:`validation`'s numbers, the grid size, ``ms_per_step`` (all
+    but the first step, timed), the final ``fields``, the kernel launches of
+    one step (the warm-up's, or the captured step's) and ``capture_s``, the
+    seconds of the capture (None without a graph)."""
     so = so or StorageOptions(dtype=torch.float32, device="cuda")
-    check_device(so.device)
+    check_device(so.device, fused_loop=fused_loop)
     damp_depth = max(8, nz // 5) if damp_depth is None else damp_depth
     domain, state, core, diagnostics, pt = build(
         nx, nz, growth_hours, x_half=x_half, theta_top=theta_top, damp_depth=damp_depth,
@@ -182,17 +187,9 @@ def run_case(nx: int, nz: int, hours: float, dt: float, growth_hours: float = 0.
     def fact(i):
         return min((i + 1) * dt / growth_s, 1.0) if growth_s > 0.0 else 1.0
 
-    fields = {k: state[k] for k in names}
-    t0 = time.perf_counter()
-    fields = step(fields, fact(0) * hs_steady)
-    synchronize(so.device)
-    if verbose:
-        print(f"warmup step: {time.perf_counter() - t0:.3f} s", flush=True)
-    t0 = time.perf_counter()
-    for i in range(1, nt):
-        fields = step(fields, fact(i) * hs_steady)
-    synchronize(so.device)
-    elapsed = time.perf_counter() - t0
+    fields, elapsed, per_step, capture_s = step_sequence(
+        step, {k: state[k] for k in names}, fact(0) * hs_steady, hs_steady,
+        [fact(i) for i in range(1, nt)], so.device, verbose=verbose, fused_loop=fused_loop)
 
     u_num = fields["x_velocity_at_u_locations"].data[:, 0, :].double().cpu().numpy()
     xs = np.asarray(domain.physical_grid.x_at_u_locations.data)
@@ -202,7 +199,7 @@ def run_case(nx: int, nz: int, hours: float, dt: float, growth_hours: float = 0.
     if verbose:
         print(json.dumps(res), flush=True)
         print(f"{res['ms_per_step']:.3f} ms/step over {nt - 1} steps on {so.device}")
-    res["fields"] = fields
+    res.update(fields=fields, launches_per_step=per_step, capture_s=capture_s)
     return res
 
 
@@ -220,13 +217,16 @@ def main(argv=None):
     parser.add_argument("--damp-max", type=float, default=5e-4)
     parser.add_argument("--dtype", choices=("float32", "float64"), default="float32")
     parser.add_argument("--device", type=str, default="cuda")
+    parser.add_argument("--fused-loop", action="store_true",
+                        help="run the timed steps as replays of one CUDA graph of the step "
+                             "(needs a CUDA device)")
     cli = parser.parse_args(argv)
     if torch.device(cli.device).type == "cuda" and not torch.cuda.is_available():
         parser.error("no CUDA device is available (pass --device cpu to run on the CPU)")
     so = StorageOptions(dtype=getattr(torch, cli.dtype), device=cli.device)
     return run_case(cli.nx, cli.nz, cli.hours, cli.dt, cli.growth_hours, x_half=cli.x_half,
                     theta_top=cli.theta_top, damp_depth=cli.damp_depth, damp_max=cli.damp_max,
-                    so=so)
+                    so=so, fused_loop=cli.fused_loop)
 
 
 if __name__ == "__main__":

@@ -14,11 +14,17 @@ ported and raises ``NotImplementedError``.  The step sequence is the JAX
 driver's: one step at zero mountain height (the warm-up), then ``niter``
 timed steps with the mountain at ``min((i+1)·dt/1800 s, 1)`` of its height.
 
+``--fused-loop`` (``fused_loop=True``; the JAX flag's name and meaning: no
+per-step dispatch) runs the timed steps as replays of one CUDA graph of the
+step (``utils/jitx.py``), captured after the eager warm-up step and timed
+apart; the graph copies back only the fields the step reads.  It needs a
+CUDA device and raises without one; it gives the eager run's bits.
+
 Usage::
 
     python -m tasmania_tpu_torch.drivers.driver_namelist_sus [--nx N] [--ny N]
         [--nz N] [--niter N] [--device cuda|cpu] [--merge smooth_smag]
-        [--merge vadv_sed]
+        [--merge vadv_sed] [--fused-loop]
 
 The namelist's device is ``cuda``; without a GPU, ``run`` raises unless the
 namelist names the CPU (``--device cpu`` on the command line).
@@ -27,9 +33,10 @@ namelist names the CPU (``--device cpu`` on the command line).
 from __future__ import annotations
 
 import argparse
+import collections
 import time
 from dataclasses import replace
-from typing import Any, Dict
+from typing import Any, Dict, Sequence
 
 import numpy as np
 import torch
@@ -56,6 +63,7 @@ from tasmania_tpu_torch.isentropic.utils import (
     AirPotentialTemperatureToDiagnostic,
     AirPotentialTemperatureToTendency,
 )
+from tasmania_tpu_torch.ops import _lib
 from tasmania_tpu_torch.physics.microphysics.kessler import (
     KesslerFallVelocity,
     KesslerMicrophysics,
@@ -63,6 +71,7 @@ from tasmania_tpu_torch.physics.microphysics.kessler import (
     KesslerSedimentation,
 )
 from tasmania_tpu_torch.physics.microphysics.utils import Precipitation
+from tasmania_tpu_torch.utils.jitx import StepBody, StepGraph, traced_step
 
 PROCESSES = (
     "diagnostics", "coriolis", "smoothing", "smagorinsky", "velocities",
@@ -221,9 +230,14 @@ def synchronize(device) -> None:
         torch.cuda.synchronize()
 
 
-def check_device(device) -> None:
-    """Raise if ``device`` is a CUDA device this machine does not have."""
+def check_device(device, *, fused_loop: bool = False) -> None:
+    """Raise if ``device`` is a CUDA device this machine does not have, and
+    with ``fused_loop`` raise ``ValueError`` unless it is a CUDA device: the
+    fused loop is a CUDA graph and has no eager fallback.  The drivers check
+    before they build the model."""
     device = torch.device(device)
+    if fused_loop and device.type != "cuda":
+        raise ValueError(f"the fused loop is a CUDA graph and needs a CUDA device, not {device}")
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             "the namelist's device is cuda but no CUDA device is available "
@@ -231,42 +245,88 @@ def check_device(device) -> None:
         )
 
 
-def run(nl, skip=(), *, verbose: bool = True) -> Dict[str, Any]:
+def launches_since(before: collections.Counter) -> Dict[str, int]:
+    """The kernel launches counted since ``before`` (a copy of
+    ``_lib.launch_counts``)."""
+    return dict(collections.Counter(_lib.launch_counts) - before)
+
+
+def step_sequence(step, fields, hs0, hs_steady, facts: Sequence[float], device, *,
+                  verbose: bool = True, fused_loop: bool = False):
+    """The drivers' loop: one eager warm-up step at the topography ``hs0``,
+    then ``len(facts)`` timed steps at ``facts[i] * hs_steady``, eager or,
+    with ``fused_loop``, as replays of one CUDA graph of ``step``
+    (``utils/jitx.py``: the warm-up step traced for the fields it reads,
+    then the capture, timed apart; ``ValueError`` on a CPU device).
+    Returns the final fields, the seconds of the timed steps (ending in a
+    synchronize), the kernel launches of one step (the warm-up's, or the
+    captured step's) and the seconds of the capture (None without one)."""
+    check_device(device, fused_loop=fused_loop)
+    before = collections.Counter(_lib.launch_counts)
+    t0 = time.perf_counter()
+    if fused_loop:
+        fields, carried = traced_step(step, fields, hs0)
+    else:
+        fields = step(fields, hs0)
+    synchronize(device)
+    per_step = launches_since(before)
+    if verbose:
+        print(f"warmup step: {time.perf_counter() - t0:.3f} s", flush=True)
+    if not fused_loop:
+        t0 = time.perf_counter()
+        for fact in facts:
+            fields = step(fields, fact * hs_steady)
+        synchronize(device)
+        return fields, time.perf_counter() - t0, per_step, None
+
+    body = StepBody(step, fields, carried, hs_steady, facts)
+    before = collections.Counter(_lib.launch_counts)
+    t0 = time.perf_counter()
+    graph = StepGraph(body)
+    torch.cuda.synchronize()
+    capture_s = time.perf_counter() - t0
+    if verbose:
+        print(f"fused loop carries {len(carried)}/{len(fields)} fields")
+        print(f"capture: {capture_s:.3f} s", flush=True)
+    per_step = launches_since(before)
+    t0 = time.perf_counter()
+    graph.replay(len(facts))
+    torch.cuda.synchronize()
+    return graph.fields(), time.perf_counter() - t0, per_step, capture_s
+
+
+def run(nl, skip=(), *, verbose: bool = True, fused_loop: bool = False) -> Dict[str, Any]:
     """Build the model, run the warm-up step and ``nl.niter`` timed steps on
-    the namelist's device.  Returns the validation numbers, the timing and
-    the final fields."""
-    check_device(nl.so.device)
+    the namelist's device (with ``fused_loop``, as replays of a CUDA graph of
+    the step).  Returns the validation numbers, the timing, the final fields
+    and the kernel launches of one step."""
+    check_device(nl.so.device, fused_loop=fused_loop)
     domain, state, pt = build_domain_and_state(nl)
     dycore, physics = build_model(nl, domain, pt, skip)
     return run_steps(nl, state, lambda st, dt: physics(dycore(st, {}, dt), dt),
-                     dycore.topography_steady, verbose=verbose)
+                     dycore.topography_steady, verbose=verbose, fused_loop=fused_loop)
 
 
-def run_steps(nl, state, step_impl, hs_steady, *, verbose: bool = True) -> Dict[str, Any]:
+def run_steps(nl, state, step_impl, hs_steady, *, verbose: bool = True,
+              fused_loop: bool = False) -> Dict[str, Any]:
     """The JAX drivers' step sequence from ``state``: one warm-up step at
     zero mountain height, then ``nl.niter`` timed steps with the mountain at
     ``min((i+1)·dt/1800 s, 1)`` of ``hs_steady``; ``step_impl(state, dt)``
-    is one timestep.  Returns :func:`run`'s result."""
+    is one timestep.  With ``fused_loop`` the timed steps are replays of one
+    CUDA graph of the step (:func:`step_sequence`; ``ValueError`` on a CPU
+    device).  Returns :func:`run`'s result; ``launches_per_step`` holds the
+    kernel launches of the warm-up step, or of the captured step, and
+    ``capture_s`` the seconds of the capture (None without a graph)."""
     nx, ny, nz = state["air_isentropic_density"].shape
     dt_s = nl.timestep.total_seconds()
     topo_time = nl.topo_kwargs["time"].total_seconds()
     field_names = sorted(k for k in state if k != "time")
     step = fields_step(step_impl, field_names, dt_s)
     fields = {k: state[k] for k in field_names}
-    device = nl.so.device
-
-    t0 = time.perf_counter()
-    fields = step(fields, hs_steady * 0.0)
-    synchronize(device)
-    if verbose:
-        print(f"warmup step: {time.perf_counter() - t0:.3f} s", flush=True)
-
-    t0 = time.perf_counter()
-    for i in range(nl.niter):
-        fact = min((i + 1) * dt_s / topo_time, 1.0)
-        fields = step(fields, fact * hs_steady)
-    synchronize(device)
-    elapsed = time.perf_counter() - t0
+    facts = [min((i + 1) * dt_s / topo_time, 1.0) for i in range(nl.niter)]
+    fields, elapsed, per_step, capture_s = step_sequence(
+        step, fields, hs_steady * 0.0, hs_steady, facts, nl.so.device, verbose=verbose,
+        fused_loop=fused_loop)
 
     u = fields["x_velocity_at_u_locations"].data
     v = fields["y_velocity_at_v_locations"].data
@@ -280,6 +340,7 @@ def run_steps(nl, state, step_impl, hs_steady, *, verbose: bool = True) -> Dict[
     return {
         "umax": umax, "vmax": vmax, "elapsed": elapsed, "gps": gps,
         "ms_per_step": 1e3 * elapsed / max(nl.niter, 1), "fields": fields,
+        "launches_per_step": per_step, "capture_s": capture_s,
     }
 
 
@@ -314,8 +375,8 @@ def validation_summary(fields: Dict[str, np.ndarray]) -> Dict[str, float]:
 
 
 def size_parser(description: str) -> argparse.ArgumentParser:
-    """The drivers' command line: grid size, step count, device and the
-    process merges."""
+    """The drivers' command line: grid size, step count, device, the
+    process merges and the fused loop."""
     parser = argparse.ArgumentParser(description=description)
     parser.add_argument("--nx", type=int, default=None)
     parser.add_argument("--ny", type=int, default=None)
@@ -325,6 +386,9 @@ def size_parser(description: str) -> argparse.ArgumentParser:
     parser.add_argument("--merge", action="append", default=[], metavar="NAME",
                         help="run a SUS process pair as one kernel: smooth_smag, vadv_sed "
                              "(repeatable)")
+    parser.add_argument("--fused-loop", action="store_true",
+                        help="run the timed steps as replays of one CUDA graph of the step "
+                             "(removes per-step dispatch; needs a CUDA device)")
     return parser
 
 
@@ -354,7 +418,8 @@ def main(argv=None):
     from tasmania_tpu_torch.drivers.namelist_sus import load_namelist
 
     parser = size_parser(__doc__.split("\n\n")[0])
-    res = run(namelist_from(parser, parser.parse_args(argv), load_namelist))
+    cli = parser.parse_args(argv)
+    res = run(namelist_from(parser, cli, load_namelist), fused_loop=cli.fused_loop)
     print("Simulation successfully completed.")
     return res
 

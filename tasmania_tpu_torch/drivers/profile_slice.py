@@ -14,9 +14,15 @@ clock around steps that end in a synchronize).
 ``--merge NAME`` (repeatable: ``smooth_smag``, ``vadv_sed``) sets the
 namelist's ``process_merges`` for the full chain under sus or ssus.
 
+``--fused-loop`` profiles the step as the drivers' ``--fused-loop`` runs it:
+after the untraced steps (the last of them traced for the fields it reads,
+``utils/jitx.py``), one CUDA graph of the step is captured and replayed once
+a step, in the unprofiled window and under the profiler alike; it also
+prints the device time of the replays by CUDA events around them.
+
 Usage: ``python -m tasmania_tpu_torch.drivers.profile_slice [--steps N]
-[--slice | --coupling C | --mountain-wave] [--merge NAME]`` (needs a CUDA
-device).
+[--slice | --coupling C | --mountain-wave] [--merge NAME] [--fused-loop]``
+(needs a CUDA device).
 """
 
 from __future__ import annotations
@@ -32,6 +38,7 @@ from tasmania_tpu_torch.drivers import driver_isentropic_moist as moist
 from tasmania_tpu_torch.drivers import driver_mountain_wave as mw
 from tasmania_tpu_torch.drivers import driver_namelist_sus as drv
 from tasmania_tpu_torch.framework.options import StorageOptions
+from tasmania_tpu_torch.utils.jitx import StepBody, StepGraph, traced_step
 
 
 def main(argv=None) -> None:
@@ -43,6 +50,8 @@ def main(argv=None) -> None:
                         help="profile the deep-domain mountain wave (the unfused dry stage)")
     parser.add_argument("--merge", action="append", default=[], metavar="NAME",
                         help="a SUS process merge of the full chain (repeatable)")
+    parser.add_argument("--fused-loop", action="store_true",
+                        help="profile replays of one CUDA graph of the step")
     cli = parser.parse_args(argv)
     if not torch.cuda.is_available():
         parser.error("needs a CUDA device")
@@ -67,20 +76,31 @@ def main(argv=None) -> None:
         step = drv.fields_step(step_impl, names, nl.timestep.total_seconds())
     fields = {k: state[k] for k in names}
     hs = dycore.topography_steady
-    for _ in range(3):
+    for _ in range(2 if cli.fused_loop else 3):
         fields = step(fields, hs)
+    graph = None
+    if cli.fused_loop:
+        fields, carried = traced_step(step, fields, hs)
+        torch.cuda.synchronize()
+        graph = StepGraph(StepBody(step, fields, carried, hs, [1.0]))
     torch.cuda.synchronize()
 
+    def advance(n: int) -> None:
+        nonlocal fields
+        if graph is not None:
+            graph.replay(n)
+            return
+        for _ in range(n):
+            fields = step(fields, hs)
+
     t0 = time.perf_counter()
-    for _ in range(cli.steps):
-        fields = step(fields, hs)
+    advance(cli.steps)
     torch.cuda.synchronize()
     plain_ms = 1e3 * (time.perf_counter() - t0) / cli.steps
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for _ in range(cli.steps):
-            fields = step(fields, hs)
+        advance(cli.steps)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     # kernels and copies on the device, by name (host-side operator rows
@@ -94,6 +114,14 @@ def main(argv=None) -> None:
     calls = sum(n for _, n in per_name.values())
     chain = ("mountain wave" if cli.mountain_wave else "slice" if cli.slice
              else f"full chain, {cli.coupling}" + "".join(f", merge {m}" for m in cli.merge))
+    if graph is not None:
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        advance(cli.steps)
+        end.record()
+        end.synchronize()
+        chain += (f", fused loop (a CUDA graph of the step, {len(carried)}/{len(names)} fields "
+                  f"carried; replays {start.elapsed_time(end) / cli.steps:.3f} ms/step by CUDA events)")
     print(f"{chain}, {cli.steps} steps: {plain_ms:.3f} ms/step without the profiler; "
           f"{1e3 * wall / cli.steps:.3f} ms/step (host clock) under it, device busy "
           f"{1e-3 * busy_us / cli.steps:.3f} ms/step ({100.0 * busy_us * 1e-6 / wall:.1f}% of the "

@@ -87,6 +87,13 @@ _SIGNATURES = {
     # dtype, inputs (w, s, su, sv, qv, qc, qr, rho, h_if), outputs (6 fields,
     # vt), ncol, nz, vorder, sorder, vt_step, scalars (dt, dz), stream
     "tt_vadv_sedimentation_rk3ws": (_int, _vp, _vp, _int, _int, _int, _int, _int, _vp, _vp),
+    # the tall columns, one launch a stage: dtype, inputs (w, s, su, sv[, qv,
+    # qc, qr]), scratch (2 nf arrays), outputs, nf, ncol, nz, order, scalars
+    # (dt, dz), stream
+    "tt_vertical_advection_tall": (_int, _vp, _vp, _vp, _int, _int, _int, _int, _vp, _vp),
+    # dtype, inputs (rho, h_if, qr), scratch (2 arrays), outputs (qr, vt),
+    # ncol, nz, order, vt_step, dt, stream
+    "tt_sedimentation_tall": (_int, _vp, _vp, _vp, _int, _int, _int, _int, ctypes.c_double, _vp),
 }
 
 _loaded = None

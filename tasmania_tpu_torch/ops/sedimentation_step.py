@@ -14,7 +14,11 @@ Per column, with the surface the LAST level:
 
 Returns the stepped qr and the stage-1 vt.  Kernel:
 ``csrc/sedimentation.cu``, a thread a level (a few where nz > 128; nz up to
-2048), the column's state in registers;
+``MAX_NZ``), the column's state in registers; a taller column takes the tall
+path, ``csrc/tall_column.cu`` (one launch a stage, a thread a cell and level,
+the stages' qr through device memory; counted as ``sedimentation_tall``,
+one count a call of its three launches).  Both index cells in 32 bits: the
+wrapper raises ``ValueError`` for more than ``MAX_CELLS`` interface cells.
 ``fused_sedimentation_rk3ws_plain`` is the plain PyTorch version, which the
 wrapper takes for CPU tensors only.
 """
@@ -26,8 +30,17 @@ import torch
 from tasmania_tpu_torch.ops import _lib
 
 VT_MODES = ("stage", "step")
-# the tallest column of the kernel (256 threads of 8 levels)
+# the tallest column of the fused kernel (256 threads of 8 levels)
 MAX_NZ = 2048
+# the most cells (or interface cells) of a grid the column kernels index in
+# 32 bits
+MAX_CELLS = 2**31 - 1
+
+
+def check_cells(name: str, cells: int) -> None:
+    """Raise ``ValueError`` for a grid the column kernels cannot index."""
+    if cells > MAX_CELLS:
+        raise ValueError(f"{name}: {cells} cells above the column kernels' {MAX_CELLS}")
 
 
 def fused_sedimentation_rk3ws_plain(rho, h_if, qr, *, order: int, dt: float, vt_mode: str):
@@ -79,17 +92,36 @@ def fused_sedimentation_rk3ws(rho, h_if, qr, *, order: int, dt: float, vt_mode: 
         raise ValueError(f"fused_sedimentation_rk3ws: nz={nz} too small for order {order}")
     if not qr.is_cuda:
         return fused_sedimentation_rk3ws_plain(rho, h_if, qr, order=order, dt=dt, vt_mode=vt_mode)
-    if nz > MAX_NZ:
-        raise ValueError(f"fused_sedimentation_rk3ws: nz={nz} above the kernel's {MAX_NZ}")
+    name = "fused_sedimentation_rk3ws"
+    check_cells(name, nx * ny * (nz + 1))
     inputs = (rho, h_if, qr)
-    _lib.check_cuda_tensors(
-        "fused_sedimentation_rk3ws", inputs, qr.dtype, [(nx, ny, nz), (nx, ny, nz + 1), (nx, ny, nz)]
-    )
+    _lib.check_cuda_tensors(name, inputs, qr.dtype, [(nx, ny, nz), (nx, ny, nz + 1), (nx, ny, nz)])
+    if nz > MAX_NZ:
+        return sedimentation_tall(inputs, order=order, dt=dt, vt_mode=vt_mode)
     outs = (torch.empty_like(qr), torch.empty_like(qr))
     err = _lib.lib().tt_sedimentation_rk3ws(
         _lib.DTYPE_CODES[qr.dtype], _lib.pointer_array(inputs), _lib.pointer_array(outs),
         nx * ny, nz, order, int(vt_mode == "step"), float(dt), _lib.stream_handle(),
     )
-    _lib.launch_counts["fused_sedimentation_rk3ws"] += 1
-    _lib.check(err, "fused_sedimentation_rk3ws")
+    _lib.launch_counts[name] += 1
+    _lib.check(err, name)
+    return outs
+
+
+def sedimentation_tall(inputs, *, order: int, dt: float, vt_mode: str):
+    """The tall path of ``(rho, h_if, qr)`` on the card
+    (``csrc/tall_column.cu``, three launches, any nz, counted once as
+    ``sedimentation_tall``); the caller has checked the tensors.  Returns
+    new tensors ``(qr', vt)``."""
+    qr = inputs[2]
+    nx, ny, nz = qr.shape
+    outs = (torch.empty_like(qr), torch.empty_like(qr))
+    scratch = (torch.empty_like(qr), torch.empty_like(qr))
+    err = _lib.lib().tt_sedimentation_tall(
+        _lib.DTYPE_CODES[qr.dtype], _lib.pointer_array(inputs), _lib.pointer_array(scratch),
+        _lib.pointer_array(outs), nx * ny, nz, order, int(vt_mode == "step"), float(dt),
+        _lib.stream_handle(),
+    )
+    _lib.launch_counts["sedimentation_tall"] += 1
+    _lib.check(err, "sedimentation_tall")
     return outs

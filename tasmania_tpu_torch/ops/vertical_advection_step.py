@@ -11,14 +11,21 @@ advected as s·q and divided by the stage's density.  Stages:
 x_i = x_0 + c_i·T(x_{i-1}), c = (dt/3, dt/2, dt).
 
 Kernel: ``csrc/vertical_advection.cu``, a column's levels a thread each (a
-few a thread where nz > 128; nz up to 1024), its state in registers and its
-fluxes in shared memory for the three stages.
+few a thread where nz > 128; nz up to ``MAX_NZ``), its state in registers and
+its fluxes in shared memory for the three stages.  A taller column takes the
+tall path, ``csrc/tall_column.cu``: one launch a stage, a thread a cell and
+level, the stages' states through device memory (counted as
+``vertical_advection_tall``, one count a call of its three launches).
 ``fused_vertical_advection_rk3ws_plain`` is the plain PyTorch version; the
 wrapper takes it for CPU tensors only.
 
 :func:`fused_vadv_sedimentation_rk3ws` runs the SUS pair [vertical advection
--> fall velocity + sedimentation] in one launch (``csrc/vadv_sed.cu``), its
-plain version the two plain versions in turn.
+-> fall velocity + sedimentation] in one launch (``csrc/vadv_sed.cu``, nz up
+to ``VADV_SED_MAX_NZ``; above it the two tall paths in turn, counted as
+``vertical_advection_tall`` and ``sedimentation_tall``), its plain version
+the two plain versions in turn.  Every kernel here indexes cells in 32 bits: the wrappers
+raise ``ValueError`` for a grid of more than ``MAX_CELLS`` cells (interface
+cells where the interface heights are an input).
 """
 
 from __future__ import annotations
@@ -26,9 +33,19 @@ from __future__ import annotations
 import torch
 
 from tasmania_tpu_torch.ops import _lib
-from tasmania_tpu_torch.ops.sedimentation_step import VT_MODES, fused_sedimentation_rk3ws_plain
+from tasmania_tpu_torch.ops.sedimentation_step import (  # noqa: F401  (MAX_CELLS re-exported: the limit)
+    MAX_CELLS,
+    VT_MODES,
+    check_cells,
+    fused_sedimentation_rk3ws_plain,
+    sedimentation_tall,
+)
 
 EXTENT = {1: 1, 2: 1, 3: 2, 5: 3}
+# the tallest column of the fused kernels (vertical_advection.cu: 128
+# threads of 8 levels; vadv_sed.cu: 256 threads of 4 levels)
+MAX_NZ = 1024
+VADV_SED_MAX_NZ = 1024
 
 
 def flux_coefficients(order: int, wf):
@@ -101,15 +118,38 @@ def fused_vertical_advection_rk3ws(w, s, su, sv, q=(), *, order: int, dt: float,
         raise ValueError(f"fused_vertical_advection_rk3ws: nz={nz} too small for order {order}")
     if not s.is_cuda:
         return fused_vertical_advection_rk3ws_plain(w, s, su, sv, q, order=order, dt=dt, dz=dz)
+    name = "fused_vertical_advection_rk3ws"
+    check_cells(name, nx * ny * nz)
     inputs = (w, s, su, sv) + q
-    _lib.check_cuda_tensors("fused_vertical_advection_rk3ws", inputs, s.dtype, [(nx, ny, nz)] * len(inputs))
+    _lib.check_cuda_tensors(name, inputs, s.dtype, [(nx, ny, nz)] * len(inputs))
+    if nz > MAX_NZ:
+        return vertical_advection_tall(inputs, order=order, dt=dt, dz=dz)
     outs = tuple(torch.empty_like(s) for _ in range(len(inputs) - 1))
     err = _lib.lib().tt_vertical_advection_rk3ws(
         _lib.DTYPE_CODES[s.dtype], _lib.pointer_array(inputs), _lib.pointer_array(outs),
         len(outs), nx * ny, nz, order, _lib.scalar_array([dt, dz]), _lib.stream_handle(),
     )
-    _lib.launch_counts["fused_vertical_advection_rk3ws"] += 1
-    _lib.check(err, "fused_vertical_advection_rk3ws")
+    _lib.launch_counts[name] += 1
+    _lib.check(err, name)
+    return outs
+
+
+def vertical_advection_tall(inputs, *, order: int, dt: float, dz: float):
+    """The tall path of ``(w, s, su, sv[, qv, qc, qr])`` on the card
+    (``csrc/tall_column.cu``, three launches, any nz, counted once as
+    ``vertical_advection_tall``); the caller has checked the tensors.
+    Returns new tensors."""
+    s = inputs[1]
+    nx, ny, nz = s.shape
+    outs = tuple(torch.empty_like(s) for _ in range(len(inputs) - 1))
+    scratch = tuple(torch.empty_like(s) for _ in range(2 * len(outs)))
+    err = _lib.lib().tt_vertical_advection_tall(
+        _lib.DTYPE_CODES[s.dtype], _lib.pointer_array(inputs), _lib.pointer_array(scratch),
+        _lib.pointer_array(outs), len(outs), nx * ny, nz, order, _lib.scalar_array([dt, dz]),
+        _lib.stream_handle(),
+    )
+    _lib.launch_counts["vertical_advection_tall"] += 1
+    _lib.check(err, "vertical_advection_tall")
     return outs
 
 
@@ -129,10 +169,11 @@ def fused_vadv_sedimentation_rk3ws(w, s, su, sv, qv, qc, qr, rho, h_if, *, vorde
     sedimentation RK3WS] (counterpart of
     ``tasmania_tpu/ops/vertical_advection_step.py:242
     fused_vadv_sedimentation_rk3ws``): one launch of ``csrc/vadv_sed.cu`` on
-    a CUDA device (a block a column, nz up to 1024), which gives the bits of
-    :func:`fused_vertical_advection_rk3ws` followed by
-    ``fused_sedimentation_rk3ws``.  ``rho`` and ``h_if`` (nz + 1 levels) are
-    the state's before the pair.  Returns new tensors (s, su, sv, qv, qc advected, qr
+    a CUDA device (a block a column, nz up to ``VADV_SED_MAX_NZ``), which
+    gives the bits of :func:`fused_vertical_advection_rk3ws` followed by
+    ``fused_sedimentation_rk3ws``; a taller column takes the tall paths of
+    the two in turn.  ``rho`` and ``h_if`` (nz + 1 levels) are the state's
+    before the pair.  Returns new tensors (s, su, sv, qv, qc advected, qr
     advected and sedimented, the stage-1 fall velocity)."""
     if vorder not in EXTENT:
         raise ValueError(f"unsupported vertical flux order {vorder}")
@@ -146,15 +187,19 @@ def fused_vadv_sedimentation_rk3ws(w, s, su, sv, qv, qc, qr, rho, h_if, *, vorde
     kw = dict(vorder=vorder, sorder=sorder, dt=dt, dz=dz, vt_mode=vt_mode)
     if not s.is_cuda:
         return fused_vadv_sedimentation_rk3ws_plain(w, s, su, sv, qv, qc, qr, rho, h_if, **kw)
+    name = "fused_vadv_sedimentation_rk3ws"
+    check_cells(name, nx * ny * (nz + 1))
     inputs = (w, s, su, sv, qv, qc, qr, rho, h_if)
-    _lib.check_cuda_tensors("fused_vadv_sedimentation_rk3ws", inputs, s.dtype,
-                            [(nx, ny, nz)] * 8 + [(nx, ny, nz + 1)])
+    _lib.check_cuda_tensors(name, inputs, s.dtype, [(nx, ny, nz)] * 8 + [(nx, ny, nz + 1)])
+    if nz > VADV_SED_MAX_NZ:
+        adv = vertical_advection_tall(inputs[:7], order=vorder, dt=dt, dz=dz)
+        return adv[:5] + sedimentation_tall((rho, h_if, adv[5]), order=sorder, dt=dt, vt_mode=vt_mode)
     outs = tuple(torch.empty_like(s) for _ in range(7))
     err = _lib.lib().tt_vadv_sedimentation_rk3ws(
         _lib.DTYPE_CODES[s.dtype], _lib.pointer_array(inputs), _lib.pointer_array(outs),
         nx * ny, nz, vorder, sorder, int(vt_mode == "step"), _lib.scalar_array([dt, dz]),
         _lib.stream_handle(),
     )
-    _lib.launch_counts["fused_vadv_sedimentation_rk3ws"] += 1
-    _lib.check(err, "fused_vadv_sedimentation_rk3ws")
+    _lib.launch_counts[name] += 1
+    _lib.check(err, name)
     return outs

@@ -6,7 +6,8 @@ input read once, each output written once, from the arrays of its signature
 as the flagship or its nearest caller passes them; the two kernels of the
 tendency-carrying stage with the tendencies the fc and lfc couplings pass)
 and that traffic's time at the H100's 3.35 TB/s.  Given the log of a
-``chip_smoke.py`` run, it adds for each ported kernel its route and source,
+``chip_smoke.py`` run, it adds for each ported kernel the PR that ported
+it (and the PR that redesigned it for Hopper), its route and source,
 its launches per step on each path that runs it (the full-size runs of
 phases 5, 7, 8 and 9: the flagship's SUS chain, the five other couplings,
 the mountain wave and the SUS chain with both process merges, sus_merged)
@@ -84,6 +85,11 @@ KERNELS = [
 # the one PyTorch call timed beside a kernel
 LIBRARY_CALL = {2: "torch._foreach_copy_", 4: "torch._foreach_copy_"}
 
+# the PR that ported each kernel, and the PR that redesigned it for Hopper
+PORTED_IN = {1: 1, 2: 1, 3: 1, 9: 2, 12: 2, 14: 2, 17: 2, 5: 3, 7: 3, 8: 3, 10: 3,
+             4: 4, 6: 4, 11: 4, 16: 4, 13: 5, 15: 5}
+REDESIGNED_IN = {1: 6, 3: 6, 12: 7, 14: 7, 16: 8, 17: 8, 5: 9, 7: 9, 13: 10, 15: 10}
+
 # what a launch is, where a call's time covers more than one step of work
 LAUNCH_NOTE = {12: "one launch a call, both stages"}
 
@@ -140,7 +146,9 @@ def main(argv) -> None:
           "| Kernel ms | Plain ms | One PyTorch call ms |")
     print("|---|---|---|---|---|---|---|---|---|---|")
     for num, name, key, rd, wr, _ in KERNELS:
-        status = "ported" if key else "to port"
+        status = f"ported (PR {PORTED_IN[num]}" if key else "to port"
+        if key:
+            status += f"; redesigned PR {REDESIGNED_IN[num]})" if num in REDESIGNED_IN else ")"
         mb = (rd + wr) / 1e6
         bound = 1e3 * (rd + wr) / HBM
         k = chip.get(key) if key else None

@@ -28,12 +28,21 @@ the ragged shape and at 150 levels.  The two merged kernels (smoothing + Smagori
 vertical advection + sedimentation) in float64 within 1e-12 and in float32
 with the gates of the kernels they merge (``chip_smoke.py`` phase 3), on the
 shapes their tiles make hard (37x37x121; 121, 130 and 260 levels), and bit
-for bit against their two kernels run in turn, whose device code they share.  The
+for bit against their two kernels run in turn, whose device code they share.
+The column kernels' tall path (``csrc/tall_column.cu``, above the fused
+kernels' 1024 levels, 2048 for sedimentation) at 1100 and 2100 levels of 4x3
+columns with the fused kernels' gates, counted under its own name; the fused
+kernels still taking their tallest columns; the wrappers naming their cell
+limit.  The fused loop: a CUDA graph of the step equal to the eager run bit
+for bit (sus, sus merged, fc, the mountain wave at 41x41x20, 1 + 5 steps),
+its captured step launching ``chip_smoke.py``'s ``LAUNCHES_PER_STEP``.  The
 input helpers here are shared with ``tests/test_torch_ops.py``,
 ``tests/test_torch_physics_ops.py`` and ``tests/test_torch_merges.py``.
 """
 
 from __future__ import annotations
+
+import collections
 
 import numpy as np
 import pytest
@@ -65,6 +74,9 @@ from tasmania_tpu_torch.ops.kessler_step import (
     fused_satadj_rk2_plain,
 )
 from tasmania_tpu_torch.ops.paste import paste_x_edges, paste_x_edges_multi, paste_x_edges_multi_plain
+from tasmania_tpu_torch.ops import _lib
+from tasmania_tpu_torch.ops.sedimentation_step import MAX_CELLS
+from tasmania_tpu_torch.ops.sedimentation_step import MAX_NZ as SED_MAX_NZ
 from tasmania_tpu_torch.ops.sedimentation_step import (
     fused_sedimentation_rk3ws,
     fused_sedimentation_rk3ws_plain,
@@ -79,7 +91,9 @@ from tasmania_tpu_torch.ops.smagorinsky_step import (
     smagorinsky_stage_plain,
 )
 from tasmania_tpu_torch.ops.smoothing_step import fused_smoothing, fused_smoothing_plain
+from tasmania_tpu_torch.ops.vertical_advection_step import MAX_NZ as VADV_MAX_NZ
 from tasmania_tpu_torch.ops.vertical_advection_step import (
+    VADV_SED_MAX_NZ,
     fused_vadv_sedimentation_rk3ws,
     fused_vadv_sedimentation_rk3ws_plain,
     fused_vertical_advection_rk3ws,
@@ -788,3 +802,155 @@ def test_vadv_sed_kernel_matches_pair(cuda_device, vorder, sorder, vt_mode, shap
                                                  vt_mode=vt_mode))
     for k, (a, b) in enumerate(zip(got, pair)):
         assert torch.equal(a, b), f"output {k}: max|d| = {float((a - b).abs().max())}"
+
+
+# ---------------------------------------------------------------- tall columns
+# above the fused kernels' heights (vertical advection and its merge with
+# sedimentation 1024 levels, sedimentation 2048) the wrappers take the tall
+# path (csrc/tall_column.cu), each tall helper counted under its own name
+TALL_VADV = (4, 3, 1100)
+TALL_SED = (4, 3, 2100)
+
+
+def launches_of(fn):
+    """``fn()`` and the kernel launches it counted."""
+    before = collections.Counter(_lib.launch_counts)
+    out = fn()
+    return out, dict(collections.Counter(_lib.launch_counts) - before)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("order", [1, 2, 3, 5])
+@pytest.mark.parametrize("moist", [True, False])
+def test_vertical_advection_tall_vs_plain(cuda_device, moist, order, dtype):
+    """1100 levels of 4x3 columns: the tall path, within the fused kernel's
+    gates of the plain version (float64 1e-12 of each output's largest
+    magnitude, float32 1e-5 of its update plus 4 ulps)."""
+    w, s, su, sv, *q = [tensor(a, cuda_device).to(dtype)
+                        for a in vertical_advection_inputs(order, TALL_VADV)]
+    q = tuple(q) if moist else ()
+    got, counts = launches_of(
+        lambda: fused_vertical_advection_rk3ws(w, s, su, sv, q, order=order, dt=5.0, dz=1.0))
+    assert counts == {"vertical_advection_tall": 1}
+    ref = fused_vertical_advection_rk3ws_plain(w, s, su, sv, q, order=order, dt=5.0, dz=1.0)
+    assert_updates(got, ref, (s, su, sv) + q, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("order", [1, 2])
+@pytest.mark.parametrize("vt_mode", ["stage", "step"])
+def test_sedimentation_tall_vs_plain(cuda_device, vt_mode, order, dtype):
+    """2100 levels of 4x3 columns: the tall path, within the fused kernel's
+    gates (float64 1e-12, float32 1e-5 of each output's largest magnitude)."""
+    args = [tensor(a, cuda_device).to(dtype) for a in sedimentation_inputs(order, TALL_SED)]
+    got, counts = launches_of(
+        lambda: fused_sedimentation_rk3ws(*args, order=order, dt=5.0, vt_mode=vt_mode))
+    assert counts == {"sedimentation_tall": 1}
+    ref = fused_sedimentation_rk3ws_plain(*args, order=order, dt=5.0, vt_mode=vt_mode)
+    tol = 1e-12 if dtype == torch.float64 else 1e-5
+    for k, (a, b) in enumerate(zip(got, ref)):
+        assert_scaled(a.double().cpu().numpy(), b.double().cpu().numpy(), tol, f"output {k}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("vt_mode", ["stage", "step"])
+@pytest.mark.parametrize("vorder, sorder", [(1, 1), (2, 2), (3, 2), (5, 1)])
+def test_vadv_sed_tall_vs_plain(cuda_device, vorder, sorder, vt_mode, dtype):
+    """1100 levels of 4x3 columns: the two tall paths in turn, within the
+    merged kernel's gates (``test_vadv_sed_kernel_vs_plain``'s)."""
+    args = [tensor(a, cuda_device).to(dtype) for a in vadv_sed_inputs(vorder + 10 * sorder, TALL_VADV)]
+    kw = dict(vorder=vorder, sorder=sorder, dt=5.0, dz=1.0, vt_mode=vt_mode)
+    got, counts = launches_of(lambda: fused_vadv_sedimentation_rk3ws(*args, **kw))
+    assert counts == {"vertical_advection_tall": 1, "sedimentation_tall": 1}
+    ref = fused_vadv_sedimentation_rk3ws_plain(*args, **kw)
+    assert len(got) == len(ref) == 7
+    for k, (a, b) in enumerate(zip(got, ref)):
+        if dtype == torch.float32 and k < 5:
+            assert_increments(a, b, args[1 + k], 1e-5, f"advected output {k}")
+        else:
+            tol = 1e-12 if dtype == torch.float64 else 1e-5
+            assert_scaled(a.double().cpu().numpy(), b.double().cpu().numpy(), tol, f"output {k}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["vertical_advection", "vadv_sed", "sedimentation"])
+def test_fused_column_kernels_take_their_tallest_columns(cuda_device, kernel):
+    """At their limits (1024, 1024 and 2048 levels) the fused kernels run,
+    not the tall path, within their gates in float32."""
+    dtype = torch.float32
+    if kernel == "sedimentation":
+        args = [tensor(a, cuda_device).to(dtype) for a in sedimentation_inputs(2, (2, 2, SED_MAX_NZ))]
+        got, counts = launches_of(lambda: fused_sedimentation_rk3ws(*args, order=2, dt=5.0, vt_mode="step"))
+        ref = fused_sedimentation_rk3ws_plain(*args, order=2, dt=5.0, vt_mode="step")
+        for k, (a, b) in enumerate(zip(got, ref)):
+            assert_scaled(a.double().cpu().numpy(), b.double().cpu().numpy(), 1e-5, f"output {k}")
+        assert counts == {"fused_sedimentation_rk3ws": 1}
+        return
+    if kernel == "vadv_sed":
+        args = [tensor(a, cuda_device).to(dtype) for a in vadv_sed_inputs(3, (2, 2, VADV_SED_MAX_NZ))]
+        kw = dict(vorder=3, sorder=2, dt=5.0, dz=1.0, vt_mode="step")
+        got, counts = launches_of(lambda: fused_vadv_sedimentation_rk3ws(*args, **kw))
+        ref = fused_vadv_sedimentation_rk3ws_plain(*args, **kw)
+        assert_updates(got[:5], ref[:5], args[1:6], dtype)
+        assert counts == {"fused_vadv_sedimentation_rk3ws": 1}
+        return
+    w, s, su, sv, *q = [tensor(a, cuda_device).to(dtype)
+                        for a in vertical_advection_inputs(3, (2, 2, VADV_MAX_NZ))]
+    got, counts = launches_of(
+        lambda: fused_vertical_advection_rk3ws(w, s, su, sv, q, order=3, dt=5.0, dz=1.0))
+    ref = fused_vertical_advection_rk3ws_plain(w, s, su, sv, q, order=3, dt=5.0, dz=1.0)
+    assert_updates(got, ref, (s, su, sv, *q), dtype)
+    assert counts == {"fused_vertical_advection_rk3ws": 1}
+
+
+@pytest.mark.cuda
+def test_column_wrappers_name_their_limit(cuda_device):
+    """A grid of more cells than the column kernels index in 32 bits raises
+    a ValueError naming the limit before anything is launched (broadcast
+    views: nothing that size is allocated)."""
+    big = (2**16, 2**8, 130)
+    t = torch.zeros(1, 1, 130, device=cuda_device).expand(*big)
+    t_if = torch.zeros(1, 1, 131, device=cuda_device).expand(big[0], big[1], 131)
+    calls = [
+        lambda: fused_vertical_advection_rk3ws(t, t, t, t, order=3, dt=5.0, dz=1.0),
+        lambda: fused_vadv_sedimentation_rk3ws(t, t, t, t, t, t, t, t, t_if, vorder=3, sorder=2,
+                                               dt=5.0, dz=1.0),
+        lambda: fused_sedimentation_rk3ws(t, t_if, t, order=2, dt=5.0),
+    ]
+    for call in calls:
+        with pytest.raises(ValueError, match=str(MAX_CELLS)):
+            launches_of(call)
+
+
+# ---------------------------------------------------------------- fused loop
+
+GRAPH_SIZE = dict(nx=41, ny=41, nz=20, niter=5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", ["sus", "sus_merged", "fc", "mountain_wave"])
+def test_fused_loop_graph_matches_eager(cuda_device, path):
+    """41x41x20 (the mountain wave 41x1x20), float32, 1 + 5 steps: the CUDA
+    graph's final fields equal the eager run's bit for bit, and one captured
+    step launches what ``chip_smoke.py`` counts for the path
+    (``LAUNCHES_PER_STEP``), as one eager step does."""
+    from chip_smoke import LAUNCHES_PER_STEP
+    from tasmania_tpu_torch.drivers import driver_isentropic_moist as moist
+    from tasmania_tpu_torch.drivers import driver_mountain_wave as mw
+
+    if path == "mountain_wave":
+        kw = dict(so=StorageOptions(dtype=torch.float32, device="cuda"), verbose=False)
+        runs = [mw.run_case(41, 20, 6 * 20.0 / 3600.0, 20.0, fused_loop=f, **kw) for f in (False, True)]
+    else:
+        coupling = "fc" if path == "fc" else "sus"
+        merges = ("smooth_smag", "vadv_sed") if path == "sus_merged" else ()
+        nl = moist.load_namelist(coupling, **GRAPH_SIZE, process_merges=merges)
+        runs = [moist.run(nl, coupling, verbose=False, fused_loop=f) for f in (False, True)]
+    eager, graph = runs
+    assert set(graph["fields"]) == set(eager["fields"])
+    for name, fa in eager["fields"].items():
+        assert torch.equal(graph["fields"][name].data, fa.data), name
+    assert eager["launches_per_step"] == graph["launches_per_step"] == LAUNCHES_PER_STEP[path]

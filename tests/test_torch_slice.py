@@ -95,12 +95,14 @@ def test_slice_three_steps_agree(both_runs):
 
 
 def test_port_imports_no_jax():
-    """Importing the port and running a CPU step of the full flagship chain
-    (the driver's default, and with both process merges), of each coupling
-    of the variant driver (and ssus with both merges) and two steps of the
-    mountain-wave driver leaves JAX and the JAX package unloaded."""
+    """Importing the port (the fused loop's ``utils.jitx`` too) and running
+    a CPU step of the full flagship chain (the driver's default, and with
+    both process merges), of each coupling of the variant driver (and ssus
+    with both merges) and two steps of the mountain-wave driver leaves JAX
+    and the JAX package unloaded."""
     code = (
         "import sys, torch\n"
+        "import tasmania_tpu_torch.utils.jitx\n"
         "from tasmania_tpu_torch.drivers import driver_isentropic_moist as moist\n"
         "from tasmania_tpu_torch.drivers.driver_namelist_sus import run\n"
         "from tasmania_tpu_torch.drivers.namelist_sus import load_namelist\n"
