@@ -14,7 +14,9 @@ printing one line; any failure raises and exits non-zero:
    kernel's ``timed_by`` then says),
    the bytes it must move and its bound at 3.35 TB/s.  Tolerances, as a share
    of the largest magnitude of the plain output (su and sv both of the
-   momentum vector's): paste bitwise (N arrays, and one); smoothing 1e-6;
+   momentum vector's; the sedimentation kernel also timed as bare
+   launches of its entry point between CUDA events, ``bare_launch_ms``):
+   paste bitwise (N arrays, and one); smoothing 1e-6;
    each of the three RK3WS stages of si_stage (damping on the last) 1e-5
    (every cell: the stage and the smoothing write their x-frames
    themselves, so no paste follows either)
@@ -130,8 +132,9 @@ printing one line; any failure raises and exits non-zero:
    to ``MERGED_TOL`` = 6e-4 relative on every number, about twice the
    port's float32 CPU reading (2.8e-4 on qc_max);
 10. the fused loop (``--fused-loop``): the runs of phases 5 (the flagship,
-   1 + 100 steps), 9 (sus_merged, 1 + 30), 7's fc (1 + 20) and 8 (the
-   mountain wave, 1800 steps) again with ``fused_loop=True``, their timed
+   1 + 100 steps), 9 (sus_merged, 1 + 30), 7 (fc, lfc, ps, sts and ssus,
+   1 + 20 each) and 8 (the mountain wave, 1800 steps) again with
+   ``fused_loop=True``, their timed
    steps replays of one CUDA graph of the step: each final field equal to
    the eager run's bit for bit, and the launch counts exact per capture (a
    replay counts nothing, so each kernel twice its launches a step: the
@@ -140,10 +143,31 @@ printing one line; any failure raises and exits non-zero:
    eager and graph runs, in ``FUSED_PAIRS`` alternating pairs in this call
    (eager, graph, graph, eager, ...), of ``FUSED_TIMED_STEPS`` timed steps
    a run (the mountain wave ``FUSED_TIMED_MW``), each model built once, as
-   a phase line each and one JSON line (``fused_loop_timing``).
+   a phase line each and one JSON line (``fused_loop_timing``);
+11. the Burgers model (BASELINE config 1) through
+   ``driver_burgers.run_case`` at 2048x2048, float32: the ``bench`` case
+   (``bench.py::bench_burgers``, 1 + 50 steps) and the ``zhao`` case (the
+   dycore with diffusion and the Dirichlet boundary of the exact solution,
+   1 + 100 steps), each eager and as a CUDA graph: the graph's u and v
+   equal the eager run's bit for bit, no kernel launched (plain PyTorch),
+   every value finite, and zhao's numbers within ``BURGERS_TOL`` of the
+   JAX package's float32 result
+   (``tasmania_tpu_torch/drivers/burgers_reference.json``).  Then eager and
+   graph in ``FUSED_PAIRS`` alternating pairs, ms/step and gridpoints/s
+   beside the step's bound (``burgers_bound``), as phase lines and one JSON
+   line (``burgers_timing``);
+12. the dwarfs (BASELINE config 2): each of the six diffusion, nine
+   hyperdiffusion and nine smoothing names once on a seeded float32 field of
+   ``DWARF_SHAPE`` on the card, the two-dimensional smoothing filters
+   through ``fused_smoothing`` (launched exactly once each, nothing else),
+   each output within ``DWARF_TOL`` of the largest magnitude of the port's
+   float64 CPU result of the same call, and each call's device time
+   (``device_ms``) beside its bound (the field read once and the result
+   written once), as phase lines and one JSON line (``dwarfs``).
 
 The isentropic diagnostics kernel serves every diagnostics call, so phases
-4-7, 9 and 10 count it too (``LAUNCHES_PER_STEP``).  Every phase checks the launch
+4-7, 9 and 10 count it too (``LAUNCHES_PER_STEP``); phase 12 counts the
+smoothing kernel under the path ``dwarfs``.  Every phase checks the launch
 counts exactly: each kernel of the path as often as its path launches it a
 step (phase 10: a step's launches twice), and no other kernel.  The last two
 lines are the card's name and power limit, then ``{"ok": true, "device":
@@ -252,6 +276,33 @@ MW_GATE = {"corr_2a": 0.95, "corr_4a": 0.93, "amplitude_ratio_2a": (0.7, 1.2)}
 MW_ABS_TOL = {"corr": 1.5e-2, "corr_focused": 5e-3, "corr_2a": 5e-3, "corr_3a": 5e-3,
               "corr_4a": 5e-3}
 MW_REL_TOL = {"amplitude_ratio": 0.1, "amplitude_ratio_2a": 0.1, "umax": 2e-4}
+# phase 11, Burgers through driver_burgers: the size, and the limits against
+# burgers_reference.json (the JAX package's float32 zhao run on the CPU),
+# relative (u_sum and v_sum relative to the sums of |u| and |v|).  The port's
+# float32 CPU run reads 0 on every number (make_torch_burgers_reference.py
+# --check-port: bit for bit the JAX run), so the limits are about twice the
+# size of float32 rounding itself, the port's float64 CPU run against the
+# same file: 1.1e-7 (umax), 3.6e-7 (vmax), 1.4e-8 and 1.3e-8 (the sums of
+# magnitudes), 4.1e-9 and 4.7e-11 (the sums), 7.4e-3 (err_u) and 4.9e-3
+# (err_v); below 5e-7 a limit is 5e-7, four float32 ulps
+BURGERS_NX = 2048
+BURGERS_TOL = {"umax": 5e-7, "vmax": 7e-7, "u_abs_sum": 5e-7, "v_abs_sum": 5e-7, "u_sum": 5e-7,
+               "v_sum": 5e-7, "err_u": 1.5e-2, "err_v": 1e-2}
+# phase 12, the dwarfs on a seeded float32 field, held to the port's own
+# float64 CPU result of the same call: the flagship's horizontal size and
+# levels, its nb, a sin² ramp of the coefficient over the top 15 levels.
+# On an H100 80GB HBM3 the 24 calls came within 0.9e-7 to 3.2e-7 of the
+# largest magnitude (the third-order smoothing): the limit is about three
+# times the largest reading
+DWARF_SHAPE = (161, 161, 120)
+DWARF_NB = 3
+DWARF_SEED = 12
+DWARF_DIFFUSION = (1e3, 8e3, 15)  # m^2/s: coefficient, maximum, ramp depth
+DWARF_SMOOTH = (0.03, 0.24, 15)
+DWARF_TOL = 1e-6
+# phase 3: #17's bare launches between CUDA events, launches a round and rounds
+BARE_LAUNCHES = 200
+BARE_ROUNDS = 3
 # phase 3's tall columns: the column kernels' tall path above their fused
 # kernels' heights (1024 levels; 2048 for sedimentation)
 TALL_COLUMNS = (41, 41)
@@ -350,6 +401,15 @@ def bound(bytes_moved: int, flops: float) -> dict:
                 bound_by="bytes" if t_bytes >= t_ops else "operations")
 
 
+def burgers_bound(cells: int, itemsize: int, case: str) -> dict:
+    """The least time of a Burgers step: each of the three RK3WS stages
+    reads u, v and the step's u0, v0 and writes u, v once, and does about
+    66 operations a cell for the third-order advection and the update (86
+    with zhao's diffusion)."""
+    flops = (66.0 if case == "bench" else 86.0) * cells
+    return bound(3 * 6 * cells * itemsize, 3 * flops)
+
+
 def check_outputs(name, got, ref, scales, tol):
     """max|got - ref| <= tol * scale per output; returns (worst abs error,
     the relative errors as text)."""
@@ -424,10 +484,17 @@ def main() -> int:
 
     import numpy as np
 
+    from tasmania_tpu_torch.drivers import driver_burgers as burgers
     from tasmania_tpu_torch.drivers import driver_isentropic_moist as moist
     from tasmania_tpu_torch.drivers import driver_mountain_wave as mw
     from tasmania_tpu_torch.drivers import driver_namelist_sus as drv
     from tasmania_tpu_torch.drivers.namelist_sus import load_namelist
+    from tasmania_tpu_torch.dwarfs.horizontal_diffusion import TYPES as diffusion_types
+    from tasmania_tpu_torch.dwarfs.horizontal_diffusion import HorizontalDiffusion
+    from tasmania_tpu_torch.dwarfs.horizontal_hyperdiffusion import TYPES as hyperdiffusion_types
+    from tasmania_tpu_torch.dwarfs.horizontal_hyperdiffusion import HorizontalHyperDiffusion
+    from tasmania_tpu_torch.dwarfs.horizontal_smoothing import TYPES as smoothing_types
+    from tasmania_tpu_torch.dwarfs.horizontal_smoothing import HorizontalSmoothing
     from tasmania_tpu_torch.framework.options import StorageOptions
     from tasmania_tpu_torch.framework.steppers import TendencyStepper
     from tasmania_tpu_torch.isentropic.physics.turbulence import IsentropicSmagorinsky
@@ -730,6 +797,33 @@ def main() -> int:
            "tasmania_tpu/ops/sedimentation_step.py:123", worst,
            lambda: fused_sedimentation_rk3ws(*din, **dkw),
            lambda: fused_sedimentation_rk3ws_plain(*din, **dkw), b)
+    # the same kernel's bare launches: the library's entry point on fixed
+    # arguments, BARE_LAUNCHES back to back between two CUDA events, in
+    # BARE_ROUNDS rounds; no wrapper, no allocation, no argument check
+    sed_outs = (torch.empty_like(qr), torch.empty_like(qr))
+    sed_args = (_lib.DTYPE_CODES[qr.dtype], _lib.pointer_array(din), _lib.pointer_array(sed_outs),
+                cell[0] * cell[1], cell[2], dkw["order"], int(dkw["vt_mode"] == "step"),
+                float(dkw["dt"]), _lib.stream_handle())
+    sed_entry = _lib.lib().tt_sedimentation_rk3ws
+    for _ in range(3):
+        _lib.check(sed_entry(*sed_args), "fused_sedimentation_rk3ws")
+    bare = []
+    for _ in range(BARE_ROUNDS):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(BARE_LAUNCHES):
+            sed_entry(*sed_args)
+        end.record()
+        end.synchronize()
+        bare.append(start.elapsed_time(end) / BARE_LAUNCHES)
+    _lib.check(sed_entry(*sed_args), "fused_sedimentation_rk3ws")
+    torch.cuda.synchronize()
+    if not torch.equal(sed_outs[0], got[0]):
+        raise AssertionError("fused_sedimentation_rk3ws: the bare launches differ from the wrapper's")
+    kernels["fused_sedimentation_rk3ws"]["bare_launch_ms"] = bare
+    phase("kernel", f"fused_sedimentation_rk3ws bare launches ({BARE_LAUNCHES} between CUDA events, "
+          f"{BARE_ROUNDS} rounds): {' '.join(f'{t:.4f}' for t in bare)} ms a launch, beside device_ms "
+          f"{kernels['fused_sedimentation_rk3ws']['ms']:.4f} ms")
 
     # Kessler alone and saturation adjustment alone (the parallel splitting's
     # chains): the pair's inputs, and a θ-tendency for the adjustment to add to
@@ -1132,6 +1226,7 @@ def main() -> int:
           lambda key: RAIN_TOL, 0.0)
 
     # -- 7. the five other couplings (driver_isentropic_moist) ----------------
+    nl_of = {}
     for coupling in VARIANTS:
         reference = f"variant_{coupling}_reference.json"
         cfg = json.loads(Path(drv.__file__).with_name(reference).read_text())["config"]
@@ -1145,8 +1240,7 @@ def main() -> int:
         path_counts[coupling], path_steps[coupling] = counts, 1 + nl_v.niter
         phase(f"{coupling}-validation", f"umax = {res['umax']:.5f}, vmax = {res['vmax']:.5f} "
               "(for information)")
-        if coupling == "fc":
-            eager_fields["fc"], nl_fc = res["fields"], nl_v
+        eager_fields[coupling], nl_of[coupling] = res["fields"], nl_v
         del res
 
     # -- 8. the deep-domain mountain wave (the unfused dry stage) --------------
@@ -1206,7 +1300,7 @@ def main() -> int:
     eager_fields["sus_merged"] = res["fields"]
     del res
 
-    # -- 10. the fused loop: the runs of phases 5, 9, 7 (fc) and 8 as CUDA graphs
+    # -- 10. the fused loop: the runs of phases 5, 9, 7 and 8 as CUDA graphs
     def mountain_wave(hours, fused):
         return mw.run_case(mwc["nx"], mwc["nz"], hours, mwc["dt"], theta_top=mwc["theta_top"],
                            damp_depth=mwc["damp_depth"], damp_max=mwc["damp_max"],
@@ -1216,11 +1310,11 @@ def main() -> int:
     graph_runs = {
         "sus": lambda: drv.run(nl, verbose=False, fused_loop=True),
         "sus_merged": lambda: drv.run(nl_merged, verbose=False, fused_loop=True),
-        "fc": lambda: moist.run(nl_fc, "fc", verbose=False, fused_loop=True),
+        **{c: (lambda c=c: moist.run(nl_of[c], c, verbose=False, fused_loop=True)) for c in VARIANTS},
         "mountain_wave": lambda: mountain_wave(mwc["hours"], True),
     }
-    steps_of = {"sus": 1 + nl.niter, "sus_merged": 1 + nl_merged.niter, "fc": 1 + nl_fc.niter,
-                "mountain_wave": steps}
+    steps_of = {"sus": 1 + nl.niter, "sus_merged": 1 + nl_merged.niter, "mountain_wave": steps,
+                **{c: 1 + nl_of[c].niter for c in VARIANTS}}
     for path, run_graph in graph_runs.items():
         per_step = LAUNCHES_PER_STEP[path]
         torch.cuda.synchronize()
@@ -1252,7 +1346,7 @@ def main() -> int:
     # pairs), FUSED_TIMED_STEPS timed steps a run after the warm-up step (the
     # mountain wave FUSED_TIMED_MW of its 20 s steps), each model built once
     timing = {}
-    models = {"sus": (nl, "sus"), "sus_merged": (nl_merged, "sus"), "fc": (nl_fc, "fc")}
+    models = {"sus": (nl, "sus"), "sus_merged": (nl_merged, "sus"), "fc": (nl_of["fc"], "fc")}
     for path in ("sus", "sus_merged", "fc", "mountain_wave"):
         if path == "mountain_wave":
             hours = (1 + FUSED_TIMED_MW) * mwc["dt"] / 3600.0
@@ -1278,6 +1372,111 @@ def main() -> int:
               f"{' '.join(f'{t:.3f}' for t in runs[False])} (median {med[False]:.3f}); graph "
               f"{' '.join(f'{t:.3f}' for t in runs[True])} (median {med[True]:.3f})")
     print(json.dumps({"fused_loop_timing": timing, "card": card}))
+
+    # -- 11. Burgers at 2048x2048 (BASELINE config 1) through driver_burgers --
+    f32 = StorageOptions(dtype=torch.float32, device=device)
+    bref = json.loads(Path(burgers.__file__).with_name("burgers_reference.json").read_text())
+    burgers_timing = {}
+    for case in burgers.CASES:
+        runs = {}
+        for fused in (False, True):
+            torch.cuda.synchronize()
+            _lib.reset_launch_counts()
+            runs[fused] = burgers.run_case(case, BURGERS_NX, so=f32, verbose=False, fused_loop=fused)
+            # plain PyTorch on the card: the path launches none of the kernels
+            if dict(_lib.launch_counts) or runs[fused]["launches_per_step"]:
+                raise AssertionError(f"burgers {case}: launched {dict(_lib.launch_counts)}")
+        eager, graph = runs[False], runs[True]
+        for name, fa in eager["fields"].items():
+            if not bool(torch.isfinite(fa.data).all()):
+                raise AssertionError(f"burgers {case}: {name} is not finite")
+            if not torch.equal(graph["fields"][name].data, fa.data):
+                raise AssertionError(f"burgers {case}: the graph's {name} differs from the eager run's "
+                                     f"by {float((graph['fields'][name].data - fa.data).abs().max())}")
+        nx = eager["nx"]
+        cells = (nx + 2 * eager["nb"]) ** 2 if case == "bench" else nx * nx
+        b = burgers_bound(cells, 4, case)
+        phase(f"burgers-{case}", f"{nx}x{nx}, 1+{eager['steps']} steps: the graph's u and v equal the "
+              f"eager run's bit for bit; no kernel launched; capture {graph['capture_s']:.3f} s; "
+              f"bound {b['bound_ms']:.4f} ms a step by {b['bound_by']} ({b['bytes'] / 1e6:.1f} MB) on {card}")
+        if case == "zhao":
+            cfg = bref["config"]
+            if (cfg["nx"], cfg["ny"], cfg["nb"], cfg["steps"]) != (nx, nx, eager["nb"], eager["steps"]):
+                raise AssertionError("burgers_reference.json is not at phase 11's configuration")
+            diffs = []
+            for key, tol in BURGERS_TOL.items():
+                scale = bref[key[0] + "_abs_sum"] if key in ("u_sum", "v_sum") else abs(bref[key])
+                dev = abs(eager[key] - bref[key]) / scale
+                diffs.append(f"{key}={eager[key]:.9g}({dev:.1e})")
+                if not dev <= tol:
+                    raise AssertionError(f"burgers zhao {key}: {eager[key]} vs reference {bref[key]} "
+                                         f"(deviation {dev:.2e} > {tol})")
+            phase("burgers-zhao-reference", " ".join(diffs))
+        del runs, eager, graph
+        # paired timing: eager, graph, graph, eager, ... of the default steps
+        times = {False: [], True: []}
+        for i in range(FUSED_PAIRS):
+            for fused in ((False, True) if i % 2 == 0 else (True, False)):
+                r = burgers.run_case(case, BURGERS_NX, so=f32, verbose=False, fused_loop=fused)
+                times[fused].append((r["ms_per_step"], r["gps"]))
+                del r
+        med = {f: sorted(t[0] for t in r)[len(r) // 2] for f, r in times.items()}
+        burgers_timing[case] = {"eager_ms_per_step": [t[0] for t in times[False]],
+                                "graph_ms_per_step": [t[0] for t in times[True]],
+                                "graph_gps": [t[1] for t in times[True]],
+                                "bound_ms_per_step": b["bound_ms"], "bound_by": b["bound_by"]}
+        phase(f"burgers-{case}-timing", f"{FUSED_PAIRS} pairs on {card}: eager ms/step "
+              f"{' '.join(f'{t[0]:.4f}' for t in times[False])} (median {med[False]:.4f}); graph "
+              f"{' '.join(f'{t[0]:.4f}' for t in times[True])} (median {med[True]:.4f}, "
+              f"{nx * nx / med[True] * 1e3:.4e} gridpoints/s); bound {b['bound_ms']:.4f} ms/step")
+    print(json.dumps({"burgers_timing": burgers_timing, "card": card}))
+
+    # -- 12. the diffusion, hyperdiffusion and smoothing dwarfs (BASELINE config 2)
+    dwarf_types = {"diffusion": (HorizontalDiffusion, sorted(diffusion_types)),
+                   "hyperdiffusion": (HorizontalHyperDiffusion, sorted(hyperdiffusion_types)),
+                   "smoothing": (HorizontalSmoothing, sorted(smoothing_types))}
+    dgrid = nl.domain_x, nl.domain_y
+    ddx = (dgrid[0][1] - dgrid[0][0]) / (DWARF_SHAPE[0] - 1)
+    ddy = (dgrid[1][1] - dgrid[1][0]) / (DWARF_SHAPE[1] - 1)
+    phi64 = torch.as_tensor(np.random.default_rng(DWARF_SEED).standard_normal(DWARF_SHAPE),
+                            dtype=torch.float32).double()
+    phi = phi64.to(device=device, dtype=torch.float32)
+    cpu64 = StorageOptions(dtype=torch.float64, device="cpu")
+
+    def dwarf(kind, name, so):
+        cls, _ = dwarf_types[kind]
+        if kind == "smoothing":
+            return cls(name, DWARF_SHAPE, *DWARF_SMOOTH, DWARF_NB, storage_options=so)
+        return cls(name, DWARF_SHAPE, ddx, ddy, *DWARF_DIFFUSION, DWARF_NB, storage_options=so)
+
+    dwarfs = {(k, n): dwarf(k, n, f32) for k, (_, names) in dwarf_types.items() for n in names}
+    # the path: each dwarf once; the 2-D smoothing filters through #3, nothing else launched
+    torch.cuda.synchronize()
+    _lib.reset_launch_counts()
+    outs = {key: d(phi) for key, d in dwarfs.items()}
+    torch.cuda.synchronize()
+    counts = dict(_lib.launch_counts)
+    expected = {"fused_smoothing": sum(d.axes == "xy" for (k, _), d in dwarfs.items() if k == "smoothing")}
+    if counts != expected:
+        raise AssertionError(f"dwarfs: launched {counts}, expected {expected}")
+    path_counts["dwarfs"], path_steps["dwarfs"] = counts, 1
+    dwarf_rows = []
+    for (kind, name), out in outs.items():
+        ref = dwarf(kind, name, cpu64)(phi64)
+        scale = float(ref.abs().max())
+        err = float((out.double().cpu() - ref).abs().max())
+        if not (bool(torch.isfinite(out).all()) and err <= DWARF_TOL * scale):
+            raise AssertionError(f"dwarf {kind} {name}: max|d| = {err} > {DWARF_TOL} * {scale}")
+        d = dwarfs[(kind, name)]
+        ms, how = device_ms(lambda: d(phi))
+        db = bound(2 * phi.numel() * phi.element_size(), 0.0)
+        dwarf_rows.append(dict(kind=kind, name=name, rel_err=err / scale, device_ms=ms, timed_by=how,
+                               bound_ms=db["bound_ms"], bound_by=db["bound_by"]))
+        phase("dwarf", f"{kind} {name} at {'x'.join(map(str, DWARF_SHAPE))} float32: {ms:.4f} ms "
+              f"({how}), bound {db['bound_ms']:.4f} ms by {db['bound_by']}; error {err / scale:.1e} of "
+              f"the largest magnitude of the float64 CPU result")
+    del outs, dwarfs
+    print(json.dumps({"dwarfs": dwarf_rows, "card": card}))
 
     # each kernel's launches in the full-size run of the first path that runs
     # it (the flagship for the six of the SUS chain, the merged run for the

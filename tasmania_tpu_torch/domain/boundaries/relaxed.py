@@ -95,7 +95,7 @@ class Relaxed(HorizontalBoundary):
         # numpy lays an index along axis 1 out last: copy to row-major order
         return np.ascontiguousarray(field[:, rows])
 
-    def enforce_field(self, field, field_name=None, field_units=None):
+    def enforce_field(self, field, field_name=None, field_units=None, time=None):
         mi, mj, _ = field_extent(field_name, self.ni, self.nj, self.nz)
         g = self.gamma[:mi, :mj]
         while g.dim() < field.dim():
@@ -110,7 +110,7 @@ class Relaxed(HorizontalBoundary):
             out[:mi, mj - nb : mj] = out[:mi, mj - nb - 1 : mj - nb]
         return out
 
-    def set_outermost_layers_x(self, field, field_name=None, field_units=None):
+    def set_outermost_layers_x(self, field, field_name=None, field_units=None, time=None):
         mi, mj, _ = field_extent(field_name, self.ni, self.nj, self.nz)
         ref = self.ref_field(field_name, field_units)
         out = field.clone()
@@ -118,7 +118,7 @@ class Relaxed(HorizontalBoundary):
         out[mi - 1 : mi, :mj] = ref[mi - 1 : mi, :mj]
         return out
 
-    def set_outermost_layers_y(self, field, field_name=None, field_units=None):
+    def set_outermost_layers_y(self, field, field_name=None, field_units=None, time=None):
         mi, mj, _ = field_extent(field_name, self.ni, self.nj, self.nz)
         ref = self.ref_field(field_name, field_units)
         out = field.clone()

@@ -23,6 +23,16 @@ def change_dims(axis: FieldArray, dims: Optional[str] = None) -> FieldArray:
     return FieldArray(axis.data, axis.units, (dims,) if dims else axis.dims)
 
 
+def extend_axis(axis: FieldArray, nb: int, dims: Optional[str] = None) -> FieldArray:
+    """A coordinate axis extended linearly by ``nb`` points on each side."""
+    v = np.asarray(axis.data)
+    d = v[1] - v[0] if v.shape[0] > 1 else 1.0
+    left = v[0] - d * np.arange(nb, 0, -1)
+    right = v[-1] + d * np.arange(1, nb + 1)
+    out = np.concatenate([left, v, right]).astype(v.dtype)
+    return FieldArray(out, axis.units, (dims,) if dims else axis.dims)
+
+
 def repeat_axis(axis: FieldArray, nb: int, dims: Optional[str] = None) -> FieldArray:
     """A singleton axis (or its two-point staggered companion) padded by
     repeating its first and last values ``nb`` times."""
@@ -80,6 +90,22 @@ class HorizontalBoundary(nn.Module):
                 self.register_buffer("ref_" + name, fa.data)
                 self._ref_units[name] = fa.units
 
+    def enforce_raw(
+        self, state: Mapping[str, Any], field_properties: Optional[Mapping[str, Mapping[str, Any]]] = None
+    ) -> Dict[str, Any]:
+        """``state`` (raw tensors) with the boundary enforced on each field
+        that the reference state holds, in the units of ``field_properties``
+        (default: the reference's), at the state's ``"time"``."""
+        fps = {n: {"units": u} for n, u in self._ref_units.items()}
+        if field_properties is not None:
+            fps = {n: {**fps[n], **p} for n, p in field_properties.items() if n in fps}
+        time = state.get("time")
+        return {
+            name: self.enforce_field(f, name, fps[name]["units"], time=time)
+            if name in fps and name != "time" else f
+            for name, f in state.items()
+        }
+
     def ref_field(self, field_name: str, field_units: Optional[str] = None):
         """The reference value of ``field_name`` in ``field_units``."""
         data = getattr(self, "ref_" + field_name)
@@ -97,12 +123,17 @@ class HorizontalBoundary(nn.Module):
         storage_options: Optional[StorageOptions] = None,
         **kwargs,
     ) -> "HorizontalBoundary":
+        from tasmania_tpu_torch.domain.boundaries.dirichlet import Dirichlet
+        from tasmania_tpu_torch.domain.boundaries.identity import Identity
+        from tasmania_tpu_torch.domain.boundaries.periodic import Periodic
         from tasmania_tpu_torch.domain.boundaries.relaxed import Relaxed
 
-        if boundary_type != "relaxed":
+        types = {"dirichlet": Dirichlet, "identity": Identity, "periodic": Periodic,
+                 "relaxed": Relaxed}
+        if boundary_type not in types:
             raise NotImplementedError(
-                f"horizontal boundary {boundary_type!r} is not ported (have 'relaxed')"
+                f"horizontal boundary {boundary_type!r} is not ported (have {sorted(types)})"
             )
-        obj = Relaxed(grid, nb, storage_options=storage_options, **kwargs)
+        obj = types[boundary_type](grid, nb, storage_options=storage_options, **kwargs)
         obj.type = boundary_type
         return obj

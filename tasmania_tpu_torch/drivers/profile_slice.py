@@ -5,7 +5,8 @@ with the full physics chain (or, with ``--slice``, the port's first slice:
 dycore -> diagnostics -> smoothing -> velocities; with ``--coupling C``, the
 same model under coupling C of ``driver_isentropic_moist``; with
 ``--mountain-wave``, the deep-domain mountain wave of ``driver_mountain_wave``,
-161x1x120 float32), runs a few steps untraced, then traces ``--steps`` steps
+161x1x120 float32; with ``--burgers CASE``, a case of ``driver_burgers`` at
+2048x2048 float32, the zhao step at the initial time), runs a few steps untraced, then traces ``--steps`` steps
 with ``torch.profiler`` and prints the device time per kernel, the
 host-clock time per step and the device's busy share of that window.
 Before the trace it times ``--steps`` steps without the profiler (host
@@ -21,7 +22,8 @@ a step, in the unprofiled window and under the profiler alike; it also
 prints the device time of the replays by CUDA events around them.
 
 Usage: ``python -m tasmania_tpu_torch.drivers.profile_slice [--steps N]
-[--slice | --coupling C | --mountain-wave] [--merge NAME] [--fused-loop]``
+[--slice | --coupling C | --mountain-wave | --burgers CASE] [--merge NAME]
+[--fused-loop]``
 (needs a CUDA device).
 """
 
@@ -34,6 +36,7 @@ import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
+from tasmania_tpu_torch.drivers import driver_burgers as burgers
 from tasmania_tpu_torch.drivers import driver_isentropic_moist as moist
 from tasmania_tpu_torch.drivers import driver_mountain_wave as mw
 from tasmania_tpu_torch.drivers import driver_namelist_sus as drv
@@ -48,6 +51,8 @@ def main(argv=None) -> None:
     parser.add_argument("--coupling", choices=moist.COUPLINGS, default="sus")
     parser.add_argument("--mountain-wave", action="store_true",
                         help="profile the deep-domain mountain wave (the unfused dry stage)")
+    parser.add_argument("--burgers", choices=burgers.CASES,
+                        help="profile a case of the Burgers driver at 2048x2048")
     parser.add_argument("--merge", action="append", default=[], metavar="NAME",
                         help="a SUS process merge of the full chain (repeatable)")
     parser.add_argument("--fused-loop", action="store_true",
@@ -55,14 +60,19 @@ def main(argv=None) -> None:
     cli = parser.parse_args(argv)
     if not torch.cuda.is_available():
         parser.error("needs a CUDA device")
-    if (cli.slice or cli.mountain_wave) and cli.coupling != "sus" or cli.slice and cli.mountain_wave:
-        parser.error("--slice, --coupling and --mountain-wave exclude each other")
-    if cli.merge and (cli.slice or cli.mountain_wave):
+    if sum((cli.slice, cli.mountain_wave, cli.burgers is not None, cli.coupling != "sus")) > 1:
+        parser.error("--slice, --coupling, --mountain-wave and --burgers exclude each other")
+    if cli.merge and (cli.slice or cli.mountain_wave or cli.burgers):
         parser.error("--merge applies to the full chain")
-    if cli.mountain_wave:
+    f32 = StorageOptions(dtype=torch.float32, device="cuda")
+    if cli.burgers:
+        step, fields, _, _, _ = burgers.make_case(cli.burgers, 2048, 2048, 3, 1, 0, f32)
+        names = sorted(fields)
+        # the step's start time, in the place of the isentropic steps' topography
+        hs = torch.zeros((), dtype=torch.float64, device="cuda")
+    elif cli.mountain_wave:
         _, state, dycore, diagnostics, pt = mw.build(
-            161, 120, theta_top=420.0, damp_depth=60, damp_max=5e-4,
-            so=StorageOptions(dtype=torch.float32, device="cuda"))
+            161, 120, theta_top=420.0, damp_depth=60, damp_max=5e-4, so=f32)
         names, step = mw.make_step(dycore, diagnostics, pt, state, 20.0)
     else:
         nl = moist.load_namelist(cli.coupling, process_merges=tuple(cli.merge))
@@ -74,8 +84,9 @@ def main(argv=None) -> None:
             _, state, dycore, step_impl = moist.build_variant(nl, cli.coupling)
         names = sorted(k for k in state if k != "time")
         step = drv.fields_step(step_impl, names, nl.timestep.total_seconds())
-    fields = {k: state[k] for k in names}
-    hs = dycore.topography_steady
+    if not cli.burgers:
+        fields = {k: state[k] for k in names}
+        hs = dycore.topography_steady
     for _ in range(2 if cli.fused_loop else 3):
         fields = step(fields, hs)
     graph = None
@@ -112,7 +123,8 @@ def main(argv=None) -> None:
             per_name[e.name] = (t + e.time_range.elapsed_us(), n + 1)
     busy_us = sum(t for t, _ in per_name.values())
     calls = sum(n for _, n in per_name.values())
-    chain = ("mountain wave" if cli.mountain_wave else "slice" if cli.slice
+    chain = (f"burgers {cli.burgers}" if cli.burgers else "mountain wave" if cli.mountain_wave
+             else "slice" if cli.slice
              else f"full chain, {cli.coupling}" + "".join(f", merge {m}" for m in cli.merge))
     if graph is not None:
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)

@@ -1,41 +1,80 @@
-"""Horizontal Shapiro smoothing: filter order and vertically graded
-coefficient (counterpart of ``tasmania_tpu/dwarfs/horizontal_smoothing.py``).
-The filter itself is ``ops/smoothing_step.py``; the two-dimensional filters
-of order 1-3 are ported."""
+"""Horizontal Shapiro smoothing with a vertically graded coefficient
+(counterpart of ``tasmania_tpu/dwarfs/horizontal_smoothing.py``).
+
+A call returns the smoothed field: the interior filtered, the frame of
+width ``nb`` (along each filtered axis) passed through.  The
+two-dimensional filters of order 1-3 are ``ops/smoothing_step.fused_smoothing``
+(the CUDA kernel on the card); the ``_1dx`` and ``_1dy`` filters are plain
+PyTorch, as the JAX package computes them in XLA.
+"""
 
 from __future__ import annotations
 
-import math
+from typing import Optional, Tuple
 
-import numpy as np
+import torch
+from torch import nn
 
-ORDERS = {"first_order": 1, "second_order": 2, "third_order": 3}
+from tasmania_tpu_torch.dwarfs.horizontal_diffusion import build_damped_coeff
+from tasmania_tpu_torch.framework.options import StorageOptions
+from tasmania_tpu_torch.ops.smoothing_step import fused_smoothing
+
+#: name -> (order, the axes it filters)
+TYPES = {
+    f"{word}_order{suffix}": (order, axes)
+    for order, word in ((1, "first"), (2, "second"), (3, "third"))
+    for suffix, axes in (("", "xy"), ("_1dx", "x"), ("_1dy", "y"))
+}
+#: the one-dimensional filters' weight of the centre
+CW_1D = {1: 0.5, 2: 0.375, 3: 0.3125}
 
 
-def build_damped_coeff(nz: int, coeff: float, coeff_max: float, damp_depth: int, dtype) -> np.ndarray:
-    """(nz,) coefficient profile with a sin² ramp from ``coeff`` to
-    ``coeff_max`` over the top ``damp_depth`` levels."""
-    gamma = coeff * np.ones(nz, dtype=dtype)
-    n = min(damp_depth, nz)  # shallow grids
-    if n > 0:
-        pert = np.sin(0.5 * math.pi * (n - np.arange(0, n, dtype=dtype)) / n) ** 2
-        gamma[:n] += (coeff_max - coeff) * pert
-    return gamma
-
-
-class HorizontalSmoothing:
-    """Order and coefficient profile of one smoothing filter."""
+class HorizontalSmoothing(nn.Module):
+    """Buffer: the coefficient profile ``gamma`` (nz,)."""
 
     def __init__(
-        self, smooth_type: str, nz: int, smooth_coeff: float, smooth_coeff_max: float,
-        smooth_damp_depth: int, nb: int | None, dtype,
+        self, smooth_type: str, shape: Tuple[int, int, int], smooth_coeff: float,
+        smooth_coeff_max: float, smooth_damp_depth: int, nb: Optional[int] = None, *,
+        storage_options: Optional[StorageOptions] = None,
     ) -> None:
-        if smooth_type not in ORDERS:
-            raise NotImplementedError(
-                f"smoothing {smooth_type!r} is not ported (have {sorted(ORDERS)})"
-            )
-        self.order = ORDERS[smooth_type]
+        super().__init__()
+        if smooth_type not in TYPES:
+            raise ValueError(f"unknown smoothing {smooth_type!r} (have {sorted(TYPES)})")
+        self.order, self.axes = TYPES[smooth_type]
         self.nb = self.order if (nb is None or nb < self.order) else nb
-        self.gamma = build_damped_coeff(
-            nz, smooth_coeff, smooth_coeff_max, smooth_damp_depth, dtype
+        so = storage_options or StorageOptions()
+        gamma = build_damped_coeff(shape[2], smooth_coeff, smooth_coeff_max, smooth_damp_depth,
+                                   so.np_dtype)
+        self.register_buffer("gamma", torch.as_tensor(gamma, dtype=so.dtype, device=so.device))
+
+    def _filter_1d(self, w, g, axis: int):
+        """The order's Shapiro correction along ``axis`` of a window that
+        carries ``order`` more layers on each side along it."""
+        n = self.order
+
+        def sh(off):
+            idx = [slice(None)] * w.dim()
+            idx[axis] = slice(n + off, w.shape[axis] - n + off)
+            return w[tuple(idx)]
+
+        if n == 1:
+            return 0.25 * g * (sh(-1) + sh(+1))
+        if n == 2:
+            return 0.0625 * g * (-sh(-2) + 4.0 * sh(-1) - sh(+2) + 4.0 * sh(+1))
+        return 0.015625 * g * (
+            sh(-3) - 6.0 * sh(-2) + 15.0 * sh(-1) + sh(+3) - 6.0 * sh(+2) + 15.0 * sh(+1)
         )
+
+    def forward(self, phi: torch.Tensor) -> torch.Tensor:
+        g = self.gamma.to(phi.dtype)
+        nb, n = self.nb, self.order
+        if self.axes == "xy":
+            return fused_smoothing([phi], g[None], order=n, nb=nb)[0]
+        axis = "xy".index(self.axes)
+        idx = [slice(None), slice(None)]
+        idx[axis] = slice(nb - n, phi.shape[axis] - nb + n)
+        w = phi[tuple(idx)]
+        idx[axis] = slice(nb, phi.shape[axis] - nb)
+        out = phi.clone()
+        out[tuple(idx)] = (1.0 - CW_1D[n] * g) * phi[tuple(idx)] + self._filter_1d(w, g, axis)
+        return out

@@ -21,7 +21,6 @@ take no such argument.
 from __future__ import annotations
 
 import abc
-from datetime import timedelta
 from typing import Any, Dict, Mapping, Tuple
 
 from torch import nn
@@ -31,6 +30,7 @@ from tasmania_tpu_torch.framework.core_components import merge_tendencies
 from tasmania_tpu_torch.framework.dict_operator import update
 from tasmania_tpu_torch.framework.field import (
     FieldArray,
+    add_seconds,
     ensure_timedelta_seconds,
     get_array_dict,
     wrap_outputs,
@@ -85,7 +85,7 @@ class DynamicalCore(nn.Module, abc.ABC):
         for stage in range(self.stages):
             tmp_state, fdc_tendencies = self._stage_call(stage, dt, tendencies, tmp_state, fdc_tendencies)
         if "time" in state:
-            tmp_state["time"] = state["time"] + timedelta(seconds=dt)
+            tmp_state["time"] = add_seconds(state["time"], dt)
         return tmp_state
 
     def _stage_call(
@@ -98,6 +98,8 @@ class DynamicalCore(nn.Module, abc.ABC):
             tmp_state = update(tmp_state, diagnostics)
 
         raw = get_array_dict(tmp_state, self.stage_input_properties)
+        if "time" in tmp_state:
+            raw["time"] = tmp_state["time"]
         th = tmp_state.get("topography_height")
         if th is not None:
             raw["topography_height"] = th.to_units("m").data if isinstance(th, FieldArray) else th
@@ -106,6 +108,8 @@ class DynamicalCore(nn.Module, abc.ABC):
         )
         raw_out = self.stage_array_call(stage, raw, raw_tends, dt)
         stage_state = update(tmp_state, wrap_outputs(raw_out, self.stage_output_properties))
+        if "time" in raw_out:  # the stage's own time stamp
+            stage_state["time"] = raw_out["time"]
 
         new_fdc_tendencies: Dict[str, Any] = {}
         if self.fast_diagnostic_component is not None:

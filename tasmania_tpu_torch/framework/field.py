@@ -11,6 +11,8 @@ import dataclasses
 from datetime import timedelta
 from typing import Any, Dict, Mapping, Tuple, Union
 
+import torch
+
 from tasmania_tpu_torch.utils.units import conversion_factor, units_are_same
 
 DimNames = Tuple[str, ...]
@@ -86,3 +88,14 @@ def ensure_timedelta_seconds(dt: Union[float, int, timedelta]) -> float:
     if isinstance(dt, timedelta):
         return dt.total_seconds()
     return float(dt)
+
+
+def add_seconds(time, seconds: float):
+    """``time`` advanced by ``seconds`` at a ``timedelta``'s resolution of a
+    microsecond, as the reference stamps its stages.  ``time`` is a
+    ``datetime`` or a tensor of seconds from the run's initial time: a
+    CUDA graph of a step takes its time from such a tensor."""
+    step = timedelta(seconds=seconds)
+    if isinstance(time, torch.Tensor):
+        return time + step.total_seconds()
+    return time + step

@@ -1,14 +1,14 @@
 """Horizontal smoothing of the isentropic prognostic fields (counterpart of
 ``tasmania_tpu/isentropic/physics/horizontal_smoothing.py``, its fused path
 ``:116-142``): a diagnostic component that overwrites s, su, sv (and the
-moist species) with their Shapiro-filtered values, all fields in one call of
-``ops/smoothing_step.fused_smoothing``."""
+moist species) with their Shapiro-filtered values.  The two-dimensional
+filters smooth all fields in one call of ``ops/smoothing_step.fused_smoothing``;
+the one-dimensional ones run the dwarf on each field."""
 
 from __future__ import annotations
 
 from typing import Optional
 
-import numpy as np
 import torch
 
 from tasmania_tpu_torch.dwarfs.horizontal_smoothing import HorizontalSmoothing
@@ -23,7 +23,8 @@ DIMS = ("x", "y", "z")
 
 
 class IsentropicHorizontalSmoothing(DiagnosticComponent):
-    """Buffer: the per-(field, z) coefficient ``gamma`` (F, nz)."""
+    """Buffer: the per-(field, z) coefficient ``gamma`` (F, nz) of the
+    fields' filters (``cores``)."""
 
     def __init__(
         self,
@@ -40,25 +41,23 @@ class IsentropicHorizontalSmoothing(DiagnosticComponent):
     ) -> None:
         super().__init__(domain, "numerical", **kwargs)
         self.moist = moist
-        nz, nb = self.grid.nz, self.horizontal_boundary.nb
-        dtype = self.storage_options.np_dtype
+        g, nb, so = self.grid, self.horizontal_boundary.nb, self.storage_options
+        shape = (g.nx, g.ny, g.nz)
         cmax = smooth_coeff_max if smooth_coeff_max is not None else smooth_coeff
-        core = HorizontalSmoothing(
-            smooth_type, nz, smooth_coeff, cmax, smooth_damp_depth, nb, dtype
+        self.core = HorizontalSmoothing(
+            smooth_type, shape, smooth_coeff, cmax, smooth_damp_depth, nb, storage_options=so
         )
-        self.order, self.nb = core.order, core.nb
-        gammas = [core.gamma] * 3
+        self.order, self.nb, self.axes = self.core.order, self.core.nb, self.core.axes
+        cores = [self.core] * 3
         if moist:
             mc = smooth_moist_coeff if smooth_moist_coeff is not None else smooth_coeff
             mcm = smooth_moist_coeff_max if smooth_moist_coeff_max is not None else mc
-            moist_core = HorizontalSmoothing(
-                smooth_type, nz, mc, mcm, smooth_moist_damp_depth or 0, nb, dtype
+            self.core_moist = HorizontalSmoothing(
+                smooth_type, shape, mc, mcm, smooth_moist_damp_depth or 0, nb, storage_options=so
             )
-            gammas += [moist_core.gamma] * 3
-        so = self.storage_options
-        self.register_buffer(
-            "gamma", torch.as_tensor(np.stack(gammas), dtype=so.dtype, device=so.device)
-        )
+            cores += [self.core_moist] * 3
+        self.cores = cores
+        self.register_buffer("gamma", torch.stack([c.gamma for c in cores]))
 
     @property
     def input_properties(self):
@@ -78,6 +77,8 @@ class IsentropicHorizontalSmoothing(DiagnosticComponent):
 
     def array_call(self, state):
         names = list(self.input_properties)
+        if self.axes != "xy":
+            return {n: core(state[n]) for n, core in zip(names, self.cores)}
         smoothed = fused_smoothing(
             [state[n] for n in names], self.gamma, order=self.order, nb=self.nb
         )

@@ -77,7 +77,7 @@ class IsentropicSmagorinsky(Smagorinsky2d):
 def _smooth_smag_pair_matches(smoothing, stepper) -> bool:
     # The JAX matcher also asks nx >= 8 + 2n + 4 for its TPU x-tile; the CUDA
     # kernel tiles (x, y) itself and needs only the frame conditions below.
-    if not isinstance(smoothing, IsentropicHorizontalSmoothing):
+    if not isinstance(smoothing, IsentropicHorizontalSmoothing) or smoothing.axes != "xy":
         return False
     if getattr(stepper, "name", "") != "rk2" or stepper.enforce_hb:
         return False

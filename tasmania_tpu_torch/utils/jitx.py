@@ -24,7 +24,10 @@ after each step.
 
 Every scalar a kernel takes is frozen into the graph at capture, so
 anything that varies from step to step must reach the step through a
-tensor; in the drivers only the topography does.
+tensor: in the isentropic drivers the topography, in the Burgers driver
+the step's start time (its table's rows are the start times, times a
+tensor of one), from which the Dirichlet boundary's core computes the
+frames on the card.
 """
 
 from __future__ import annotations

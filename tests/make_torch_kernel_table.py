@@ -10,14 +10,17 @@ and that traffic's time at the H100's 3.35 TB/s.  Given the log of a
 it (and the PR that redesigned it for Hopper), its route and source,
 its launches per step on each path that runs it (the full-size runs of
 phases 5, 7, 8 and 9: the flagship's SUS chain, the five other couplings,
-the mountain wave and the SUS chain with both process merges, sus_merged)
+the mountain wave and the SUS chain with both process merges, sus_merged;
+phase 12's one call of each dwarf, ``dwarfs``)
 and the times that run measured on the card: kernel, plain version and,
 where one exists, the single PyTorch call computing the same function; a
 kernel timed also at other shapes or in other modes (``also`` in the log:
 the mountain wave's 161x7x120, the diagnostics' modes) gets a row for each,
 with the bytes and bound of those shapes (a merge's pair run apart with the
-merge's), and a redesigned kernel a row with its reading before the
-redesign (``EARLIER``).
+merge's), a kernel timed also as bare launches between CUDA events
+(``bare_launch_ms``: sedimentation) a row with those rounds; after the
+table, each redesigned kernel's reading before its redesign
+(``EARLIER``).
 
 Usage: ``python tests/make_torch_kernel_table.py [CHIP_SMOKE_LOG]``
 """
@@ -158,13 +161,18 @@ def main(argv) -> None:
         print(f"| {num} | `{name}` | {status} | {route} | {launches(k) if k else '0'}{note} | {mb:.1f} "
               f"| {bound:.4f} | {fmt(ms)} | {fmt(plain)} "
               f"| {'none' if lib is None else f'{fmt(lib)} (`{LIBRARY_CALL[num]}`)'} |")
+        if k and "bare_launch_ms" in k:
+            bare = k["bare_launch_ms"]
+            print(f"| {num} | ↳ bare launches between CUDA events, rounds "
+                  f"{', '.join(f'{t:.4f}' for t in bare)} ms (median below) | | | | {mb:.1f} | {bound:.4f} "
+                  f"| {fmt(sorted(bare)[len(bare) // 2], 4)} | — | none |")
         for label, a in (k or {}).get("also", {}).items():
             print(f"| {num} | ↳ {label} | | | | {a['bytes'] / 1e6:.2f} | {a['bound_ms']:.4f} "
                   f"| {fmt(a['ms'])} | {fmt(a['plain_ms'])} | none |")
-        for label, earlier_ms, earlier_plain, earlier_mb in EARLIER.get(num, []):
-            emb = mb if earlier_mb is None else earlier_mb
-            print(f"| {num} | ↳ {label} | | | | {emb:.{1 if earlier_mb is None else 2}f} | {1e9 * emb / HBM:.4f} | {fmt(earlier_ms)} "
-                  f"| {fmt(earlier_plain)} | none |")
+    print()
+    print("Before the redesigns, kernel ms (plain ms), at the row's shape unless named: " + "; ".join(
+        f"#{num} {label.removeprefix('the design before the redesign ')} {fmt(ms)} ({fmt(plain)})"
+        for num, rows in EARLIER.items() for label, ms, plain, _ in rows) + ".")
 
 
 if __name__ == "__main__":

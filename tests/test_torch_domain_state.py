@@ -18,7 +18,7 @@ from tasmania_tpu.isentropic import (
     get_isentropic_state_from_brunt_vaisala_frequency as jax_state_from_bv,
 )
 from tasmania_tpu_torch.domain.domain import Domain
-from tasmania_tpu_torch.dwarfs.horizontal_smoothing import build_damped_coeff
+from tasmania_tpu_torch.dwarfs.horizontal_diffusion import build_damped_coeff
 from tasmania_tpu_torch.dwarfs.vertical_damping import Rayleigh
 from tasmania_tpu_torch.framework.field import FieldArray
 from tasmania_tpu_torch.framework.options import StorageOptions
@@ -209,9 +209,10 @@ def test_storage_defaults_to_the_card():
 
 
 def test_unported_options_raise():
+    # the factory names the four boundaries it has
     with pytest.raises(NotImplementedError, match="periodic"):
         Domain((0.0, 1.0), 9, (0.0, 1.0), 9, FieldArray(np.array([400.0, 300.0]), "K", ("z",)), 4,
-               horizontal_boundary_type="periodic")
+               horizontal_boundary_type="open")
     with pytest.raises(NotImplementedError, match="schaer"):
         Domain((0.0, 1.0), 9, (0.0, 1.0), 9, FieldArray(np.array([400.0, 300.0]), "K", ("z",)), 4,
                topography_type="schaer")

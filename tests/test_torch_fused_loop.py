@@ -11,7 +11,10 @@ on the CPU, where a CUDA graph cannot run.
   table indexed by a device counter, the copy-back of the carried fields),
   run eagerly after the traced warm-up step as the drivers run it before
   capture, gives the eager ``run_steps`` result bit for bit over 1 + 3 steps
-  for sus, sus with both merges, fc and the mountain wave.
+  for sus, sus with both merges, each other coupling (fc, lfc, ps, sts,
+  ssus) and the mountain wave.
+* The same for both cases of the Burgers driver, whose zhao step takes
+  its start time from the body's table.
 * ``fused_loop=True`` raises on a CPU device in every driver, and
   ``--fused-loop`` parses in the three command lines.
 
@@ -32,6 +35,7 @@ from drivers.driver_namelist_sus import build_domain_and_state, build_model
 from tasmania_tpu.framework.field import FieldArray as JaxFieldArray
 from tasmania_tpu.framework.options import StorageOptions as JaxStorageOptions
 from tasmania_tpu.utils.jitx import carry_read_set as jax_carry_read_set
+from tasmania_tpu_torch.drivers import driver_burgers as burgers
 from tasmania_tpu_torch.drivers import driver_isentropic_moist as moist
 from tasmania_tpu_torch.drivers import driver_mountain_wave as mw
 from tasmania_tpu_torch.drivers import driver_namelist_sus as port_driver
@@ -100,9 +104,9 @@ def assert_bitwise(got, ref):
         assert torch.equal(got[name].data, ref[name].data), name
 
 
-@pytest.mark.parametrize("path", ["sus", "sus_merged", "fc"])
+@pytest.mark.parametrize("path", ["sus", "sus_merged", "fc", "lfc", "ps", "sts", "ssus"])
 def test_body_matches_eager_run_steps(path):
-    coupling = "fc" if path == "fc" else "sus"
+    coupling = "sus" if path == "sus_merged" else path
     merges = MERGES if path == "sus_merged" else ()
     nl = moist.load_namelist(coupling, **SIZE, niter=NSTEPS, so=CPU64, process_merges=merges)
     ref = moist.run(nl, coupling, verbose=False)["fields"]
@@ -127,6 +131,19 @@ def test_body_matches_eager_mountain_wave():
     # no growth: the whole mountain from the first step, every row of the table
     got = body_steps(step, {k: state[k] for k in names}, hs, 1.0 * hs, [1.0] * (nt - 1))
     assert_bitwise(got, ref["fields"])
+
+
+@pytest.mark.parametrize("case", burgers.CASES)
+def test_body_matches_eager_burgers(case):
+    """The Burgers driver at 21x21, 1 + 3 steps: the zhao step reads its
+    start time from the body's table (4 ms a step here), from which the
+    Dirichlet core computes the frames."""
+    ref = burgers.run_case(case, 21, steps=NSTEPS, so=CPU64, verbose=False)["fields"]
+    step, fields, starts, _, _ = burgers.make_case(case, 21, 21, 3, NSTEPS, 0, CPU64)
+    one = torch.ones((), dtype=torch.float64)
+    assert starts[1] == (0.004 if case == "zhao" else 0.0)
+    got = body_steps(step, fields, one, starts[0] * one, starts[1:])
+    assert_bitwise(got, ref)
 
 
 def test_step_body_table_counter_and_copy_back():

@@ -931,21 +931,27 @@ GRAPH_SIZE = dict(nx=41, ny=41, nz=20, niter=5)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("path", ["sus", "sus_merged", "fc", "mountain_wave"])
+@pytest.mark.parametrize("path", ["sus", "sus_merged", "fc", "lfc", "ps", "sts", "ssus", "mountain_wave",
+                                  "burgers_bench", "burgers_zhao"])
 def test_fused_loop_graph_matches_eager(cuda_device, path):
-    """41x41x20 (the mountain wave 41x1x20), float32, 1 + 5 steps: the CUDA
-    graph's final fields equal the eager run's bit for bit, and one captured
-    step launches what ``chip_smoke.py`` counts for the path
-    (``LAUNCHES_PER_STEP``), as one eager step does."""
+    """41x41x20 (the mountain wave 41x1x20, Burgers 41x41), float32, 1 + 5
+    steps: the CUDA graph's final fields equal the eager run's bit for bit,
+    and one captured step launches what ``chip_smoke.py`` counts for the
+    path (``LAUNCHES_PER_STEP``; Burgers no kernel), as one eager step
+    does."""
     from chip_smoke import LAUNCHES_PER_STEP
+    from tasmania_tpu_torch.drivers import driver_burgers as burgers
     from tasmania_tpu_torch.drivers import driver_isentropic_moist as moist
     from tasmania_tpu_torch.drivers import driver_mountain_wave as mw
 
+    kw = dict(so=StorageOptions(dtype=torch.float32, device="cuda"), verbose=False)
     if path == "mountain_wave":
-        kw = dict(so=StorageOptions(dtype=torch.float32, device="cuda"), verbose=False)
         runs = [mw.run_case(41, 20, 6 * 20.0 / 3600.0, 20.0, fused_loop=f, **kw) for f in (False, True)]
+    elif path.startswith("burgers_"):
+        runs = [burgers.run_case(path[len("burgers_"):], 41, steps=5, fused_loop=f, **kw)
+                for f in (False, True)]
     else:
-        coupling = "fc" if path == "fc" else "sus"
+        coupling = "sus" if path == "sus_merged" else path
         merges = ("smooth_smag", "vadv_sed") if path == "sus_merged" else ()
         nl = moist.load_namelist(coupling, **GRAPH_SIZE, process_merges=merges)
         runs = [moist.run(nl, coupling, verbose=False, fused_loop=f) for f in (False, True)]
@@ -953,4 +959,4 @@ def test_fused_loop_graph_matches_eager(cuda_device, path):
     assert set(graph["fields"]) == set(eager["fields"])
     for name, fa in eager["fields"].items():
         assert torch.equal(graph["fields"][name].data, fa.data), name
-    assert eager["launches_per_step"] == graph["launches_per_step"] == LAUNCHES_PER_STEP[path]
+    assert eager["launches_per_step"] == graph["launches_per_step"] == LAUNCHES_PER_STEP.get(path, {})

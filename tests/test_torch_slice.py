@@ -98,8 +98,10 @@ def test_port_imports_no_jax():
     """Importing the port (the fused loop's ``utils.jitx`` too) and running
     a CPU step of the full flagship chain (the driver's default, and with
     both process merges), of each coupling of the variant driver (and ssus
-    with both merges) and two steps of the mountain-wave driver leaves JAX
-    and the JAX package unloaded."""
+    with both merges), two steps of the mountain-wave driver and two steps
+    of each case of the Burgers driver (which import the Burgers model, the
+    Dirichlet boundary and the diffusion dwarf), and importing the other
+    boundaries and dwarfs, leaves JAX and the JAX package unloaded."""
     code = (
         "import sys, torch\n"
         "import tasmania_tpu_torch.utils.jitx\n"
@@ -117,6 +119,12 @@ def test_port_imports_no_jax():
         "moist.run(moist.load_namelist('ssus', **size, process_merges=merges), 'ssus', verbose=False)\n"
         "from tasmania_tpu_torch.drivers import driver_mountain_wave as mw\n"
         "mw.run_case(17, 20, 40.0 / 3600.0, 20.0, so=so, verbose=False)\n"
+        "import tasmania_tpu_torch.domain.boundaries.periodic, tasmania_tpu_torch.domain.boundaries.identity\n"
+        "import tasmania_tpu_torch.dwarfs.horizontal_hyperdiffusion, tasmania_tpu_torch.dwarfs.horizontal_smoothing\n"
+        "import tasmania_tpu_torch.isentropic.physics.horizontal_diffusion\n"
+        "from tasmania_tpu_torch.drivers import driver_burgers\n"
+        "for case in driver_burgers.CASES:\n"
+        "    driver_burgers.run_case(case, 16, steps=1, so=so, verbose=False)\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'tasmania_tpu.')) or m == 'tasmania_tpu')\n"
         "assert not bad, bad\n"
     )
