@@ -19,7 +19,8 @@ printing one line; any failure raises and exits non-zero:
    paste bitwise (N arrays, and one); smoothing 1e-6;
    each of the three RK3WS stages of si_stage (damping on the last) 1e-5
    (every cell: the stage and the smoothing write their x-frames
-   themselves, so no paste follows either)
+   themselves, so no paste follows either), and the three stages again
+   with third-order fluxes (``also``)
    (FMA contraction in the
    stencils moves the float32 Montgomery potential by a few units of its
    last place, which reaches the momenta through the pressure gradient);
@@ -28,7 +29,8 @@ printing one line; any failure raises and exits non-zero:
    FMA contraction, and PyTorch dividing by a scalar as a product with the
    reciprocal on the card, move the last bits of each stage, and the powers
    and exponentials come from the same CUDA math library in both); the
-   momentum epilogue of the tendency-carrying stage and the momentum step of
+   momentum epilogue of the tendency-carrying stage (at fifth and, as an
+   ``also`` entry, third order) and the momentum step of
    the unfused stage (fifth order, without and with tendencies) 1e-5 on su
    and sv, as si_stage's; the isentropic diagnostics in their three modes
    (p, exn, mtg, h, rho, T) 1e-5 of each output (the kernel sums level by
@@ -39,8 +41,13 @@ printing one line; any failure raises and exits non-zero:
    is held to 1e-5 of its largest update plus 4 float32
    ulps of its magnitude (the rounding of the result; su's ulp is 4.9e-4,
    about 0.1% of its Smagorinsky update here); so are the advection of the
-   density and water of the tendency-carrying stage, and the epilogue's s
-   and q (updates against the "now" values).  The unfused stage's kernels
+   density and water of the tendency-carrying stage (at fifth and, as an
+   ``also`` entry, third order), and the epilogue's s and q (updates against
+   the "now" values).  The generic stage's two kernels are also held as the
+   periodic boundary runs them (sus_periodic, phase 13), on its numerical
+   grid (167x167x120), fifth order: the advection of s and the water
+   densities without the boundary (increments, as above) and the momentum
+   step (1e-5), each timed there too (``also``).  The unfused stage's kernels
    are also held at the mountain wave's shapes (161x7x120: one interior row
    in y), as phase 8 runs them: the advection of s at third order (its
    increment, as above), the Montgomery potential and the momentum step at
@@ -133,7 +140,8 @@ printing one line; any failure raises and exits non-zero:
    port's float32 CPU reading (2.8e-4 on qc_max);
 10. the fused loop (``--fused-loop``): the runs of phases 5 (the flagship,
    1 + 100 steps), 9 (sus_merged, 1 + 30), 7 (fc, lfc, ps, sts and ssus,
-   1 + 20 each) and 8 (the mountain wave, 1800 steps) again with
+   1 + 20 each), 8 (the mountain wave, 1800 steps) and 13 (sus_third,
+   fc_third, sus_periodic, 1 + 20 each; run before this phase) again with
    ``fused_loop=True``, their timed
    steps replays of one CUDA graph of the step: each final field equal to
    the eager run's bit for bit, and the launch counts exact per capture (a
@@ -163,10 +171,24 @@ printing one line; any failure raises and exits non-zero:
    each output within ``DWARF_TOL`` of the largest magnitude of the port's
    float64 CPU result of the same call, and each call's device time
    (``device_ms``) beside its bound (the field read once and the result
-   written once), as phase lines and one JSON line (``dwarfs``).
+   written once), as phase lines and one JSON line (``dwarfs``);
+13. the isentropic core's surface (run after phase 9, before phase 10, whose
+   graphs need its eager runs): ``SURFACE_PATHS`` through
+   ``driver_isentropic_moist.run`` at 161x161x120 from relative humidity
+   1.05, 1 + 20 steps each: ``sus_third`` (SUS with third-order fluxes: the
+   whole-stage kernel at order 3), ``fc_third`` (fc at third order: the
+   two-kernel stage at order 3) and ``sus_periodic`` (SUS on the periodic
+   boundary: the generic stage, #5 with the water densities and #6 at full
+   width, no si_stage), each with the exact launch counts of its path,
+   finiteness and agreement with the JAX package's float32 result at the
+   same configuration (the reference file of ``SURFACE_PATHS``), with phase
+   7's limits (``VARIANT_LOOSER`` holds each path's looser numbers); then
+   ``sus_periodic`` again in float64, with the same launch counts, within
+   ``WITNESS_TOL`` of the port's float64 CPU run (``WITNESS_REFERENCE``):
+   the witness that the float32 limits of that path cover rounding.
 
 The isentropic diagnostics kernel serves every diagnostics call, so phases
-4-7, 9 and 10 count it too (``LAUNCHES_PER_STEP``); phase 12 counts the
+4-7, 9, 10 and 13 count it too (``LAUNCHES_PER_STEP``); phase 12 counts the
 smoothing kernel under the path ``dwarfs``.  Every phase checks the launch
 counts exactly: each kernel of the path as often as its path launches it a
 step (phase 10: a step's launches twice), and no other kernel.  The last two
@@ -186,6 +208,7 @@ import json
 import subprocess
 import sys
 import time
+from dataclasses import replace
 from pathlib import Path
 from types import SimpleNamespace
 
@@ -225,7 +248,27 @@ VARIANT_QC_TOL = 1e-3
 VARIANT_LOOSER = {
     ("ps", "vmax"): 3e-4,  # CPU reading 7.2e-5
     ("sts", "vmax"): 3e-4,  # CPU reading 6.2e-5
+    # phase 13 (make_torch_flagship_reference.py --flux / --boundary
+    # --check-port; every other number within 5e-5, qc within 3.6e-4)
+    ("sus_third", "vmax"): 1.5e-4,  # CPU reading 7.5e-5
+    ("sus_periodic", "sv_mean_abs"): 1.5e-4,  # CPU reading 6.1e-5
+    ("sus_periodic", "qr_max"): 1.5e-4,  # CPU reading 6.4e-5
+    # sus_periodic's two smallest velocities (vmax 0.21 m/s, sv_max 40):
+    # on an H100 80GB HBM3 the float32 run read 1.8e-4 and 2.0e-4 (CPU
+    # readings 4.8e-5 and 5.7e-7), while the same run in float64 on the card
+    # came within 1.7e-13 of the float64 CPU run on every number: float32
+    # rounding, grown by condensation over 21 steps, not a fault.  The limits
+    # are about twice the card's readings, and phase 13 keeps the float64
+    # run in the gate (WITNESS_TOL)
+    ("sus_periodic", "vmax"): 4e-4,
+    ("sus_periodic", "sv_max"): 4e-4,
 }
+# phase 13's float64 witness: sus_periodic in float64 on the card, held to the
+# port's float64 CPU run of the same configuration
+# (make_torch_flagship_reference.py --boundary periodic --float64); the two
+# read 1.7e-13 apart on an H100 80GB HBM3
+WITNESS_REFERENCE = "flagship_periodic_float64.json"
+WITNESS_TOL = 1e-10
 VARIANTS = ("fc", "lfc", "ps", "sts", "ssus")
 # kernel launches per step of each path, as the code routes it: with
 # tendencies (fc, lfc) each dycore stage is the two-kernel stage and the
@@ -261,6 +304,24 @@ LAUNCHES_PER_STEP = {
     # Montgomery refresh after the step
     "mountain_wave": {"fused_advection_fields": 3, "fused_momentum_step": 3,
                       "fused_isentropic_diagnostics": 4},
+    # third order takes the same kernels a step as fifth
+    "sus_third": _SUS,
+    "fc_third": {**_TWO_KERNEL, "fused_isentropic_diagnostics": 6},
+    # the periodic boundary takes the generic stage: the advection of s and
+    # the water densities, the Montgomery potential of the stepped density
+    # and the momentum step, thrice
+    "sus_periodic": {**{k: n for k, n in _SUS.items() if k != "si_stage"}, "fused_advection_fields": 3,
+                     "fused_momentum_step": 3, "fused_isentropic_diagnostics": 4},
+}
+# phase 13, the isentropic core's surface at full size: a coupling, its
+# namelist overrides and the reference file (the JAX package's float32
+# result, make_torch_flagship_reference.py --flux / --boundary); each run
+# from the couplings' supersaturated start, 1 + 20 steps
+THIRD = {"horizontal_flux_scheme": "third_order_upwind"}
+SURFACE_PATHS = {
+    "sus_third": ("sus", THIRD, "flagship_third_reference.json"),
+    "fc_third": ("fc", THIRD, "variant_fc_third_reference.json"),
+    "sus_periodic": ("sus", {"hb_type": "periodic", "hb_kwargs": {}}, "flagship_periodic_reference.json"),
 }
 # phase 8, the deep-domain mountain wave (tests/test_mountain_wave_validation.py:115-151)
 MOUNTAIN_WAVE = dict(nx=161, nz=120, hours=10.0, dt=20.0, theta_top=420.0, damp_depth=60,
@@ -663,6 +724,27 @@ def main() -> int:
     record("si_stage", "si_stage.cu", "tasmania_tpu/ops/si_stage.py:146", worst,
            lambda: si_stage(*args, nb=nl.nb, c=c, dd=dd),
            lambda: si_stage_plain(*args, nb=nl.nb, c=c, dd=dd), b, unit=" per stage")
+    # the same three stages with third-order fluxes (sus_third, phase 13)
+    worst3, errs = 0.0, []
+    for stage, frac in enumerate(prog.substep_fractions):
+        c3 = replace(c, dt=frac * 5.0)
+        rmat3, dd3 = (dycore.damper.rmat, dycore.damper.dd) if stage == 2 else (None, 0)
+        args3 = list(stage_in.values()) + [rmat3]
+        got = si_stage(*args3, nb=nl.nb, c=c3, dd=dd3, order=3)
+        ref = si_stage_plain(*args3, nb=nl.nb, c=c3, dd=dd3, order=3)
+        torch.cuda.synchronize()
+        momentum = amax(ref[1], ref[2])
+        scales = [amax(ref[0]), momentum, momentum] + [amax(r) for r in ref[3:]]
+        w, rel = check_outputs(f"si_stage (order 3) stage {stage}", got, ref, scales, KERNEL_TOL)
+        worst3 = max(worst3, w)
+        errs.append(f"s{stage}: {rel}")
+    phase("check", f"si_stage (order 3) relative errors {' | '.join(errs)}")
+    kernels["si_stage"]["max_abs_err"] = max(kernels["si_stage"]["max_abs_err"], worst3)
+    # third-order fluxes of 7 fields on 4 faces (about 12 operations each)
+    record_also("si_stage", "order 3, 161x161x120, per stage",
+                lambda: si_stage(*args3, nb=nl.nb, c=c3, dd=dd3, order=3),
+                lambda: si_stage_plain(*args3, nb=nl.nb, c=c3, dd=dd3, order=3),
+                bound(nbytes(flat_in) + nbytes(ref), 480.0 * s_now.numel()))
 
     # smoothing on the six smoothed fields
     smoother = physics.components[1]
@@ -863,6 +945,19 @@ def main() -> int:
            lambda: fused_advection_fields(*adv_args, **akw),
            lambda: fused_advection_fields_plain(*adv_args, **akw),
            bound(nbytes(flat) + nbytes(adv), 50.0 * len(adv) * s_now.numel()))
+    # the same stage at third order (fc_third, phase 13): a third-order flux
+    # is about 12 operations
+    fkw3 = {**akw, "order": 3}
+    got = fused_advection_fields(*adv_args, **fkw3)
+    adv3 = fused_advection_fields_plain(*adv_args, **fkw3)
+    w, inc = check_increments("fused_advection_fields (order 3)", got, adv3, base, KERNEL_TOL)
+    phase("check", "fused_advection_fields (order 3) errors as a share of the largest increment "
+          f"(s sqv sqc sqr) {inc}")
+    kernels["fused_advection_fields"]["max_abs_err"] = max(kernels["fused_advection_fields"]["max_abs_err"], w)
+    record_also("fused_advection_fields", "order 3, with tendencies, 161x161x120",
+                lambda: fused_advection_fields(*adv_args, **fkw3),
+                lambda: fused_advection_fields_plain(*adv_args, **fkw3),
+                bound(nbytes(flat) + nbytes(adv3), 34.0 * len(adv3) * s_now.numel()))
 
     mtg_e = prog.diagnostics.get_montgomery_potential(adv[0], prog.pt, dycore.topography_steady)
     mom_args = (
@@ -895,6 +990,22 @@ def main() -> int:
     kernels["fused_momentum_epilogue"]["events_ms"] = events
     phase("kernel", "fused_momentum_epilogue again: "
           f"{' '.join(f'{ms:.3f} ms ({how})' for ms, how in repeats)}; CUDA events {events:.3f} ms")
+    # the epilogue with third-order fluxes (fc_third, phase 13), the same inputs
+    got = fused_momentum_epilogue(*mom_args, nb=nl.nb, c=c, order=3)
+    ref = fused_momentum_epilogue_plain(*mom_args, nb=nl.nb, c=c, order=3)
+    momentum = amax(ref[1], ref[2])
+    w1, rel = check_outputs("fused_momentum_epilogue (order 3, su sv)", got[1:3], ref[1:3], [momentum] * 2,
+                            KERNEL_TOL)
+    w2, inc = check_increments("fused_momentum_epilogue (order 3, s q)", [got[0], *got[3:]],
+                               [ref[0], *ref[3:]], [s_now, *q_now], KERNEL_TOL)
+    phase("check", f"fused_momentum_epilogue (order 3) relative errors (su sv) {rel}; errors as a share "
+          f"of the largest increment (s qv qc qr) {inc}")
+    kernels["fused_momentum_epilogue"]["max_abs_err"] = max(
+        kernels["fused_momentum_epilogue"]["max_abs_err"], w1, w2)
+    record_also("fused_momentum_epilogue", "order 3, 161x161x120",
+                lambda: fused_momentum_epilogue(*mom_args, nb=nl.nb, c=c, order=3),
+                lambda: fused_momentum_epilogue_plain(*mom_args, nb=nl.nb, c=c, order=3),
+                bound(nbytes(flat) + nbytes(ref), 130.0 * s_now.numel()))
     # the momentum step of the unfused stage at the flagship shapes, fifth
     # order, without and with momentum tendencies: from the stepped density
     # of the tendency-carrying stage and its Montgomery potential
@@ -915,6 +1026,49 @@ def main() -> int:
            lambda: fused_momentum_step(*ms_args, **mkw),
            lambda: fused_momentum_step_plain(*ms_args, **mkw),
            bound(nbytes(ms_args) + nbytes(ref), 200.0 * s_now.numel()))
+
+    # the generic stage as the periodic boundary runs it (sus_periodic, phase
+    # 13): its numerical grid, fifth order, the density and the water
+    # densities advected without the boundary (no gamma, no reference) and
+    # without tendencies, the stepped density enforced, its Montgomery
+    # potential, the momentum step
+    nl_p = load_namelist(**SURFACE_PATHS["sus_periodic"][1])
+    pdomain, pstate, ppt = drv.build_domain_and_state(nl_p)
+    pcore, _ = drv.build_model(nl_p, pdomain, ppt)
+    praw = {k: v.data for k, v in pstate.items() if k != "time"}
+    pprog, phb = pcore.prognostic, pdomain.horizontal_boundary
+    pcell = praw["air_isentropic_density"].shape
+    ps_now, pq_now = praw["air_isentropic_density"], [praw[q] for q in qn]
+    pu, pv = perturbed(praw["x_velocity_at_u_locations"]), perturbed(praw["y_velocity_at_v_locations"]) + 0.5
+    padv_args = (pu, pv, [ps_now] + pq_now, [perturbed(ps_now)] + [perturbed(q) for q in pq_now])
+    pakw = dict(nb=nl_p.nb, dt=c.dt, dx=pprog.dx, dy=pprog.dy, q_product=(False,) + (True,) * len(qn))
+    got = fused_advection_fields(*padv_args, **pakw)
+    padv = fused_advection_fields_plain(*padv_args, **pakw)
+    w, inc = check_increments("fused_advection_fields (periodic)", got, padv,
+                              [ps_now] + [clip_pos(ps_now * q) for q in pq_now], KERNEL_TOL)
+    phase("check", f"fused_advection_fields (no boundary, {tuple(pcell)}) errors as a share of the largest "
+          f"increment (s sqv sqc sqr) {inc}")
+    kernels["fused_advection_fields"]["max_abs_err"] = max(kernels["fused_advection_fields"]["max_abs_err"], w)
+    pflat = [a for v in padv_args for a in (v if isinstance(v, list) else [v])]
+    record_also("fused_advection_fields", "s and 3 water densities, no boundary, no tendencies, 167x167x120",
+                lambda: fused_advection_fields(*padv_args, **pakw),
+                lambda: fused_advection_fields_plain(*padv_args, **pakw),
+                bound(nbytes(pflat) + nbytes(padv), 45.0 * len(padv) * ps_now.numel()))
+    ps_new = phb.enforce_field(padv[0], "air_isentropic_density")
+    pmtg = pprog.diagnostics.get_montgomery_potential(ps_new, pprog.pt, pcore.topography_steady)
+    pms_args = (pu, pv, praw["x_momentum_isentropic"], praw["y_momentum_isentropic"],
+                perturbed(praw["x_momentum_isentropic"]), perturbed(praw["y_momentum_isentropic"]) + 1.0,
+                ps_now, praw["montgomery_potential"], ps_new, pmtg)
+    pmkw = dict(order=5, nb=nl_p.nb, dt=c.dt, dx=pprog.dx, dy=pprog.dy, eps=pprog.eps)
+    got = fused_momentum_step(*pms_args, **pmkw)
+    pref = fused_momentum_step_plain(*pms_args, **pmkw)
+    w, rel = check_outputs("fused_momentum_step (periodic)", got, pref, [amax(*pref)] * 2, KERNEL_TOL)
+    phase("check", f"fused_momentum_step (order 5, {tuple(pcell)}) relative errors (su sv) {rel}")
+    kernels["fused_momentum_step"]["max_abs_err"] = max(kernels["fused_momentum_step"]["max_abs_err"], w)
+    record_also("fused_momentum_step", "order 5, 167x167x120",
+                lambda: fused_momentum_step(*pms_args, **pmkw),
+                lambda: fused_momentum_step_plain(*pms_args, **pmkw),
+                bound(nbytes(pms_args) + nbytes(pref), 200.0 * ps_now.numel()))
 
     # the isentropic diagnostics at the flagship shapes, in its three modes
     dkw = dict(pt=prog.pt, dz=dia.dz, g=dia.rpc["gravitational_acceleration"],
@@ -1168,9 +1322,11 @@ def main() -> int:
           f"agree on their device operations a call, in {profiler_sessions['sessions']} sessions "
           f"({profiler_sessions['empty']} without device time)")
     del (fields, fulls, lo, hi, views, got, ref, stage_in, args, flat_in, kin, sin, vin, vq, din,
-         adv_args, adv, mtg_e, mom_args, flat, base, q_now, s_int, state, raw, dycore, physics, domain,
+         adv_args, adv, mtg_e, mom_args, flat, base, q_now, s_int, state, raw, dycore, physics, domain, args3,
          full1, lo1, hi1, st1, st2, got1, ref1, ms_args, d_in, mdom, mstate, mcore, mdiag, mraw, mu,
-         mv, ms_int, a3, madv, ms_e, mhs, mtg_args, mmtg, m3, mfields, msm, ifields, rain, vsin, apart)
+         mv, ms_int, a3, madv, ms_e, mhs, mtg_args, mmtg, m3, mfields, msm, ifields, rain, vsin, apart,
+         adv3, pdomain, pstate, pcore, praw, ps_now, pq_now, pu, pv, padv_args, padv, pflat, ps_new, pmtg,
+         pms_args, pref)
 
     def drive(tag, run, nl_run, per_step, reference, tol_of, zero_tol):
         """One ``run(nl_run)`` from zeroed launch counts: every kernel
@@ -1187,7 +1343,7 @@ def main() -> int:
             if counts.get(name, 0) != steps * per_step.get(name, 0):
                 raise AssertionError(f"{tag}: {name} launched {counts.get(name, 0)} times, "
                                      f"expected {steps * per_step.get(name, 0)}")
-        out = {k: fa.data.float().cpu().numpy() for k, fa in res["fields"].items()}
+        out = {k: fa.data.cpu().numpy() for k, fa in res["fields"].items()}
         bad = [k for k, a in out.items() if not np.isfinite(a).all()]
         if bad:
             raise AssertionError(f"{tag}: non-finite fields: {bad}")
@@ -1300,7 +1456,39 @@ def main() -> int:
     eager_fields["sus_merged"] = res["fields"]
     del res
 
-    # -- 10. the fused loop: the runs of phases 5, 9, 7 and 8 as CUDA graphs
+    # -- 13. the surface paths: third order (the whole-stage and the two-kernel
+    # stage), the periodic boundary (the generic stage); before phase 10,
+    # whose graphs they join
+    for path, (coupling, overrides, reference) in SURFACE_PATHS.items():
+        cfg = json.loads(Path(drv.__file__).with_name(reference).read_text())["config"]
+        nl_s = moist.load_namelist(coupling, niter=cfg["niter"], relative_humidity=cfg["relative_humidity"],
+                                   **overrides)
+        if ((nl_s.nx, nl_s.ny, nl_s.nz, nl_s.horizontal_flux_scheme, nl_s.hb_type)
+                != (cfg["nx"], cfg["ny"], cfg["nz"], cfg["horizontal_flux_scheme"], cfg["hb_type"])):
+            raise AssertionError(f"{reference} is not {path}'s configuration at the flagship's size")
+        res, counts = drive(
+            path, lambda n, c=coupling: moist.run(n, c, verbose=False), nl_s, LAUNCHES_PER_STEP[path],
+            reference, lambda key, p=path: variant_tol(p, key), 0.0,
+        )
+        path_counts[path], path_steps[path] = counts, 1 + nl_s.niter
+        phase(f"{path}-validation", f"umax = {res['umax']:.5f}, vmax = {res['vmax']:.5f} (for information)")
+        eager_fields[path], nl_of[path] = res["fields"], nl_s
+        del res
+    # the float64 witness: sus_periodic in float64, the same launches, held to
+    # the port's float64 CPU run, so that the float32 limits above stand on
+    # the algebra's agreement and not on one reading
+    coupling, overrides, _ = SURFACE_PATHS["sus_periodic"]
+    wcfg = json.loads(Path(drv.__file__).with_name(WITNESS_REFERENCE).read_text())["config"]
+    nl_w = moist.load_namelist(coupling, niter=wcfg["niter"], relative_humidity=wcfg["relative_humidity"],
+                               so=StorageOptions(dtype=torch.float64, device=device), **overrides)
+    if ((wcfg["dtype"], wcfg["hb_type"], wcfg["nx"], wcfg["ny"], wcfg["nz"])
+            != ("float64", nl_w.hb_type, nl_w.nx, nl_w.ny, nl_w.nz)):
+        raise AssertionError(f"{WITNESS_REFERENCE} is not sus_periodic's configuration in float64")
+    drive("sus_periodic-float64", lambda n: moist.run(n, coupling, verbose=False), nl_w,
+          LAUNCHES_PER_STEP["sus_periodic"], WITNESS_REFERENCE, lambda key: WITNESS_TOL, WITNESS_TOL)
+    del nl_w
+
+    # -- 10. the fused loop: the runs of phases 5, 9, 7, 8 and 13 as CUDA graphs
     def mountain_wave(hours, fused):
         return mw.run_case(mwc["nx"], mwc["nz"], hours, mwc["dt"], theta_top=mwc["theta_top"],
                            damp_depth=mwc["damp_depth"], damp_max=mwc["damp_max"],
@@ -1312,9 +1500,11 @@ def main() -> int:
         "sus_merged": lambda: drv.run(nl_merged, verbose=False, fused_loop=True),
         **{c: (lambda c=c: moist.run(nl_of[c], c, verbose=False, fused_loop=True)) for c in VARIANTS},
         "mountain_wave": lambda: mountain_wave(mwc["hours"], True),
+        **{p: (lambda p=p: moist.run(nl_of[p], SURFACE_PATHS[p][0], verbose=False, fused_loop=True))
+           for p in SURFACE_PATHS},
     }
     steps_of = {"sus": 1 + nl.niter, "sus_merged": 1 + nl_merged.niter, "mountain_wave": steps,
-                **{c: 1 + nl_of[c].niter for c in VARIANTS}}
+                **{c: 1 + nl_of[c].niter for c in (*VARIANTS, *SURFACE_PATHS)}}
     for path, run_graph in graph_runs.items():
         per_step = LAUNCHES_PER_STEP[path]
         torch.cuda.synchronize()

@@ -6,7 +6,7 @@
 // (pallas_call at :246), :282 fused_momentum_step (pallas_call at :361) and
 // :422 fused_momentum_epilogue (pallas_call at :579).  The algebra, per cell
 // (i, j, k) of the whole (nx, ny, nz) array, with third- or fifth-order
-// upwind fluxes (a template parameter; the epilogue fifth order only):
+// upwind fluxes (a template parameter of each kernel):
 //
 //   advection_fields, for each of F fields phi (field 0 the density; a field
 //   flagged in q_mask enters as a mass fraction q and is advected as the
@@ -58,9 +58,9 @@
 // computed once in the block, by a thread that owns the face in every
 // field, into shared memory, and each divergence is taken there in div5's
 // order; at the fifth order each thread divides its faces' velocities by 60
-// once for all fields (tt::flux5_scaled; the third order, which only the
-// one-field mountain wave runs, keeps tt::flux3's own division, so that its
-// roundings stay those of div_upwind).  The pointwise inputs of the
+// once for all fields (tt::flux5_scaled; the third order keeps tt::flux3's
+// own division by 12 at every flux, so that its roundings stay those of
+// div_upwind and of the plain versions).  The pointwise inputs of the
 // thread's cells (now, tendencies, references, gamma) are read straight
 // from device memory, coalesced along k, but early: their loads are issued
 // before the barriers and the flux pass, whose time hides their latency,
@@ -79,7 +79,8 @@
 //     fields (56 KB in float64), less with fewer fields.
 //   momentum_epilogue: 8 x 4 columns, one cell a thread, its 16 pointwise
 //     inputs in registers from the start; su_int's and sv_int's crosses of
-//     halo 3, mtg_now's and mtg's of halo 1 for the pressure gradient; the
+//     halo 3 (2 at the third order), mtg_now's and mtg's of halo 1 for the
+//     pressure gradient; the
 //     six outputs in the plain version's order.  Shared memory 18 KB in
 //     float32 (35 KB in float64).
 // Measured on the H100 (161x161x120 float32, variants timed in one call):
@@ -270,9 +271,12 @@ struct EpilogueArgs {
   T dt, dtf, dx, dy, eps;
 };
 
-using ShapeE = tt::Shape<8, 4, 8, 256>;  // 256 cells: one a thread
+// H: the stencil's reach, 2 (third order) or 3 (fifth)
+template <int H>
+using ShapeE = tt::Shape<8, 4, 8, 256, H>;  // 256 cells: one a thread
 // the cross of mtg_now and mtg: the tile widened by 1 in x and y
-constexpr int kRectE1 = (ShapeE::TX + 2) * (ShapeE::TY + 2) * ShapeE::KL;
+template <class S>
+constexpr int kRectE1 = (S::TX + 2) * (S::TY + 2) * S::KL;
 
 // the epilogue's pointwise inputs at one cell (c; the column's gamma at g)
 template <typename T>
@@ -291,16 +295,15 @@ struct Point {
   }
 };
 
-template <typename T>
+template <class S, typename T>
 constexpr size_t epilogue_smem() {
-  using S = ShapeE;
-  return sizeof(T) * (2 * S::kRect + 2 * (S::kFX + S::kFY) + 2 * kRectE1);
+  return sizeof(T) * (2 * S::kRect + 2 * (S::kFX + S::kFY) + 2 * kRectE1<S>);
 }
 
-template <typename T, int V>
-__global__ void __launch_bounds__(ShapeE::Threads) momentum_epilogue_kernel(EpilogueArgs<T> a) {
-  using S = ShapeE;
+template <class S, typename T, int V>
+__global__ void __launch_bounds__(S::Threads) momentum_epilogue_kernel(EpilogueArgs<T> a) {
   constexpr int P = tt::Lane<S>::P;
+  constexpr bool kScaled = S::H == 3;  // the fifth order: u/60, v/60 once for both momenta
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* const SU = reinterpret_cast<T*>(smem_raw);  // su_int's and sv_int's crosses
   T* const SV = SU + S::kRect;
@@ -309,7 +312,7 @@ __global__ void __launch_bounds__(ShapeE::Threads) momentum_epilogue_kernel(Epil
   T* const FX = Vf + S::kFY;
   T* const FY = FX + S::kFX;
   T* const MN = FY + S::kFY;  // mtg_now's and mtg's crosses of halo 1
-  T* const MG = MN + kRectE1;
+  T* const MG = MN + kRectE1<S>;
   const tt::Tile t{int(blockIdx.y) * S::TX, int(blockIdx.z) * S::TY, int(blockIdx.x) * S::KL,
                    a.nx, a.ny, a.nz, a.nb};
   const tt::Lane<S> L(t);
@@ -340,7 +343,7 @@ __global__ void __launch_bounds__(ShapeE::Threads) momentum_epilogue_kernel(Epil
   }
   T dsu[P], dsv[P];  // the divergences of the momenta at the thread's cells
   auto divergences = [&](const T* phi, T* d) {
-    tt::lane_fluxes<true>(L, level, phi, U, Vf, FX, FY);
+    tt::lane_fluxes<kScaled>(L, level, phi, U, Vf, FX, FY);
     __syncthreads();
 #pragma unroll
     for (int p = 0; p < P; ++p)
@@ -348,7 +351,7 @@ __global__ void __launch_bounds__(ShapeE::Threads) momentum_epilogue_kernel(Epil
   };
   tt::cp_async_wait<1>();
   __syncthreads();
-  tt::lane_scale_faces(L, level, U, Vf);
+  if constexpr (kScaled) tt::lane_scale_faces(L, level, U, Vf);
   divergences(SU, dsu);
   tt::cp_async_wait<0>();
   __syncthreads();  // also: every thread's reads of su's fluxes are done
@@ -481,17 +484,16 @@ int launch_momentum(const void* const* ptrs, void* const* outs, int nx, int ny, 
   return int(cudaGetLastError());
 }
 
-template <typename T, int V>
+template <class S, typename T, int V>
 int launch_epilogue_kernel(const EpilogueArgs<T>& a, cudaStream_t stream) {
-  using S = ShapeE;
-  const size_t smem = epilogue_smem<T>();
-  if (const int err = allow_smem(momentum_epilogue_kernel<T, V>, smem)) return err;
+  const size_t smem = epilogue_smem<S, T>();
+  if (const int err = allow_smem(momentum_epilogue_kernel<S, T, V>, smem)) return err;
   const dim3 g((a.nz + S::KL - 1) / S::KL, (a.nx + S::TX - 1) / S::TX, (a.ny + S::TY - 1) / S::TY);
-  momentum_epilogue_kernel<T, V><<<g, S::Threads, smem, stream>>>(a);
+  momentum_epilogue_kernel<S, T, V><<<g, S::Threads, smem, stream>>>(a);
   return int(cudaGetLastError());
 }
 
-template <typename T>
+template <int H, typename T>
 int launch_epilogue(const void* const* ptrs, void* const* outs, int nq, int nx, int ny, int nz,
                     int nb, const double* s, cudaStream_t stream) {
   EpilogueArgs<T> a = {};
@@ -512,7 +514,9 @@ int launch_epilogue(const void* const* ptrs, void* const* outs, int nq, int nx, 
   a.dt = T(s[0]); a.dtf = T(s[1]); a.dx = T(s[2]); a.dy = T(s[3]); a.eps = T(s[4]);
   // 16-byte copies where every staged field's columns are whole 16-byte runs
   const bool vec = tt::runs_of_16<T>(nz, {a.u, a.v, a.su_int, a.sv_int, a.mtg_now, a.mtg});
-  return vec ? launch_epilogue_kernel<T, 16 / sizeof(T)>(a, stream) : launch_epilogue_kernel<T, 1>(a, stream);
+  using S = ShapeE<H>;
+  return vec ? launch_epilogue_kernel<S, T, 16 / sizeof(T)>(a, stream)
+             : launch_epilogue_kernel<S, T, 1>(a, stream);
 }
 
 // the stencils of order 3 read 2 cells on each side of a face, those of order 5 three
@@ -564,16 +568,19 @@ extern "C" int tt_momentum_step(int dtype, const void* const* ptrs, void* const*
 // ptrs: u, v, su_now, sv_now, su_int, sv_int, s_now, mtg_now, s_e, mtg,
 //       gamma, s_ref, su_ref, sv_ref, rmat (or null: no damping), su_tnd,
 //       sv_tnd (both or neither null), sq[nq], q_ref[nq];
-// outs: s, su, sv, q[nq]; scalars: dt, dtf, dx, dy, eps
+// outs: s, su, sv, q[nq]; order: 3 or 5; scalars: dt, dtf, dx, dy, eps
 extern "C" int tt_momentum_epilogue(int dtype, const void* const* ptrs, void* const* outs, int nq,
-                                    int nx, int ny, int nz, int nb, const double* scalars,
+                                    int nx, int ny, int nz, int nb, int order, const double* scalars,
                                     cudaStream_t stream) {
-  if (nq < 0 || nq > kMaxQ || bad_geometry(nx, ny, nb, 5) || nz < 1 || !tt::fits_int32(nx, ny, nz) ||
-      (ptrs[15] == nullptr) != (ptrs[16] == nullptr)) {
+  if (nq < 0 || nq > kMaxQ || bad_geometry(nx, ny, nb, order) || nz < 1 ||
+      !tt::fits_int32(nx, ny, nz) || (ptrs[15] == nullptr) != (ptrs[16] == nullptr)) {
     return int(cudaErrorInvalidValue);
   }
-  if (dtype == tt::kFloat32) {
-    return launch_epilogue<float>(ptrs, outs, nq, nx, ny, nz, nb, scalars, stream);
+  const bool f32 = dtype == tt::kFloat32;
+  if (order == 3) {
+    return f32 ? launch_epilogue<2, float>(ptrs, outs, nq, nx, ny, nz, nb, scalars, stream)
+               : launch_epilogue<2, double>(ptrs, outs, nq, nx, ny, nz, nb, scalars, stream);
   }
-  return launch_epilogue<double>(ptrs, outs, nq, nx, ny, nz, nb, scalars, stream);
+  return f32 ? launch_epilogue<3, float>(ptrs, outs, nq, nx, ny, nz, nb, scalars, stream)
+             : launch_epilogue<3, double>(ptrs, outs, nq, nx, ny, nz, nb, scalars, stream);
 }

@@ -10,7 +10,10 @@
 //   q     = clip(clip(sq_now - dt div(u, v, clip(s_int q_int))) / s_e)
 //   then enforce every field (s a second time) and Rayleigh-damp s, su, sv on
 //   the top dd levels toward the reference, from the step-start values.
-//   The frame is the nb-wide ring outside [nb, nx-nb) x [nb, ny-nb).
+//   The frame is the nb-wide ring outside [nb, nx-nb) x [nb, ny-nb).  div is
+//   the divergence of third- or fifth-order upwind fluxes (the TPU kernel's
+//   order, 3 or 5): the kernels are templates on the stencil's reach H (2 or
+//   3), as advection.cu's are.
 //
 // Bound on the H100: bytes.  One 161x161x120 f32 field is 12.4 MB; a stage
 // reads u, v, 6 "now", 6 "int", mtg_now and 6 references and writes 6
@@ -23,11 +26,11 @@
 // not carried over.  Two launches on one stream, each tiled in (x, y) by
 // blockIdx with 32-bit indices and no division of a flat index.  The
 // stencil inputs are staged in shared memory with cp.async (tt::for_cross: a
-// tile's cross of halo 3, the level fastest; 16-byte copies where nz and the
+// tile's cross of halo H, the level fastest; 16-byte copies where nz and the
 // pointers allow).  Each thread has a fixed place in the tile (tt::Lane):
 // its level, row and columns, and the faces whose fluxes it computes, each
-// face once in the block (tt::flux5) into shared memory, where each
-// divergence is taken in div5's order.  This tiling (common.cuh) also
+// face once in the block (tt::flux5, or tt::flux3) into shared memory, where
+// each divergence is taken in div5's order.  This tiling (common.cuh) also
 // serves advection.cu's advection of the fields and momentum epilogue.
 //   A  density + Montgomery: a block owns an 8 x 4 tile of columns over all
 //      levels, one cell a thread in each run of 8 levels.  Three runs are in
@@ -45,16 +48,18 @@
 //      cells a thread, the level run the fastest block index (blocks in
 //      flight together read whole columns).  s_int's cross stays in shared
 //      memory for the products, mtg's and mtg_now's crosses of halo 1 for
-//      the pressure gradient, u's and v's faces (each thread divides its
-//      own faces by 60 once, for all five fields: tt::flux5_scaled); the
+//      the pressure gradient, u's and v's faces (at the fifth order each
+//      thread divides its own faces by 60 once, for all five fields:
+//      tt::flux5_scaled; the third order keeps tt::flux3's own division by
+//      12 at every flux, so that its roundings stay the plain version's); the
 //      advected fields su_int, sv_int and clip(s_int q_int) (the product
 //      formed once, after the copy) pass through two buffers, the next one's
 //      copy in flight while the current one's fluxes and divergences are
 //      computed.  Then the epilogue of the thread's cells, frame included
 //      ("now" values there, as in the plain version): no frame composition
 //      and no paste follow.
-// Shared memory: A 44 KB a block in float32 at nz = 120 (88 KB in float64),
-// B 34 KB (67 KB).
+// Shared memory at the fifth order: A 44 KB a block in float32 at nz = 120
+// (88 KB in float64), B 34 KB (67 KB); less at the third order (halo 2).
 // Measured on the H100 (161x161x120 float32): deeper copy pipelines, more
 // threads a block, longer level runs and staging the epilogue's inputs all
 // cost occupancy and were slower; what paid was the level run as the
@@ -68,8 +73,11 @@ constexpr int kMaxQ = 3;
 constexpr int kMaxAdv = 2 + kMaxQ;  // su, sv and the water densities
 constexpr int kRunsInFlight = 3;    // A's level runs in flight: this one and the next two
 
-using ShapeA = tt::Shape<8, 4, 8, 256>;  // 256 cells a level run: one a thread
-using ShapeB = tt::Shape<8, 8, 8, 256>;  // 512 cells: two a thread
+// H: the stencil's reach, 2 (third order) or 3 (fifth)
+template <int H>
+using ShapeA = tt::Shape<8, 4, 8, 256, H>;  // 256 cells a level run: one a thread
+template <int H>
+using ShapeB = tt::Shape<8, 8, 8, 256, H>;  // 512 cells: two a thread
 
 template <typename T>
 struct Params {
@@ -98,28 +106,26 @@ __device__ __forceinline__ void copy_cells(T* dst, const T* __restrict__ src, co
   });
 }
 
-template <typename T>
+template <class S, typename T>
 size_t smem_a(int nz) {
-  using S = ShapeA;
   return sizeof(T) * (size_t(kRunsInFlight) * (S::kRect + S::kFX + S::kFY + 2 * S::kCells) + S::kFX +
                       S::kFY + size_t(S::TX * S::TY) * (nz | 1));
 }
 
 // B's cross of mtg_now and mtg: the tile widened by 1 in x and y
-constexpr int kRectB1 = (ShapeB::TX + 2) * (ShapeB::TY + 2) * ShapeB::KL;
+template <class S>
+constexpr int kRectB1 = (S::TX + 2) * (S::TY + 2) * S::KL;
 // B's advected fields in flight: the one whose fluxes are computed and the
 // next
 constexpr int kAdvBufs = 2;
 
-template <typename T>
+template <class S, typename T>
 constexpr size_t smem_b() {
-  using S = ShapeB;
-  return sizeof(T) * ((1 + kAdvBufs) * S::kRect + 2 * (S::kFX + S::kFY) + 2 * kRectB1);
+  return sizeof(T) * ((1 + kAdvBufs) * S::kRect + 2 * (S::kFX + S::kFY) + 2 * kRectB1<S>);
 }
 
-template <typename T, int V>
-__global__ void __launch_bounds__(ShapeA::Threads, 4) stage_density_montgomery(Fields<T> f, Params<T> p) {
-  using S = ShapeA;
+template <class S, typename T, int V>
+__global__ void __launch_bounds__(S::Threads, 4) stage_density_montgomery(Fields<T> f, Params<T> p) {
   static_assert(tt::Lane<S>::P == 1, "one column a thread");
   constexpr int kBuf = S::kRect + S::kFX + S::kFY + 2 * S::kCells;  // s_int, u, v, s_now, s_ref
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -219,9 +225,10 @@ __global__ void __launch_bounds__(ShapeA::Threads, 4) stage_density_montgomery(F
   }
 }
 
-template <typename T, int V>
-__global__ void __launch_bounds__(ShapeB::Threads) stage_momenta_epilogue(Fields<T> f, Params<T> p) {
-  using S = ShapeB;
+template <class S, typename T, int V>
+__global__ void __launch_bounds__(S::Threads) stage_momenta_epilogue(Fields<T> f, Params<T> p) {
+  // the fifth order: u/60, v/60 once for all fields
+  constexpr bool kScaled = S::H == 3;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* const SI = reinterpret_cast<T*>(smem_raw);  // s_int's cross, kept
   T* const PHI = SI + S::kRect;                   // the advected fields' crosses, a ring
@@ -230,7 +237,7 @@ __global__ void __launch_bounds__(ShapeB::Threads) stage_momenta_epilogue(Fields
   T* const FX = Vf + S::kFY;
   T* const FY = FX + S::kFX;
   T* const MN = FY + S::kFY;  // mtg_now's and mtg's crosses of halo 1
-  T* const MG = MN + kRectB1;
+  T* const MG = MN + kRectB1<S>;
   // the level run is the fastest block index: blocks that run together read
   // whole columns
   const tt::Tile t{int(blockIdx.y) * S::TX, int(blockIdx.z) * S::TY, int(blockIdx.x) * S::KL,
@@ -259,7 +266,9 @@ __global__ void __launch_bounds__(ShapeB::Threads) stage_momenta_epilogue(Fields
     T* const phi = PHI + a % kAdvBufs * S::kRect;
     tt::cp_async_wait<kAdvBufs - 1>();
     __syncthreads();
-    if (a == 0) tt::lane_scale_faces(L, k < p.nz, U, Vf);
+    if constexpr (kScaled) {
+      if (a == 0) tt::lane_scale_faces(L, k < p.nz, U, Vf);
+    }
     if (a >= 2) {  // the water density clip(s_int q_int), formed once
       tt::for_cross<S::TX, S::TY, S::KL, S::H, V, S::Threads>(
           t.x0, t.y0, t.k0, t.nx, t.ny, t.nz, [&](int m, int) {
@@ -268,7 +277,7 @@ __global__ void __launch_bounds__(ShapeB::Threads) stage_momenta_epilogue(Fields
           });
       __syncthreads();
     }
-    tt::lane_fluxes<true>(L, k < p.nz, phi, U, Vf, FX, FY);
+    tt::lane_fluxes<kScaled>(L, k < p.nz, phi, U, Vf, FX, FY);
     __syncthreads();
 #pragma unroll
     for (int q = 0; q < L.P; ++q)
@@ -329,28 +338,30 @@ __global__ void __launch_bounds__(ShapeB::Threads) stage_momenta_epilogue(Fields
   }
 }
 
-template <typename T, int V>
+template <int H, typename T, int V>
 int launch_kernels(const Fields<T>& f, const Params<T>& p, cudaStream_t stream) {
+  using SA = ShapeA<H>;
+  using SB = ShapeB<H>;
   // A's column buffer grows with nz: above the card's 227 KB a block the
   // attribute is refused and the error returned
-  const int sa = int(smem_a<T>(p.nz)), sb = int(smem_b<T>());
-  int err = int(cudaFuncSetAttribute(stage_density_montgomery<T, V>,
+  const int sa = int(smem_a<SA, T>(p.nz)), sb = int(smem_b<SB, T>());
+  int err = int(cudaFuncSetAttribute(stage_density_montgomery<SA, T, V>,
                                      cudaFuncAttributeMaxDynamicSharedMemorySize, sa));
   if (err) return err;
-  err = int(cudaFuncSetAttribute(stage_momenta_epilogue<T, V>,
+  err = int(cudaFuncSetAttribute(stage_momenta_epilogue<SB, T, V>,
                                  cudaFuncAttributeMaxDynamicSharedMemorySize, sb));
   if (err) return err;
-  const dim3 ga((p.nx + ShapeA::TX - 1) / ShapeA::TX, (p.ny + ShapeA::TY - 1) / ShapeA::TY);
-  stage_density_montgomery<T, V><<<ga, ShapeA::Threads, sa, stream>>>(f, p);
+  const dim3 ga((p.nx + SA::TX - 1) / SA::TX, (p.ny + SA::TY - 1) / SA::TY);
+  stage_density_montgomery<SA, T, V><<<ga, SA::Threads, sa, stream>>>(f, p);
   err = int(cudaGetLastError());
   if (err) return err;
-  const dim3 gb((p.nz + ShapeB::KL - 1) / ShapeB::KL, (p.nx + ShapeB::TX - 1) / ShapeB::TX,
-                (p.ny + ShapeB::TY - 1) / ShapeB::TY);
-  stage_momenta_epilogue<T, V><<<gb, ShapeB::Threads, sb, stream>>>(f, p);
+  const dim3 gb((p.nz + SB::KL - 1) / SB::KL, (p.nx + SB::TX - 1) / SB::TX,
+                (p.ny + SB::TY - 1) / SB::TY);
+  stage_momenta_epilogue<SB, T, V><<<gb, SB::Threads, sb, stream>>>(f, p);
   return int(cudaGetLastError());
 }
 
-template <typename T>
+template <int H, typename T>
 int launch(const void* const* ptrs, void* const* outs, int nq, int nx, int ny, int nz, int nb,
            int dd, const double* scalars, cudaStream_t stream) {
   Fields<T> f = {};
@@ -378,7 +389,7 @@ int launch(const void* const* ptrs, void* const* outs, int nq, int nx, int ny, i
   // 16-byte copies where every staged field's columns are whole 16-byte runs
   const bool vec = tt::runs_of_16<T>(nz, {f.u, f.v, f.s_now, f.s_int, f.s_ref, f.su_int, f.sv_int,
                                           f.mtg_now, f.mtg, f.q_int[0], f.q_int[1], f.q_int[2]});
-  return vec ? launch_kernels<T, 16 / sizeof(T)>(f, p, stream) : launch_kernels<T, 1>(f, p, stream);
+  return vec ? launch_kernels<H, T, 16 / sizeof(T)>(f, p, stream) : launch_kernels<H, T, 1>(f, p, stream);
 }
 
 }  // namespace
@@ -387,14 +398,20 @@ int launch(const void* const* ptrs, void* const* outs, int nq, int nx, int ny, i
 //       theta, gamma, s_ref, su_ref, sv_ref, rmat, q_now[nq], q_int[nq], q_ref[nq]
 // outs: s_e, mtg (scratch), s, su, sv, q[nq]
 // scalars: dt, dtf, dx, dy, eps, pt, dz, g, cp, rd, pref
-// dd: damp the levels k < dd (0: no damping)
+// dd: damp the levels k < dd (0: no damping); order: 3 or 5
 extern "C" int tt_si_stage(int dtype, const void* const* ptrs, void* const* outs, int nq, int nx,
-                           int ny, int nz, int nb, int dd, const double* scalars,
+                           int ny, int nz, int nb, int dd, int order, const double* scalars,
                            cudaStream_t stream) {
-  if (nq < 0 || nq > kMaxQ || nb < 3 || nx < 2 * nb + 1 || ny < 2 * nb + 1 || nz < 1 ||
-      !tt::fits_int32(nx, ny, nz)) {
+  // the stencils of order 3 read 2 cells on each side of a face, those of order 5 three
+  if (nq < 0 || nq > kMaxQ || (order != 3 && order != 5) || nb < (order == 3 ? 2 : 3) ||
+      nx < 2 * nb + 1 || ny < 2 * nb + 1 || nz < 1 || !tt::fits_int32(nx, ny, nz)) {
     return int(cudaErrorInvalidValue);
   }
-  if (dtype == tt::kFloat32) return launch<float>(ptrs, outs, nq, nx, ny, nz, nb, dd, scalars, stream);
-  return launch<double>(ptrs, outs, nq, nx, ny, nz, nb, dd, scalars, stream);
+  const bool f32 = dtype == tt::kFloat32;
+  if (order == 3) {
+    return f32 ? launch<2, float>(ptrs, outs, nq, nx, ny, nz, nb, dd, scalars, stream)
+               : launch<2, double>(ptrs, outs, nq, nx, ny, nz, nb, dd, scalars, stream);
+  }
+  return f32 ? launch<3, float>(ptrs, outs, nq, nx, ny, nz, nb, dd, scalars, stream)
+             : launch<3, double>(ptrs, outs, nq, nx, ny, nz, nb, dd, scalars, stream);
 }

@@ -1,18 +1,23 @@
 """The (moist) isentropic dynamical core (counterpart of
 ``tasmania_tpu/isentropic/dynamics/dycore.py``: its fused path
-``_stage_fused`` ``:217-293`` and its dry unfused path ``_stage_dry``
-``:299-345``, dispatched as ``stage_array_call`` ``:188-193`` does).
+``_stage_fused`` ``:217-293`` and its unfused paths ``_stage_dry``
+``:299-345`` and ``_stage_moist`` ``:347-408``, dispatched as
+``stage_array_call`` ``:188-193`` does).
 
-Per stage on the fused path: the stage operation of the prognostic scheme
-(advection, lateral BC, Montgomery, momenta, mass fractions, Rayleigh
-damping on the last stage unless ``damp_at_every_stage``; with tendencies,
-the two-kernel stage that adds them).  On the unfused path (a
-one-dimensional relaxed boundary, dry) the prognostic steps s, su and sv,
-and the dycore enforces the lateral BC on all three and damps them toward
-the reference from the step's "now" values.  Then the staggered velocities
-of the stepped state with their outermost layers taken from the lateral
-boundary.  The velocities are recomputed after every stage, so the next
-stage reads the stepped state's.
+The time integration is ``forward_euler_si`` (one stage) or ``rk3ws_si``
+(three); ``centered_si`` is a stub that raises, as in the reference.  Per
+stage on the fused route (``prognostic.py``: a two-dimensional relaxed
+boundary, third- or fifth-order fluxes): the stage operation of the
+prognostic scheme (advection, lateral BC, Montgomery, momenta, mass
+fractions, Rayleigh damping on the last stage unless
+``damp_at_every_stage``; with tendencies, the two-kernel stage that adds
+them).  On the generic stage (any other boundary or order, dry or moist)
+the prognostic steps s, su, sv and the water densities, and the dycore
+forms the mass fractions clip(sq/s), enforces the lateral BC on every field
+and damps s, su and sv toward the reference from the step's "now" values.
+Then the staggered velocities of the stepped state with their outermost
+layers taken from the lateral boundary.  The velocities are recomputed
+after every stage, so the next stage reads the stepped state's.
 """
 
 from __future__ import annotations
@@ -26,7 +31,15 @@ from tasmania_tpu_torch.dwarfs.diagnostics import get_velocity_components
 from tasmania_tpu_torch.dwarfs.vertical_damping import Rayleigh
 from tasmania_tpu_torch.framework.dycore import DynamicalCore
 from tasmania_tpu_torch.framework.options import StorageOptions
-from tasmania_tpu_torch.isentropic.dynamics.prognostic import RK3WSSI, UNITS, mfcw, mfpw, mfwv
+from tasmania_tpu_torch.isentropic.dynamics.prognostic import (
+    SCHEMES,
+    SQ_NAMES,
+    UNITS,
+    mfcw,
+    mfpw,
+    mfwv,
+)
+from tasmania_tpu_torch.ops.si_stage import clip_pos
 
 DIMS = ("x", "y", "z")
 DIMS_U = ("x_at_u_locations", "y", "z")
@@ -56,17 +69,18 @@ class IsentropicDynamicalCore(DynamicalCore):
         storage_options: Optional[StorageOptions] = None,
     ) -> None:
         super().__init__(fast_tendency_component, fast_diagnostic_component)
-        if time_integration_scheme != "rk3ws_si":
-            raise NotImplementedError(
-                f"time integration {time_integration_scheme!r} is not ported (have 'rk3ws_si')"
+        if time_integration_scheme not in SCHEMES:
+            raise ValueError(
+                f"unknown time integration {time_integration_scheme!r} (have {sorted(SCHEMES)})"
             )
+        # the reference registers no other damping (dwarfs/vertical_damping.py:79)
         if damp and damp_type != "rayleigh":
-            raise NotImplementedError(f"damping {damp_type!r} is not ported (have 'rayleigh')")
+            raise ValueError(f"unknown damping {damp_type!r} (have 'rayleigh')")
         so = storage_options or StorageOptions()
         self.horizontal_boundary = domain.horizontal_boundary
         self.moist = moist
         self.damp_at_every_stage = damp_at_every_stage
-        self.prognostic = RK3WSSI(
+        self.prognostic = SCHEMES[time_integration_scheme](
             horizontal_flux_scheme, domain, moist, storage_options=so,
             **(time_integration_properties or {}),
         )
@@ -134,7 +148,7 @@ class IsentropicDynamicalCore(DynamicalCore):
                 dtf=timestep,
             )
         else:
-            out = self._stage_dry(stage, raw_state, raw_tendencies, timestep, damp)
+            out = self._stage_unfused(stage, raw_state, raw_tendencies, timestep, damp)
         u, v = get_velocity_components(
             out["air_isentropic_density"],
             out["x_momentum_isentropic"],
@@ -148,16 +162,20 @@ class IsentropicDynamicalCore(DynamicalCore):
         )
         return out
 
-    def _stage_dry(self, stage, raw_state, raw_tendencies, timestep: float, damp: bool):
-        """The unfused stage's epilogue (``dycore.py:299-333``): the stepped
-        s, su, sv enforced, then damped with the full timestep toward the
-        reference from the values captured at stage 0."""
+    def _stage_unfused(self, stage, raw_state, raw_tendencies, timestep: float, damp: bool):
+        """The generic stage and its epilogue (``_stage_dry``,
+        ``dycore.py:299-333``, and ``_stage_moist``, ``:347-394``): the
+        mass fractions clip(sq/s) of the stepped water densities, every
+        field enforced, then s, su, sv damped with the full timestep toward
+        the reference from the values captured at stage 0."""
         hb = self.horizontal_boundary
         names = ("air_isentropic_density", "x_momentum_isentropic", "y_momentum_isentropic")
         if stage == 0:
             self._damp_now = {n: raw_state[n] for n in names}
         out = self.prognostic.stage_call(stage, timestep, raw_state, raw_tendencies)
-        out = {n: hb.enforce_field(out[n], n, UNITS[n]) for n in names}
+        for q in self.prognostic.q_names:
+            out[q] = clip_pos(out.pop(SQ_NAMES[q]) / out["air_isentropic_density"])
+        out = hb.enforce_raw(out, {n: {"units": UNITS[n]} for n in out})
         if damp:
             for n in names:
                 out[n] = self.damper(timestep, self._damp_now[n], out[n], hb.ref_field(n, UNITS[n]))

@@ -45,8 +45,8 @@ _SIGNATURES = {
     # dtype, inputs (host array), outputs (host array), gamma, nf, nx, ny, nz,
     # order, nb, stream
     "tt_smoothing": (_int, _vp, _vp, _vp, _int, _int, _int, _int, _int, _int, _vp),
-    # dtype, inputs, outputs, nq, nx, ny, nz, nb, dd, scalars, stream
-    "tt_si_stage": (_int, _vp, _vp, _int, _int, _int, _int, _int, _int, _vp, _vp),
+    # dtype, inputs, outputs, nq, nx, ny, nz, nb, dd, order, scalars, stream
+    "tt_si_stage": (_int, _vp, _vp, _int, _int, _int, _int, _int, _int, _int, _vp, _vp),
     # dtype, inputs (host array), outputs (host array), ncol, nz, scalars, stream
     "tt_kessler_satadj": (_int, _vp, _vp, _int, _int, _vp, _vp),
     # the same, Kessler alone (out: qv, qc, qr, theta tendency)
@@ -66,8 +66,8 @@ _SIGNATURES = {
     # pref), stream
     "tt_isentropic_diagnostics": (_int, _vp, _vp, _int, _int, _int, _vp, _vp),
     # dtype, inputs (17 arrays, sq[nq], q_ref[nq]), outputs (s, su, sv,
-    # q[nq]), nq, nx, ny, nz, nb, scalars (dt, dtf, dx, dy, eps), stream
-    "tt_momentum_epilogue": (_int, _vp, _vp, _int, _int, _int, _int, _int, _vp, _vp),
+    # q[nq]), nq, nx, ny, nz, nb, order, scalars (dt, dtf, dx, dy, eps), stream
+    "tt_momentum_epilogue": (_int, _vp, _vp, _int, _int, _int, _int, _int, _int, _vp, _vp),
     # dtype, inputs (s, su, sv), outputs (su, sv), nx, ny, nz, nb, scalars
     # (dt/2, dt, nu factor, 2 dx, 2 dy), stream
     "tt_smagorinsky_rk2": (_int, _vp, _vp, _int, _int, _int, _int, _vp, _vp),

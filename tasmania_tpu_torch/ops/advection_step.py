@@ -26,7 +26,7 @@ operation order; the wrappers take them for CPU tensors only.
   pressure gradient and the momentum tendencies, then the stage epilogue:
   ``q = clip(sq/s_e)``, the relaxed BC on every output (s a second time) and,
   with a Rayleigh profile, damping of s, su, sv with the full timestep
-  toward the reference from the "now" values.  Fifth-order fluxes only.
+  toward the reference from the "now" values.  Third- or fifth-order fluxes.
 
 Layout: cell fields (nx, ny, nz), u (nx+1, ny, nz), v (nx, ny+1, nz), γ
 (nx, ny), the Rayleigh profile (nz,).
@@ -39,10 +39,10 @@ from typing import Optional, Sequence
 import torch
 
 from tasmania_tpu_torch.domain.boundaries.relaxed import enforce_relaxed
-from tasmania_tpu_torch.isentropic.dynamics.horizontal_fluxes import extent
 from tasmania_tpu_torch.ops import _lib
 from tasmania_tpu_torch.ops.si_stage import (
     StageConstants,
+    check_geometry,
     clip_pos,
     flux_divergence,
     pressure_gradient,
@@ -79,13 +79,6 @@ def fused_advection_fields_plain(
     return tuple(outs)
 
 
-def _check_geometry(name, shape, nb, order):
-    nx, ny = shape[0], shape[1]
-    e = extent(order)
-    if nb < e or nx < 2 * nb + 1 or ny < 2 * nb + 1:
-        raise ValueError(f"{name}: nb={nb} on a {nx}x{ny} grid (order-{order} stencils need nb >= {e})")
-
-
 def _check_advection_args(fields_now, fields_int, tnds, gamma, ref0, qp, nb, order):
     nf = len(fields_now)
     if not nf or len(fields_int) != nf or len(qp) != nf or (tnds is not None and len(tnds) != nf):
@@ -94,7 +87,7 @@ def _check_advection_args(fields_now, fields_int, tnds, gamma, ref0, qp, nb, ord
         raise ValueError("fused_advection_fields: field 0 is the density and cannot be a mass fraction")
     if (gamma is None) != (ref0 is None):
         raise ValueError("fused_advection_fields: give both gamma and ref0, or neither")
-    _check_geometry("fused_advection_fields", fields_now[0].shape, nb, order)
+    check_geometry("fused_advection_fields", fields_now[0].shape, nb, order)
 
 
 def fused_advection_fields(
@@ -162,7 +155,7 @@ def fused_momentum_step(
     tensors (su, sv)."""
     if (su_tnd is None) != (sv_tnd is None):
         raise ValueError("fused_momentum_step: give both momentum tendencies, or neither")
-    _check_geometry("fused_momentum_step", s_now.shape, nb, order)
+    check_geometry("fused_momentum_step", s_now.shape, nb, order)
     args = (u, v, su_now, sv_now, su_int, sv_int, s_now, mtg_now, s_new, mtg_new, su_tnd, sv_tnd)
     kw = dict(order=order, nb=nb, dt=dt, dx=dx, dy=dy, eps=eps)
     if not s_now.is_cuda:
@@ -190,17 +183,18 @@ def fused_momentum_step(
 def fused_momentum_epilogue_plain(
     u, v, su_now, sv_now, su_int, sv_int, s_now, mtg_now, s_e, mtg, sqs, gamma, s_ref,
     su_ref, sv_ref, q_refs, rmat=None, su_tnd=None, sv_tnd=None, *, nb: int,
-    c: StageConstants,
+    c: StageConstants, order: int = 5,
 ):
     """Returns (s, su, sv, *q).  ``c`` gives dt (the stage's), dtf (the full
     timestep, for the damping), dx, dy and eps; ``rmat`` None switches
-    damping off; the tendencies are both given or both None."""
+    damping off; the tendencies are both given or both None; upwind fluxes
+    of ``order`` (3 or 5)."""
     nx, ny, _ = s_now.shape
     iin, jin = slice(nb, nx - nb), slice(nb, ny - nb)
     g3 = gamma[:, :, None]
     pgx, pgy = pressure_gradient(s_now, s_e, mtg_now, mtg, nb, c.eps, c.dx, c.dy)
-    su_rhs = flux_divergence(u, v, su_int, nb, c.dx, c.dy) + pgx
-    sv_rhs = flux_divergence(u, v, sv_int, nb, c.dx, c.dy) + pgy
+    su_rhs = flux_divergence(u, v, su_int, nb, c.dx, c.dy, order) + pgx
+    sv_rhs = flux_divergence(u, v, sv_int, nb, c.dx, c.dy, order) + pgy
     if su_tnd is not None:
         su_rhs = su_rhs - su_tnd[iin, jin]
         sv_rhs = sv_rhs - sv_tnd[iin, jin]
@@ -216,7 +210,7 @@ def fused_momentum_epilogue_plain(
 def fused_momentum_epilogue(
     u, v, su_now, sv_now, su_int, sv_int, s_now, mtg_now, s_e, mtg, sqs: Sequence, gamma,
     s_ref, su_ref, sv_ref, q_refs: Sequence, rmat=None, su_tnd=None, sv_tnd=None, *,
-    nb: int, c: StageConstants,
+    nb: int, c: StageConstants, order: int = 5,
 ):
     """The momentum step and the stage epilogue in one kernel launch on a
     CUDA device; returns new tensors (s, su, sv, *q)."""
@@ -227,11 +221,11 @@ def fused_momentum_epilogue(
     if (su_tnd is None) != (sv_tnd is None):
         raise ValueError("fused_momentum_epilogue: give both momentum tendencies, or neither")
     nx, ny, nz = s_now.shape
-    _check_geometry("fused_momentum_epilogue", s_now.shape, nb, 5)
+    check_geometry("fused_momentum_epilogue", s_now.shape, nb, order)
     args = (u, v, su_now, sv_now, su_int, sv_int, s_now, mtg_now, s_e, mtg, sqs, gamma, s_ref,
             su_ref, sv_ref, q_refs, rmat, su_tnd, sv_tnd)
     if not s_now.is_cuda:
-        return fused_momentum_epilogue_plain(*args, nb=nb, c=c)
+        return fused_momentum_epilogue_plain(*args, nb=nb, c=c, order=order)
     cell = (nx, ny, nz)
     ins = [u, v, su_now, sv_now, su_int, sv_int, s_now, mtg_now, s_e, mtg, gamma, s_ref, su_ref,
            sv_ref, rmat, su_tnd, sv_tnd, *sqs, *q_refs]
@@ -245,7 +239,7 @@ def fused_momentum_epilogue(
         _lib.DTYPE_CODES[s_now.dtype],
         _lib.pointer_array(ins),
         _lib.pointer_array(outs),
-        nq, nx, ny, nz, nb,
+        nq, nx, ny, nz, nb, order,
         _lib.scalar_array([c.dt, c.dtf, c.dx, c.dy, c.eps]),
         _lib.stream_handle(),
     )

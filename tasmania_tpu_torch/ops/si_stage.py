@@ -9,7 +9,7 @@ wrapper takes it for CPU tensors only.
 
 Layout: cell fields (nx, ny, nz), u (nx+1, ny, nz), v (nx, ny+1, nz), θ on
 the nz+1 interfaces, γ and the topography (nx, ny), the Rayleigh profile
-(nz,).  Only fifth-order upwind fluxes are ported.
+(nz,).  Third- or fifth-order upwind fluxes (``order``).
 """
 
 from __future__ import annotations
@@ -21,7 +21,7 @@ from typing import Optional, Sequence
 import torch
 
 from tasmania_tpu_torch.domain.boundaries.relaxed import enforce_relaxed
-from tasmania_tpu_torch.isentropic.dynamics.horizontal_fluxes import extent, flux3
+from tasmania_tpu_torch.isentropic.dynamics.horizontal_fluxes import FLUXES, KERNEL_ORDERS, extent
 from tasmania_tpu_torch.ops import _lib
 
 
@@ -48,20 +48,13 @@ def clip_pos(x):
     return torch.where(x > 0.0, x, torch.zeros_like(x))
 
 
-def flux5(w, pm3, pm2, pm1, p0, pp1, pp2):
-    """Fifth-order upwind flux at a face between pm1 and p0."""
-    flux6 = w / 60.0 * (37.0 * (p0 + pm1) - 8.0 * (pp1 + pm2) + (pp2 + pm3))
-    return flux6 - torch.abs(w) / 60.0 * (
-        10.0 * (p0 - pm1) - 5.0 * (pp1 - pm2) + (pp2 - pm3)
-    )
-
-
 def flux_divergence(u, v, phi, nb: int, dx: float, dy: float, order: int = 5):
-    """Divergence of the upwind fluxes of ``order`` (3 or 5) of ``phi`` on
-    the nb-inset interior (nx-2nb, ny-2nb, nz)."""
+    """Divergence of the fluxes of ``order`` (1, 2, 3 or 5:
+    ``horizontal_fluxes.py``) of ``phi`` on the nb-inset interior (nx-2nb,
+    ny-2nb, nz)."""
     nx, ny, _ = phi.shape
     e = extent(order)
-    flux = flux3 if order == 3 else flux5
+    flux = FLUXES[order]
     iin, jin = slice(nb, nx - nb), slice(nb, ny - nb)
     fx = flux(u[nb : nx - nb + 1, jin],
               *[phi[nb - e + k : nx - nb - e + 1 + k, jin] for k in range(2 * e)])
@@ -103,6 +96,17 @@ def with_interior(base, interior, nb):
     return out
 
 
+def check_geometry(name, shape, nb: int, order: int) -> None:
+    """Raise unless a kernel takes ``order`` (3 or 5) and the (nx, ny) grid
+    holds an interior with the order's stencils inside it."""
+    if order not in KERNEL_ORDERS:
+        raise ValueError(f"{name}: flux order {order}; the kernel takes {KERNEL_ORDERS}")
+    nx, ny = shape[0], shape[1]
+    e = extent(order)
+    if nb < e or nx < 2 * nb + 1 or ny < 2 * nb + 1:
+        raise ValueError(f"{name}: nb={nb} on a {nx}x{ny} grid (order-{order} stencils need nb >= {e})")
+
+
 def rayleigh_damp(phi, now, ref, rmat, dtf):
     """``phi`` damped toward ``ref`` from ``now``; ``rmat`` None: no damping."""
     return phi if rmat is None else phi - dtf * rmat * (now - ref)
@@ -128,17 +132,17 @@ def pressure_gradient(s_now, s_e, mtg_now, mtg, nb: int, eps: float, dx: float, 
 def si_stage_plain(
     u, v, s_now, s_int, q_now, q_int, su_now, sv_now, su_int, sv_int, mtg_now,
     hs, theta, gamma, s_ref, su_ref, sv_ref, q_refs, rmat, *, nb: int,
-    c: StageConstants, dd: int = 0,
+    c: StageConstants, dd: int = 0, order: int = 5,
 ):
-    """The stage on whole arrays; returns (s, su, sv, *q).  ``rmat`` None
-    switches damping off (``dd`` is the kernel's damping depth and is not
-    needed here)."""
+    """The stage on whole arrays with upwind fluxes of ``order`` (3 or 5);
+    returns (s, su, sv, *q).  ``rmat`` None switches damping off (``dd`` is
+    the kernel's damping depth and is not needed here)."""
     nx, ny, _ = s_now.shape
     iin, jin = slice(nb, nx - nb), slice(nb, ny - nb)
     g3 = gamma[:, :, None]
 
     def div(phi):
-        return flux_divergence(u, v, phi, nb, c.dx, c.dy)
+        return flux_divergence(u, v, phi, nb, c.dx, c.dy, order)
 
     s_res = with_interior(s_now, s_now[iin, jin] - c.dt * div(s_int), nb)
     s_e = enforce_relaxed(s_res, g3, s_ref)
@@ -161,25 +165,25 @@ def si_stage_plain(
 def si_stage(
     u, v, s_now, s_int, q_now: Sequence, q_int: Sequence, su_now, sv_now, su_int,
     sv_int, mtg_now, hs, theta, gamma, s_ref, su_ref, sv_ref, q_refs: Sequence,
-    rmat: Optional[torch.Tensor], *, nb: int, c: StageConstants, dd: int = 0,
+    rmat: Optional[torch.Tensor], *, nb: int, c: StageConstants, dd: int = 0, order: int = 5,
 ):
-    """One stage; returns new tensors (s, su, sv, *q).  On a CUDA device it
+    """One stage with upwind fluxes of ``order`` (3 or 5); returns new
+    tensors (s, su, sv, *q).  On a CUDA device it
     runs the kernel; ``rmat[dd:]`` must then be zero (damping is applied on
     the levels k < dd only), as it is for a Rayleigh profile of depth dd.
     The kernel keeps a block's columns of the stepped density in shared
     memory, so nz is bounded (about 1680 levels in float32, 780 in float64):
     beyond that the launch is refused and this raises."""
+    check_geometry("si_stage", s_now.shape, nb, order)
     if not s_now.is_cuda:
         return si_stage_plain(
             u, v, s_now, s_int, q_now, q_int, su_now, sv_now, su_int, sv_int,
-            mtg_now, hs, theta, gamma, s_ref, su_ref, sv_ref, q_refs, rmat, nb=nb, c=c,
+            mtg_now, hs, theta, gamma, s_ref, su_ref, sv_ref, q_refs, rmat, nb=nb, c=c, order=order,
         )
     nx, ny, nz = s_now.shape
     nq = len(q_now)
     if len(q_int) != nq or len(q_refs) != nq or nq > 3:
         raise ValueError("si_stage: need the same number (<= 3) of q_now, q_int, q_refs")
-    if nb < 3 or nx < 2 * nb + 1 or ny < 2 * nb + 1:
-        raise ValueError(f"si_stage: nb={nb} on a {nx}x{ny} grid (fifth-order stencils need nb >= 3)")
     if rmat is None:
         dd, rmat_arg = 0, s_now  # never read with dd = 0
         rshape = (nx, ny, nz)
@@ -202,7 +206,7 @@ def si_stage(
         _lib.DTYPE_CODES[s_now.dtype],
         _lib.pointer_array(ins),
         _lib.pointer_array(scratch + outs),
-        nq, nx, ny, nz, nb, dd,
+        nq, nx, ny, nz, nb, dd, order,
         ctypes.cast(scalars, ctypes.c_void_p),
         _lib.stream_handle(),
     )

@@ -36,12 +36,29 @@ JAX driver's ``build_variant`` (``drivers/driver_isentropic_moist.py``) with
 ``drivers/namelist_<coupling>.py`` (161x161x120) from the raining run's
 supersaturated start (relative humidity 1.05), 1 warm-up + 20 steps.
 
+``--flux third_order_upwind`` and ``--boundary periodic`` run the SUS
+chain, or with ``--coupling C`` that coupling, with the namelist's
+``horizontal_flux_scheme`` or ``hb_type`` (``hb_kwargs={}``) overridden,
+from the couplings' supersaturated start, 1 warm-up + 20 steps:
+``flagship_third_reference.json`` (the whole-stage kernel at third order),
+``variant_fc_third_reference.json`` (``--coupling fc --flux
+third_order_upwind``: the two-kernel stage at third order) and
+``flagship_periodic_reference.json`` (the generic stage on the periodic
+boundary).
+
 Usage: ``python tests/make_torch_flagship_reference.py [--rain | --merges |
---coupling C]`` (about five minutes, a minute and a half with ``--rain``,
-``--merges`` or ``--coupling``).  With ``--check-port`` it writes nothing:
+--coupling C] [--flux SCHEME] [--boundary TYPE]`` (about five minutes, a
+minute and a half with ``--rain``, ``--merges``, ``--coupling``, ``--flux``
+or ``--boundary``).  With ``--check-port`` it writes no reference:
 it runs the port on the CPU in float32 at the same configuration and prints
 each number's relative deviation from the file, the measurement behind the
-limits ``chip_smoke.py`` holds the card to.
+limits ``chip_smoke.py`` holds the card to.  With ``--float64`` it runs the
+port on the CPU in float64 instead, prints the same deviations, and writes
+the run's numbers as ``<name>_float64.json`` beside the reference (about a
+minute): ``chip_smoke.py`` phase 13 holds the same run in float64 on the
+card to ``flagship_periodic_float64.json`` (``--boundary periodic
+--float64``), the witness that the card's float32 differences on that path
+are rounding and not a fault.
 """
 
 from __future__ import annotations
@@ -71,28 +88,61 @@ JAX_MERGE_SWITCHES = ("TASMANIA_FUSE_SMOOTH_SMAG", "TASMANIA_FUSE_VADV_SED")
 # the couplings' runs: namelist overrides (``variant_<coupling>_reference.json``)
 VARIANT = {"niter": 20, "relative_humidity": 1.05}
 COUPLINGS = ("fc", "lfc", "ps", "sts", "ssus")
+# --flux and --boundary: the values each takes
+FLUXES = ("third_order_upwind",)
+BOUNDARIES = ("periodic",)
 
 
-def check_port(out, overrides, coupling=None, merges=()) -> None:
+def surface_overrides(argv):
+    """The namelist overrides of ``--flux`` and ``--boundary``, and the
+    file name's suffix ("" without either)."""
+    overrides, suffix = {}, ""
+    if "--flux" in argv:
+        flux = argv[argv.index("--flux") + 1]
+        if flux not in FLUXES:
+            raise SystemExit(f"--flux: one of {FLUXES}")
+        overrides["horizontal_flux_scheme"] = flux
+        suffix += "_third"
+    if "--boundary" in argv:
+        boundary = argv[argv.index("--boundary") + 1]
+        if boundary not in BOUNDARIES:
+            raise SystemExit(f"--boundary: one of {BOUNDARIES}")
+        overrides.update(hb_type=boundary, hb_kwargs={})
+        suffix += "_periodic"
+    return overrides, suffix
+
+
+def check_port(out, overrides, coupling=None, merges=(), float64=False) -> None:
+    """The port's run on the CPU against the reference file ``out``; in
+    float64 also written as ``<name>_float64.json``."""
     import torch
 
     from tasmania_tpu_torch.drivers import driver_isentropic_moist as moist
     from tasmania_tpu_torch.drivers import driver_namelist_sus as drv
     from tasmania_tpu_torch.framework.options import StorageOptions
 
-    so = StorageOptions(dtype=torch.float32, device="cpu")
+    dtype = torch.float64 if float64 else torch.float32
+    so = StorageOptions(dtype=dtype, device="cpu")
     if coupling is None:
         from tasmania_tpu_torch.drivers.namelist_sus import load_namelist
 
-        res = drv.run(load_namelist(so=so, process_merges=merges, **overrides), verbose=False)
+        nl = load_namelist(so=so, process_merges=merges, **overrides)
+        res = drv.run(nl, verbose=False)
     else:
-        res = moist.run(moist.load_namelist(coupling, so=so, **overrides), coupling, verbose=False)
+        nl = moist.load_namelist(coupling, so=so, **overrides)
+        res = moist.run(nl, coupling, verbose=False)
     got = drv.validation_summary({k: fa.data.numpy() for k, fa in res["fields"].items()})
     ref = json.loads(out.read_text())
     for key, r in ref.items():
         if isinstance(r, (int, float)):
             dev = abs(got[key] - r) / abs(r) if r else abs(got[key])
             print(f"{key:18s} port {got[key]:.9g}  reference {r:.9g}  deviation {dev:.3e}")
+    if float64:
+        got["config"] = {**ref["config"], "dtype": "float64", "backend": "the port (CPU)"}
+        got["command"] = " ".join(["python tests/make_torch_flagship_reference.py", *sys.argv[1:]])
+        witness = out.with_name(out.name.replace("_reference.json", "_float64.json"))
+        witness.write_text(json.dumps(got, indent=1) + "\n")
+        print(f"wrote {witness}")
 
 
 def jax_step(nl, coupling):
@@ -115,9 +165,14 @@ def main() -> None:
     coupling = argv[argv.index("--coupling") + 1] if "--coupling" in argv else None
     if coupling is not None and coupling not in COUPLINGS:
         raise SystemExit(f"--coupling: one of {COUPLINGS}")
-    if sum((rain, bool(merges), coupling is not None)) > 1:
-        raise SystemExit("--rain, --merges and --coupling exclude each other")
-    if coupling is not None:
+    surface, suffix = surface_overrides(argv)
+    if sum((rain, bool(merges), coupling is not None)) > 1 or (surface and (rain or merges)):
+        raise SystemExit("--rain, --merges and --coupling exclude each other, and --flux and "
+                         "--boundary go with --coupling or alone")
+    if surface:
+        overrides = {**VARIANT, **surface}
+        out = DRIVERS / f"{f'variant_{coupling}' if coupling else 'flagship'}{suffix}_reference.json"
+    elif coupling is not None:
         overrides = VARIANT
         out = DRIVERS / f"variant_{coupling}_reference.json"
     elif merges:
@@ -126,8 +181,8 @@ def main() -> None:
     else:
         overrides = RAIN if rain else {}
         out = DRIVERS / ("flagship_rain_reference.json" if rain else "flagship_reference.json")
-    if "--check-port" in argv:
-        check_port(out, overrides, coupling, merges)
+    if "--check-port" in argv or "--float64" in argv:
+        check_port(out, overrides, coupling, merges, float64="--float64" in argv)
         return
     for switch in JAX_MERGE_SWITCHES if merges else ():
         os.environ[switch] = "1"
@@ -175,6 +230,7 @@ def main() -> None:
         "nz": nl.nz, "steps": f"1 warm-up + {nl.niter}", "niter": nl.niter, "dtype": "float32",
         "backend": f"{BACKEND} (CPU)", "sedimentation_vt_mode": nl.sedimentation_vt_mode,
         "skip": [], "relative_humidity": nl.relative_humidity,
+        "horizontal_flux_scheme": nl.horizontal_flux_scheme, "hb_type": nl.hb_type,
     }
     if coupling is not None:
         ref["config"]["coupling"] = coupling
@@ -183,7 +239,8 @@ def main() -> None:
         ref["config"]["jax_switches"] = list(JAX_MERGE_SWITCHES)
     ref["command"] = "python tests/make_torch_flagship_reference.py" + (
         f" --coupling {coupling}" if coupling else " --rain" if rain else " --merges" if merges else ""
-    )
+    ) + "".join(f" {flag} {argv[argv.index(flag) + 1]}" for flag in ("--flux", "--boundary")
+                if flag in argv)
     out.write_text(json.dumps(ref, indent=1) + "\n")
     print(json.dumps(ref, indent=1))
     print(f"{elapsed:.1f} s")

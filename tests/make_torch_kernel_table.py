@@ -9,13 +9,15 @@ and that traffic's time at the H100's 3.35 TB/s.  Given the log of a
 ``chip_smoke.py`` run, it adds for each ported kernel the PR that ported
 it (and the PR that redesigned it for Hopper), its route and source,
 its launches per step on each path that runs it (the full-size runs of
-phases 5, 7, 8 and 9: the flagship's SUS chain, the five other couplings,
-the mountain wave and the SUS chain with both process merges, sus_merged;
+phases 5, 7, 8, 9 and 13: the flagship's SUS chain, the five other
+couplings, the mountain wave, the SUS chain with both process merges,
+sus_merged, and the surface paths sus_third, fc_third and sus_periodic;
 phase 12's one call of each dwarf, ``dwarfs``)
 and the times that run measured on the card: kernel, plain version and,
 where one exists, the single PyTorch call computing the same function; a
 kernel timed also at other shapes or in other modes (``also`` in the log:
-the mountain wave's 161x7x120, the diagnostics' modes) gets a row for each,
+the mountain wave's 161x7x120, the diagnostics' modes, the third order of
+#1 and #7) gets a row for each,
 with the bytes and bound of those shapes (a merge's pair run apart with the
 merge's), a kernel timed also as bare launches between CUDA events
 (``bare_launch_ms``: sedimentation) a row with those rounds; after the

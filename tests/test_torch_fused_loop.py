@@ -12,7 +12,8 @@ on the CPU, where a CUDA graph cannot run.
   run eagerly after the traced warm-up step as the drivers run it before
   capture, gives the eager ``run_steps`` result bit for bit over 1 + 3 steps
   for sus, sus with both merges, each other coupling (fc, lfc, ps, sts,
-  ssus) and the mountain wave.
+  ssus), sus and fc at third order, sus on the periodic boundary (the
+  surface paths of ``chip_smoke.py`` phase 13) and the mountain wave.
 * The same for both cases of the Burgers driver, whose zhao step takes
   its start time from the body's table.
 * ``fused_loop=True`` raises on a CPU device in every driver, and
@@ -48,6 +49,12 @@ SIZE = {"nx": 17, "ny": 17, "nz": 8, "relative_humidity": 1.2}
 NSTEPS = 3
 CPU64 = StorageOptions(dtype=torch.float64, device="cpu")
 MERGES = ("smooth_smag", "vadv_sed")
+# the surface paths: coupling and namelist overrides
+SURFACE_PATHS = {
+    "sus_third": ("sus", {"horizontal_flux_scheme": "third_order_upwind"}),
+    "fc_third": ("fc", {"horizontal_flux_scheme": "third_order_upwind"}),
+    "sus_periodic": ("sus", {"hb_type": "periodic", "hb_kwargs": {}}),
+}
 # the mountain wave: 17 x 1 x 20, 1 + 3 steps of 20 s
 MW = dict(nx=17, nz=20, hours=4 * 20.0 / 3600.0, dt=20.0)
 
@@ -104,11 +111,12 @@ def assert_bitwise(got, ref):
         assert torch.equal(got[name].data, ref[name].data), name
 
 
-@pytest.mark.parametrize("path", ["sus", "sus_merged", "fc", "lfc", "ps", "sts", "ssus"])
+@pytest.mark.parametrize("path", ["sus", "sus_merged", "fc", "lfc", "ps", "sts", "ssus",
+                                  *SURFACE_PATHS])
 def test_body_matches_eager_run_steps(path):
-    coupling = "sus" if path == "sus_merged" else path
+    coupling, overrides = SURFACE_PATHS.get(path, ("sus" if path == "sus_merged" else path, {}))
     merges = MERGES if path == "sus_merged" else ()
-    nl = moist.load_namelist(coupling, **SIZE, niter=NSTEPS, so=CPU64, process_merges=merges)
+    nl = moist.load_namelist(coupling, **SIZE, niter=NSTEPS, so=CPU64, process_merges=merges, **overrides)
     ref = moist.run(nl, coupling, verbose=False)["fields"]
     _, state, dycore, step_impl = moist.build_variant(nl, coupling)
     names = sorted(k for k in state if k != "time")

@@ -6,8 +6,8 @@ machine without them; without a CUDA device they skip.  On the GPU machine::
     python -m pytest tests/test_torch_kernels.py -m cuda --noconftest -q
 
 Tolerances, float64: paste bitwise (N arrays and one); smoothing within
-1e-13 and the stage within 1e-12 of the largest magnitude of the output (FMA
-contraction), both also in float32 (1e-6; 1e-5, su and sv of the momentum
+1e-13 and the stage (third and fifth order) within 1e-12 of the largest
+magnitude of the output (FMA contraction), both also in float32 (1e-6; 1e-5, su and sv of the momentum
 vector's) and on a ragged shape, every cell compared, frame included; the
 kernels of the stages that do not run whole (advection of the fields at third and fifth order, the momentum step at
 both orders on a two-dimensional grid and on one a single row deep, the
@@ -19,7 +19,7 @@ contraction, and PyTorch's division by a scalar on the card, a product with
 the reciprocal); the advection of the fields and the momentum step also in
 float32, within 1e-5; the advection of the fields (F = 1 and 4, at both
 orders, some tendencies None) and the momentum epilogue (float32 within 1e-5,
-su and sv of the momentum vector's; nq 0 and 3) also on the shapes their
+su and sv of the momentum vector's; nq 0 and 3; both orders) also on the shapes their
 column tiles make hard, 23x19x130 and the one-row grid; Smagorinsky and vertical advection also in float32
 and on the ragged shape, within 1e-5 of their update plus 4 ulps; the
 diagnostics also in float32 (1e-5, rho 4e-5), at 130 levels, on one row
@@ -34,7 +34,8 @@ kernels' 1024 levels, 2048 for sedimentation) at 1100 and 2100 levels of 4x3
 columns with the fused kernels' gates, counted under its own name; the fused
 kernels still taking their tallest columns; the wrappers naming their cell
 limit.  The fused loop: a CUDA graph of the step equal to the eager run bit
-for bit (sus, sus merged, fc, the mountain wave at 41x41x20, 1 + 5 steps),
+for bit (every coupling, sus and fc at third order, sus on the periodic
+boundary at 41x41x20, the mountain wave, Burgers, 1 + 5 steps),
 its captured step launching ``chip_smoke.py``'s ``LAUNCHES_PER_STEP``.  The
 input helpers here are shared with ``tests/test_torch_ops.py``,
 ``tests/test_torch_physics_ops.py`` and ``tests/test_torch_merges.py``.
@@ -439,17 +440,18 @@ def test_smoothing_kernel_vs_plain(cuda_device, order, shape, dtype):
 @pytest.mark.parametrize("shape", [(NX, NY, NZ), RAGGED])
 @pytest.mark.parametrize("stage", [0, 1, 2])
 @pytest.mark.parametrize("damp", [True, False])
-def test_si_stage_kernel_vs_plain(cuda_device, damp, stage, shape, dtype):
-    """Every cell, frame included: float64 within 1e-12 of each output's
-    largest magnitude; float32 within 1e-5, su and sv of the momentum
-    vector's (``chip_smoke.py`` phase 3: the pressure gradient differences
-    the large Montgomery potential)."""
+@pytest.mark.parametrize("order", [3, 5])
+def test_si_stage_kernel_vs_plain(cuda_device, order, damp, stage, shape, dtype):
+    """Every cell, frame included, at both orders: float64 within 1e-12 of
+    each output's largest magnitude; float32 within 1e-5, su and sv of the
+    momentum vector's (``chip_smoke.py`` phase 3: the pressure gradient
+    differences the large Montgomery potential)."""
     inp = stage_inputs(5 + stage, shape)
     c = StageConstants(dt=FRACS[stage] * DTF, dtf=DTF, **CONSTS)
     args = _cast(port_args(inp, damp, cuda_device), dtype)
     dd = inp["dd"] if damp else 0
-    got = si_stage(*args, nb=NB, c=c, dd=dd)
-    ref = si_stage_plain(*args, nb=NB, c=c, dd=dd)
+    got = si_stage(*args, nb=NB, c=c, dd=dd, order=order)
+    ref = si_stage_plain(*args, nb=NB, c=c, dd=dd, order=order)
     assert len(got) == len(ref) == 6
     if dtype == torch.float64:
         for k, (a, b) in enumerate(zip(got, ref)):
@@ -593,18 +595,19 @@ def test_diagnostics_kernel_vs_plain(cuda_device, mode, shape, dtype):
 @pytest.mark.parametrize("nq", [3, 0])
 @pytest.mark.parametrize("damp", [True, False])
 @pytest.mark.parametrize("tendencies", [True, False])
-def test_momentum_epilogue_kernel_vs_plain(cuda_device, damp, tendencies, nq, dtype, shape):
-    """Without and with the water species, on the test geometry and the
-    shapes the column tiles make hard: float64 within 1e-12 of each
-    output's largest magnitude; float32 within 1e-5, su and sv of the
-    momentum vector's (``chip_smoke.py`` phase 3: the pressure gradient
-    differences the large Montgomery potential)."""
+@pytest.mark.parametrize("order", [3, 5])
+def test_momentum_epilogue_kernel_vs_plain(cuda_device, order, damp, tendencies, nq, dtype, shape):
+    """Without and with the water species, at both orders, on the test
+    geometry and the shapes the column tiles make hard: float64 within
+    1e-12 of each output's largest magnitude; float32 within 1e-5, su and
+    sv of the momentum vector's (``chip_smoke.py`` phase 3: the pressure
+    gradient differences the large Montgomery potential)."""
     args = list(epilogue_args(advection_inputs(seed=9, shape=shape), damp, tendencies, cuda_device))
     args[10], args[15] = args[10][:nq], args[15][:nq]  # sqs, q_refs
     args = _cast(tuple(args), dtype)
     c = StageConstants(dt=FRACS[2] * DTF, dtf=DTF, **CONSTS)
-    got = fused_momentum_epilogue(*args, nb=NB, c=c)
-    ref = fused_momentum_epilogue_plain(*args, nb=NB, c=c)
+    got = fused_momentum_epilogue(*args, nb=NB, c=c, order=order)
+    ref = fused_momentum_epilogue_plain(*args, nb=NB, c=c, order=order)
     assert len(got) == len(ref) == 3 + nq
     if dtype == torch.float64:
         for k, (a, b) in enumerate(zip(got, ref)):
@@ -932,14 +935,16 @@ GRAPH_SIZE = dict(nx=41, ny=41, nz=20, niter=5)
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("path", ["sus", "sus_merged", "fc", "lfc", "ps", "sts", "ssus", "mountain_wave",
-                                  "burgers_bench", "burgers_zhao"])
+                                  "burgers_bench", "burgers_zhao", "sus_third", "fc_third",
+                                  "sus_periodic"])
 def test_fused_loop_graph_matches_eager(cuda_device, path):
     """41x41x20 (the mountain wave 41x1x20, Burgers 41x41), float32, 1 + 5
     steps: the CUDA graph's final fields equal the eager run's bit for bit,
     and one captured step launches what ``chip_smoke.py`` counts for the
     path (``LAUNCHES_PER_STEP``; Burgers no kernel), as one eager step
-    does."""
-    from chip_smoke import LAUNCHES_PER_STEP
+    does.  ``SURFACE_PATHS`` are couplings with namelist overrides (third
+    order, the periodic boundary)."""
+    from chip_smoke import LAUNCHES_PER_STEP, SURFACE_PATHS
     from tasmania_tpu_torch.drivers import driver_burgers as burgers
     from tasmania_tpu_torch.drivers import driver_isentropic_moist as moist
     from tasmania_tpu_torch.drivers import driver_mountain_wave as mw
@@ -950,6 +955,10 @@ def test_fused_loop_graph_matches_eager(cuda_device, path):
     elif path.startswith("burgers_"):
         runs = [burgers.run_case(path[len("burgers_"):], 41, steps=5, fused_loop=f, **kw)
                 for f in (False, True)]
+    elif path in SURFACE_PATHS:
+        coupling, overrides, _ = SURFACE_PATHS[path]
+        nl = moist.load_namelist(coupling, **GRAPH_SIZE, **overrides)
+        runs = [moist.run(nl, coupling, verbose=False, fused_loop=f) for f in (False, True)]
     else:
         coupling = "sus" if path == "sus_merged" else path
         merges = ("smooth_smag", "vadv_sed") if path == "sus_merged" else ()

@@ -2,8 +2,8 @@
 package's Pallas kernels run in interpret mode, in float64.
 
 * ``si_stage_plain`` vs ``fused_si_stage(interpret=True)`` at 19x21x8, moist,
-  with damping on and off, at the three RK3WS stage timesteps, frame
-  finished.  Scaled atol 1e-12: the JAX kernel sums the Montgomery scans as
+  with damping on and off, at the three RK3WS stage timesteps, with third-
+  and fifth-order fluxes, frame finished.  Scaled atol 1e-12: the JAX kernel sums the Montgomery scans as
   triangular matrix products, the port as cumulative sums.
 * ``fused_smoothing_plain`` vs ``fused_smoothing(interpret=True)`` for
   orders 1-3, scaled atol 1e-13 (same terms, same order; the bound covers
@@ -14,7 +14,7 @@ package's Pallas kernels run in interpret mode, in float64.
   on s and the three mass fractions, with and without tendencies (one field
   without), the relaxed BC on field 0 and the in-kernel s·q products;
   ``fused_momentum_epilogue_plain`` vs ``fused_momentum_epilogue(interpret=True)``
-  with and without damping and momentum tendencies.  Scaled atol 1e-13 (the
+  with and without damping and momentum tendencies, at orders 3 and 5.  Scaled atol 1e-13 (the
   same terms in the same order; no column scan).
 * The kernels of the unfused stage (the one-dimensional relaxed boundary of
   the mountain wave): ``fused_advection_fields_plain`` at third order vs the
@@ -97,7 +97,7 @@ from tests.test_torch_kernels import (
 )
 
 
-def _jax_stage(inp, damp, dt):
+def _jax_stage(inp, damp, dt, order=5):
     j = jnp.asarray
     return fused_si_stage(
         j(inp["u"]), j(inp["v"]), j(inp["s_now"]), j(inp["s_int"]),
@@ -106,22 +106,23 @@ def _jax_stage(inp, damp, dt):
         j(inp["mtg_now"]), j(inp["hs"]), j(inp["theta"])[None, :], j(inp["gamma"]),
         j(inp["s_ref"]), j(inp["su_ref"]), j(inp["sv_ref"]), tuple(map(j, inp["q_refs"])),
         j(inp["rmat"])[None, :],
-        order=5, nb=NB, nr=NR, dt=dt, dtf=DTF, nq=3, do_damp=damp,
+        order=order, nb=NB, nr=NR, dt=dt, dtf=DTF, nq=3, do_damp=damp,
         dd=inp["dd"] if damp else 1, interpret=True, **CONSTS,
     )
 
 
+@pytest.mark.parametrize("order", [3, 5])
 @pytest.mark.parametrize("stage", [0, 1, 2])
 @pytest.mark.parametrize("damp", [True, False])
-def test_si_stage_plain_vs_pallas(stage, damp):
+def test_si_stage_plain_vs_pallas(stage, damp, order):
     inp = stage_inputs(seed=10 + stage)
     dt = FRACS[stage] * DTF
-    ref = _jax_stage(inp, damp, dt)
+    ref = _jax_stage(inp, damp, dt, order)
     c = StageConstants(dt=dt, dtf=DTF, **CONSTS)
-    got = si_stage_plain(*port_args(inp, damp), nb=NB, c=c, dd=inp["dd"] if damp else 0)
+    got = si_stage_plain(*port_args(inp, damp), nb=NB, c=c, dd=inp["dd"] if damp else 0, order=order)
     assert len(got) == len(ref) == 6
     for k, (a, b) in enumerate(zip(got, ref)):
-        assert_scaled(a.numpy(), b, 1e-12, f"output {k}, stage {stage}, damp {damp}")
+        assert_scaled(a.numpy(), b, 1e-12, f"output {k}, stage {stage}, damp {damp}, order {order}")
 
 
 def test_si_stage_wrapper_takes_plain_on_cpu():
@@ -202,9 +203,10 @@ def test_advection_fields_plain_vs_pallas(tendencies, enforce, q_product):
         assert_scaled(a.numpy(), b, 1e-13, f"field {k}")
 
 
+@pytest.mark.parametrize("order", [3, 5])
 @pytest.mark.parametrize("damp", [True, False])
 @pytest.mark.parametrize("tendencies", [True, False])
-def test_momentum_epilogue_plain_vs_pallas(damp, tendencies):
+def test_momentum_epilogue_plain_vs_pallas(damp, tendencies, order):
     inp = advection_inputs(seed=21)
     args = epilogue_args(inp, damp, tendencies)
     c = StageConstants(dt=FRACS[0] * DTF, dtf=DTF, **CONSTS)
@@ -215,13 +217,13 @@ def test_momentum_epilogue_plain_vs_pallas(damp, tendencies):
         j(u), j(v), j(su_now), j(sv_now), j(su_int), j(sv_int), j(s_now), j(mtg_now), j(s_e),
         j(mtg), _jax_tuple(sqs), j(gamma), j(s_ref), j(su_ref), j(sv_ref), _jax_tuple(q_refs),
         jnp.asarray(inp["rmat"])[None, :], j(su_tnd), j(sv_tnd),
-        order=5, nb=NB, dt=c.dt, dtf=c.dtf, dx=c.dx, dy=c.dy, eps=c.eps, nq=3,
+        order=order, nb=NB, dt=c.dt, dtf=c.dtf, dx=c.dx, dy=c.dy, eps=c.eps, nq=3,
         do_damp=damp, has_tnd=tendencies, interpret=True,
     )
-    got = fused_momentum_epilogue_plain(*args, nb=NB, c=c)
+    got = fused_momentum_epilogue_plain(*args, nb=NB, c=c, order=order)
     assert len(got) == len(ref) == 6
     for k, (a, b) in enumerate(zip(got, ref)):
-        assert_scaled(a.numpy(), b, 1e-13, f"output {k}")
+        assert_scaled(a.numpy(), b, 1e-13, f"output {k}, order {order}")
 
 
 def test_advection_wrappers_take_plain_on_cpu():

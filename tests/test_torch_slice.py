@@ -96,9 +96,11 @@ def test_slice_three_steps_agree(both_runs):
 
 def test_port_imports_no_jax():
     """Importing the port (the fused loop's ``utils.jitx`` too) and running
-    a CPU step of the full flagship chain (the driver's default, and with
-    both process merges), of each coupling of the variant driver (and ssus
-    with both merges), two steps of the mountain-wave driver and two steps
+    a CPU step of the full flagship chain (the driver's default, with both
+    process merges, at third order, with first-order fluxes on the periodic
+    boundary and on the Dirichlet one), of each coupling of the variant
+    driver (and ssus with both merges, fc at third order), a forward-Euler
+    dycore step, two steps of the mountain-wave driver and two steps
     of each case of the Burgers driver (which import the Burgers model, the
     Dirichlet boundary and the diffusion dwarf), and importing the other
     boundaries and dwarfs, leaves JAX and the JAX package unloaded."""
@@ -114,6 +116,15 @@ def test_port_imports_no_jax():
         "run(load_namelist(**size), verbose=False)\n"
         "merges = ('smooth_smag', 'vadv_sed')\n"
         "run(load_namelist(**size, process_merges=merges), verbose=False)\n"
+        "run(load_namelist(**size, horizontal_flux_scheme='third_order_upwind'), verbose=False)\n"
+        "for hb in ('periodic', 'dirichlet'):\n"
+        "    run(load_namelist(**size, hb_type=hb, hb_kwargs={}, horizontal_flux_scheme='upwind'), verbose=False)\n"
+        "moist.run(moist.load_namelist('fc', **size, horizontal_flux_scheme='third_order_upwind'), 'fc', verbose=False)\n"
+        "from tasmania_tpu_torch.drivers.driver_namelist_sus import build_domain_and_state\n"
+        "from tasmania_tpu_torch.isentropic.dynamics.dycore import IsentropicDynamicalCore\n"
+        "domain, state, pt = build_domain_and_state(load_namelist(**size))\n"
+        "IsentropicDynamicalCore(domain, moist=True, time_integration_scheme='forward_euler_si',\n"
+        "                        storage_options=so)(state, {}, 5.0)\n"
         "for coupling in moist.COUPLINGS:\n"
         "    moist.run(moist.load_namelist(coupling, **size), coupling, verbose=False)\n"
         "moist.run(moist.load_namelist('ssus', **size, process_merges=merges), 'ssus', verbose=False)\n"
