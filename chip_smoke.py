@@ -19,8 +19,11 @@ printing one line; any failure raises and exits non-zero:
    paste bitwise (N arrays, and one); smoothing 1e-6;
    each of the three RK3WS stages of si_stage (damping on the last) 1e-5
    (every cell: the stage and the smoothing write their x-frames
-   themselves, so no paste follows either), and the three stages again
-   with third-order fluxes (``also``)
+   themselves, so no paste follows either), the three stages again
+   with third-order fluxes (``also``), and the last stage in the
+   distributed mode on the 136x136x64 blocks of phase 14's shards (ring
+   nb + 1; here a corner, an edge and an interior shard of a 3x3 grid of
+   ranks over the namelist at 384x384x64), each timed (``also``)
    (FMA contraction in the
    stencils moves the float32 Montgomery potential by a few units of its
    last place, which reaches the momenta through the pressure gradient);
@@ -185,10 +188,24 @@ printing one line; any failure raises and exits non-zero:
    7's limits (``VARIANT_LOOSER`` holds each path's looser numbers); then
    ``sus_periodic`` again in float64, with the same launch counts, within
    ``WITNESS_TOL`` of the port's float64 CPU run (``WITNESS_REFERENCE``):
-   the witness that the float32 limits of that path cover rounding.
+   the witness that the float32 limits of that path cover rounding;
+14. the decomposed run (BASELINE config 5, run after phase 12) through
+   ``driver_sharded.run``: the flagship namelist at 256x256x64 with the
+   whole SUS chain, 1 + 50 steps, float32, on four gloo ranks of a 2x2
+   grid sharing the card (each rank a process; halos through host
+   memory): each rank's launches exact (``LAUNCHES_PER_STEP["sharded"]``:
+   si_stage three times a step in its distributed mode), no JAX in any
+   rank, the gathered state finite and within ``SHARDED_FIELD_TOL`` of the
+   port's single-device run of the same sequence (the cells that differ
+   counted), its validation numbers within phase 13's limits of the JAX
+   ``DistributedModel``'s float32 run (``SHARDED_REFERENCE``); the same
+   pair in float64 within ``WITNESS_TOL``; then one NCCL rank on the
+   degenerate 1x1 mesh, which must give the single device's bits (NCCL
+   refuses two ranks on one card).  Its ms/step is four ranks
+   time-sharing one card, not a scaling figure.
 
 The isentropic diagnostics kernel serves every diagnostics call, so phases
-4-7, 9, 10 and 13 count it too (``LAUNCHES_PER_STEP``); phase 12 counts the
+4-7, 9, 10, 13 and 14 count it too (``LAUNCHES_PER_STEP``); phase 12 counts the
 smoothing kernel under the path ``dwarfs``.  Every phase checks the launch
 counts exactly: each kernel of the path as often as its path launches it a
 step (phase 10: a step's launches twice), and no other kernel.  The last two
@@ -312,6 +329,10 @@ LAUNCHES_PER_STEP = {
     # and the momentum step, thrice
     "sus_periodic": {**{k: n for k, n in _SUS.items() if k != "si_stage"}, "fused_advection_fields": 3,
                      "fused_momentum_step": 3, "fused_isentropic_diagnostics": 4},
+    # a rank of the decomposed run: the SUS chain's kernels, si_stage in its
+    # distributed mode; Smagorinsky declines its fused RK2 kernel there (its
+    # frame is local) and steps its plain tendency, as the JAX package does
+    "sharded": {k: n for k, n in _SUS.items() if k != "fused_smagorinsky_rk2"},
 }
 # phase 13, the isentropic core's surface at full size: a coupling, its
 # namelist overrides and the reference file (the JAX package's float32
@@ -361,6 +382,37 @@ DWARF_SEED = 12
 DWARF_DIFFUSION = (1e3, 8e3, 15)  # m^2/s: coefficient, maximum, ramp depth
 DWARF_SMOOTH = (0.03, 0.24, 15)
 DWARF_TOL = 1e-6
+# phase 14, the decomposed run (BASELINE config 5, driver_sharded): its
+# reference (the JAX DistributedModel's float32 run on four virtual CPU
+# devices, make_torch_flagship_reference.py --sharded), four gloo ranks
+# sharing the card; the gathered state against the port's single-device run
+# of the same sequence within SHARDED_FIELD_TOL of each field's largest
+# magnitude (the momenta's and the velocities' of their vector's; the air
+# density DIAG_RHO_TOL, as phase 3 holds the diagnostics: it divides by a
+# difference of summed heights), and against the reference with phase 13's
+# limits: 1e-4 relative, about twice the port's float32 CPU reading where
+# that exceeds half of it (--sharded --check-port: 2.2e-4 on sv_mean_abs,
+# 2.2e-5 on vmax, 3.9e-6 or less on every other number), exactly zero where
+# the reference is.  The two runs are not bitwise on the card: decomposed,
+# Smagorinsky steps its plain tendency (its fused kernel's frame is local,
+# and the JAX package declines it too), so float32 rounding parts them from
+# the first step (on an H100 80GB HBM3: 4.9e-7 on u, 3.1e-6 on the air
+# density, 1.6e-7 or less on the prognostic fields); the same pair in
+# float64 on the card, held to WITNESS_TOL, is the witness that this is
+# rounding
+SHARDED_REFERENCE = "sharded_reference.json"
+SHARDED_FIELD_TOL = 1e-6
+SHARDED_TOL = 1e-4
+SHARDED_LOOSER = {"sv_mean_abs": 4.5e-4}
+SHARDED_TIMEOUT_S = 600.0
+# phase 3, si_stage's distributed mode: the 136x136x64 blocks (ring nb + 1)
+# of phase 14's 2x2 grid at 256x256x64, here of the shards of a 3x3 grid of
+# ranks over the same namelist at 384x384x64, so that a corner, an edge and
+# an interior shard each appear
+DIST_GLOBAL = (384, 384, 64)
+DIST_GRID = (3, 3)
+DIST_BLOCK = (136, 136, 64)
+DIST_SHARDS = {"corner": 0, "edge": 1, "interior": 4}
 # phase 3: #17's bare launches between CUDA events, launches a round and rounds
 BARE_LAUNCHES = 200
 BARE_ROUNDS = 3
@@ -529,6 +581,122 @@ def compare_reference(tag, got, ref, tol_of, zero_tol):
     return " ".join(diffs)
 
 
+VECTORS = (("x_momentum_isentropic", "y_momentum_isentropic"),
+           ("x_velocity_at_u_locations", "y_velocity_at_v_locations"))
+
+
+def field_differences(got, ref):
+    """Per field of ``ref`` (numpy): the largest difference as a share of
+    its largest magnitude (the momenta's and the velocities' of their
+    vector's) and the number of cells that differ at all."""
+    import numpy as np
+
+    out = {}
+    for name, r in ref.items():
+        pair = next((p for p in VECTORS if name in p), (name,))
+        scale = max(float(np.abs(ref[m]).max()) for m in pair) or 1.0
+        out[name] = (float(np.abs(got[name] - r).max()) / scale, int(np.count_nonzero(got[name] != r)))
+    return out
+
+
+def check_differences(tag, diffs, tol_of):
+    """Raise unless each field's difference is within ``tol_of(name)``."""
+    for name, (err, _) in diffs.items():
+        if not err <= tol_of(name):
+            raise AssertionError(f"{tag}: {name} {err} > {tol_of(name)}")
+
+
+def sharded_phase(card, path_counts, path_steps, device="cuda", ranks_mesh=None, size=None):
+    """Phase 14: the decomposed run at the reference's configuration on four
+    gloo ranks sharing the card, the port's single-device run of the same
+    sequence, and one NCCL rank on the degenerate 1x1 mesh.  ``device``,
+    ``ranks_mesh`` and ``size`` (nx, ny, nz, niter) let the phase be
+    rehearsed on the CPU at a small size."""
+    from tasmania_tpu_torch.drivers import driver_namelist_sus as drv
+    from tasmania_tpu_torch.drivers import driver_sharded as shd
+    from tasmania_tpu_torch.ops import _lib
+
+    sref = json.loads(Path(drv.__file__).with_name(SHARDED_REFERENCE).read_text())
+    cfg = sref["config"]
+    mesh = ranks_mesh or tuple(cfg["mesh"])
+    nx, ny, nz, niter = size or (cfg["nx"], cfg["ny"], cfg["nz"], cfg["niter"])
+    steps = 1 + niter
+    run = dict(nx=nx, ny=ny, nz=nz, niter=niter, physics=True, verbose=False,
+               timeout_s=SHARDED_TIMEOUT_S)
+    ranks = mesh[0] * mesh[1]
+
+    def check_counts(tag, counts, per_step):
+        for name in sorted(set(per_step) | set(counts)):
+            if counts.get(name, 0) != steps * per_step.get(name, 0):
+                raise AssertionError(f"{tag}: {name} launched {counts.get(name, 0)} times, "
+                                     f"expected {steps * per_step.get(name, 0)}")
+
+    # the decomposed run: the ranks count their own launches from zero, and
+    # the parent launches nothing
+    _lib.reset_launch_counts()
+    t0 = time.perf_counter()
+    dec = shd.run(ranks=ranks, comm="gloo", device=device, mesh=mesh, **run)
+    wall = time.perf_counter() - t0
+    if dict(_lib.launch_counts):
+        raise AssertionError(f"sharded: the parent launched {dict(_lib.launch_counts)}")
+    for r, counts in enumerate(dec["launches_by_rank"]):
+        check_counts(f"sharded rank {r}", counts, LAUNCHES_PER_STEP["sharded"])
+    if any(dec["imported_by_rank"]):
+        raise AssertionError(f"sharded: ranks imported {dec['imported_by_rank']}")
+    fields = dec["fields"]
+    import numpy as np
+
+    bad = [k for k, a in fields.items() if not np.isfinite(a).all()]
+    if bad:
+        raise AssertionError(f"sharded: non-finite fields: {bad}")
+    # the port's single-device run of the same sequence, on this process
+    nl_sd = shd.namelist(device, nx=nx, ny=ny, nz=nz, niter=niter)
+    _lib.reset_launch_counts()
+    sd = shd.single_device_run(nl_sd, physics=True)
+    check_counts("sharded, the single device", dict(_lib.launch_counts), LAUNCHES_PER_STEP["sus"])
+    diffs = field_differences(fields, sd["fields"])
+    phase("sharded", f"{nx}x{ny}x{nz}, mesh {mesh[0]}x{mesh[1]} (pads {dec['pads']}), 1+{niter} steps, "
+          f"--physics, float32: {mesh[0] * mesh[1]} gloo ranks time-sharing one card through "
+          f"host-staged halos (not a scaling figure): {dec['ms_per_step']:.3f} ms/step on rank 0's "
+          f"clock ({dec['gps']:.4e} gridpoints/s), {wall:.1f} s with the ranks' start; the single "
+          f"device {sd['ms_per_step']:.3f} ms/step on {card}; si_stage launches a step a rank "
+          f"{[c.get('si_stage', 0) / steps for c in dec['launches_by_rank']]}; rank launches "
+          f"{dec['launches_by_rank'][0]}")
+    phase("sharded-vs-single-device", " ".join(f"{k}={e:.1e}({n} cells differ)" for k, (e, n) in diffs.items()))
+    check_differences("sharded vs the single device", diffs,
+                      lambda name: DIAG_RHO_TOL if name == "air_density" else SHARDED_FIELD_TOL)
+    # the float64 witness: the same pair in float64, the decomposed run's
+    # launches as above
+    dec64 = shd.run(ranks=ranks, comm="gloo", device=device, mesh=mesh, f64=True, **run)
+    for r, counts in enumerate(dec64["launches_by_rank"]):
+        check_counts(f"sharded float64 rank {r}", counts, LAUNCHES_PER_STEP["sharded"])
+    sd64 = shd.single_device_run(shd.namelist(device, f64=True, nx=nx, ny=ny, nz=nz, niter=niter),
+                                 physics=True)
+    diffs64 = field_differences(dec64["fields"], sd64["fields"])
+    phase("sharded-float64-witness", " ".join(f"{k}={e:.1e}" for k, (e, _) in diffs64.items()))
+    check_differences("sharded vs the single device, float64", diffs64, lambda name: WITNESS_TOL)
+    del dec64, sd64
+    if size is None:
+        summary = drv.validation_summary(fields)
+        phase("sharded-reference", compare_reference(
+            "sharded", summary, sref, lambda key: SHARDED_LOOSER.get(key, SHARDED_TOL), 0.0))
+        phase("sharded-validation", f"umax = {dec['umax']:.5f} (the largest cell-anchored u)")
+    # one NCCL rank on the degenerate 1x1 mesh: the single-device program
+    if device == "cuda":
+        _lib.reset_launch_counts()
+        one = shd.run(ranks=1, comm="nccl", device=device, mesh=(1, 1), **run)
+        if not one["degenerate"]:
+            raise AssertionError("sharded, one NCCL rank: the 1x1 mesh did not take the degenerate route")
+        check_counts("sharded, one NCCL rank", one["launches_by_rank"][0], LAUNCHES_PER_STEP["sus"])
+        unequal = sorted(k for k, a in sd["fields"].items() if not np.array_equal(one["fields"][k], a))
+        if unequal:
+            raise AssertionError(f"sharded, one NCCL rank: {unequal} differ from the single device's")
+        phase("sharded-nccl", f"one NCCL rank, mesh 1x1 (degenerate): {one['ms_per_step']:.3f} ms/step; "
+              f"every field equal to the single device's bit for bit")
+    path_counts["sharded"], path_steps["sharded"] = dec["launches_by_rank"][0], steps
+    return dec, sd
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -610,6 +778,8 @@ def main() -> int:
         fused_vertical_advection_rk3ws_plain,
         vertical_advection_tall,
     )
+    from tasmania_tpu_torch.parallel.distributed import window
+    from tasmania_tpu_torch.parallel.mesh import CartesianDecomposition, RankGrid
     from tasmania_tpu_torch.physics.microphysics.kessler import (
         KesslerMicrophysics,
         KesslerSedimentation,
@@ -745,6 +915,62 @@ def main() -> int:
                 lambda: si_stage(*args3, nb=nl.nb, c=c3, dd=dd3, order=3),
                 lambda: si_stage_plain(*args3, nb=nl.nb, c=c3, dd=dd3, order=3),
                 bound(nbytes(flat_in) + nbytes(ref), 480.0 * s_now.numel()))
+    # the distributed mode (phase 14's stage): the halo-extended blocks of
+    # phase 14's shards (DIST_BLOCK, the ring nb + 1 deep), here of a corner,
+    # an edge and an interior shard of a 3x3 grid of ranks over the flagship
+    # namelist at DIST_GLOBAL, the last stage with damping, fifth order
+    nl_d = load_namelist(nx=DIST_GLOBAL[0], ny=DIST_GLOBAL[1], nz=DIST_GLOBAL[2])
+    d_domain, d_state, d_pt = drv.build_domain_and_state(nl_d)
+    d_core = drv.make_dycore(nl_d, d_domain, d_pt)
+    d_prog, d_hb = d_core.prognostic, d_domain.horizontal_boundary
+    d_raw = {k: v.data for k, v in d_state.items() if k != "time"}
+    d_s, d_su, d_sv = (d_raw[n] for n in ("air_isentropic_density", "x_momentum_isentropic",
+                                          "y_momentum_isentropic"))
+    d_global = dict(
+        u=perturbed(d_raw["x_velocity_at_u_locations"]),
+        v=perturbed(d_raw["y_velocity_at_v_locations"]) + 0.5,
+        s_now=d_s, s_int=perturbed(d_s), q_now=[d_raw[q] for q in qn],
+        q_int=[perturbed(d_raw[q]) for q in qn], su_now=d_su, sv_now=d_sv,
+        su_int=perturbed(d_su), sv_int=perturbed(d_sv) + 1.0, mtg_now=d_raw["montgomery_potential"],
+        hs=d_core.topography_steady, theta=d_prog.diagnostics.theta, gamma=d_prog.gamma,
+        s_ref=d_hb.ref_field("air_isentropic_density"), su_ref=d_hb.ref_field("x_momentum_isentropic"),
+        sv_ref=d_hb.ref_field("y_momentum_isentropic"), q_refs=[d_hb.ref_field(q) for q in qn],
+    )
+    d_grid = RankGrid(*DIST_GRID)
+    d_pad = nl.nb + 1
+    decomp = CartesianDecomposition(nl_d.nx, nl_d.ny, d_grid, nl.nb, d_pad, d_pad)
+    if decomp.local_shape_with_halo + (nl_d.nz,) != DIST_BLOCK:
+        raise AssertionError(f"the distributed blocks are {decomp.local_shape_with_halo}, not {DIST_BLOCK}")
+    c_last = replace(c, dt=5.0)
+    rmat_d, dd_d = d_core.damper.rmat, d_core.damper.dd
+    worst_d, errs = 0.0, []
+    for shard, rank in DIST_SHARDS.items():
+        def cut(t, name=""):
+            st = (name == "u", name == "v")
+            mode = "constant" if name == "gamma" else "edge"
+            if t.dim() == 1:  # theta
+                return t
+            return torch.as_tensor(window(t.cpu().numpy(), decomp, rank, st, pad_mode=mode), device=device)
+
+        w_args = [[cut(a) for a in v] if isinstance(v, list) else cut(v, k) for k, v in d_global.items()]
+        w_args.append(rmat_d)
+        dist_kw = dict(dist=True, goff=decomp.offset(rank), gnx=nl_d.nx, gny=nl_d.ny)
+        got = si_stage(*w_args, nb=nl.nb, c=c_last, dd=dd_d, **dist_kw)
+        ref = si_stage_plain(*w_args, nb=nl.nb, c=c_last, dd=dd_d, **dist_kw)
+        torch.cuda.synchronize()
+        momentum = amax(ref[1], ref[2])
+        scales = [amax(ref[0]), momentum, momentum] + [amax(r) for r in ref[3:]]
+        w, rel = check_outputs(f"si_stage (dist, {shard} shard)", got, ref, scales, KERNEL_TOL)
+        worst_d = max(worst_d, w)
+        errs.append(f"{shard} (goff {decomp.offset(rank)}): {rel}")
+        w_flat = [a for v in w_args for a in (v if isinstance(v, list) else [v])]
+        record_also("si_stage", f"dist mode, {shard} shard, {'x'.join(map(str, DIST_BLOCK))} block, last stage",
+                    lambda: si_stage(*w_args, nb=nl.nb, c=c_last, dd=dd_d, **dist_kw),
+                    lambda: si_stage_plain(*w_args, nb=nl.nb, c=c_last, dd=dd_d, **dist_kw),
+                    bound(nbytes(w_flat) + nbytes(ref), 700.0 * ref[0].numel()))
+    phase("check", f"si_stage (dist) relative errors {' | '.join(errs)}")
+    kernels["si_stage"]["max_abs_err"] = max(kernels["si_stage"]["max_abs_err"], worst_d)
+    del d_domain, d_state, d_core, d_prog, d_hb, d_raw, d_s, d_su, d_sv, d_global, w_args, w_flat
 
     # smoothing on the six smoothed fields
     smoother = physics.components[1]
@@ -1667,6 +1893,9 @@ def main() -> int:
               f"the largest magnitude of the float64 CPU result")
     del outs, dwarfs
     print(json.dumps({"dwarfs": dwarf_rows, "card": card}))
+
+    # -- 14. the decomposed run (BASELINE config 5) through driver_sharded ----
+    sharded_phase(card, path_counts, path_steps)
 
     # each kernel's launches in the full-size run of the first path that runs
     # it (the flagship for the six of the SUS chain, the merged run for the

@@ -15,6 +15,22 @@
 //   order, 3 or 5): the kernels are templates on the stencil's reach H (2 or
 //   3), as advection.cu's are.
 //
+// The distributed mode (the TPU kernel's dist=True, si_stage.py:189-222,
+// :393-401, :448-455, :835-849): the arrays are one shard's halo-extended
+// block, whose cell (0, 0) lies at global (gx0, gy0) of a gnx x gny domain.
+// A cell is stepped where it is inside the block's own frame (the stencils
+// stay in the array) and at least nb from every GLOBAL edge: the keep-now
+// frame test is gx0 + i < nb || gx0 + i >= gnx - nb on global coordinates,
+// and the same in y.  The relaxed band needs no test of its own here: every
+// cell is enforced by its own gamma, and the caller passes the shard's
+// windows of gamma and of the references, so the global band (nr) comes in
+// with them.  The block's ring outside the stencil's reach keeps its "now"
+// values and is left to the post-stage halo exchange; the Montgomery
+// gradient of the first owned column reads the advected density one cell
+// into the ring, so the ring is at least nb + 1 deep on a decomposed axis.
+// A single device is the instance gx0 = gy0 = 0, gnx = nx, gny = ny, whose
+// global test is the local one: the same code and the same bits.
+//
 // Bound on the H100: bytes.  One 161x161x120 f32 field is 12.4 MB; a stage
 // reads u, v, 6 "now", 6 "int", mtg_now and 6 references and writes 6
 // fields, 336 MB, 0.100 ms at 3.35 TB/s; the scratch s_e and mtg add about
@@ -82,8 +98,17 @@ using ShapeB = tt::Shape<8, 8, 8, 256, H>;  // 512 cells: two a thread
 template <typename T>
 struct Params {
   int nx, ny, nz, nb, nq, dd;
+  int gx0, gy0, gnx, gny;  // the global offset of cell (0, 0) and the global extents
   T dt, dtf, dx, dy, eps, pt, gdz, dz, g, cp, rdcp, inv_pref;
 };
+
+// whether local cell (i, j) is stepped: inside the block's frame and at
+// least nb cells from every global edge
+template <typename T>
+__device__ __forceinline__ bool stepped(const tt::Tile& t, const Params<T>& p, int i, int j) {
+  const int gi = p.gx0 + i, gj = p.gy0 + j;
+  return t.interior(i, j) && gi >= p.nb && gi < p.gnx - p.nb && gj >= p.nb && gj < p.gny - p.nb;
+}
 
 template <typename T>
 struct Fields {
@@ -137,7 +162,7 @@ __global__ void __launch_bounds__(S::Threads, 4) stage_density_montgomery(Fields
   tt::Tile t{int(blockIdx.x) * S::TX, int(blockIdx.y) * S::TY, 0, p.nx, p.ny, p.nz, p.nb};
   const tt::Lane<S> L(t);
   const int i = t.x0 + L.tx(0), j = t.y0 + L.ty, col = L.tx(0) * S::TY + L.ty;
-  const bool live = i < p.nx && j < p.ny, inner = t.interior(i, j);
+  const bool live = i < p.nx && j < p.ny, inner = stepped(t, p, i, j);
   const T gm = live ? f.gamma[i * p.ny + j] : T(0);
   const int sx = p.ny * p.nz;
   const int runs = (p.nz + S::KL - 1) / S::KL;
@@ -296,7 +321,7 @@ __global__ void __launch_bounds__(S::Threads) stage_momenta_epilogue(Fields<T> f
     const int i = t.x0 + L.tx(q);
     if (i >= p.nx || j >= p.ny || k >= p.nz) continue;
     const int c = i * sx + j * p.nz + k;
-    const bool inner = t.interior(i, j);
+    const bool inner = stepped(t, p, i, j);
     const T gm = f.gamma[i * p.ny + j];
     const T sn = f.s_now[c], se = f.s_e[c], s_ref = f.s_ref[c];
 
@@ -363,7 +388,7 @@ int launch_kernels(const Fields<T>& f, const Params<T>& p, cudaStream_t stream) 
 
 template <int H, typename T>
 int launch(const void* const* ptrs, void* const* outs, int nq, int nx, int ny, int nz, int nb,
-           int dd, const double* scalars, cudaStream_t stream) {
+           int dd, const int* frame, const double* scalars, cudaStream_t stream) {
   Fields<T> f = {};
   const T** in[] = {&f.u, &f.v, &f.s_now, &f.s_int, &f.su_now, &f.sv_now, &f.su_int,
                     &f.sv_int, &f.mtg_now, &f.hs, &f.theta, &f.gamma, &f.s_ref, &f.su_ref,
@@ -381,6 +406,7 @@ int launch(const void* const* ptrs, void* const* outs, int nq, int nx, int ny, i
 
   Params<T> p;
   p.nx = nx; p.ny = ny; p.nz = nz; p.nb = nb; p.nq = nq; p.dd = dd;
+  p.gx0 = frame[0]; p.gy0 = frame[1]; p.gnx = frame[2]; p.gny = frame[3];
   p.dt = T(scalars[0]); p.dtf = T(scalars[1]); p.dx = T(scalars[2]); p.dy = T(scalars[3]);
   p.eps = T(scalars[4]); p.pt = T(scalars[5]); p.dz = T(scalars[6]); p.g = T(scalars[7]);
   p.cp = T(scalars[8]); p.rdcp = T(scalars[9] / scalars[8]); p.inv_pref = T(1.0 / scalars[10]);
@@ -399,19 +425,21 @@ int launch(const void* const* ptrs, void* const* outs, int nq, int nx, int ny, i
 // outs: s_e, mtg (scratch), s, su, sv, q[nq]
 // scalars: dt, dtf, dx, dy, eps, pt, dz, g, cp, rd, pref
 // dd: damp the levels k < dd (0: no damping); order: 3 or 5
+// frame: gx0, gy0, gnx, gny (a single device: 0, 0, nx, ny)
 extern "C" int tt_si_stage(int dtype, const void* const* ptrs, void* const* outs, int nq, int nx,
-                           int ny, int nz, int nb, int dd, int order, const double* scalars,
-                           cudaStream_t stream) {
+                           int ny, int nz, int nb, int dd, int order, const int* frame,
+                           const double* scalars, cudaStream_t stream) {
   // the stencils of order 3 read 2 cells on each side of a face, those of order 5 three
   if (nq < 0 || nq > kMaxQ || (order != 3 && order != 5) || nb < (order == 3 ? 2 : 3) ||
-      nx < 2 * nb + 1 || ny < 2 * nb + 1 || nz < 1 || !tt::fits_int32(nx, ny, nz)) {
+      nx < 2 * nb + 1 || ny < 2 * nb + 1 || nz < 1 || !tt::fits_int32(nx, ny, nz) ||
+      frame[2] < 2 * nb + 1 || frame[3] < 2 * nb + 1) {
     return int(cudaErrorInvalidValue);
   }
   const bool f32 = dtype == tt::kFloat32;
   if (order == 3) {
-    return f32 ? launch<2, float>(ptrs, outs, nq, nx, ny, nz, nb, dd, scalars, stream)
-               : launch<2, double>(ptrs, outs, nq, nx, ny, nz, nb, dd, scalars, stream);
+    return f32 ? launch<2, float>(ptrs, outs, nq, nx, ny, nz, nb, dd, frame, scalars, stream)
+               : launch<2, double>(ptrs, outs, nq, nx, ny, nz, nb, dd, frame, scalars, stream);
   }
-  return f32 ? launch<3, float>(ptrs, outs, nq, nx, ny, nz, nb, dd, scalars, stream)
-             : launch<3, double>(ptrs, outs, nq, nx, ny, nz, nb, dd, scalars, stream);
+  return f32 ? launch<3, float>(ptrs, outs, nq, nx, ny, nz, nb, dd, frame, scalars, stream)
+             : launch<3, double>(ptrs, outs, nq, nx, ny, nz, nb, dd, frame, scalars, stream);
 }

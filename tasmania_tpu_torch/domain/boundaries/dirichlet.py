@@ -35,6 +35,18 @@ def placeholder(time, grid, slice_x=None, slice_y=None, field_name=None, field_u
     return np.zeros((mi, mj, 1))
 
 
+class ArrayCore:
+    """A time-independent core: the frame pinned to given host arrays
+    (``values``: field name -> numpy array on the numerical grid, in the
+    units the boundary is enforced in)."""
+
+    def __init__(self, values):
+        self.values = values
+
+    def __call__(self, time, grid, slice_x=None, slice_y=None, field_name=None, field_units=None):
+        return self.values[field_name][slice_x or slice(None), slice_y or slice(None)]
+
+
 class Dirichlet(HorizontalBoundary):
     def __init__(self, grid, nb, storage_options=None, core=placeholder):
         self.one_dx = grid.ny == 1

@@ -106,6 +106,35 @@ class HorizontalBoundary(nn.Module):
             for name, f in state.items()
         }
 
+    # -- distribution hooks (``horizontal_boundary.py:265-300`` of the JAX
+    # package): the seams where a shard's boundary
+    # (``parallel/distributed.DistributedBoundary``) exchanges halos and masks
+    # the global frame; on a single device they change nothing, so the
+    # components call them unconditionally.
+
+    #: one shard without a ring, i.e. a single device
+    is_degenerate = True
+
+    def refresh_halos(self, field, field_name: Optional[str] = None):
+        """The halo rings of a stencil output from the neighbours: identity."""
+        return field
+
+    def refresh_halos_many(self, fields, field_names=None):
+        return list(fields)
+
+    def restrict_stencil_output(self, out, base=None, nb: Optional[int] = None, field_name=None):
+        """A stencil output kept only at least nb cells from the global
+        edges: identity, since the stencil writes only there."""
+        return out
+
+    def zero_physical_frame(self, full, nb: int, field_name=None):
+        """``full`` with its nb-wide frame zeroed."""
+        out = torch.zeros_like(full)
+        out[nb : full.shape[0] - nb, nb : full.shape[1] - nb] = full[
+            nb : full.shape[0] - nb, nb : full.shape[1] - nb
+        ]
+        return out
+
     def ref_field(self, field_name: str, field_units: Optional[str] = None):
         """The reference value of ``field_name`` in ``field_units``."""
         data = getattr(self, "ref_" + field_name)

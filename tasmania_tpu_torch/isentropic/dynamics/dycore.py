@@ -18,6 +18,12 @@ and damps s, su and sv toward the reference from the step's "now" values.
 Then the staggered velocities of the stepped state with their outermost
 layers taken from the lateral boundary.  The velocities are recomputed
 after every stage, so the next stage reads the stepped state's.
+
+On a shard of a 2-D decomposition (``dycore.py:209-215``, ``:235``, ``:269``
+of the JAX package): a fused stage is followed by the boundary's
+``post_stage_sync``, the halo exchange of its outputs, and the velocities
+are derived from the synced fields; a stage that carries tendencies takes
+the generic stage, whose enforcement exchanges the halos itself.
 """
 
 from __future__ import annotations
@@ -140,13 +146,16 @@ class IsentropicDynamicalCore(DynamicalCore):
             and self.damper.dd > 0
             and (self.damp_at_every_stage or stage == self.stages - 1)
         )
-        if self.prognostic.fused:
+        # the whole-stage kernel's distributed mode takes no tendencies
+        if self.prognostic.fused and not (raw_tendencies and not hb.is_degenerate):
             out = self.prognostic.stage_call(
                 stage, timestep, raw_state, raw_tendencies,
                 rmat=self.damper.rmat if damp else None,
                 dd=self.damper.dd if damp else 0,
                 dtf=timestep,
             )
+            if not hb.is_degenerate:
+                out = hb.post_stage_sync(out)
         else:
             out = self._stage_unfused(stage, raw_state, raw_tendencies, timestep, damp)
         u, v = get_velocity_components(
@@ -172,7 +181,7 @@ class IsentropicDynamicalCore(DynamicalCore):
         names = ("air_isentropic_density", "x_momentum_isentropic", "y_momentum_isentropic")
         if stage == 0:
             self._damp_now = {n: raw_state[n] for n in names}
-        out = self.prognostic.stage_call(stage, timestep, raw_state, raw_tendencies)
+        out = self.prognostic.stage_call(stage, timestep, raw_state, raw_tendencies, generic=True)
         for q in self.prognostic.q_names:
             out[q] = clip_pos(out.pop(SQ_NAMES[q]) / out["air_isentropic_density"])
         out = hb.enforce_raw(out, {n: {"units": UNITS[n]} for n in out})

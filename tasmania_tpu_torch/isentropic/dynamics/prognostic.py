@@ -31,6 +31,13 @@ stage runs ``fused_advection_fields`` and ``fused_momentum_step``; at orders
 1 and 2, which the JAX package computes in jnp, their plain PyTorch
 versions on every device.  The Montgomery potential is
 ``ops/diagnostics_step.py`` in mode ``"mtg"`` on every route.
+
+On a shard of a 2-D decomposition (a ``parallel.distributed.DistributedBoundary``
+that is not degenerate, ``_is_distributed`` ``:246-250``) the route is the
+JAX package's (``:283-300``): a relaxed inner boundary at order 3 or 5 takes
+the whole-stage kernel in its distributed mode (the global frame by the
+shard's offset), every other stage the generic one, whose stencil outputs
+keep their "now" values on the global frame (``restrict_stencil_output``).
 """
 
 from __future__ import annotations
@@ -53,7 +60,7 @@ from tasmania_tpu_torch.ops.advection_step import (
     fused_momentum_step,
     fused_momentum_step_plain,
 )
-from tasmania_tpu_torch.ops.si_stage import StageConstants, si_stage
+from tasmania_tpu_torch.ops.si_stage import StageConstants, clip_pos, si_stage
 
 mfwv = "mass_fraction_of_water_vapor_in_air"
 mfcw = "mass_fraction_of_cloud_liquid_water_in_air"
@@ -101,9 +108,21 @@ class SIPrognostic(nn.Module):
             raise ValueError(f"nb={hb.nb} must be >= the flux extent {extent(self.order)}")
         if not 0.0 <= eps <= 1.0:
             raise ValueError("off-centering eps must be in [0, 1]")
+        #: a shard of a 2-D decomposition (not the degenerate single shard)
+        self.distributed = not hb.is_degenerate
         #: whether the stage runs fused (the whole-stage or the two-kernel
         #: route): a two-dimensional relaxed boundary and a kernel's order
-        self.fused = isinstance(hb, Relaxed) and not hb.one_dx and self.order in KERNEL_ORDERS
+        if self.distributed:
+            self.fused = hb.inner_type == "relaxed" and self.order in KERNEL_ORDERS
+            d = hb.decomposition
+            if self.fused and ((d.px > 1 and d.pad_x < hb.nb + 1) or (d.py > 1 and d.pad_y < hb.nb + 1)):
+                raise ValueError(
+                    "the whole-stage kernel's distributed mode needs halo pads >= nb + 1 on "
+                    "decomposed axes (its Montgomery gradient reads the advected density one "
+                    "cell into the halo): pass halo=nb+1 to DistributedModel"
+                )
+        else:
+            self.fused = isinstance(hb, Relaxed) and not hb.one_dx and self.order in KERNEL_ORDERS
         self.horizontal_boundary = hb
         self.nb = hb.nb
         self.pt = float(np.asarray(pt.to_units("Pa").data)) if isinstance(pt, FieldArray) else float(pt)
@@ -126,6 +145,7 @@ class SIPrognostic(nn.Module):
         self, stage: int, timestep: float, state: Mapping[str, Any],
         tendencies: Optional[Mapping[str, Any]] = None, *,
         rmat: Optional[torch.Tensor] = None, dd: int = 0, dtf: Optional[float] = None,
+        generic: bool = False,
     ) -> Dict[str, Any]:
         """One stage from the captured "now" state.  On the fused route it
         returns the stepped, enforced (and, with ``rmat``, damped) s, su, sv
@@ -135,7 +155,8 @@ class SIPrognostic(nn.Module):
         enforces and damps.  ``state`` must carry the staggered velocities
         of the "int" state; ``tendencies`` holds raw tendencies of s, su, sv
         and the mass fractions, in the dycore's ``stage_tendency_properties``
-        units."""
+        units.  ``generic`` takes the generic stage on the fused route too
+        (the dycore's choice for a distributed stage with tendencies)."""
         if stage == 0:
             self._capture_now(state)
         now = self._now
@@ -157,13 +178,17 @@ class SIPrognostic(nn.Module):
             rd=rpc["gas_constant_of_dry_air"],
             pref=rpc["air_pressure_at_sea_level"],
         )
-        if not self.fused:
+        if generic or not self.fused:
             return self._stage_unfused(state, tendencies, hs, c)
         hb = self.horizontal_boundary
         ref = {n: hb.ref_field(n, UNITS[n]) for n in ("air_isentropic_density",
                "x_momentum_isentropic", "y_momentum_isentropic", *self.q_names)}
         if tendencies:
             return self._stage_with_tendencies(state, tendencies, ref, hs, rmat, c)
+        dist = {}
+        if self.distributed:
+            gnx, gny = hb.global_extent
+            dist = dict(dist=True, goff=hb.offset, gnx=gnx, gny=gny)
         outs = si_stage(
             state["x_velocity_at_u_locations"],
             state["y_velocity_at_v_locations"],
@@ -188,6 +213,7 @@ class SIPrognostic(nn.Module):
             c=c,
             dd=dd,
             order=self.order,
+            **dist,
         )
         return dict(zip(self._out_names, outs))
 
@@ -246,7 +272,9 @@ class SIPrognostic(nn.Module):
         """The generic stage (``_si_stage``, ``prognostic.py:981-1017``): the
         density and the water densities clip(s·q) stepped without the
         boundary, with their tendencies; the density enforced; its
-        Montgomery potential; the momenta with their tendencies."""
+        Montgomery potential; the momenta with their tendencies.  Each
+        stencil output keeps its "now" value on the global frame
+        (``restrict_stencil_output``: identity on a single device)."""
         now = self._now
         hb = self.horizontal_boundary
         s_int = state["air_isentropic_density"]
@@ -256,13 +284,18 @@ class SIPrognostic(nn.Module):
         else:
             advect, momenta = fused_advection_fields_plain, fused_momentum_step_plain
         kw = dict(nb=self.nb, dt=c.dt, dx=c.dx, dy=c.dy, order=self.order)
+        s_now = now["air_isentropic_density"]
         stepped = advect(
             u, v,
-            [now["air_isentropic_density"], *(now[q] for q in self.q_names)],
+            [s_now, *(now[q] for q in self.q_names)],
             [s_int, *(state[q] for q in self.q_names)],
             self._density_tendencies(tendencies, s_int),
             q_product=(False,) + (True,) * len(self.q_names), **kw,
         )
+        if self.distributed:
+            bases = [s_now] + [clip_pos(s_now * now[q]) for q in self.q_names]
+            stepped = [hb.restrict_stencil_output(phi, base=base, nb=self.nb)
+                       for phi, base in zip(stepped, bases)]
         s_new = hb.enforce_field(stepped[0], "air_isentropic_density", UNITS["air_isentropic_density"])
         mtg = self.diagnostics.get_montgomery_potential(s_new, self.pt, hs)
         su, sv = momenta(
@@ -271,6 +304,8 @@ class SIPrognostic(nn.Module):
             now["air_isentropic_density"], now["montgomery_potential"], s_new, mtg,
             *self._momentum_tendencies(tendencies, s_new), eps=self.eps, **kw,
         )
+        su = hb.restrict_stencil_output(su, base=now["x_momentum_isentropic"], nb=self.nb)
+        sv = hb.restrict_stencil_output(sv, base=now["y_momentum_isentropic"], nb=self.nb)
         out = {"air_isentropic_density": s_new, "x_momentum_isentropic": su,
                "y_momentum_isentropic": sv}
         out.update((SQ_NAMES[q], sq) for q, sq in zip(self.q_names, stepped[1:]))

@@ -1,7 +1,10 @@
 """Horizontal diffusion tendencies of the isentropic prognostic fields
 (counterpart of ``tasmania_tpu/isentropic/physics/horizontal_diffusion.py``):
 a tendency component that applies the diffusion dwarf to s, su and sv and,
-when moist, with coefficients of its own to the three mass fractions."""
+when moist, with coefficients of its own to the three mass fractions.  On a
+shard of a 2-D decomposition the tendencies are zero on the global frame and
+their halos refreshed in one exchange (``:125-127`` of the JAX component;
+identities on a single device)."""
 
 from __future__ import annotations
 
@@ -89,4 +92,7 @@ class IsentropicHorizontalDiffusion(TendencyComponent):
         tends = {n: self.core(state[n]) for n in DRY}
         if self.moist:
             tends.update({q: self.core_moist(state[q]) for q in (mfwv, mfcw, mfpw)})
-        return tends, {}
+        hb = self.horizontal_boundary
+        names = list(tends)
+        restricted = [hb.restrict_stencil_output(tends[n], nb=self.core.nb) for n in names]
+        return dict(zip(names, hb.refresh_halos_many(restricted, names))), {}

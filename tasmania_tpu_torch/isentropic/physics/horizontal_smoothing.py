@@ -3,7 +3,9 @@
 ``:116-142``): a diagnostic component that overwrites s, su, sv (and the
 moist species) with their Shapiro-filtered values.  The two-dimensional
 filters smooth all fields in one call of ``ops/smoothing_step.fused_smoothing``;
-the one-dimensional ones run the dwarf on each field."""
+the one-dimensional ones run the dwarf on each field.  Then the boundary's
+distribution hooks (``_finish_all``, ``:87-98``; identities on a single
+device): the input kept on the global frame, one halo refresh."""
 
 from __future__ import annotations
 
@@ -78,8 +80,12 @@ class IsentropicHorizontalSmoothing(DiagnosticComponent):
     def array_call(self, state):
         names = list(self.input_properties)
         if self.axes != "xy":
-            return {n: core(state[n]) for n, core in zip(names, self.cores)}
-        smoothed = fused_smoothing(
-            [state[n] for n in names], self.gamma, order=self.order, nb=self.nb
-        )
-        return dict(zip(names, smoothed))
+            smoothed = [core(state[n]) for n, core in zip(names, self.cores)]
+        else:
+            smoothed = fused_smoothing(
+                [state[n] for n in names], self.gamma, order=self.order, nb=self.nb
+            )
+        hb = self.horizontal_boundary
+        restricted = [hb.restrict_stencil_output(f, base=state[n], nb=self.nb)
+                      for n, f in zip(names, smoothed)]
+        return dict(zip(names, hb.refresh_halos_many(restricted, names)))

@@ -7,6 +7,11 @@ Under RK2 the stepper takes ``fused_rk_step``: both stages in
 With the merge ``"smooth_smag"`` (``SequentialUpdateSplitting(...,
 merges=...)``) the smoothing before it and its RK2 step run as one
 operation, ``fused_smoothing_smagorinsky_rk2``.
+
+On a shard of a 2-D decomposition both decline, as the JAX package's do
+(``turbulence.py:37-43``, ``:128-131``: their frames are local), and the
+tendency runs as ``array_call`` with the boundary's restrict and refresh
+hooks (``:80-91``).
 """
 
 from __future__ import annotations
@@ -41,8 +46,9 @@ class IsentropicSmagorinsky(Smagorinsky2d):
         }
 
     def fused_rk_step(self, scheme, state, dt, output_properties):
-        """The whole RK2 step in one operation; None for another scheme."""
-        if scheme != "rk2":
+        """The whole RK2 step in one operation; None for another scheme or
+        on a shard of a decomposition."""
+        if scheme != "rk2" or not self.horizontal_boundary.is_degenerate:
             return None
         raw = get_array_dict(state, self.input_properties)
         dx, dy = self.spacings()
@@ -63,10 +69,12 @@ class IsentropicSmagorinsky(Smagorinsky2d):
         nb = self.nb
         u_tnd, v_tnd = smagorinsky_core(u, v, dx, dy, self.cs, nb)
         s_in = s[nb : s.shape[0] - nb, nb : s.shape[1] - nb]
-        return {
-            SU: frame_paste(s.shape, nb, s_in * u_tnd),
-            SV: frame_paste(s.shape, nb, s_in * v_tnd),
-        }, {}
+        hb = self.horizontal_boundary
+        out_su, out_sv = hb.refresh_halos_many([
+            hb.restrict_stencil_output(frame_paste(s.shape, nb, s_in * u_tnd), nb=nb),
+            hb.restrict_stencil_output(frame_paste(s.shape, nb, s_in * v_tnd), nb=nb),
+        ])
+        return {SU: out_su, SV: out_sv}, {}
 
 
 # the SUS process pair [IsentropicHorizontalSmoothing -> IsentropicSmagorinsky(rk2)]
@@ -79,6 +87,8 @@ def _smooth_smag_pair_matches(smoothing, stepper) -> bool:
     # kernel tiles (x, y) itself and needs only the frame conditions below.
     if not isinstance(smoothing, IsentropicHorizontalSmoothing) or smoothing.axes != "xy":
         return False
+    if not smoothing.horizontal_boundary.is_degenerate:
+        return False  # the merged kernel's frame is local
     if getattr(stepper, "name", "") != "rk2" or stepper.enforce_hb:
         return False
     comps = stepper.coupling.components

@@ -45,8 +45,9 @@ _SIGNATURES = {
     # dtype, inputs (host array), outputs (host array), gamma, nf, nx, ny, nz,
     # order, nb, stream
     "tt_smoothing": (_int, _vp, _vp, _vp, _int, _int, _int, _int, _int, _int, _vp),
-    # dtype, inputs, outputs, nq, nx, ny, nz, nb, dd, order, scalars, stream
-    "tt_si_stage": (_int, _vp, _vp, _int, _int, _int, _int, _int, _int, _int, _vp, _vp),
+    # dtype, inputs, outputs, nq, nx, ny, nz, nb, dd, order, frame (gx0, gy0,
+    # gnx, gny), scalars, stream
+    "tt_si_stage": (_int, _vp, _vp, _int, _int, _int, _int, _int, _int, _int, _vp, _vp, _vp),
     # dtype, inputs (host array), outputs (host array), ncol, nz, scalars, stream
     "tt_kessler_satadj": (_int, _vp, _vp, _int, _int, _vp, _vp),
     # the same, Kessler alone (out: qv, qc, qr, theta tendency)

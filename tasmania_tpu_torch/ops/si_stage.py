@@ -10,6 +10,19 @@ wrapper takes it for CPU tensors only.
 Layout: cell fields (nx, ny, nz), u (nx+1, ny, nz), v (nx, ny+1, nz), θ on
 the nz+1 interfaces, γ and the topography (nx, ny), the Rayleigh profile
 (nz,).  Third- or fifth-order upwind fluxes (``order``).
+
+The distributed mode (``dist=True``, the TPU kernel's ``dist`` branch,
+``si_stage.py:189-222``): the arrays are one shard's halo-extended block,
+whose cell (0, 0) lies at global ``goff = (gx0, gy0)`` of a ``gnx`` x
+``gny`` domain, and the keep-now frame is the GLOBAL one: a cell is stepped
+where it lies inside the block's own frame and at least nb from every
+global edge.  γ and the references are the shard's windows, so the relaxed
+band needs no test of its own (every cell is enforced by its γ; the TPU
+kernel's y-band depth ``yb`` and x-epilogue width ``epi_w`` are the extents
+of its restricted enforcement and have no counterpart).  The block's ring
+outside the stencil's reach keeps "now" values and is left to the
+post-stage halo exchange (``DistributedBoundary.post_stage_sync``); on a
+decomposed axis the ring must be at least nb + 1 deep.
 """
 
 from __future__ import annotations
@@ -129,27 +142,61 @@ def pressure_gradient(s_now, s_e, mtg_now, mtg, nb: int, eps: float, dx: float, 
     return pgx, pgy
 
 
+def global_frame_check(name, shape, nb: int, dist: bool, goff, gnx: int, gny: int):
+    """The kernel's frame argument (gx0, gy0, gnx, gny): a single device's
+    (0, 0, nx, ny), or the shard's; raises on a distributed call without a
+    global domain that holds an interior."""
+    if not dist:
+        if goff is not None or gnx or gny:
+            raise ValueError(f"{name}: goff, gnx and gny go with dist=True")
+        return (0, 0, shape[0], shape[1])
+    if goff is None or gnx < 2 * nb + 1 or gny < 2 * nb + 1:
+        raise ValueError(f"{name}: dist=True needs goff and a global {gnx}x{gny} grid with an "
+                         f"interior (nb={nb})")
+    return (int(goff[0]), int(goff[1]), int(gnx), int(gny))
+
+
+def global_interior(frame, shape, nb: int, device):
+    """(nx, ny, 1) bool: the cells at least nb from every global edge."""
+    gx0, gy0, gnx, gny = frame
+    gx = gx0 + torch.arange(shape[0], device=device)
+    gy = gy0 + torch.arange(shape[1], device=device)
+    mx = (gx >= nb) & (gx < gnx - nb)
+    my = (gy >= nb) & (gy < gny - nb)
+    return (mx[:, None] & my[None, :])[:, :, None]
+
+
 def si_stage_plain(
     u, v, s_now, s_int, q_now, q_int, su_now, sv_now, su_int, sv_int, mtg_now,
     hs, theta, gamma, s_ref, su_ref, sv_ref, q_refs, rmat, *, nb: int,
-    c: StageConstants, dd: int = 0, order: int = 5,
+    c: StageConstants, dd: int = 0, order: int = 5, dist: bool = False, goff=None,
+    gnx: int = 0, gny: int = 0,
 ):
     """The stage on whole arrays with upwind fluxes of ``order`` (3 or 5);
     returns (s, su, sv, *q).  ``rmat`` None switches damping off (``dd`` is
-    the kernel's damping depth and is not needed here)."""
+    the kernel's damping depth and is not needed here).  ``dist``: the
+    distributed mode (module docstring)."""
     nx, ny, _ = s_now.shape
     iin, jin = slice(nb, nx - nb), slice(nb, ny - nb)
     g3 = gamma[:, :, None]
+    frame = global_frame_check("si_stage_plain", s_now.shape, nb, dist, goff, gnx, gny)
+    stepped = global_interior(frame, s_now.shape, nb, s_now.device) if dist else None
 
     def div(phi):
         return flux_divergence(u, v, phi, nb, c.dx, c.dy, order)
 
-    s_res = with_interior(s_now, s_now[iin, jin] - c.dt * div(s_int), nb)
+    def keep_frame(res, now):
+        """``res`` stepped on the local interior, "now" on the global frame."""
+        return res if stepped is None else torch.where(stepped, res, now)
+
+    s_res = keep_frame(with_interior(s_now, s_now[iin, jin] - c.dt * div(s_int), nb), s_now)
     s_e = enforce_relaxed(s_res, g3, s_ref)
     mtg = stage_montgomery(s_e, hs, theta, c)
     pgx, pgy = pressure_gradient(s_now, s_e, mtg_now, mtg, nb, c.eps, c.dx, c.dy)
-    su_pre = with_interior(su_now, su_now[iin, jin] - c.dt * (div(su_int) + pgx), nb)
-    sv_pre = with_interior(sv_now, sv_now[iin, jin] - c.dt * (div(sv_int) + pgy), nb)
+    su_pre = keep_frame(with_interior(su_now, su_now[iin, jin] - c.dt * (div(su_int) + pgx), nb),
+                        su_now)
+    sv_pre = keep_frame(with_interior(sv_now, sv_now[iin, jin] - c.dt * (div(sv_int) + pgy), nb),
+                        sv_now)
 
     s_f = rayleigh_damp(enforce_relaxed(s_e, g3, s_ref), s_now, s_ref, rmat, c.dtf)
     su_f = rayleigh_damp(enforce_relaxed(su_pre, g3, su_ref), su_now, su_ref, rmat, c.dtf)
@@ -157,7 +204,8 @@ def si_stage_plain(
     q_f = []
     for qn, qi, qref in zip(q_now, q_int, q_refs):
         sq_now = clip_pos(s_now * qn)
-        sq_res = with_interior(sq_now, sq_now[iin, jin] - c.dt * div(clip_pos(s_int * qi)), nb)
+        sq_res = keep_frame(
+            with_interior(sq_now, sq_now[iin, jin] - c.dt * div(clip_pos(s_int * qi)), nb), sq_now)
         q_f.append(enforce_relaxed(clip_pos(sq_res / s_e), g3, qref))
     return (s_f, su_f, sv_f, *q_f)
 
@@ -166,19 +214,23 @@ def si_stage(
     u, v, s_now, s_int, q_now: Sequence, q_int: Sequence, su_now, sv_now, su_int,
     sv_int, mtg_now, hs, theta, gamma, s_ref, su_ref, sv_ref, q_refs: Sequence,
     rmat: Optional[torch.Tensor], *, nb: int, c: StageConstants, dd: int = 0, order: int = 5,
+    dist: bool = False, goff=None, gnx: int = 0, gny: int = 0,
 ):
     """One stage with upwind fluxes of ``order`` (3 or 5); returns new
-    tensors (s, su, sv, *q).  On a CUDA device it
+    tensors (s, su, sv, *q); ``dist``, ``goff``, ``gnx``, ``gny``: the
+    distributed mode (module docstring).  On a CUDA device it
     runs the kernel; ``rmat[dd:]`` must then be zero (damping is applied on
     the levels k < dd only), as it is for a Rayleigh profile of depth dd.
     The kernel keeps a block's columns of the stepped density in shared
     memory, so nz is bounded (about 1680 levels in float32, 780 in float64):
     beyond that the launch is refused and this raises."""
     check_geometry("si_stage", s_now.shape, nb, order)
+    frame = global_frame_check("si_stage", s_now.shape, nb, dist, goff, gnx, gny)
     if not s_now.is_cuda:
         return si_stage_plain(
             u, v, s_now, s_int, q_now, q_int, su_now, sv_now, su_int, sv_int,
             mtg_now, hs, theta, gamma, s_ref, su_ref, sv_ref, q_refs, rmat, nb=nb, c=c, order=order,
+            dist=dist, goff=goff, gnx=gnx, gny=gny,
         )
     nx, ny, nz = s_now.shape
     nq = len(q_now)
@@ -207,6 +259,7 @@ def si_stage(
         _lib.pointer_array(ins),
         _lib.pointer_array(scratch + outs),
         nq, nx, ny, nz, nb, dd, order,
+        ctypes.cast((ctypes.c_int * 4)(*frame), ctypes.c_void_p),
         ctypes.cast(scalars, ctypes.c_void_p),
         _lib.stream_handle(),
     )

@@ -2,6 +2,9 @@
 ``tasmania_tpu/physics/turbulence.py``): the strain rate from centred
 differences, eddy viscosity ``nu = cs²·dx·dy·|S|``, tendency ``2·∇·(nu·S)``.
 The stencil reaches 2 points; the tendencies are zero on the nb-frame.
+On a shard of a 2-D decomposition they are zero on the global frame and
+their halos are refreshed (``turbulence.py:108-121`` of the JAX package;
+the hooks are identities on a single device).
 """
 
 from __future__ import annotations
@@ -78,7 +81,9 @@ class Smagorinsky2d(TendencyComponent):
         u, v = state["x_velocity"], state["y_velocity"]
         dx, dy = self.spacings()
         u_tnd, v_tnd = smagorinsky_core(u, v, dx, dy, self.cs, self.nb)
-        return {
-            "x_velocity": frame_paste(u.shape, self.nb, u_tnd),
-            "y_velocity": frame_paste(v.shape, self.nb, v_tnd),
-        }, {}
+        hb = self.horizontal_boundary
+        out_u, out_v = hb.refresh_halos_many([
+            hb.restrict_stencil_output(frame_paste(u.shape, self.nb, u_tnd), nb=self.nb),
+            hb.restrict_stencil_output(frame_paste(v.shape, self.nb, v_tnd), nb=self.nb),
+        ])
+        return {"x_velocity": out_u, "y_velocity": out_v}, {}

@@ -47,7 +47,7 @@ third_order_upwind``: the two-kernel stage at third order) and
 boundary).
 
 Usage: ``python tests/make_torch_flagship_reference.py [--rain | --merges |
---coupling C] [--flux SCHEME] [--boundary TYPE]`` (about five minutes, a
+--coupling C | --sharded] [--flux SCHEME] [--boundary TYPE]`` (about five minutes, a
 minute and a half with ``--rain``, ``--merges``, ``--coupling``, ``--flux``
 or ``--boundary``).  With ``--check-port`` it writes no reference:
 it runs the port on the CPU in float32 at the same configuration and prints
@@ -59,6 +59,17 @@ minute): ``chip_smoke.py`` phase 13 holds the same run in float64 on the
 card to ``flagship_periodic_float64.json`` (``--boundary periodic
 --float64``), the witness that the card's float32 differences on that path
 are rounding and not a fault.
+
+``--sharded`` makes ``sharded_reference.json``, the reference of the
+domain-decomposed run (BASELINE config 5, ``drivers/driver_sharded.py``):
+the JAX ``DistributedModel`` on a 2x2 mesh of four virtual CPU devices,
+``pallas:interpret`` (so the shard-aware whole-stage kernel in its ``dist``
+mode and ``sedimentation_vt_mode="step"``, as the port runs), halo pad
+nb + 1, float32, the flagship namelist at 256x256x64 with the whole SUS
+chain; one warm-up step at zero mountain height whose result the JAX driver
+discards, then 50 steps from the initial state.  With ``--check-port`` it
+runs the port's single-device step on the CPU in float32 through the same
+sequence and prints the deviations (``chip_smoke.py`` phase 14's limits).
 """
 
 from __future__ import annotations
@@ -145,6 +156,84 @@ def check_port(out, overrides, coupling=None, merges=(), float64=False) -> None:
         print(f"wrote {witness}")
 
 
+# the decomposed run (BASELINE config 5): namelist overrides and the mesh
+SHARDED = {"nx": 256, "ny": 256, "nz": 64, "niter": 50}
+SHARDED_MESH = (2, 2)
+
+
+def sharded_reference(check_port_only: bool) -> None:
+    """``--sharded``: the JAX ``DistributedModel``'s run, or with
+    ``check_port_only`` the port's single-device CPU run against it."""
+    out = DRIVERS / "sharded_reference.json"
+    if check_port_only:
+        import torch
+
+        from tasmania_tpu_torch.drivers import driver_namelist_sus as drv
+        from tasmania_tpu_torch.drivers import driver_sharded as shd
+        from tasmania_tpu_torch.drivers.namelist_sus import load_namelist
+        from tasmania_tpu_torch.framework.options import StorageOptions
+
+        nl = load_namelist(so=StorageOptions(dtype=torch.float32, device="cpu"), **SHARDED)
+        got = drv.validation_summary(shd.single_device_run(nl)["fields"])
+        ref = json.loads(out.read_text())
+        for key, r in ref.items():
+            if isinstance(r, (int, float)):
+                dev = abs(got[key] - r) / abs(r) if r else abs(got[key])
+                print(f"{key:18s} port {got[key]:.9g}  reference {r:.9g}  deviation {dev:.3e}")
+        return
+    px, py = SHARDED_MESH
+    os.environ["XLA_FLAGS"] = (
+        os.environ.get("XLA_FLAGS", "") + f" --xla_force_host_platform_device_count={px * py}"
+    ).strip()
+    import importlib
+
+    import jax
+    import jax.numpy as jnp
+
+    from tasmania_tpu.parallel import make_mesh
+    from tasmania_tpu.parallel.runner import DistributedModel
+    from tasmania_tpu_torch.drivers.driver_namelist_sus import validation_summary
+
+    jnl = importlib.import_module("drivers.namelist_sus")
+    nl = SimpleNamespace(**{k: getattr(jnl, k) for k in dir(jnl) if not k.startswith("_")})
+    nl.backend = BACKEND
+    for key, value in SHARDED.items():
+        setattr(nl, key, value)
+    from drivers.driver_namelist_sus import build_domain_and_state, build_model
+
+    domain, state, pt = build_domain_and_state(nl)
+    dt_s = nl.timestep.total_seconds()
+    topo_time = nl.topo_kwargs["time"].total_seconds()
+    mesh = make_mesh(jax.devices()[: px * py], shape=SHARDED_MESH)
+    dm = DistributedModel(domain, state, mesh, lambda dom: build_model(nl, dom, pt), dt_s,
+                          halo=nl.nb + 1)
+    hs_steady = jnp.asarray(
+        np.asarray(domain.numerical_grid.topography.steady_profile.to_units("m").data),
+        dtype=nl.so.dtype,
+    )
+    t0 = time.perf_counter()
+    fields = dm.scatter_state(state)
+    dm.step(fields, dm.put_topography(0.0 * hs_steady))  # the driver's warm-up, discarded
+    for i in range(nl.niter):
+        fields = dm.step(fields, dm.put_topography(min((i + 1) * dt_s / topo_time, 1.0) * hs_steady))
+    full = {k: np.asarray(fa.data) for k, fa in dm.gather_state(fields).items()}
+    elapsed = time.perf_counter() - t0
+    ref = validation_summary(full)
+    ref["config"] = {
+        "namelist": "drivers/namelist_sus.py", "driver": "drivers/driver_sharded.py --physics",
+        "nx": nl.nx, "ny": nl.ny, "nz": nl.nz, "mesh": list(SHARDED_MESH), "halo": nl.nb + 1,
+        "steps": f"1 warm-up (discarded) + {nl.niter}", "niter": nl.niter, "dtype": "float32",
+        "backend": f"{BACKEND} (CPU, {px * py} virtual devices)",
+        "sedimentation_vt_mode": nl.sedimentation_vt_mode, "skip": [],
+        "relative_humidity": nl.relative_humidity,
+        "horizontal_flux_scheme": nl.horizontal_flux_scheme, "hb_type": nl.hb_type,
+    }
+    ref["command"] = "python tests/make_torch_flagship_reference.py --sharded"
+    out.write_text(json.dumps(ref, indent=1) + "\n")
+    print(json.dumps(ref, indent=1))
+    print(f"{elapsed:.1f} s")
+
+
 def jax_step(nl, coupling):
     """(domain, initial state, step(state, dt)) of the JAX drivers."""
     if coupling is None:
@@ -160,6 +249,9 @@ def jax_step(nl, coupling):
 
 def main() -> None:
     argv = sys.argv[1:]
+    if "--sharded" in argv:
+        sharded_reference("--check-port" in argv)
+        return
     rain = "--rain" in argv
     merges = MERGES if "--merges" in argv else ()
     coupling = argv[argv.index("--coupling") + 1] if "--coupling" in argv else None

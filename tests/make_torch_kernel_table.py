@@ -12,12 +12,13 @@ its launches per step on each path that runs it (the full-size runs of
 phases 5, 7, 8, 9 and 13: the flagship's SUS chain, the five other
 couplings, the mountain wave, the SUS chain with both process merges,
 sus_merged, and the surface paths sus_third, fc_third and sus_periodic;
-phase 12's one call of each dwarf, ``dwarfs``)
+phase 12's one call of each dwarf, ``dwarfs``; phase 14's rank of the
+decomposed run, ``sharded``)
 and the times that run measured on the card: kernel, plain version and,
 where one exists, the single PyTorch call computing the same function; a
 kernel timed also at other shapes or in other modes (``also`` in the log:
 the mountain wave's 161x7x120, the diagnostics' modes, the third order of
-#1 and #7) gets a row for each,
+#1 and #7, #1's distributed mode on the shards' blocks) gets a row for each,
 with the bytes and bound of those shapes (a merge's pair run apart with the
 merge's), a kernel timed also as bare launches between CUDA events
 (``bare_launch_ms``: sedimentation) a row with those rounds; after the

@@ -9,6 +9,9 @@ Tolerances, float64: paste bitwise (N arrays and one); smoothing within
 1e-13 and the stage (third and fifth order) within 1e-12 of the largest
 magnitude of the output (FMA contraction), both also in float32 (1e-6; 1e-5, su and sv of the momentum
 vector's) and on a ragged shape, every cell compared, frame included; the
+stage's distributed mode the same on the 41x41x20 blocks of a corner, an
+edge and an interior shard of a 3x3 grid of ranks, and its single-device
+mode bit for bit its distributed mode's trivial shard; the
 kernels of the stages that do not run whole (advection of the fields at third and fifth order, the momentum step at
 both orders on a two-dimensional grid and on one a single row deep, the
 momentum epilogue), the isentropic diagnostics in their three modes, the
@@ -83,6 +86,8 @@ from tasmania_tpu_torch.ops.sedimentation_step import (
     fused_sedimentation_rk3ws_plain,
 )
 from tasmania_tpu_torch.ops.si_stage import StageConstants, si_stage, si_stage_plain
+from tasmania_tpu_torch.parallel.distributed import window
+from tasmania_tpu_torch.parallel.mesh import CartesianDecomposition, RankGrid
 from tasmania_tpu_torch.ops.smagorinsky_step import (
     fused_smagorinsky_rk2,
     fused_smagorinsky_rk2_plain,
@@ -462,6 +467,73 @@ def test_si_stage_kernel_vs_plain(cuda_device, order, damp, stage, shape, dtype)
         scale = momentum if k in (1, 2) else float(b.abs().max())
         err = float((a.double() - b.double()).abs().max())
         assert err <= 1e-5 * scale, f"output {k}: {err} > 1e-5 * {scale}"
+
+
+def stage_windows(inp, decomp, rank):
+    """``rank``'s halo-extended windows of global stage inputs (numpy), as
+    the decomposed step hands them to the stage: the fields edge-padded
+    outside the domain, γ zero-padded."""
+    def cell(a, mode="edge"):
+        return window(a, decomp, rank, pad_mode=mode)
+
+    out = {k: cell(inp[k]) for k in ("s_now", "s_int", "su_now", "sv_now", "su_int",
+                                      "sv_int", "mtg_now", "hs", "s_ref", "su_ref", "sv_ref")}
+    out.update({k: [cell(a) for a in inp[k]] for k in ("q_now", "q_int", "q_refs")})
+    out["u"] = window(inp["u"], decomp, rank, (True, False), pad_mode="edge")
+    out["v"] = window(inp["v"], decomp, rank, (False, True), pad_mode="edge")
+    out["gamma"] = cell(inp["gamma"], "constant")
+    out.update(theta=inp["theta"], rmat=inp["rmat"], dd=inp["dd"])
+    return out
+
+
+# the distributed mode: a 3x3 grid of ranks, blocks 41x41x20 with the ring
+# nb + 1 deep; rank 0 a corner shard, 1 an edge shard, 4 the interior one
+DIST_GRID, DIST_PAD, DIST_NZ = RankGrid(3, 3), NB + 1, 20
+DIST_N = 3 * (41 - 2 * (NB + 1))
+DIST_SHARDS = {"corner": 0, "edge": 1, "interior": 4}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("shard", list(DIST_SHARDS))
+@pytest.mark.parametrize("order", [3, 5])
+def test_si_stage_dist_kernel_vs_plain(cuda_device, order, shard, dtype):
+    """The distributed mode on a shard's 41x41x20 block, the last stage with
+    damping: every cell within the gates of the single-device mode (float64
+    1e-12, float32 1e-5, su and sv of the momentum vector's)."""
+    inp = stage_inputs(7, (DIST_N, DIST_N, DIST_NZ))
+    decomp = CartesianDecomposition(DIST_N, DIST_N, DIST_GRID, NB, DIST_PAD, DIST_PAD)
+    rank = DIST_SHARDS[shard]
+    w = stage_windows(inp, decomp, rank)
+    assert w["s_now"].shape == (41, 41, DIST_NZ)
+    c = StageConstants(dt=DTF, dtf=DTF, **CONSTS)
+    args = _cast(port_args(w, True, cuda_device), dtype)
+    dist = dict(dist=True, goff=decomp.offset(rank), gnx=DIST_N, gny=DIST_N)
+    before = _lib.launch_counts["si_stage"]
+    got = si_stage(*args, nb=NB, c=c, dd=w["dd"], order=order, **dist)
+    assert _lib.launch_counts["si_stage"] == before + 1
+    ref = si_stage_plain(*args, nb=NB, c=c, dd=w["dd"], order=order, **dist)
+    momentum = max(float(r.abs().max()) for r in ref[1:3])
+    tol = 1e-12 if dtype == torch.float64 else 1e-5
+    for k, (a, b) in enumerate(zip(got, ref)):
+        scale = momentum if k in (1, 2) else float(b.abs().max())
+        err = float((a.double() - b.double()).abs().max())
+        assert err <= tol * scale, f"output {k}: {err} > {tol} * {scale}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("order", [3, 5])
+def test_si_stage_single_device_is_the_trivial_shard(cuda_device, order):
+    """dist=False is the instance goff = (0, 0), gnx = nx, gny = ny of the
+    distributed mode: the same kernel, bit for bit."""
+    inp = stage_inputs(8, (NX, NY, NZ))
+    c = StageConstants(dt=DTF, dtf=DTF, **CONSTS)
+    args = _cast(port_args(inp, True, cuda_device), torch.float32)
+    got = si_stage(*args, nb=NB, c=c, dd=inp["dd"], order=order)
+    same = si_stage(*args, nb=NB, c=c, dd=inp["dd"], order=order, dist=True, goff=(0, 0),
+                    gnx=NX, gny=NY)
+    for a, b in zip(got, same):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
 
 
 @pytest.mark.cuda
