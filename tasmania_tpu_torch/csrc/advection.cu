@@ -38,8 +38,10 @@
 // Bound on the H100: bytes.  At the flagship (161x161x120 float32, one field
 // 12.4 MB) advection_fields reads u, v and 12 cell fields (4 now, 4 int, 4
 // tendencies) plus gamma and the reference and writes 4 (237 MB, 71 us at
-// 3.35 TB/s); momentum_epilogue reads u, v and 19 cell fields (momenta now
-// and int, s now and stepped, both potentials, 3 sq, 6 references, 2
+// 3.35 TB/s); momentum_step reads u, v and 8 cell fields and writes 2 (150
+// MB, 45 us; at the mountain wave's 161x7x120, 6.6 MB, 2 us, below a
+// launch's cost); momentum_epilogue reads u, v and 19 cell fields (momenta
+// now and int, s now and stepped, both potentials, 3 sq, 6 references, 2
 // tendencies) and writes 6 (336 MB, 100 us).  The arithmetic, an upwind
 // divergence per field and cell, is far below the float32 rate, but its
 // instructions are not free: index arithmetic, bounds tests and the IEEE
@@ -47,25 +49,24 @@
 // times.  The TPU kernels' x-tiles, clamped tile starts and VMEM windows are
 // Mosaic artefacts and are not carried over.
 //
-// Design of advection_fields and momentum_epilogue: si_stage.cu's second
-// launch without the Montgomery potential (the tiling of common.cuh: Shape,
-// Lane, the face-flux pass).  A block owns a tile of columns x a run of 8
-// levels, the level run the fastest block index (blocks in flight together
-// read whole columns), 32-bit indices, no division of a flat index.  The
-// stencil inputs are staged in shared memory with cp.async: an advected
-// field's cross of halo 3 (2 at the third order), u's and v's faces of the
-// tile, 16-byte copies where nz and the pointers allow.  Each face flux is
-// computed once in the block, by a thread that owns the face in every
-// field, into shared memory, and each divergence is taken there in div5's
-// order; at the fifth order each thread divides its faces' velocities by 60
-// once for all fields (tt::flux5_scaled; the third order keeps tt::flux3's
-// own division by 12 at every flux, so that its roundings stay those of
-// div_upwind and of the plain versions).  The pointwise inputs of the
-// thread's cells (now, tendencies, references, gamma) are read straight
-// from device memory, coalesced along k, but early: their loads are issued
-// before the barriers and the flux pass, whose time hides their latency,
-// and consumed after.  Then the outputs of the thread's cells, frame
-// included ("now" values there).
+// Design: si_stage.cu's second launch without the Montgomery potential (the
+// tiling of common.cuh: Shape, Lane, the face-flux pass).  A block owns a
+// tile of columns x a run of 8 levels, the level run the fastest block index
+// (blocks in flight together read whole columns), 32-bit indices, no
+// division of a flat index.  The stencil inputs are staged in shared memory
+// with cp.async: an advected field's cross of halo 3 (2 at the third order),
+// u's and v's faces of the tile, 16-byte copies where nz and the pointers
+// allow.  Each face flux is computed once in the block, by a thread that
+// owns the face in every field, into shared memory, and each divergence is
+// taken there in div5's order; at the fifth order each thread divides its
+// faces' velocities by 60 once for all fields (tt::flux5_scaled; the third
+// order keeps tt::flux3's own division by 12 at every flux, so that its
+// roundings stay those of div_upwind and of the plain versions).  The
+// pointwise inputs of the thread's cells (now, tendencies, references,
+// gamma) are read straight from device memory, coalesced along k, but early:
+// their loads are issued before the barriers and the flux pass, whose time
+// hides their latency, and consumed after.  Then the outputs of the thread's
+// cells, frame included ("now" values there).
 //   advection_fields: field 0's cross (the density s_int) stays in shared
 //     memory for the whole block; each water density clip(s_int q_int) is
 //     formed once a cell after its q_int cross lands; the other F - 1
@@ -77,10 +78,12 @@
 //     thread.  Shared memory
 //     at 8 x 8 x 8: 28 KB in float32 at the fifth order with three or more
 //     fields (56 KB in float64), less with fewer fields.
-//   momentum_epilogue: 8 x 4 columns, one cell a thread, its 16 pointwise
-//     inputs in registers from the start; su_int's and sv_int's crosses of
-//     halo 3 (2 at the third order), mtg_now's and mtg's of halo 1 for the
-//     pressure gradient; the
+//   momentum_step and momentum_epilogue: one kernel, the epilogue a
+//     compile-time switch (momentum_kernel<..., Epi>).  8 x 4 columns, one
+//     cell a thread, its pointwise inputs in registers from the start (6
+//     for the step, 16 for the epilogue); su_int's and sv_int's crosses of
+//     halo 3 (2 at the third order), mtg_now's and mtg_new's of halo 1 for
+//     the pressure gradient; the step writes su and sv, the epilogue its
 //     six outputs in the plain version's order.  Shared memory 18 KB in
 //     float32 (35 KB in float64).
 // Measured on the H100 (161x161x120 float32, variants timed in one call):
@@ -88,12 +91,6 @@
 // runs, 16-column tiles, 128 threads, register caps for more blocks an SM
 // and loading a field's inputs an iteration ahead were all slower; one cell
 // a thread is as fast as two for the epilogue and slower for the fields.
-//
-// momentum_step: one thread per cell over the flat array, k (the contiguous
-// axis) fastest, so the stencil reads of a warp coalesce along k and the x
-// and y neighbours come from L1/L2.  At the flagship's shapes it moves 150
-// MB (45 us); at the mountain wave's 161x7x120, 6.6 MB (2 us), below a
-// launch's cost.
 
 #include "common.cuh"
 
@@ -104,12 +101,6 @@ constexpr int kMaxQ = 3;
 // the advected fields in flight beside a kept cross: the one whose fluxes
 // are computed and the next
 constexpr int kAdvBufs = 2;
-
-// blocks of a grid-stride loop over n cells (momentum_step)
-unsigned blocks_for(int64_t n, int threads) {
-  int64_t b = (n + threads - 1) / threads;
-  return unsigned(b > 65535 ? 65535 : b);
-}
 
 template <typename T>
 struct AdvectionArgs {
@@ -215,54 +206,14 @@ __global__ void __launch_bounds__(S::Threads) advection_fields_kernel(AdvectionA
   }
 }
 
+// the arguments of the momentum kernel: the momentum step's, and the
+// epilogue's besides (momentum_epilogue passes the stepped, enforced density
+// s_e as s_new and its potential as mtg_new)
 template <typename T>
 struct MomentumArgs {
   const T *u, *v, *su_now, *sv_now, *su_int, *sv_int, *s_now, *mtg_now, *s_new, *mtg_new;
-  const T *su_tnd, *sv_tnd;  // both null: no tendencies
-  T *su_out, *sv_out;
-  int nx, ny, nz, nb;
-  T dt, dx, dy, eps;
-};
-
-template <int Order, typename T>
-__global__ void momentum_step_kernel(MomentumArgs<T> a) {
-  const int64_t sx = int64_t(a.ny) * a.nz;
-  const int64_t total = int64_t(a.nx) * sx;
-  for (int64_t c = int64_t(blockIdx.x) * blockDim.x + threadIdx.x; c < total;
-       c += int64_t(gridDim.x) * blockDim.x) {
-    const int k = int(c % a.nz);
-    const int j = int((c / a.nz) % a.ny);
-    const int i = int(c / sx);
-    const T sun = a.su_now[c];
-    const T svn = a.sv_now[c];
-    T sup = sun, svp = svn;
-    if (i >= a.nb && i < a.nx - a.nb && j >= a.nb && j < a.ny - a.nb) {
-      const T sn = a.s_now[c];
-      const T sw = a.s_new[c];
-      const T pgx = (T(1) - a.eps) * sn * (a.mtg_now[c + sx] - a.mtg_now[c - sx]) / (T(2) * a.dx) +
-                    a.eps * sw * (a.mtg_new[c + sx] - a.mtg_new[c - sx]) / (T(2) * a.dx);
-      const T pgy = (T(1) - a.eps) * sn * (a.mtg_now[c + a.nz] - a.mtg_now[c - a.nz]) / (T(2) * a.dy) +
-                    a.eps * sw * (a.mtg_new[c + a.nz] - a.mtg_new[c - a.nz]) / (T(2) * a.dy);
-      T su_rhs = tt::div_upwind<Order>(a.u, a.v, tt::Plain<T>{a.su_int}, i, j, k, a.nx, a.ny, a.nz,
-                                       a.dx, a.dy) + pgx;
-      T sv_rhs = tt::div_upwind<Order>(a.u, a.v, tt::Plain<T>{a.sv_int}, i, j, k, a.nx, a.ny, a.nz,
-                                       a.dx, a.dy) + pgy;
-      if (a.su_tnd != nullptr) {
-        su_rhs = su_rhs - a.su_tnd[c];
-        sv_rhs = sv_rhs - a.sv_tnd[c];
-      }
-      sup = sun - a.dt * su_rhs;
-      svp = svn - a.dt * sv_rhs;
-    }
-    a.su_out[c] = sup;
-    a.sv_out[c] = svp;
-  }
-}
-
-template <typename T>
-struct EpilogueArgs {
-  const T *u, *v, *su_now, *sv_now, *su_int, *sv_int, *s_now, *mtg_now, *s_e, *mtg;
-  const T *gamma, *s_ref, *su_ref, *sv_ref, *rmat, *su_tnd, *sv_tnd;  // rmat, tnd: may be null
+  const T *su_tnd, *sv_tnd;                          // both null: no tendencies
+  const T *gamma, *s_ref, *su_ref, *sv_ref, *rmat;  // the epilogue's; rmat may be null
   const T* sq[kMaxQ];
   const T* q_ref[kMaxQ];
   T *s_out, *su_out, *sv_out;
@@ -271,37 +222,51 @@ struct EpilogueArgs {
   T dt, dtf, dx, dy, eps;
 };
 
-// H: the stencil's reach, 2 (third order) or 3 (fifth)
+// The tile of the momentum step and the epilogue; H: the stencil's reach, 2
+// (third order) or 3 (fifth).  For the step, 8 x 8 columns (two cells a
+// thread) were no faster on the H100 at 161x161x120 and 167x167x120, and
+// slower on the smaller grids (PERF.md, section 6)
 template <int H>
 using ShapeE = tt::Shape<8, 4, 8, 256, H>;  // 256 cells: one a thread
-// the cross of mtg_now and mtg: the tile widened by 1 in x and y
+// the cross of mtg_now and mtg_new: the tile widened by 1 in x and y
 template <class S>
 constexpr int kRectE1 = (S::TX + 2) * (S::TY + 2) * S::KL;
 
-// the epilogue's pointwise inputs at one cell (c; the column's gamma at g)
-template <typename T>
+// the pointwise inputs at one cell (c; the column's gamma at g): the
+// momentum step's (on the frame only the "now" momenta), and with Epi the
+// epilogue's
+template <typename T, bool Epi>
 struct Point {
-  T gm, sn, se, s_ref, sun, svn, su_ref, sv_ref, su_tnd, sv_tnd, sq[kMaxQ], q_ref[kMaxQ];
-  __device__ void load(const EpilogueArgs<T>& a, int g, int c) {
-    gm = a.gamma[g];
-    sn = a.s_now[c], se = a.s_e[c], s_ref = a.s_ref[c];
-    sun = a.su_now[c], svn = a.sv_now[c], su_ref = a.su_ref[c], sv_ref = a.sv_ref[c];
+  T sn, se, sun, svn, su_tnd, sv_tnd;
+  T gm, s_ref, su_ref, sv_ref, sq[kMaxQ], q_ref[kMaxQ];  // Epi
+  __device__ void load(const MomentumArgs<T>& a, int g, int c, bool interior) {
+    sun = a.su_now[c], svn = a.sv_now[c];
+    if (!Epi && !interior) return;
+    sn = a.s_now[c], se = a.s_new[c];
     if (a.su_tnd != nullptr) su_tnd = a.su_tnd[c], sv_tnd = a.sv_tnd[c];
+    if constexpr (Epi) {
+      gm = a.gamma[g];
+      s_ref = a.s_ref[c], su_ref = a.su_ref[c], sv_ref = a.sv_ref[c];
 #pragma unroll
-    for (int q = 0; q < kMaxQ; ++q) {
-      if (q >= a.nq) break;
-      sq[q] = a.sq[q][c], q_ref[q] = a.q_ref[q][c];
+      for (int q = 0; q < kMaxQ; ++q) {
+        if (q >= a.nq) break;
+        sq[q] = a.sq[q][c], q_ref[q] = a.q_ref[q][c];
+      }
     }
   }
 };
 
 template <class S, typename T>
-constexpr size_t epilogue_smem() {
+constexpr size_t momentum_smem() {
   return sizeof(T) * (2 * S::kRect + 2 * (S::kFX + S::kFY) + 2 * kRectE1<S>);
 }
 
-template <class S, typename T, int V>
-__global__ void __launch_bounds__(S::Threads) momentum_epilogue_kernel(EpilogueArgs<T> a) {
+// The momentum step (Epi false) and the momentum epilogue (Epi true): the
+// momenta with the semi-implicit pressure gradient and the tendencies, "now"
+// on the frame; with Epi the epilogue's enforcement, damping and water
+// species besides
+template <class S, typename T, int V, bool Epi>
+__global__ void __launch_bounds__(S::Threads) momentum_kernel(MomentumArgs<T> a) {
   constexpr int P = tt::Lane<S>::P;
   constexpr bool kScaled = S::H == 3;  // the fifth order: u/60, v/60 once for both momenta
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -311,51 +276,61 @@ __global__ void __launch_bounds__(S::Threads) momentum_epilogue_kernel(EpilogueA
   T* const Vf = U + S::kFX;
   T* const FX = Vf + S::kFY;
   T* const FY = FX + S::kFX;
-  T* const MN = FY + S::kFY;  // mtg_now's and mtg's crosses of halo 1
+  T* const MN = FY + S::kFY;  // mtg_now's and mtg_new's crosses of halo 1
   T* const MG = MN + kRectE1<S>;
   const tt::Tile t{int(blockIdx.y) * S::TX, int(blockIdx.z) * S::TY, int(blockIdx.x) * S::KL,
                    a.nx, a.ny, a.nz, a.nb};
   const tt::Lane<S> L(t);
   const int k = t.k0 + L.kk, j = t.y0 + L.ty;
   const bool level = k < a.nz;
+  // whether the tile holds an interior cell: a tile of the frame alone (on
+  // the one-row grid of ny = 2 nb + 1, every tile past the interior row)
+  // stages nothing and computes no flux (the same for every thread)
+  const bool inner = t.x0 + S::TX > a.nb && t.x0 < a.nx - a.nb && t.y0 + S::TY > a.nb &&
+                     t.y0 < a.ny - a.nb;
 
   // two groups: the faces, the potentials and su_int; then sv_int
-  tt::copy_faces<S, V>(U, Vf, a.u, a.v, t);
-  tt::for_cross<S::TX, S::TY, S::KL, 1, V, S::Threads>(
-      t.x0, t.y0, t.k0, t.nx, t.ny, t.nz, [&](int m, int g) {
-        tt::cp_async<V * sizeof(T)>(&MN[m], &a.mtg_now[g]);
-        tt::cp_async<V * sizeof(T)>(&MG[m], &a.mtg[g]);
-      });
-  tt::copy_cross<S, V>(SU, a.su_int, t);
-  tt::cp_async_commit();
-  tt::copy_cross<S, V>(SV, a.sv_int, t);
-  tt::cp_async_commit();
-  // the epilogue's pointwise inputs at the thread's cells, loaded while the
-  // copies land and the fluxes are computed
+  if (inner) {
+    tt::copy_faces<S, V>(U, Vf, a.u, a.v, t);
+    tt::for_cross<S::TX, S::TY, S::KL, 1, V, S::Threads>(
+        t.x0, t.y0, t.k0, t.nx, t.ny, t.nz, [&](int m, int g) {
+          tt::cp_async<V * sizeof(T)>(&MN[m], &a.mtg_now[g]);
+          tt::cp_async<V * sizeof(T)>(&MG[m], &a.mtg_new[g]);
+        });
+    tt::copy_cross<S, V>(SU, a.su_int, t);
+    tt::cp_async_commit();
+    tt::copy_cross<S, V>(SV, a.sv_int, t);
+    tt::cp_async_commit();
+  }
+  // the pointwise inputs at the thread's cells, loaded while the copies land
+  // and the fluxes are computed
   const int sx = a.ny * a.nz;
-  const bool damp = a.rmat != nullptr;
-  const T rm = damp && level ? a.rmat[k] : T(0);
-  Point<T> in[P];
+  const bool damp = Epi && a.rmat != nullptr;
+  T rm = T(0);
+  if constexpr (Epi) rm = damp && level ? a.rmat[k] : T(0);
+  Point<T, Epi> in[P];
 #pragma unroll
   for (int p = 0; p < P; ++p) {
     const int i = t.x0 + L.tx(p), c = i * sx + j * a.nz + k;
-    if (i < a.nx && j < a.ny && level) in[p].load(a, i * a.ny + j, c);
+    if (i < a.nx && j < a.ny && level) in[p].load(a, i * a.ny + j, c, t.interior(i, j));
   }
-  T dsu[P], dsv[P];  // the divergences of the momenta at the thread's cells
-  auto divergences = [&](const T* phi, T* d) {
-    tt::lane_fluxes<kScaled>(L, level, phi, U, Vf, FX, FY);
-    __syncthreads();
+  T dsu[P] = {}, dsv[P] = {};  // the divergences of the momenta at the thread's cells
+  if (inner) {
+    auto divergences = [&](const T* phi, T* d) {
+      tt::lane_fluxes<kScaled>(L, level, phi, U, Vf, FX, FY);
+      __syncthreads();
 #pragma unroll
-    for (int p = 0; p < P; ++p)
-      d[p] = t.interior(t.x0 + L.tx(p), j) ? tt::lane_div(L, p, FX, FY, a.dx, a.dy) : T(0);
-  };
-  tt::cp_async_wait<1>();
-  __syncthreads();
-  if constexpr (kScaled) tt::lane_scale_faces(L, level, U, Vf);
-  divergences(SU, dsu);
-  tt::cp_async_wait<0>();
-  __syncthreads();  // also: every thread's reads of su's fluxes are done
-  divergences(SV, dsv);
+      for (int p = 0; p < P; ++p)
+        d[p] = t.interior(t.x0 + L.tx(p), j) ? tt::lane_div(L, p, FX, FY, a.dx, a.dy) : T(0);
+    };
+    tt::cp_async_wait<1>();
+    __syncthreads();
+    if constexpr (kScaled) tt::lane_scale_faces(L, level, U, Vf);
+    divergences(SU, dsu);
+    tt::cp_async_wait<0>();
+    __syncthreads();  // also: every thread's reads of su's fluxes are done
+    divergences(SV, dsv);
+  }
 
   if (!level) return;
 #pragma unroll
@@ -363,12 +338,13 @@ __global__ void __launch_bounds__(S::Threads) momentum_epilogue_kernel(EpilogueA
     const int i = t.x0 + L.tx(p);
     if (i >= a.nx || j >= a.ny) continue;
     const int c = i * sx + j * a.nz + k;
-    const Point<T>& x = in[p];
+    const Point<T, Epi>& x = in[p];
 
-    // density: second enforcement, then damping
-    T sf = tt::enforce(x.se, x.gm, x.s_ref);
-    if (damp) sf = sf - a.dtf * rm * (x.sn - x.s_ref);
-    a.s_out[c] = sf;
+    if constexpr (Epi) {  // density: second enforcement, then damping
+      T sf = tt::enforce(x.se, x.gm, x.s_ref);
+      if (damp) sf = sf - a.dtf * rm * (x.sn - x.s_ref);
+      a.s_out[c] = sf;
+    }
 
     // momenta with the semi-implicit pressure gradient and the tendencies
     T sup = x.sun, svp = x.svn;
@@ -388,20 +364,25 @@ __global__ void __launch_bounds__(S::Threads) momentum_epilogue_kernel(EpilogueA
       sup = x.sun - a.dt * su_rhs;
       svp = x.svn - a.dt * sv_rhs;
     }
-    T suf = tt::enforce(sup, x.gm, x.su_ref);
-    T svf = tt::enforce(svp, x.gm, x.sv_ref);
-    if (damp) {
-      suf = suf - a.dtf * rm * (x.sun - x.su_ref);
-      svf = svf - a.dtf * rm * (x.svn - x.sv_ref);
-    }
-    a.su_out[c] = suf;
-    a.sv_out[c] = svf;
+    if constexpr (!Epi) {  // the momentum step: no enforcement, no damping
+      a.su_out[c] = sup;
+      a.sv_out[c] = svp;
+    } else {
+      T suf = tt::enforce(sup, x.gm, x.su_ref);
+      T svf = tt::enforce(svp, x.gm, x.sv_ref);
+      if (damp) {
+        suf = suf - a.dtf * rm * (x.sun - x.su_ref);
+        svf = svf - a.dtf * rm * (x.svn - x.sv_ref);
+      }
+      a.su_out[c] = suf;
+      a.sv_out[c] = svf;
 
-    // water species: the stepped densities back to clipped mass fractions
+      // water species: the stepped densities back to clipped mass fractions
 #pragma unroll
-    for (int q = 0; q < kMaxQ; ++q) {
-      if (q >= a.nq) break;
-      a.q_out[q][c] = tt::enforce(tt::clip_pos(x.sq[q] / x.se), x.gm, x.q_ref[q]);
+      for (int q = 0; q < kMaxQ; ++q) {
+        if (q >= a.nq) break;
+        a.q_out[q][c] = tt::enforce(tt::clip_pos(x.sq[q] / x.se), x.gm, x.q_ref[q]);
+      }
     }
   }
 }
@@ -467,56 +448,59 @@ int launch_advection(const void* const* ptrs, void* const* outs, int nf, int q_m
   return vec ? launch_fields<Narrow, T, V>(a, stream) : launch_fields<Narrow, T, 1>(a, stream);
 }
 
-template <int Order, typename T>
-int launch_momentum(const void* const* ptrs, void* const* outs, int nx, int ny, int nz, int nb,
-                    const double* s, cudaStream_t stream) {
-  MomentumArgs<T> a;
-  const T** in[] = {&a.u, &a.v, &a.su_now, &a.sv_now, &a.su_int, &a.sv_int, &a.s_now, &a.mtg_now,
-                    &a.s_new, &a.mtg_new, &a.su_tnd, &a.sv_tnd};
-  const int nin = int(sizeof(in) / sizeof(in[0]));
-  for (int n = 0; n < nin; ++n) *in[n] = static_cast<const T*>(ptrs[n]);
-  a.su_out = static_cast<T*>(outs[0]);
-  a.sv_out = static_cast<T*>(outs[1]);
-  a.nx = nx; a.ny = ny; a.nz = nz; a.nb = nb;
-  a.dt = T(s[0]); a.dx = T(s[1]); a.dy = T(s[2]); a.eps = T(s[3]);
-  const int threads = 256;
-  momentum_step_kernel<Order, T><<<blocks_for(int64_t(nx) * ny * nz, threads), threads, 0, stream>>>(a);
+template <class S, typename T, int V, bool Epi>
+int launch_momentum_kernel(const MomentumArgs<T>& a, cudaStream_t stream) {
+  const size_t smem = momentum_smem<S, T>();
+  if (const int err = allow_smem(momentum_kernel<S, T, V, Epi>, smem)) return err;
+  const dim3 g((a.nz + S::KL - 1) / S::KL, (a.nx + S::TX - 1) / S::TX, (a.ny + S::TY - 1) / S::TY);
+  momentum_kernel<S, T, V, Epi><<<g, S::Threads, smem, stream>>>(a);
   return int(cudaGetLastError());
 }
 
-template <class S, typename T, int V>
-int launch_epilogue_kernel(const EpilogueArgs<T>& a, cudaStream_t stream) {
-  const size_t smem = epilogue_smem<S, T>();
-  if (const int err = allow_smem(momentum_epilogue_kernel<S, T, V>, smem)) return err;
-  const dim3 g((a.nz + S::KL - 1) / S::KL, (a.nx + S::TX - 1) / S::TX, (a.ny + S::TY - 1) / S::TY);
-  momentum_epilogue_kernel<S, T, V><<<g, S::Threads, smem, stream>>>(a);
-  return int(cudaGetLastError());
+// the ten inputs the momentum step and the epilogue share (u .. mtg_new) and
+// the grid; then the kernel, 16-byte copies where every staged field's
+// columns are whole 16-byte runs
+template <class S, typename T, bool Epi>
+int launch_momenta(MomentumArgs<T>& a, const void* const* ptrs, int nx, int ny, int nz, int nb,
+                   cudaStream_t stream) {
+  const T** in[] = {&a.u, &a.v, &a.su_now, &a.sv_now, &a.su_int, &a.sv_int, &a.s_now, &a.mtg_now,
+                    &a.s_new, &a.mtg_new};
+  for (int n = 0; n < 10; ++n) *in[n] = static_cast<const T*>(ptrs[n]);
+  a.nx = nx; a.ny = ny; a.nz = nz; a.nb = nb;
+  const bool vec = tt::runs_of_16<T>(nz, {a.u, a.v, a.su_int, a.sv_int, a.mtg_now, a.mtg_new});
+  return vec ? launch_momentum_kernel<S, T, 16 / sizeof(T), Epi>(a, stream)
+             : launch_momentum_kernel<S, T, 1, Epi>(a, stream);
+}
+
+template <int H, typename T>
+int launch_momentum(const void* const* ptrs, void* const* outs, int nx, int ny, int nz, int nb,
+                    const double* s, cudaStream_t stream) {
+  MomentumArgs<T> a = {};
+  a.su_tnd = static_cast<const T*>(ptrs[10]);
+  a.sv_tnd = static_cast<const T*>(ptrs[11]);
+  a.su_out = static_cast<T*>(outs[0]);
+  a.sv_out = static_cast<T*>(outs[1]);
+  a.dt = T(s[0]); a.dx = T(s[1]); a.dy = T(s[2]); a.eps = T(s[3]);
+  return launch_momenta<ShapeE<H>, T, false>(a, ptrs, nx, ny, nz, nb, stream);
 }
 
 template <int H, typename T>
 int launch_epilogue(const void* const* ptrs, void* const* outs, int nq, int nx, int ny, int nz,
                     int nb, const double* s, cudaStream_t stream) {
-  EpilogueArgs<T> a = {};
-  const T** in[] = {&a.u, &a.v, &a.su_now, &a.sv_now, &a.su_int, &a.sv_int, &a.s_now, &a.mtg_now,
-                    &a.s_e, &a.mtg, &a.gamma, &a.s_ref, &a.su_ref, &a.sv_ref, &a.rmat, &a.su_tnd,
-                    &a.sv_tnd};
-  const int nin = int(sizeof(in) / sizeof(in[0]));
-  for (int n = 0; n < nin; ++n) *in[n] = static_cast<const T*>(ptrs[n]);
+  MomentumArgs<T> a = {};
+  const T** in[] = {&a.gamma, &a.s_ref, &a.su_ref, &a.sv_ref, &a.rmat, &a.su_tnd, &a.sv_tnd};
+  for (int n = 0; n < 7; ++n) *in[n] = static_cast<const T*>(ptrs[10 + n]);
   for (int q = 0; q < nq; ++q) {
-    a.sq[q] = static_cast<const T*>(ptrs[nin + q]);
-    a.q_ref[q] = static_cast<const T*>(ptrs[nin + nq + q]);
+    a.sq[q] = static_cast<const T*>(ptrs[17 + q]);
+    a.q_ref[q] = static_cast<const T*>(ptrs[17 + nq + q]);
     a.q_out[q] = static_cast<T*>(outs[3 + q]);
   }
   a.s_out = static_cast<T*>(outs[0]);
   a.su_out = static_cast<T*>(outs[1]);
   a.sv_out = static_cast<T*>(outs[2]);
-  a.nq = nq; a.nx = nx; a.ny = ny; a.nz = nz; a.nb = nb;
+  a.nq = nq;
   a.dt = T(s[0]); a.dtf = T(s[1]); a.dx = T(s[2]); a.dy = T(s[3]); a.eps = T(s[4]);
-  // 16-byte copies where every staged field's columns are whole 16-byte runs
-  const bool vec = tt::runs_of_16<T>(nz, {a.u, a.v, a.su_int, a.sv_int, a.mtg_now, a.mtg});
-  using S = ShapeE<H>;
-  return vec ? launch_epilogue_kernel<S, T, 16 / sizeof(T)>(a, stream)
-             : launch_epilogue_kernel<S, T, 1>(a, stream);
+  return launch_momenta<ShapeE<H>, T, true>(a, ptrs, nx, ny, nz, nb, stream);
 }
 
 // the stencils of order 3 read 2 cells on each side of a face, those of order 5 three
@@ -553,16 +537,17 @@ extern "C" int tt_advection_fields(int dtype, const void* const* ptrs, void* con
 extern "C" int tt_momentum_step(int dtype, const void* const* ptrs, void* const* outs, int nx,
                                 int ny, int nz, int nb, int order, const double* scalars,
                                 cudaStream_t stream) {
-  if (bad_geometry(nx, ny, nb, order) || (ptrs[10] == nullptr) != (ptrs[11] == nullptr)) {
+  if (bad_geometry(nx, ny, nb, order) || nz < 1 || !tt::fits_int32(nx, ny, nz) ||
+      (ptrs[10] == nullptr) != (ptrs[11] == nullptr)) {
     return int(cudaErrorInvalidValue);
   }
   const bool f32 = dtype == tt::kFloat32;
   if (order == 3) {
-    return f32 ? launch_momentum<3, float>(ptrs, outs, nx, ny, nz, nb, scalars, stream)
-               : launch_momentum<3, double>(ptrs, outs, nx, ny, nz, nb, scalars, stream);
+    return f32 ? launch_momentum<2, float>(ptrs, outs, nx, ny, nz, nb, scalars, stream)
+               : launch_momentum<2, double>(ptrs, outs, nx, ny, nz, nb, scalars, stream);
   }
-  return f32 ? launch_momentum<5, float>(ptrs, outs, nx, ny, nz, nb, scalars, stream)
-             : launch_momentum<5, double>(ptrs, outs, nx, ny, nz, nb, scalars, stream);
+  return f32 ? launch_momentum<3, float>(ptrs, outs, nx, ny, nz, nb, scalars, stream)
+             : launch_momentum<3, double>(ptrs, outs, nx, ny, nz, nb, scalars, stream);
 }
 
 // ptrs: u, v, su_now, sv_now, su_int, sv_int, s_now, mtg_now, s_e, mtg,

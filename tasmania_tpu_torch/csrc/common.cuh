@@ -3,8 +3,8 @@
 // divergences, the Shapiro filter (smoothing.cu, smooth_smag.cu), the
 // asynchronous staging of a column tile's stencil cross in shared memory,
 // and the tiling of the flux-form advection kernels (si_stage.cu's second
-// launch, advection.cu's advection of the fields and momentum epilogue: a
-// tile's faces, each face flux once a block).  smag.cuh holds the
+// launch, advection.cu's advection of the fields and its momentum step and
+// epilogue: a tile's faces, each face flux once a block).  smag.cuh holds the
 // Smagorinsky tile of smagorinsky.cu and smooth_smag.cu, column.cuh the
 // column algebra of vertical advection and sedimentation.  Every formula
 // keeps the operation order of the plain PyTorch versions in

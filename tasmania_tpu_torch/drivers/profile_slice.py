@@ -15,6 +15,13 @@ clock around steps that end in a synchronize).
 ``--merge NAME`` (repeatable: ``smooth_smag``, ``vadv_sed``) sets the
 namelist's ``process_merges`` for the full chain under sus or ssus.
 
+``--boundary periodic`` sets the namelist's lateral boundary to the
+periodic one (``hb_type="periodic"``, ``hb_kwargs={}``; the grid gains the
+boundary's ring of cells, 167x167x120): the dycore then takes the generic
+stage (the advection of the fields and the momentum step, the boundary's
+enforcement in PyTorch) in place of the whole-stage kernel, as
+``chip_smoke.py``'s ``sus_periodic`` runs it.
+
 ``--fused-loop`` profiles the step as the drivers' ``--fused-loop`` runs it:
 after the untraced steps (the last of them traced for the fields it reads,
 ``utils/jitx.py``), one CUDA graph of the step is captured and replayed once
@@ -23,7 +30,7 @@ prints the device time of the replays by CUDA events around them.
 
 Usage: ``python -m tasmania_tpu_torch.drivers.profile_slice [--steps N]
 [--slice | --coupling C | --mountain-wave | --burgers CASE] [--merge NAME]
-[--fused-loop]``
+[--boundary periodic] [--fused-loop]``
 (needs a CUDA device).
 """
 
@@ -44,7 +51,11 @@ from tasmania_tpu_torch.framework.options import StorageOptions
 from tasmania_tpu_torch.utils.jitx import StepBody, StepGraph, traced_step
 
 
-def main(argv=None) -> None:
+# the namelist overrides of --boundary
+BOUNDARIES = {"periodic": {"hb_type": "periodic", "hb_kwargs": {}}}
+
+
+def parse(argv=None) -> argparse.Namespace:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--steps", type=int, default=10)
     parser.add_argument("--slice", action="store_true", help="profile the first slice's chain")
@@ -55,15 +66,31 @@ def main(argv=None) -> None:
                         help="profile a case of the Burgers driver at 2048x2048")
     parser.add_argument("--merge", action="append", default=[], metavar="NAME",
                         help="a SUS process merge of the full chain (repeatable)")
+    parser.add_argument("--boundary", choices=sorted(BOUNDARIES),
+                        help="the isentropic model's lateral boundary in place of the namelist's")
     parser.add_argument("--fused-loop", action="store_true",
                         help="profile replays of one CUDA graph of the step")
     cli = parser.parse_args(argv)
-    if not torch.cuda.is_available():
-        parser.error("needs a CUDA device")
     if sum((cli.slice, cli.mountain_wave, cli.burgers is not None, cli.coupling != "sus")) > 1:
         parser.error("--slice, --coupling, --mountain-wave and --burgers exclude each other")
     if cli.merge and (cli.slice or cli.mountain_wave or cli.burgers):
         parser.error("--merge applies to the full chain")
+    if cli.boundary and (cli.mountain_wave or cli.burgers):
+        parser.error("--boundary applies to the isentropic model's namelist")
+    return cli
+
+
+def namelist(cli: argparse.Namespace):
+    """The isentropic run's namelist: coupling C's, with the merges and the
+    boundary of the command line."""
+    return moist.load_namelist(cli.coupling, process_merges=tuple(cli.merge),
+                               **BOUNDARIES.get(cli.boundary, {}))
+
+
+def main(argv=None) -> None:
+    cli = parse(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_slice: needs a CUDA device")
     f32 = StorageOptions(dtype=torch.float32, device="cuda")
     if cli.burgers:
         step, fields, _, _, _ = burgers.make_case(cli.burgers, 2048, 2048, 3, 1, 0, f32)
@@ -75,7 +102,7 @@ def main(argv=None) -> None:
             161, 120, theta_top=420.0, damp_depth=60, damp_max=5e-4, so=f32)
         names, step = mw.make_step(dycore, diagnostics, pt, state, 20.0)
     else:
-        nl = moist.load_namelist(cli.coupling, process_merges=tuple(cli.merge))
+        nl = namelist(cli)
         if cli.slice:
             domain, state, pt = drv.build_domain_and_state(nl)
             dycore, physics = drv.build_model(nl, domain, pt, nl.slice_skip)
@@ -126,6 +153,8 @@ def main(argv=None) -> None:
     chain = (f"burgers {cli.burgers}" if cli.burgers else "mountain wave" if cli.mountain_wave
              else "slice" if cli.slice
              else f"full chain, {cli.coupling}" + "".join(f", merge {m}" for m in cli.merge))
+    if cli.boundary:
+        chain += f", {cli.boundary} boundary"
     if graph is not None:
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()

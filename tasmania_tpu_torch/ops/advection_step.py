@@ -3,11 +3,11 @@ whole-stage kernel (counterparts of ``tasmania_tpu/ops/advection_step.py:140
 fused_advection_fields``, ``:282 fused_momentum_step`` and ``:422
 fused_momentum_epilogue``).
 
-Kernels: ``csrc/advection.cu``.  The advection of the fields and the
-momentum epilogue each take a tile of columns and a run of levels a block,
-with the stencil inputs staged in shared memory and each face flux computed
-once a block; the momentum step one thread per cell over the whole array.
-Each writes the frame itself (no paste follows).  The ``_plain``
+Kernels: ``csrc/advection.cu``.  Each takes a tile of columns and a run of
+levels a block, with the stencil inputs staged in shared memory and each
+face flux computed once a block; the momentum step and the momentum
+epilogue are one kernel, the epilogue a compile-time switch.  Each writes
+the frame itself (no paste follows).  The ``_plain``
 functions are the plain PyTorch versions of the same algebra, in the same
 operation order; the wrappers take them for CPU tensors only.
 

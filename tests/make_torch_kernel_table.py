@@ -94,7 +94,7 @@ LIBRARY_CALL = {2: "torch._foreach_copy_", 4: "torch._foreach_copy_"}
 # the PR that ported each kernel, and the PR that redesigned it for Hopper
 PORTED_IN = {1: 1, 2: 1, 3: 1, 9: 2, 12: 2, 14: 2, 17: 2, 5: 3, 7: 3, 8: 3, 10: 3,
              4: 4, 6: 4, 11: 4, 16: 4, 13: 5, 15: 5}
-REDESIGNED_IN = {1: 6, 3: 6, 12: 7, 14: 7, 16: 8, 17: 8, 5: 9, 7: 9, 13: 10, 15: 10}
+REDESIGNED_IN = {1: 6, 3: 6, 11: 7, 12: 7, 14: 7, 16: 8, 17: 8, 5: 9, 7: 9, 13: 10, 15: 10, 6: 15}
 
 # what a launch is, where a call's time covers more than one step of work
 LAUNCH_NOTE = {12: "one launch a call, both stages"}
@@ -107,13 +107,17 @@ _DIAG = "the design before the redesign (a warp of 32 columns, 31-level chunks, 
 _CELL = "the design before the redesign (a thread a cell from device memory, each face flux twice)"
 _MERGE13 = ("the design before the redesign (a thread a cell and level, the filter's taps from device "
             "memory, each strain formed four times)")
+_FLAT = "the design before the redesign (a thread a cell over the flat array, each face flux twice)"
 EARLIER = {
     1: [("the design before the redesign (three launches, the frame composed and pasted)",
          1.038, 4.585, None)],
     3: [("the design before the redesign (a thread a cell from device memory, the frame pasted)",
          0.745, 1.200, None)],
     5: [(_CELL, 0.455, 2.033, None), (f"{_CELL}, order 3, s alone, 161x7x120", 0.005, 0.051, 2.79)],
+    6: [(_FLAT, 0.225, 1.075, None), (f"{_FLAT}, order 5, 167x167x120", 0.242, 1.159, 160.80),
+        (f"{_FLAT}, order 3, 161x7x120", 0.007, 0.128, 6.57)],
     7: [(_CELL, 0.299, 1.630, None)],
+    11: [("the design before the redesign (a thread a cell, one launch a stage)", 0.281, 0.436, None)],
     12: [("the design before the redesign (a thread a cell, one launch a stage, the stage-1 pair "
           "through device memory)", 0.549, 0.873, None)],
     13: [(f"{_MERGE13}", 0.450, 2.081, None), (f"{_MERGE13}, the unperturbed initial state", 0.711, 2.081, None)],

@@ -18,6 +18,10 @@ on the CPU, where a CUDA graph cannot run.
   its start time from the body's table.
 * ``fused_loop=True`` raises on a CPU device in every driver, and
   ``--fused-loop`` parses in the three command lines.
+* ``profile_slice.py --boundary periodic``, eager and under
+  ``--fused-loop``, builds the namelist of ``chip_smoke.py``'s
+  ``sus_periodic`` (the SUS namelist with ``hb_type="periodic"``,
+  ``hb_kwargs={}``), and without the option the namelist's own boundary.
 
 The capture and replay themselves run on the card
 (``tests/test_torch_kernels.py::test_fused_loop_graph_matches_eager``).
@@ -40,6 +44,7 @@ from tasmania_tpu_torch.drivers import driver_burgers as burgers
 from tasmania_tpu_torch.drivers import driver_isentropic_moist as moist
 from tasmania_tpu_torch.drivers import driver_mountain_wave as mw
 from tasmania_tpu_torch.drivers import driver_namelist_sus as port_driver
+from tasmania_tpu_torch.drivers import profile_slice
 from tasmania_tpu_torch.drivers.namelist_sus import load_namelist
 from tasmania_tpu_torch.framework.field import FieldArray
 from tasmania_tpu_torch.framework.options import StorageOptions
@@ -227,3 +232,26 @@ def test_fused_loop_flag_parses(main, argv):
     parser = port_driver.size_parser("")
     assert parser.parse_args(["--fused-loop"]).fused_loop
     assert not parser.parse_args([]).fused_loop
+
+
+def _entries(nl):
+    """A namelist's entries by name, as text (some hold arrays)."""
+    return {k: repr(v) for k, v in vars(nl).items()}
+
+
+@pytest.mark.parametrize("argv", [[], ["--fused-loop"]])
+def test_profile_slice_boundary_periodic(argv):
+    """``--boundary periodic`` gives the profile the namelist of
+    ``chip_smoke.py``'s ``sus_periodic``; without it the namelist keeps its
+    relaxed boundary; the option refuses the runs that have no namelist."""
+    cli = profile_slice.parse(argv + ["--boundary", "periodic"])
+    assert cli.fused_loop == bool(argv)
+    nl = profile_slice.namelist(cli)
+    want = load_namelist(hb_type="periodic", hb_kwargs={})
+    assert (nl.hb_type, nl.hb_kwargs) == ("periodic", {})
+    assert _entries(nl) == _entries(want)
+    plain = profile_slice.namelist(profile_slice.parse(argv))
+    assert _entries(plain) == _entries(load_namelist()) and plain.hb_type == "relaxed"
+    for other in (["--mountain-wave"], ["--burgers", "bench"]):
+        with pytest.raises(SystemExit):
+            profile_slice.parse(argv + other + ["--boundary", "periodic"])

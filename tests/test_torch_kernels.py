@@ -13,7 +13,8 @@ stage's distributed mode the same on the 41x41x20 blocks of a corner, an
 edge and an interior shard of a 3x3 grid of ranks, and its single-device
 mode bit for bit its distributed mode's trivial shard; the
 kernels of the stages that do not run whole (advection of the fields at third and fifth order, the momentum step at
-both orders on a two-dimensional grid and on one a single row deep, the
+both orders on a two-dimensional grid, on one a single row deep and on the
+ragged 37x29x13, the
 momentum epilogue), the isentropic diagnostics in their three modes, the
 Kessler and saturation-adjustment steps (the pair and each alone),
 Smagorinsky (both stages, and one stage alone), vertical advection and
@@ -224,15 +225,17 @@ def epilogue_args(inp, damp, tendencies, device="cpu"):
 NY1 = 2 * NB + 1
 
 
-def momentum_step_inputs(seed, ny=NY):
-    """Numpy inputs of ``fused_momentum_step`` at (NX, ny, NZ): u, v (zero
-    when ny is a single interior row, as on the one-dimensional boundary),
-    the momenta now and int, s and mtg now and stepped, the tendencies."""
+def momentum_step_inputs(seed, ny=NY, shape=None):
+    """Numpy inputs of ``fused_momentum_step`` at (NX, ny, NZ) (or
+    ``shape``): u, v (zero when ny is a single interior row, as on the
+    one-dimensional boundary), the momenta now and int, s and mtg now and
+    stepped, the tendencies."""
     rng = np.random.default_rng(seed)
-    cell = (NX, ny, NZ)
-    v = np.zeros((NX, ny + 1, NZ)) if ny == NY1 else rng.uniform(-6, 6, (NX, ny + 1, NZ))
+    cell = shape or (NX, ny, NZ)
+    nx, ny, nz = cell
+    v = np.zeros((nx, ny + 1, nz)) if ny == NY1 else rng.uniform(-6, 6, (nx, ny + 1, nz))
     return dict(
-        u=rng.uniform(-4, 12, (NX + 1, ny, NZ)), v=v,
+        u=rng.uniform(-4, 12, (nx + 1, ny, nz)), v=v,
         su_now=rng.uniform(20, 80, cell), sv_now=rng.uniform(-20, 20, cell),
         su_int=rng.uniform(20, 80, cell), sv_int=rng.uniform(-20, 20, cell),
         s_now=rng.uniform(5, 10, cell), mtg_now=rng.uniform(1e5, 3e5, cell),
@@ -611,13 +614,20 @@ def test_advection_fields_kernel_tiles(cuda_device, nf, dtype, order, shape):
         assert_scaled(a.double().cpu().numpy(), b.double().cpu().numpy(), tol, f"field {k}")
 
 
+# the momentum step's shapes: the test geometry; its one-row grid; 37x29x13,
+# several 8 x 4 column tiles in x and y straddling the frame and the ragged
+# edge, and runs of levels that are not whole 16-byte copies
+MOMENTUM_SHAPES = [pytest.param((NX, NY, NZ), id="19x21x8"), pytest.param((NX, NY1, NZ), id="19x7x8"),
+                   pytest.param((37, 29, 13), id="37x29x13")]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("ny", [NY, NY1])
+@pytest.mark.parametrize("shape", MOMENTUM_SHAPES)
 @pytest.mark.parametrize("order", [3, 5])
 @pytest.mark.parametrize("tendencies", [True, False])
-def test_momentum_step_kernel_vs_plain(cuda_device, tendencies, order, ny, dtype):
-    args = _cast(momentum_step_args(momentum_step_inputs(seed=order + ny, ny=ny), tendencies,
+def test_momentum_step_kernel_vs_plain(cuda_device, tendencies, order, shape, dtype):
+    args = _cast(momentum_step_args(momentum_step_inputs(seed=order + shape[1], shape=shape), tendencies,
                                     cuda_device), dtype)
     kw = dict(order=order, nb=NB, dt=FRACS[1] * DTF, dx=CONSTS["dx"], dy=CONSTS["dy"], eps=0.5)
     got = fused_momentum_step(*args, **kw)
