@@ -144,7 +144,8 @@ printing one line; any failure raises and exits non-zero:
 10. the fused loop (``--fused-loop``): the runs of phases 5 (the flagship,
    1 + 100 steps), 9 (sus_merged, 1 + 30), 7 (fc, lfc, ps, sts and ssus,
    1 + 20 each), 8 (the mountain wave, 1800 steps) and 13 (sus_third,
-   fc_third, sus_periodic, 1 + 20 each; run before this phase) again with
+   fc_third, sus_periodic, sus_coriolis_implicit, fc_coriolis, 1 + 20
+   each; run before this phase) again with
    ``fused_loop=True``, their timed
    steps replays of one CUDA graph of the step: each final field equal to
    the eager run's bit for bit, and the launch counts exact per capture (a
@@ -182,7 +183,11 @@ printing one line; any failure raises and exits non-zero:
    whole-stage kernel at order 3), ``fc_third`` (fc at third order: the
    two-kernel stage at order 3) and ``sus_periodic`` (SUS on the periodic
    boundary: the generic stage, #5 with the water densities and #6 at full
-   width, no si_stage), each with the exact launch counts of its path,
+   width, no si_stage), ``sus_coriolis_implicit`` (SUS with the f-plane
+   Coriolis process, f = 1e-4 rad/s, and the implicit vertical advection:
+   the Crank-Nicolson column solve, plain PyTorch, in place of the RK3WS
+   vertical-advection kernel) and ``fc_coriolis`` (fc with Coriolis first
+   in its chain), each with the exact launch counts of its path,
    finiteness and agreement with the JAX package's float32 result at the
    same configuration (the reference file of ``SURFACE_PATHS``), with phase
    7's limits (``VARIANT_LOOSER`` holds each path's looser numbers); then
@@ -202,7 +207,20 @@ printing one line; any failure raises and exits non-zero:
    pair in float64 within ``WITNESS_TOL``; then one NCCL rank on the
    degenerate 1x1 mesh, which must give the single device's bits (NCCL
    refuses two ranks on one card).  Its ms/step is four ranks
-   time-sharing one card, not a scaling figure.
+   time-sharing one card, not a scaling figure;
+15. the physics surface's plain components (run after phase 12, before
+   phase 14): Coriolis, the implicit vertical advection (its Diagnostic and
+   Prognostic) and its sequential-tendency stepper, saturation adjustment
+   in one go alone and under ``rk2sa``, clipping, the prescribed surface
+   heating, the dry and moist static energies, the state from a
+   temperature, Goff-Gratch, the velocity and water-constituent
+   diagnostics and vertical damping, each once on the flagship's state
+   (161x161x120, relative humidity 1.05, seeded perturbations, float32) on
+   the card, none launching a kernel, each output within
+   ``COMPONENT_TOL`` (1e-6) of the largest magnitude of the port's float64
+   CPU result of the same call (the exceptions beside the constant), with
+   its device time a call (``device_ms``), as phase lines and one JSON line
+   (``components``).
 
 The isentropic diagnostics kernel serves every diagnostics call, so phases
 4-7, 9, 10, 13 and 14 count it too (``LAUNCHES_PER_STEP``); phase 12 counts the
@@ -279,6 +297,11 @@ VARIANT_LOOSER = {
     # run in the gate (WITNESS_TOL)
     ("sus_periodic", "vmax"): 4e-4,
     ("sus_periodic", "sv_max"): 4e-4,
+    # sus_coriolis_implicit and fc_coriolis: the port's float32 CPU run came
+    # within 2.6e-5 (vmax) and 3.2e-5 (accprec_mean_abs) of their references
+    # on every number (make_torch_flagship_reference.py --coriolis 1e-4
+    # [--implicit-vadv | --coupling fc] --check-port; qc within 4.4e-6), so
+    # the defaults, 1e-4 and 1e-3 on qc, are their limits
 }
 # phase 13's float64 witness: sus_periodic in float64 on the card, held to the
 # port's float64 CPU run of the same configuration
@@ -333,16 +356,26 @@ LAUNCHES_PER_STEP = {
     # distributed mode; Smagorinsky declines its fused RK2 kernel there (its
     # frame is local) and steps its plain tendency, as the JAX package does
     "sharded": {k: n for k, n in _SUS.items() if k != "fused_smagorinsky_rk2"},
+    # Coriolis is plain PyTorch on every path; the implicit vertical
+    # advection's column solve too, in place of the explicit RK3WS kernel
+    "sus_coriolis_implicit": {k: n for k, n in _SUS.items() if k != "fused_vertical_advection_rk3ws"},
+    "fc_coriolis": {**_TWO_KERNEL, "fused_isentropic_diagnostics": 6},
 }
 # phase 13, the isentropic core's surface at full size: a coupling, its
 # namelist overrides and the reference file (the JAX package's float32
 # result, make_torch_flagship_reference.py --flux / --boundary); each run
 # from the couplings' supersaturated start, 1 + 20 steps
 THIRD = {"horizontal_flux_scheme": "third_order_upwind"}
+CORIOLIS = {"coriolis_parameter": 1e-4}  # rad s^-1
 SURFACE_PATHS = {
     "sus_third": ("sus", THIRD, "flagship_third_reference.json"),
     "fc_third": ("fc", THIRD, "variant_fc_third_reference.json"),
     "sus_periodic": ("sus", {"hb_type": "periodic", "hb_kwargs": {}}, "flagship_periodic_reference.json"),
+    # the f-plane and the implicit (Crank-Nicolson) vertical advection
+    # (make_torch_flagship_reference.py --coriolis 1e-4 [--implicit-vadv])
+    "sus_coriolis_implicit": ("sus", {**CORIOLIS, "implicit_vertical_advection": True},
+                              "flagship_coriolis_implicit_reference.json"),
+    "fc_coriolis": ("fc", CORIOLIS, "variant_fc_coriolis_reference.json"),
 }
 # phase 8, the deep-domain mountain wave (tests/test_mountain_wave_validation.py:115-151)
 MOUNTAIN_WAVE = dict(nx=161, nz=120, hours=10.0, dt=20.0, theta_top=420.0, damp_depth=60,
@@ -695,6 +728,235 @@ def sharded_phase(card, path_counts, path_steps, device="cuda", ranks_mesh=None,
               f"every field equal to the single device's bit for bit")
     path_counts["sharded"], path_steps["sharded"] = dec["launches_by_rank"][0], steps
     return dec, sd
+
+
+# phase 15, the physics surface's plain components (Coriolis, the implicit
+# vertical advection, its STS stepper, saturation adjustment in one go and
+# under RK2SA, clipping, the prescribed heating, the static energies, the
+# state from a temperature, Goff-Gratch, the velocity and water diagnostics,
+# vertical damping): each called once on the card at the flagship's size on
+# its initial state from relative humidity 1.05 with seeded perturbations
+# (float32), held to the port's float64 CPU result of the same call on the
+# same float32 inputs within COMPONENT_TOL of each output's largest
+# magnitude (the implicit Prognostic's tendencies, small updates (new -
+# old)/dt of large fields, within COMPONENT_TOL of their largest update plus
+# 4 float32 ulps of the field over dt, as phase 3 holds small updates), its
+# device time a call; none launches a kernel.  The state from a temperature
+# is built on the host in the storage type, as in the JAX package, and
+# placed on the card: its float32 numbers carry the host's float32
+# rounding (s is a difference of pressures), so it is held bit for bit to
+# the port's float32 CPU build, its distance from the float64 build printed
+HOST_BUILT = ("state_from_temperature",)
+COMPONENT_SEED = 16
+COMPONENT_TOL = 1e-6
+COMPONENT_DT = 5.0
+
+
+def component_calls(domain, so, f):
+    """``{name: call(state, prv) -> {output: tensor}}`` on ``domain`` with
+    storage ``so``; ``f`` the Coriolis parameter in rad s^-1."""
+    from datetime import datetime
+
+    from tasmania_tpu_torch.drivers.namelist_sus import load_namelist
+    from tasmania_tpu_torch.dwarfs import HorizontalVelocity, VerticalDamping, WaterConstituent
+    from tasmania_tpu_torch.framework.field import FieldArray
+    from tasmania_tpu_torch.framework.steppers import SequentialTendencyStepper, TendencyStepper
+    from tasmania_tpu_torch.isentropic import get_isentropic_state_from_temperature
+    from tasmania_tpu_torch.isentropic.physics import (
+        IsentropicConservativeCoriolis,
+        IsentropicImplicitVerticalAdvectionDiagnostic,
+        IsentropicImplicitVerticalAdvectionPrognostic,
+        PrescribedSurfaceHeating,
+    )
+    from tasmania_tpu_torch.physics import (
+        Clipping,
+        DryStaticEnergy,
+        KesslerSaturationAdjustmentDiagnostic,
+        MoistStaticEnergy,
+    )
+    from tasmania_tpu_torch.utils.meteo import convert_relative_humidity_to_water_vapor
+
+    grid, dt = domain.numerical_grid, COMPONENT_DT
+    kw = dict(storage_options=so)
+    qc = "mass_fraction_of_cloud_liquid_water_in_air"
+    cf = IsentropicConservativeCoriolis(domain, "numerical", FieldArray(f, "rad s^-1", ()), **kw)
+    ivd = IsentropicImplicitVerticalAdvectionDiagnostic(domain, moist=True, **kw)
+    ivp = IsentropicImplicitVerticalAdvectionPrognostic(domain, moist=True, **kw)
+    sts = SequentialTendencyStepper.factory("isentropic_vertical_advection",
+                                            IsentropicImplicitVerticalAdvectionDiagnostic(domain, moist=True, **kw))
+    sad = KesslerSaturationAdjustmentDiagnostic(domain, "numerical", **kw)
+    rk2sa = TendencyStepper.factory("rk2sa", KesslerSaturationAdjustmentDiagnostic(domain, "numerical", **kw))
+    clip = Clipping(domain, "numerical", **kw)
+    heat = PrescribedSurfaceHeating(domain, characteristic_length=6e4, frequency_sw=0.1, frequency_fw=0.3, **kw)
+    dse, mse = DryStaticEnergy(domain, "numerical", **kw), MoistStaticEnergy(domain, "numerical", **kw)
+    hv, wc = HorizontalVelocity(grid, **kw), WaterConstituent(grid, clipping=True, **kw)
+    damp = VerticalDamping.factory("rayleigh", grid, 15, 5e-4, **kw)
+    nl = load_namelist()
+
+    def flat(*dicts):
+        return {k: (fa.data if isinstance(fa, FieldArray) else fa) for d in dicts for k, fa in d.items()
+                if k != "time"}
+
+    def raw(st, *names):
+        return [st[n].data for n in names]
+
+    def velocity(st):
+        s, u, v, su, sv = raw(st, "air_isentropic_density", "x_velocity_at_u_locations",
+                              "y_velocity_at_v_locations", "x_momentum_isentropic", "y_momentum_isentropic")
+        mu, mv = hv.get_momenta(s, u, v)
+        vu, vv = hv.get_velocity_components(s, su, sv)
+        return {"su": mu, "sv": mv, "u": vu, "v": vv}
+
+    def water(st):
+        s, q = raw(st, "air_isentropic_density", qc)
+        sq = wc.get_density_of_water_constituent(s, q - 1e-3)
+        return {"sqc": sq, "qc": wc.get_mass_fraction_of_water_constituent_in_air(s, sq)}
+
+    def goff_gratch(st):
+        # in float64: the formula raises 10 to a sum of terms, and in float32
+        # its result moves by 1.3e-6 of its largest value (the port on the
+        # CPU at 41x41x120), past COMPONENT_TOL whatever the device
+        p_if, t = (a.double() for a in raw(st, "air_pressure_on_interface_levels", "air_temperature"))
+        p = 0.5 * (p_if[:, :, :-1] + p_if[:, :, 1:])
+        return {"qv": convert_relative_humidity_to_water_vapor("goff_gratch", p, t, torch.full_like(t, 1.05))}
+
+    def damping(st, prv):
+        s, p = raw(st, "air_isentropic_density", "air_pressure_on_interface_levels")
+        s1, p1 = raw(prv, "air_isentropic_density", "air_pressure_on_interface_levels")
+        return {"s": damp(dt, s, s1, 0.5 * (s + s1)), "p": damp(dt, p, p1, 0.5 * (p + p1))}
+
+    def from_temperature():
+        st = get_isentropic_state_from_temperature(
+            grid, datetime(1992, 2, 20), nl.x_velocity, nl.y_velocity, 250.0, bubble_center_x=2e4,
+            bubble_center_y=-1e4, bubble_center_height=3e3, bubble_radius=5e4,
+            bubble_maximum_perturbation=2.0, moist=True, precipitation=True, relative_humidity=0.9,
+            storage_options=so)
+        return flat(st)
+
+    return {
+        "coriolis": lambda st, prv: flat(cf(st)[0]),
+        "implicit_vertical_advection_diagnostic": lambda st, prv: flat(ivd(st, dt)[1]),
+        "implicit_vertical_advection_prognostic": lambda st, prv: flat(ivp(st, dt)[0]),
+        "isentropic_vertical_advection_sts": lambda st, prv: flat(sts(st, prv, dt)[1]),
+        "kessler_saturation_adjustment_diagnostic": lambda st, prv: flat(*sad(st, dt)),
+        "rk2sa": lambda st, prv: {f"stage2 {k}" if i == 0 else k: a for i, d in enumerate(rk2sa(st, dt))
+                                  for k, a in flat(d).items()},
+        "clipping": lambda st, prv: flat(clip({**st, qc: FieldArray(st[qc].data - 1e-3, "g g^-1")})),
+        "prescribed_surface_heating": lambda st, prv: flat(heat(st)[0]),
+        "static_energy": lambda st, prv: (lambda d: flat(d, mse({**st, **d})))(dse(st)),
+        "state_from_temperature": lambda st, prv: from_temperature(),
+        "goff_gratch": lambda st, prv: goff_gratch(st),
+        "horizontal_velocity": lambda st, prv: velocity(st),
+        "water_constituent": lambda st, prv: water(st),
+        "vertical_damping": damping,
+    }
+
+
+def component_states(state, theta, device, dtype, seed):
+    """The float64 ``state`` with seeded perturbations (momenta, vapour,
+    cloud and rain water, the θ-tendency, the potential temperature from the
+    levels' ``theta``), and a second, provisional one, rounded to float32
+    and placed in ``dtype`` on ``device``: so a float64 state holds the
+    float32 state's numbers."""
+    import numpy as np
+
+    from tasmania_tpu_torch.framework.field import FieldArray
+
+    shape = tuple(state["air_isentropic_density"].data.shape)
+    scales = {"x_momentum_isentropic": 0.1, "y_momentum_isentropic": 0.1,
+              "mass_fraction_of_water_vapor_in_air": 0.3, "air_isentropic_density": 0.02}
+
+    def build(gen):
+        arrays = {k: (fa.data.cpu().double().numpy(), fa.units, fa.dims) for k, fa in state.items()
+                  if k != "time"}
+        for k, scale in scales.items():
+            a, u, d = arrays[k]
+            arrays[k] = (a * (1.0 + scale * gen.standard_normal(shape)) + (
+                0.1 if k == "y_momentum_isentropic" else 0.0), u, d)
+        cell = ("x", "y", "z")
+        arrays["mass_fraction_of_cloud_liquid_water_in_air"] = (gen.uniform(0.0, 2e-3, shape), "g g^-1", cell)
+        arrays["mass_fraction_of_precipitation_water_in_air"] = (gen.uniform(0.0, 1e-3, shape), "g g^-1", cell)
+        arrays["tendency_of_air_potential_temperature"] = (0.05 * gen.standard_normal(shape), "K s^-1", cell)
+        arrays["air_potential_temperature"] = (np.broadcast_to(theta, shape), "K", cell)
+        out = {k: FieldArray(torch.as_tensor(np.asarray(a, dtype=np.float32)).to(device=device, dtype=dtype),
+                             u, d) for k, (a, u, d) in arrays.items()}
+        out["time"] = state["time"]
+        return out
+
+    return build(np.random.default_rng(seed)), build(np.random.default_rng(seed + 1))
+
+
+def components_phase(card, device="cuda", size=None, timer=None):
+    """Phase 15: each component of ``component_calls`` once on the card in
+    float32 against the port's float64 CPU result of the same call; ``size``
+    (nx, ny, nz) and ``timer`` let the phase be rehearsed on the CPU at a
+    small size.  Returns the JSON rows."""
+    from tasmania_tpu_torch.drivers import driver_namelist_sus as drv
+    from tasmania_tpu_torch.drivers.namelist_sus import load_namelist
+    from tasmania_tpu_torch.framework.options import StorageOptions
+    from tasmania_tpu_torch.ops import _lib
+
+    timer = timer or device_ms
+    grid = dict(zip(("nx", "ny", "nz"), size)) if size else {}
+    f32 = StorageOptions(dtype=torch.float32, device=device)
+    cpu64 = StorageOptions(dtype=torch.float64, device="cpu")
+    import numpy as np
+
+    domain, _, _ = drv.build_domain_and_state(load_namelist(relative_humidity=1.05, so=f32, **grid))
+    domain64, state64, _ = drv.build_domain_and_state(load_namelist(relative_humidity=1.05, so=cpu64, **grid))
+    theta = np.asarray(domain64.numerical_grid.z.to_units("K").data)
+    st, prv = component_states(state64, theta, device, torch.float32, COMPONENT_SEED)
+    st64, prv64 = component_states(state64, theta, "cpu", torch.float64, COMPONENT_SEED)
+    calls, calls64 = component_calls(domain, f32, 1e-4), component_calls(domain64, cpu64, 1e-4)
+    cpu32 = StorageOptions(dtype=torch.float32, device="cpu")
+    domain_cpu32, _, _ = drv.build_domain_and_state(load_namelist(relative_humidity=1.05, so=cpu32, **grid))
+    calls_cpu32 = component_calls(domain_cpu32, cpu32, 1e-4)
+    # the path: each component once, no kernel launched (plain PyTorch)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    _lib.reset_launch_counts()
+    outs = {name: call(st, prv) for name, call in calls.items()}
+    if dict(_lib.launch_counts):
+        raise AssertionError(f"components: launched {dict(_lib.launch_counts)}")
+    rows = []
+    for name, out in outs.items():
+        ref = calls64[name](st64, prv64)
+        if set(out) != set(ref):
+            raise AssertionError(f"component {name}: outputs {sorted(out)} vs {sorted(ref)}")
+        errs = []
+        host = calls_cpu32[name](None, None) if name in HOST_BUILT else {}
+        for key, r in ref.items():
+            g = out[key].double().cpu()
+            if not bool(torch.isfinite(g).all()):
+                raise AssertionError(f"component {name} {key} is not finite")
+            e = float((g - r).abs().max())
+            if name in HOST_BUILT:
+                if not torch.equal(out[key].cpu(), host[key]):
+                    raise AssertionError(f"component {name} {key}: the card's differs from the host's build")
+                scale = limit = float(r.abs().max())
+            elif name == "implicit_vertical_advection_prognostic":
+                # (new - old)/dt: the update, beside the float32 rounding of the field
+                base = st64[key].data
+                scale = float(r.abs().max())
+                limit = COMPONENT_TOL * scale + 4 * torch.finfo(torch.float32).eps * float(
+                    base.abs().max()) / COMPONENT_DT
+            else:
+                scale = float(r.abs().max())
+                limit = COMPONENT_TOL * scale
+            if not e <= limit:
+                raise AssertionError(f"component {name} {key}: max|d| = {e} > {limit} (scale {scale})")
+            errs.append((key, e / scale if scale else e))
+        call = calls[name]
+        ms, how = timer(lambda: call(st, prv))
+        worst = max(e for _, e in errs)
+        rows.append(dict(name=name, outputs=len(errs), rel_err=worst, device_ms=ms, timed_by=how))
+        held = ("built on the host, equal to the float32 CPU build bit for bit; its distance"
+                if name in HOST_BUILT else "largest error")
+        dtype = str(next(iter(out.values())).dtype).replace("torch.", "")
+        phase("component", f"{name} at {'x'.join(map(str, st['air_isentropic_density'].data.shape))} "
+              f"{dtype}: {ms:.4f} ms a call ({how}); {len(errs)} outputs, {held} {worst:.1e} of "
+              f"the largest magnitude of the float64 CPU result; no kernel launched")
+    return rows
 
 
 def main() -> int:
@@ -1690,7 +1952,8 @@ def main() -> int:
         nl_s = moist.load_namelist(coupling, niter=cfg["niter"], relative_humidity=cfg["relative_humidity"],
                                    **overrides)
         if ((nl_s.nx, nl_s.ny, nl_s.nz, nl_s.horizontal_flux_scheme, nl_s.hb_type)
-                != (cfg["nx"], cfg["ny"], cfg["nz"], cfg["horizontal_flux_scheme"], cfg["hb_type"])):
+                != (cfg["nx"], cfg["ny"], cfg["nz"], cfg["horizontal_flux_scheme"], cfg["hb_type"])
+                or any(cfg.get(k) != v for k, v in overrides.items() if k not in ("hb_type", "hb_kwargs"))):
             raise AssertionError(f"{reference} is not {path}'s configuration at the flagship's size")
         res, counts = drive(
             path, lambda n, c=coupling: moist.run(n, c, verbose=False), nl_s, LAUNCHES_PER_STEP[path],
@@ -1893,6 +2156,9 @@ def main() -> int:
               f"the largest magnitude of the float64 CPU result")
     del outs, dwarfs
     print(json.dumps({"dwarfs": dwarf_rows, "card": card}))
+
+    # -- 15. the physics surface's plain components ----------------------------
+    print(json.dumps({"components": components_phase(card, device), "card": card}))
 
     # -- 14. the decomposed run (BASELINE config 5) through driver_sharded ----
     sharded_phase(card, path_counts, path_steps)

@@ -20,6 +20,13 @@ re-export ``namelist_sus.py``); the coupling differs:
 * ``ssus`` -- symmetrized SUS: the first half of the process list before the
   dycore, the second half after it.
 
+With the namelist's ``coriolis_parameter`` set (``--coriolis F``) the
+Coriolis process comes first in fc's and lfc's chain, and after the
+diagnostics in the process list of the others (so ssus's halves move with
+it, as in the JAX driver).  Only sus takes ``implicit_vertical_advection``;
+the other couplings advect explicitly whatever it says, as the JAX driver
+does.
+
 With tendencies (fc, lfc) the dycore's stages take the two-kernel path
 (``ops/advection_step``); the others take the whole-stage kernel.  The
 namelist's ``process_merges`` (``--merge NAME``) apply to the sequential-update
@@ -34,7 +41,7 @@ Usage::
 
     python -m tasmania_tpu_torch.drivers.driver_isentropic_moist --coupling fc
         [--nx N] [--ny N] [--nz N] [--niter N] [--device cuda|cpu] [--merge NAME]
-        [--fused-loop]
+        [--coriolis F] [--implicit-vadv] [--fused-loop]
 
 The namelist's device is ``cuda``; without a GPU, ``run`` raises unless the
 namelist names the CPU (``--device cpu`` on the command line).
@@ -80,12 +87,11 @@ def build_variant(nl, coupling: str):
     if coupling == "sus":
         dycore, physics = build_model(nl, domain, pt)
         return domain, state, dycore, lambda st, dt: physics(dycore(st, {}, dt), dt)
-    if nl.coriolis_parameter is not None:
-        raise NotImplementedError("the Coriolis process is not ported; set coriolis_parameter=None")
     c = build_components(nl, domain, pt)
 
     if coupling in ("fc", "lfc"):
-        chain = ConcurrentCoupling(c["turb"], c["ke"], c["sa"], c["t2d"], c["vf"], c["rfv"], c["sd"])
+        chain = [c["turb"], c["ke"], c["sa"], c["t2d"], c["vf"], c["rfv"], c["sd"]]
+        chain = ConcurrentCoupling(*([c["cf"]] if "cf" in c else []), *chain)
         slow_diagnostics = ConcurrentCoupling(c["rfv"], c["ap"], c["hs"], c["vc"])
         if coupling == "fc":
             dycore = make_dycore(nl, domain, pt, fast_tendency_component=chain,

@@ -2,17 +2,23 @@
 of ``drivers/driver_namelist_sus.py``).
 
 The dycore steps the state, then the physics chain runs in sequence:
-diagnostics -> smoothing -> Smagorinsky (RK2) -> velocities -> Kessler (RK2)
--> saturation adjustment (RK2) -> vertical advection (RK3WS) -> fall velocity
-+ sedimentation (RK3WS) -> fall velocity + precipitation.  Kessler and
-saturation adjustment run as one fused pair; the namelist's
-``process_merges`` (``--merge NAME``, repeatable) also merge smoothing with
-Smagorinsky (``smooth_smag``) and vertical advection with sedimentation
-(``vadv_sed``), one kernel each.  ``skip`` leaves processes out
-(``namelist_sus.slice_skip`` gives the port's first slice); Coriolis is not
-ported and raises ``NotImplementedError``.  The step sequence is the JAX
-driver's: one step at zero mountain height (the warm-up), then ``niter``
-timed steps with the mountain at ``min((i+1)·dt/1800 s, 1)`` of its height.
+diagnostics -> [Coriolis (the physics scheme, RK2)] -> smoothing ->
+Smagorinsky (RK2) -> velocities -> Kessler (RK2) -> saturation adjustment
+(RK2) -> vertical advection (RK3WS; with ``implicit_vertical_advection``
+the Crank–Nicolson column solve, a diagnostic process) -> fall velocity +
+sedimentation (RK3WS) -> fall velocity + precipitation.  Coriolis runs when
+the namelist's ``coriolis_parameter`` is set (``--coriolis F``, in rad
+s^-1), the implicit vertical advection with ``--implicit-vadv``; both are
+plain PyTorch, as in the JAX package.  Kessler and saturation adjustment run
+as one fused pair; the namelist's ``process_merges`` (``--merge NAME``,
+repeatable) also merge smoothing with Smagorinsky (``smooth_smag``) and
+vertical advection with sedimentation (``vadv_sed``), one kernel each; the
+latter declines an implicit vertical advection, and sedimentation then runs
+alone, as in the JAX package.  ``skip`` leaves processes out
+(``namelist_sus.slice_skip`` gives the port's first slice).  The step
+sequence is the JAX driver's: one step at zero mountain height (the
+warm-up), then ``niter`` timed steps with the mountain at
+``min((i+1)·dt/1800 s, 1)`` of its height.
 
 ``--fused-loop`` (``fused_loop=True``; the JAX flag's name and meaning: no
 per-step dispatch) runs the timed steps as replays of one CUDA graph of the
@@ -24,7 +30,7 @@ Usage::
 
     python -m tasmania_tpu_torch.drivers.driver_namelist_sus [--nx N] [--ny N]
         [--nz N] [--niter N] [--device cuda|cpu] [--merge smooth_smag]
-        [--merge vadv_sed] [--fused-loop]
+        [--merge vadv_sed] [--coriolis F] [--implicit-vadv] [--fused-loop]
 
 The namelist's device is ``cuda``; without a GPU, ``run`` raises unless the
 namelist names the CPU (``--device cpu`` on the command line).
@@ -47,12 +53,16 @@ from tasmania_tpu_torch.framework.field import FieldArray
 from tasmania_tpu_torch.framework.options import TimeIntegrationOptions
 from tasmania_tpu_torch.framework.splitting import SequentialUpdateSplitting
 from tasmania_tpu_torch.isentropic.dynamics.dycore import IsentropicDynamicalCore
+from tasmania_tpu_torch.isentropic.physics.coriolis import IsentropicConservativeCoriolis
 from tasmania_tpu_torch.isentropic.physics.diagnostics import (
     IsentropicDiagnostics,
     IsentropicVelocityComponents,
 )
 from tasmania_tpu_torch.isentropic.physics.horizontal_smoothing import (
     IsentropicHorizontalSmoothing,
+)
+from tasmania_tpu_torch.isentropic.physics.implicit_vertical_advection import (
+    IsentropicImplicitVerticalAdvectionDiagnostic,
 )
 from tasmania_tpu_torch.isentropic.physics.turbulence import IsentropicSmagorinsky
 from tasmania_tpu_torch.isentropic.physics.vertical_advection import IsentropicVerticalAdvection
@@ -132,10 +142,12 @@ def make_dycore(nl, domain, pt, **fast_components):
 
 def build_components(nl, domain, pt):
     """Every physics component of the moist chain, under the keys of the
-    JAX driver's ``build_components`` (``drivers/driver_isentropic_moist.py:36-105``)
-    but for Coriolis, which is not ported."""
+    JAX driver's ``build_components`` (``drivers/driver_isentropic_moist.py:36-105``):
+    Coriolis (``"cf"``) when the namelist's ``coriolis_parameter`` is set,
+    and, when its ``implicit_vertical_advection`` is, the implicit vertical
+    advection (``"ivf"``), which only the SUS chain takes."""
     so = nl.so
-    return {
+    c = {
         "dv": IsentropicDiagnostics(domain, "numerical", moist=True, pt=pt, storage_options=so),
         "turb": IsentropicSmagorinsky(domain, nl.smagorinsky_constant, storage_options=so),
         "vc": IsentropicVelocityComponents(domain, storage_options=so),
@@ -173,41 +185,52 @@ def build_components(nl, domain, pt):
             storage_options=so,
         ),
     }
+    if nl.implicit_vertical_advection:
+        c["ivf"] = IsentropicImplicitVerticalAdvectionDiagnostic(domain, moist=True, storage_options=so)
+    if nl.coriolis_parameter is not None:
+        c["cf"] = IsentropicConservativeCoriolis(domain, "numerical", nl.coriolis_parameter,
+                                                 storage_options=so)
+    return c
 
 
-def physics_options(nl, c, skip=()):
+def physics_options(nl, c, skip=(), implicit_vertical_advection=False):
     """The chain's processes as ``TimeIntegrationOptions``, in the order of
     ``drivers/driver_namelist_sus.py:139-250`` (the splitting variants of
     ``drivers/driver_isentropic_moist.py:210-243`` share it); ``c`` holds
     the components of :func:`build_components`, ``skip`` names processes to
-    leave out."""
+    leave out.  ``implicit_vertical_advection`` takes the implicit process
+    in place of the explicit one, as the JAX SUS driver does when its
+    namelist asks; the other couplings' JAX drivers never do."""
     unknown = set(skip) - set(PROCESSES)
     if unknown:
         raise ValueError(f"unknown processes in skip: {sorted(unknown)}")
-    if nl.coriolis_parameter is not None and "coriolis" not in skip:
-        raise NotImplementedError("the Coriolis process is not ported; set coriolis_parameter=None")
     ptis = nl.physics_time_integration_scheme
+    if implicit_vertical_advection:
+        vertical = dict(component=c["ivf"])
+    else:
+        vertical = dict(component=c["vf"], scheme="rk3ws")
     processes = [
         ("diagnostics", dict(component=c["dv"])),
+        ("coriolis", dict(component=c["cf"], scheme=ptis) if "cf" in c else None),
         ("smoothing", dict(component=c["hs"]) if nl.smooth else None),
         ("smagorinsky", dict(component=c["turb"], scheme=ptis)),
         ("velocities", dict(component=c["vc"])),
         ("kessler", dict(component=ConcurrentCoupling(c["ke"], c["t2d"]), scheme=ptis)),
         ("satadj", dict(component=ConcurrentCoupling(c["d2t"], c["sa"], c["t2d"]), scheme=ptis)),
-        ("vertical_advection", dict(component=c["vf"], scheme="rk3ws") if nl.vertical_advection else None),
+        ("vertical_advection", vertical if nl.vertical_advection else None),
         ("sedimentation", dict(component=ConcurrentCoupling(c["rfv"], c["sd"]), scheme="rk3ws")),
         ("precipitation", dict(component=ConcurrentCoupling(c["rfv"], c["ap"]))),
     ]
-    if nl.vertical_advection and nl.implicit_vertical_advection and "vertical_advection" not in skip:
-        raise NotImplementedError("implicit vertical advection is not ported")
     return [TimeIntegrationOptions(**kw) for name, kw in processes if kw is not None and name not in skip]
 
 
 def build_model(nl, domain, pt, skip=()):
     """Dycore + physics chain, as ``drivers/driver_namelist_sus.py:87-251``
-    builds it, with the namelist's ``process_merges``.  ``skip`` names
-    processes to leave out."""
-    options = physics_options(nl, build_components(nl, domain, pt), skip)
+    builds it, with the namelist's ``process_merges`` and
+    ``implicit_vertical_advection``.  ``skip`` names processes to leave
+    out."""
+    options = physics_options(nl, build_components(nl, domain, pt), skip,
+                              implicit_vertical_advection=nl.implicit_vertical_advection)
     return make_dycore(nl, domain, pt), SequentialUpdateSplitting(*options, merges=nl.process_merges)
 
 
@@ -376,7 +399,8 @@ def validation_summary(fields: Dict[str, np.ndarray]) -> Dict[str, float]:
 
 def size_parser(description: str) -> argparse.ArgumentParser:
     """The drivers' command line: grid size, step count, device, the
-    process merges and the fused loop."""
+    process merges, Coriolis, the implicit vertical advection and the fused
+    loop."""
     parser = argparse.ArgumentParser(description=description)
     parser.add_argument("--nx", type=int, default=None)
     parser.add_argument("--ny", type=int, default=None)
@@ -386,6 +410,11 @@ def size_parser(description: str) -> argparse.ArgumentParser:
     parser.add_argument("--merge", action="append", default=[], metavar="NAME",
                         help="run a SUS process pair as one kernel: smooth_smag, vadv_sed "
                              "(repeatable)")
+    parser.add_argument("--coriolis", type=float, default=None, metavar="F",
+                        help="the Coriolis parameter f in rad s^-1 (the f-plane process)")
+    parser.add_argument("--implicit-vadv", action="store_true",
+                        help="implicit (Crank-Nicolson) vertical advection; the SUS chain "
+                             "only, as in the JAX drivers")
     parser.add_argument("--fused-loop", action="store_true",
                         help="run the timed steps as replays of one CUDA graph of the step "
                              "(removes per-step dispatch; needs a CUDA device)")
@@ -410,6 +439,10 @@ def namelist_from(parser, cli, load_namelist):
         overrides["niter"] = cli.niter
     if cli.merge:
         overrides["process_merges"] = tuple(cli.merge)
+    if cli.coriolis is not None:
+        overrides["coriolis_parameter"] = cli.coriolis
+    if cli.implicit_vadv:
+        overrides["implicit_vertical_advection"] = True
     overrides["so"] = replace(load_namelist().so, device=device)
     return load_namelist(**overrides)
 

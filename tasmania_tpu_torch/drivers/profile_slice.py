@@ -22,6 +22,12 @@ stage (the advection of the fields and the momentum step, the boundary's
 enforcement in PyTorch) in place of the whole-stage kernel, as
 ``chip_smoke.py``'s ``sus_periodic`` runs it.
 
+``--coriolis F`` sets the namelist's Coriolis parameter (rad s^-1) and
+``--implicit-vadv`` its implicit vertical advection (the SUS chain only);
+with the latter the script also profiles the implicit process alone on the
+step's fields: its device time and device operations a call under the
+profiler, and the time of one call replayed as a CUDA graph by CUDA events.
+
 ``--fused-loop`` profiles the step as the drivers' ``--fused-loop`` runs it:
 after the untraced steps (the last of them traced for the fields it reads,
 ``utils/jitx.py``), one CUDA graph of the step is captured and replayed once
@@ -30,7 +36,7 @@ prints the device time of the replays by CUDA events around them.
 
 Usage: ``python -m tasmania_tpu_torch.drivers.profile_slice [--steps N]
 [--slice | --coupling C | --mountain-wave | --burgers CASE] [--merge NAME]
-[--boundary periodic] [--fused-loop]``
+[--boundary periodic] [--coriolis F] [--implicit-vadv] [--fused-loop]``
 (needs a CUDA device).
 """
 
@@ -48,6 +54,9 @@ from tasmania_tpu_torch.drivers import driver_isentropic_moist as moist
 from tasmania_tpu_torch.drivers import driver_mountain_wave as mw
 from tasmania_tpu_torch.drivers import driver_namelist_sus as drv
 from tasmania_tpu_torch.framework.options import StorageOptions
+from tasmania_tpu_torch.isentropic.physics.implicit_vertical_advection import (
+    IsentropicImplicitVerticalAdvectionDiagnostic,
+)
 from tasmania_tpu_torch.utils.jitx import StepBody, StepGraph, traced_step
 
 
@@ -68,6 +77,10 @@ def parse(argv=None) -> argparse.Namespace:
                         help="a SUS process merge of the full chain (repeatable)")
     parser.add_argument("--boundary", choices=sorted(BOUNDARIES),
                         help="the isentropic model's lateral boundary in place of the namelist's")
+    parser.add_argument("--coriolis", type=float, default=None, metavar="F",
+                        help="the Coriolis parameter in rad s^-1 (the f-plane process)")
+    parser.add_argument("--implicit-vadv", action="store_true",
+                        help="implicit vertical advection in the SUS chain; also profile it alone")
     parser.add_argument("--fused-loop", action="store_true",
                         help="profile replays of one CUDA graph of the step")
     cli = parser.parse_args(argv)
@@ -75,16 +88,69 @@ def parse(argv=None) -> argparse.Namespace:
         parser.error("--slice, --coupling, --mountain-wave and --burgers exclude each other")
     if cli.merge and (cli.slice or cli.mountain_wave or cli.burgers):
         parser.error("--merge applies to the full chain")
-    if cli.boundary and (cli.mountain_wave or cli.burgers):
-        parser.error("--boundary applies to the isentropic model's namelist")
+    if (cli.boundary or cli.coriolis is not None) and (cli.mountain_wave or cli.burgers):
+        parser.error("--boundary and --coriolis apply to the isentropic model's namelist")
+    if cli.implicit_vadv and (cli.slice or cli.mountain_wave or cli.burgers or cli.coupling != "sus"):
+        parser.error("--implicit-vadv applies to the full SUS chain")
     return cli
 
 
 def namelist(cli: argparse.Namespace):
     """The isentropic run's namelist: coupling C's, with the merges and the
     boundary of the command line."""
+    physics = {"implicit_vertical_advection": cli.implicit_vadv}
+    if cli.coriolis is not None:
+        physics["coriolis_parameter"] = cli.coriolis
     return moist.load_namelist(cli.coupling, process_merges=tuple(cli.merge),
-                               **BOUNDARIES.get(cli.boundary, {}))
+                               **BOUNDARIES.get(cli.boundary, {}), **physics)
+
+
+def device_operations(prof) -> dict:
+    """``{name: (us, count)}`` of the device's kernels and copies in a
+    profile (host-side operator rows would count the same time twice)."""
+    per_name: dict = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            t, n = per_name.get(e.name, (0.0, 0))
+            per_name[e.name] = (t + e.time_range.elapsed_us(), n + 1)
+    return per_name
+
+
+def profile_implicit(domain, fields, dt: float, calls: int) -> str:
+    """The implicit vertical advection alone on ``fields``: device time and
+    operations a call under the profiler, and a call replayed as a CUDA
+    graph, timed by CUDA events."""
+    ivf = IsentropicImplicitVerticalAdvectionDiagnostic(
+        domain, moist=True, storage_options=StorageOptions(dtype=torch.float32, device="cuda"))
+    st = {k: fields[k] for k in ivf.input_properties}
+    for _ in range(2):
+        ivf(st, dt)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            ivf(st, dt)
+        torch.cuda.synchronize()
+    per_name = device_operations(prof)
+    busy = 1e-3 * sum(t for t, _ in per_name.values()) / calls
+    ops = sum(n for _, n in per_name.values()) / calls
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        ivf(st, dt)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        ivf(st, dt)
+    graph.replay()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(calls):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    return (f"implicit vertical advection alone ({'x'.join(map(str, st['air_isentropic_density'].data.shape))}, "
+            f"six fields, {calls} calls): device busy {busy:.3f} ms a call, {ops:.0f} device operations a "
+            f"call; as a CUDA graph {start.elapsed_time(end) / calls:.3f} ms a call by CUDA events")
 
 
 def main(argv=None) -> None:
@@ -108,7 +174,7 @@ def main(argv=None) -> None:
             dycore, physics = drv.build_model(nl, domain, pt, nl.slice_skip)
             step_impl = lambda st, dt: physics(dycore(st, {}, dt), dt)  # noqa: E731
         else:
-            _, state, dycore, step_impl = moist.build_variant(nl, cli.coupling)
+            domain, state, dycore, step_impl = moist.build_variant(nl, cli.coupling)
         names = sorted(k for k in state if k != "time")
         step = drv.fields_step(step_impl, names, nl.timestep.total_seconds())
     if not cli.burgers:
@@ -141,13 +207,7 @@ def main(argv=None) -> None:
         advance(cli.steps)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    # kernels and copies on the device, by name (host-side operator rows
-    # would count the same device time twice)
-    per_name: dict = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            t, n = per_name.get(e.name, (0.0, 0))
-            per_name[e.name] = (t + e.time_range.elapsed_us(), n + 1)
+    per_name = device_operations(prof)
     busy_us = sum(t for t, _ in per_name.values())
     calls = sum(n for _, n in per_name.values())
     chain = (f"burgers {cli.burgers}" if cli.burgers else "mountain wave" if cli.mountain_wave
@@ -155,6 +215,10 @@ def main(argv=None) -> None:
              else f"full chain, {cli.coupling}" + "".join(f", merge {m}" for m in cli.merge))
     if cli.boundary:
         chain += f", {cli.boundary} boundary"
+    if cli.coriolis is not None:
+        chain += f", Coriolis f = {cli.coriolis:g} rad/s"
+    if cli.implicit_vadv:
+        chain += ", implicit vertical advection"
     if graph is not None:
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
@@ -171,6 +235,8 @@ def main(argv=None) -> None:
     print(f"{'kernel':<70} {'ms/step':>9} {'calls/step':>10}")
     for name, (t, n) in sorted(per_name.items(), key=lambda kv: -kv[1][0])[:30]:
         print(f"{name[:70]:<70} {1e-3 * t / cli.steps:9.3f} {n / cli.steps:10.1f}")
+    if cli.implicit_vadv:
+        print(profile_implicit(domain, fields, nl.timestep.total_seconds(), cli.steps))
 
 
 if __name__ == "__main__":

@@ -7,13 +7,17 @@ sequential-tendency steppers, ``x'`` the provisional state:
 
 * FE    : out = x + dt·f(x)
 * RK2   : x1 = x + dt/2·f(x);  out = x + dt·f(x1)
+* RK2SA : RK2, returning the diagnostics of the second stage
 * RK3WS : x1 = x + dt/3·f(x);  x2 = x + dt/2·f(x1);  out = x + dt·f(x2)
 * STS-FE    : out = x' + dt·f(x)
 * STS-RK2   : x1 = ½(x + x' + dt·f(x));  out = x' + dt·f(x1)
 * STS-RK3WS : x1 = (2x + x' + dt·f(x))/3;  x2 = ½(x + x' + dt·f(x1));
               out = x' + dt·f(x2)
 
-The diagnostics returned are those of the first stage.  RK2 and RK3WS first
+The diagnostics returned are those of the first stage (RK2SA's: of the
+second).  ``isentropic/physics/sequential_tendency_stepper.py`` adds the
+sequential-tendency scheme ``"isentropic_vertical_advection"``; a factory
+selects among the subclasses imported.  RK2 and RK3WS first
 ask the coupling, then its single component, for one operation that runs the
 whole step (``fused_rk_step``); that is the kernel path on the card.  The
 sequential-tendency steppers always go stage by stage.
@@ -125,6 +129,19 @@ class RK2(TendencyStepper):
             return fused
         diagnostics, _, stage1 = self._stage(state, state, 0.5 * dt, dt)
         _, out, _ = self._stage(stage1, state, dt, dt)
+        return diagnostics, out
+
+
+class RK2SA(TendencyStepper):
+    """RK2 that returns the diagnostics of its second stage, for a component
+    whose diagnostics are the adjusted state
+    (``KesslerSaturationAdjustmentDiagnostic``); it never fuses."""
+
+    name = "rk2sa"
+
+    def _call(self, state, dt):
+        _, _, stage1 = self._stage(state, state, 0.5 * dt, dt)
+        diagnostics, out, _ = self._stage(stage1, state, dt, dt)
         return diagnostics, out
 
 

@@ -5,6 +5,8 @@
   with its θ-tendency;
 * ``KesslerSaturationAdjustmentPrognostic``: relaxed adjustment at
   ``saturation_rate``;
+* ``KesslerSaturationAdjustmentDiagnostic``: the adjustment in one go, the
+  adjusted state as diagnostics (stepped by ``"rk2sa"``);
 * ``KesslerFallVelocity``: raindrop fall speed;
 * ``KesslerSedimentation``: the qr tendency of the sedimentation flux.
 
@@ -27,7 +29,7 @@ from tasmania_tpu_torch.framework.core_components import (
     ImplicitTendencyComponent,
     TendencyComponent,
 )
-from tasmania_tpu_torch.framework.field import FieldArray, get_array_dict
+from tasmania_tpu_torch.framework.field import FieldArray, ensure_timedelta_seconds, get_array_dict
 from tasmania_tpu_torch.framework.splitting import register_process_pair_fuser
 from tasmania_tpu_torch.isentropic.physics.vertical_advection import IsentropicVerticalAdvection
 from tasmania_tpu_torch.ops.kessler_step import tetens
@@ -177,6 +179,52 @@ class KesslerSaturationAdjustmentPrognostic(_KesslerBase):
             mfcw: -self.sr * dq,
             "air_potential_temperature": -self.sr * (lhvw / exn) * dq,
         }, {}
+
+
+class KesslerSaturationAdjustmentDiagnostic(_KesslerBase):
+    """Saturation adjustment in one go: the adjusted qv, qc and temperature
+    as diagnostics, the θ-tendency of the latent heat over the timestep as a
+    tendency (1 s when called without one, as in the JAX package).  Its
+    stepper is ``"rk2sa"``, which returns the adjusted state of its second
+    stage."""
+
+    @property
+    def input_properties(self):
+        return self.with_pressure({
+            "air_temperature": {"dims": DIMS, "units": "K"},
+            mfwv: {"dims": DIMS, "units": "g g^-1"},
+            mfcw: {"dims": DIMS, "units": "g g^-1"},
+        })
+
+    @property
+    def tendency_properties(self):
+        return {"air_potential_temperature": {"dims": DIMS, "units": "K s^-1"}}
+
+    @property
+    def diagnostic_properties(self):
+        return {
+            mfwv: {"dims": DIMS, "units": "g g^-1"},
+            mfcw: {"dims": DIMS, "units": "g g^-1"},
+            "air_temperature": {"dims": DIMS, "units": "K"},
+        }
+
+    def _raw_call(self, raw, timestep):
+        return self.array_call(raw, ensure_timedelta_seconds(timestep) if timestep is not None else 1.0)
+
+    def array_call(self, state, timestep: float):
+        rv = self.rpc["gas_constant_of_water_vapor"]
+        lhvw = self.rpc["latent_heat_of_vaporization_of_water"]
+        cp = self.rpc["specific_heat_of_dry_air_at_constant_pressure"]
+        t, qv, qc = state["air_temperature"], state[mfwv], state[mfcw]
+        p, exn = self.p_exn(state)
+        qvs = self.saturation_mixing_ratio(t, p)
+        sat = (qvs - qv) / (1.0 + qvs * lhvw**2 / (cp * rv * t**2))
+        dq = torch.where(sat <= qc, sat, qc)
+        return {"air_potential_temperature": (lhvw / exn) * (-dq / timestep)}, {
+            mfwv: qv + dq,
+            mfcw: qc - dq,
+            "air_temperature": t - dq * lhvw / cp,
+        }
 
 
 class KesslerFallVelocity(DiagnosticComponent):

@@ -1,14 +1,45 @@
-"""Precipitation and sedimentation fluxes (counterpart of
-``tasmania_tpu/physics/microphysics/utils.py``, ``Precipitation`` and the
-first- and second-order upwind ``SedimentationFlux``)."""
+"""Clipping, precipitation and sedimentation fluxes (counterpart of
+``tasmania_tpu/physics/microphysics/utils.py``: ``Clipping``,
+``Precipitation`` and the first- and second-order upwind
+``SedimentationFlux``)."""
 
 from __future__ import annotations
 
-from tasmania_tpu_torch.framework.core_components import ImplicitTendencyComponent
+from typing import Optional, Sequence
 
+import torch
+
+from tasmania_tpu_torch.framework.core_components import (
+    DiagnosticComponent,
+    ImplicitTendencyComponent,
+)
+
+mfwv = "mass_fraction_of_water_vapor_in_air"
+mfcw = "mass_fraction_of_cloud_liquid_water_in_air"
 mfpw = "mass_fraction_of_precipitation_water_in_air"
 
 DIMS = ("x", "y", "z")
+
+
+class Clipping(DiagnosticComponent):
+    """The water species clipped to q >= 0."""
+
+    def __init__(self, domain, grid_type: str = "numerical",
+                 water_species_names: Optional[Sequence[str]] = None, **kwargs) -> None:
+        super().__init__(domain, grid_type, **kwargs)
+        self.names = tuple(water_species_names or (mfwv, mfcw, mfpw))
+
+    @property
+    def input_properties(self):
+        return {name: {"dims": DIMS, "units": "g g^-1"} for name in self.names}
+
+    @property
+    def diagnostic_properties(self):
+        return self.input_properties
+
+    def array_call(self, state):
+        return {name: torch.where(state[name] > 0.0, state[name], torch.zeros_like(state[name]))
+                for name in self.names}
 
 
 class Precipitation(ImplicitTendencyComponent):

@@ -1,31 +1,53 @@
 """Meteorological formulas (counterpart of ``tasmania_tpu/utils/meteo.py``):
-Tetens saturation vapor pressure, the RH -> water-vapor conversion of the
-initial state, and the isothermal analytic mountain-wave solution the
+the Tetens and Goff-Gratch saturation vapor pressures, the RH -> water-vapor
+conversion of the initial state, and the isothermal analytic mountain-wave solution the
 mountain-wave driver validates against.  Host-side numpy, like the
-initial-state construction and the validation that call them."""
+initial-state construction and the validation that call them.  The two
+saturation formulas and the conversion also take tensors, on any device."""
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from tasmania_tpu_torch.framework.field import FieldArray
 from tasmania_tpu_torch.utils.constants import get_physical_constants
 
 
+def _namespace(x):
+    return torch if isinstance(x, torch.Tensor) else np
+
+
 def tetens_formula(t):
     """Saturation vapor pressure over water [Pa]."""
     pw, aw, tr, bw = 610.78, 17.27, 273.16, 35.86
-    return pw * np.exp(aw * (t - tr) / (t - bw))
+    return pw * _namespace(t).exp(aw * (t - tr) / (t - bw))
+
+
+def goff_gratch_formula(t):
+    """Saturation vapor pressure over water [Pa]."""
+    c1, c2, c3, c4, c5, c6 = 7.90298, 5.02808, 1.3816e-7, 11.344, 8.1328e-3, 3.49149
+    t_st, e_st = 373.15, 1013.25e2
+    return e_st * 10 ** (
+        -c1 * (t_st / t - 1.0)
+        + c2 * _namespace(t).log10(t_st / t)
+        - c3 * (10.0 ** (c4 * (1.0 - t / t_st)) - 1.0)
+        + c5 * (10 ** (-c6 * (t_st / t - 1.0)) - 1.0)
+    )
+
+
+SATURATION_FORMULAS = {"tetens": tetens_formula, "goff_gratch": goff_gratch_formula}
 
 
 def convert_relative_humidity_to_water_vapor(method: str, p, t, rh):
-    """RH -> qv [g g^-1] on raw arrays in (Pa, K, 1)."""
-    if method != "tetens":
-        raise NotImplementedError(f"saturation formula {method!r} is not ported")
-    p_sat = tetens_formula(t)
+    """RH -> qv [g g^-1] on raw arrays in (Pa, K, 1); ``method`` names the
+    saturation formula, ``"tetens"`` or ``"goff_gratch"``."""
+    if method not in SATURATION_FORMULAS:
+        raise ValueError(f"unknown saturation formula {method!r}")
+    p_sat = SATURATION_FORMULAS[method](t)
     pw = rh * p_sat
     B = 0.62198
-    return np.where(p_sat >= 0.616 * p, 0.0, B * pw / (p - pw))
+    return _namespace(p).where(p_sat >= 0.616 * p, 0.0, B * pw / (p - pw))
 
 
 def get_isothermal_isentropic_analytical_solution(

@@ -47,9 +47,10 @@ third_order_upwind``: the two-kernel stage at third order) and
 boundary).
 
 Usage: ``python tests/make_torch_flagship_reference.py [--rain | --merges |
---coupling C | --sharded] [--flux SCHEME] [--boundary TYPE]`` (about five minutes, a
-minute and a half with ``--rain``, ``--merges``, ``--coupling``, ``--flux``
-or ``--boundary``).  With ``--check-port`` it writes no reference:
+--coupling C | --sharded] [--flux SCHEME] [--boundary TYPE] [--coriolis F]
+[--implicit-vadv]`` (about five minutes, a minute and a half with
+``--rain``, ``--merges``, ``--coupling``, ``--flux``, ``--boundary``,
+``--coriolis`` or ``--implicit-vadv``).  With ``--check-port`` it writes no reference:
 it runs the port on the CPU in float32 at the same configuration and prints
 each number's relative deviation from the file, the measurement behind the
 limits ``chip_smoke.py`` holds the card to.  With ``--float64`` it runs the
@@ -59,6 +60,18 @@ minute): ``chip_smoke.py`` phase 13 holds the same run in float64 on the
 card to ``flagship_periodic_float64.json`` (``--boundary periodic
 --float64``), the witness that the card's float32 differences on that path
 are rounding and not a fault.
+
+``--coriolis F`` sets the namelist's ``coriolis_parameter`` (rad s^-1) and
+``--implicit-vadv`` its ``implicit_vertical_advection`` (SUS only: the
+other couplings' JAX drivers advect explicitly whatever it says), each on
+the couplings' supersaturated start, 1 warm-up + 20 steps:
+``flagship_coriolis_implicit_reference.json`` (``--coriolis 1e-4
+--implicit-vadv``: the f-plane and the Crank–Nicolson column solve in the
+SUS chain) and ``variant_fc_coriolis_reference.json`` (``--coupling fc
+--coriolis 1e-4``).  The JAX registry resolves the Thomas solve for
+``"pallas"`` but not for its CPU emulation, ``"pallas:interpret"``, so this
+script registers the same function (``thomas_jax``) there in its own
+process.
 
 ``--sharded`` makes ``sharded_reference.json``, the reference of the
 domain-decomposed run (BASELINE config 5, ``drivers/driver_sharded.py``):
@@ -105,8 +118,8 @@ BOUNDARIES = ("periodic",)
 
 
 def surface_overrides(argv):
-    """The namelist overrides of ``--flux`` and ``--boundary``, and the
-    file name's suffix ("" without either)."""
+    """The namelist overrides of ``--flux``, ``--boundary``, ``--coriolis``
+    and ``--implicit-vadv``, and the file name's suffix ("" without any)."""
     overrides, suffix = {}, ""
     if "--flux" in argv:
         flux = argv[argv.index("--flux") + 1]
@@ -120,7 +133,24 @@ def surface_overrides(argv):
             raise SystemExit(f"--boundary: one of {BOUNDARIES}")
         overrides.update(hb_type=boundary, hb_kwargs={})
         suffix += "_periodic"
+    if "--coriolis" in argv:
+        overrides["coriolis_parameter"] = float(argv[argv.index("--coriolis") + 1])
+        suffix += "_coriolis"
+    if "--implicit-vadv" in argv:
+        overrides["implicit_vertical_advection"] = True
+        suffix += "_implicit"
     return overrides, suffix
+
+
+def register_interpret_thomas() -> None:
+    """The Thomas solve of the implicit vertical advection under
+    ``"pallas:interpret"``: the JAX registry has it for ``"pallas"`` (its
+    ``lax.scan`` version) but not for the CPU emulation; register the same
+    function there, in this process."""
+    from tasmania_tpu.framework.stencil import STENCIL_REGISTRY
+    from tasmania_tpu.framework.stencil_definitions import thomas_jax
+
+    STENCIL_REGISTRY.register(thomas_jax, "thomas", BACKEND)
 
 
 def check_port(out, overrides, coupling=None, merges=(), float64=False) -> None:
@@ -259,8 +289,10 @@ def main() -> None:
         raise SystemExit(f"--coupling: one of {COUPLINGS}")
     surface, suffix = surface_overrides(argv)
     if sum((rain, bool(merges), coupling is not None)) > 1 or (surface and (rain or merges)):
-        raise SystemExit("--rain, --merges and --coupling exclude each other, and --flux and "
-                         "--boundary go with --coupling or alone")
+        raise SystemExit("--rain, --merges and --coupling exclude each other, and --flux, "
+                         "--boundary, --coriolis and --implicit-vadv go with --coupling or alone")
+    if "implicit_vertical_advection" in surface and coupling is not None:
+        raise SystemExit("--implicit-vadv: the SUS chain's switch (the other couplings ignore it)")
     if surface:
         overrides = {**VARIANT, **surface}
         out = DRIVERS / f"{f'variant_{coupling}' if coupling else 'flagship'}{suffix}_reference.json"
@@ -278,6 +310,8 @@ def main() -> None:
         return
     for switch in JAX_MERGE_SWITCHES if merges else ():
         os.environ[switch] = "1"
+    if "implicit_vertical_advection" in surface:
+        register_interpret_thomas()
     import importlib
 
     import jax
@@ -326,13 +360,16 @@ def main() -> None:
     }
     if coupling is not None:
         ref["config"]["coupling"] = coupling
+    for key in ("coriolis_parameter", "implicit_vertical_advection"):
+        if key in surface:
+            ref["config"][key] = surface[key]
     if merges:
         ref["config"]["process_merges"] = list(merges)
         ref["config"]["jax_switches"] = list(JAX_MERGE_SWITCHES)
     ref["command"] = "python tests/make_torch_flagship_reference.py" + (
         f" --coupling {coupling}" if coupling else " --rain" if rain else " --merges" if merges else ""
-    ) + "".join(f" {flag} {argv[argv.index(flag) + 1]}" for flag in ("--flux", "--boundary")
-                if flag in argv)
+    ) + "".join(f" {flag} {argv[argv.index(flag) + 1]}" for flag in ("--flux", "--boundary", "--coriolis")
+                if flag in argv) + (" --implicit-vadv" if "--implicit-vadv" in argv else "")
     out.write_text(json.dumps(ref, indent=1) + "\n")
     print(json.dumps(ref, indent=1))
     print(f"{elapsed:.1f} s")

@@ -11,7 +11,8 @@ it (and the PR that redesigned it for Hopper), its route and source,
 its launches per step on each path that runs it (the full-size runs of
 phases 5, 7, 8, 9 and 13: the flagship's SUS chain, the five other
 couplings, the mountain wave, the SUS chain with both process merges,
-sus_merged, and the surface paths sus_third, fc_third and sus_periodic;
+sus_merged, and the surface paths sus_third, fc_third, sus_periodic,
+sus_coriolis_implicit and fc_coriolis;
 phase 12's one call of each dwarf, ``dwarfs``; phase 14's rank of the
 decomposed run, ``sharded``)
 and the times that run measured on the card: kernel, plain version and,

@@ -12,7 +12,8 @@ on the CPU, where a CUDA graph cannot run.
   run eagerly after the traced warm-up step as the drivers run it before
   capture, gives the eager ``run_steps`` result bit for bit over 1 + 3 steps
   for sus, sus with both merges, each other coupling (fc, lfc, ps, sts,
-  ssus), sus and fc at third order, sus on the periodic boundary (the
+  ssus), sus and fc at third order, sus on the periodic boundary, sus with
+  Coriolis and the implicit vertical advection, fc with Coriolis (the
   surface paths of ``chip_smoke.py`` phase 13) and the mountain wave.
 * The same for both cases of the Burgers driver, whose zhao step takes
   its start time from the body's table.
@@ -59,6 +60,8 @@ SURFACE_PATHS = {
     "sus_third": ("sus", {"horizontal_flux_scheme": "third_order_upwind"}),
     "fc_third": ("fc", {"horizontal_flux_scheme": "third_order_upwind"}),
     "sus_periodic": ("sus", {"hb_type": "periodic", "hb_kwargs": {}}),
+    "sus_coriolis_implicit": ("sus", {"coriolis_parameter": 1e-4, "implicit_vertical_advection": True}),
+    "fc_coriolis": ("fc", {"coriolis_parameter": 1e-4}),
 }
 # the mountain wave: 17 x 1 x 20, 1 + 3 steps of 20 s
 MW = dict(nx=17, nz=20, hours=4 * 20.0 / 3600.0, dt=20.0)

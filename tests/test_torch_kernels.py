@@ -39,7 +39,8 @@ columns with the fused kernels' gates, counted under its own name; the fused
 kernels still taking their tallest columns; the wrappers naming their cell
 limit.  The fused loop: a CUDA graph of the step equal to the eager run bit
 for bit (every coupling, sus and fc at third order, sus on the periodic
-boundary at 41x41x20, the mountain wave, Burgers, 1 + 5 steps),
+boundary, sus with Coriolis and the implicit vertical advection, fc with
+Coriolis at 41x41x20, the mountain wave, Burgers, 1 + 5 steps),
 its captured step launching ``chip_smoke.py``'s ``LAUNCHES_PER_STEP``.  The
 input helpers here are shared with ``tests/test_torch_ops.py``,
 ``tests/test_torch_physics_ops.py`` and ``tests/test_torch_merges.py``.
@@ -1018,14 +1019,15 @@ GRAPH_SIZE = dict(nx=41, ny=41, nz=20, niter=5)
 @pytest.mark.cuda
 @pytest.mark.parametrize("path", ["sus", "sus_merged", "fc", "lfc", "ps", "sts", "ssus", "mountain_wave",
                                   "burgers_bench", "burgers_zhao", "sus_third", "fc_third",
-                                  "sus_periodic"])
+                                  "sus_periodic", "sus_coriolis_implicit", "fc_coriolis"])
 def test_fused_loop_graph_matches_eager(cuda_device, path):
     """41x41x20 (the mountain wave 41x1x20, Burgers 41x41), float32, 1 + 5
     steps: the CUDA graph's final fields equal the eager run's bit for bit,
     and one captured step launches what ``chip_smoke.py`` counts for the
     path (``LAUNCHES_PER_STEP``; Burgers no kernel), as one eager step
     does.  ``SURFACE_PATHS`` are couplings with namelist overrides (third
-    order, the periodic boundary)."""
+    order, the periodic boundary, Coriolis and the implicit vertical
+    advection)."""
     from chip_smoke import LAUNCHES_PER_STEP, SURFACE_PATHS
     from tasmania_tpu_torch.drivers import driver_burgers as burgers
     from tasmania_tpu_torch.drivers import driver_isentropic_moist as moist

@@ -99,7 +99,9 @@ def test_port_imports_no_jax():
     a CPU step of the full flagship chain (the driver's default, with both
     process merges, at third order, with first-order fluxes on the periodic
     boundary and on the Dirichlet one), of each coupling of the variant
-    driver (and ssus with both merges, fc at third order), a forward-Euler
+    driver (and ssus with both merges, fc at third order), the paths of
+    Coriolis and implicit vertical advection (SUS with both, fc with
+    Coriolis), importing the physics packages' exports, a forward-Euler
     dycore step, two steps of the mountain-wave driver and two steps
     of each case of the Burgers driver (which import the Burgers model, the
     Dirichlet boundary and the diffusion dwarf), and importing the other
@@ -128,6 +130,10 @@ def test_port_imports_no_jax():
         "for coupling in moist.COUPLINGS:\n"
         "    moist.run(moist.load_namelist(coupling, **size), coupling, verbose=False)\n"
         "moist.run(moist.load_namelist('ssus', **size, process_merges=merges), 'ssus', verbose=False)\n"
+        "run(load_namelist(**size, coriolis_parameter=1e-4, implicit_vertical_advection=True), verbose=False)\n"
+        "moist.run(moist.load_namelist('fc', **size, coriolis_parameter=1e-4), 'fc', verbose=False)\n"
+        "import tasmania_tpu_torch.isentropic, tasmania_tpu_torch.isentropic.physics, tasmania_tpu_torch.physics\n"
+        "import tasmania_tpu_torch.dwarfs\n"
         "from tasmania_tpu_torch.drivers import driver_mountain_wave as mw\n"
         "mw.run_case(17, 20, 40.0 / 3600.0, 20.0, so=so, verbose=False)\n"
         "import tasmania_tpu_torch.domain.boundaries.periodic, tasmania_tpu_torch.domain.boundaries.identity\n"

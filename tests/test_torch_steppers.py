@@ -179,13 +179,6 @@ def test_enforced_boundary_steps_stage_by_stage(model):
         assert torch.equal(out[n].data[pinned], hb.ref_field(n, out[n].units)[pinned]), n
 
 
-def test_build_model_refuses_coriolis():
-    nl = load_namelist(nx=17, ny=17, nz=8, so=CPU64, coriolis_parameter=FieldArray(np.asarray(1e-4), "s^-1", ()))
-    domain, _, pt = drv.build_domain_and_state(nl)
-    with pytest.raises(NotImplementedError, match="Coriolis"):
-        drv.build_model(nl, domain, pt)
-
-
 def test_run_needs_the_namelist_device():
     """The namelist names the GPU; without one, ``run`` raises rather than
     running on the CPU."""
