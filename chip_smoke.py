@@ -73,7 +73,14 @@ printing one line; any failure raises and exits non-zero:
    for sedimentation), rain everywhere, against the plain versions with the
    fused kernels' gates, each tall helper counted under its own name
    (``vertical_advection_tall``, ``sedimentation_tall``; the merge's tall
-   path counts both) and each call timed as an ``also`` entry of its kernel;
+   path counts both) and each call timed as an ``also`` entry of its kernel.
+   Then the kernels of ``sus_yz`` (phase 13) at its shapes, numerically
+   7x161x120 (fewer columns than one x-tile of any kernel): the smoothing,
+   Smagorinsky, Kessler with saturation adjustment, vertical advection,
+   sedimentation, the diagnostics (Montgomery and moist), the generic
+   stage's advection of s and the water densities and its momentum step, on
+   the slice's initial state perturbed with every column equal to column nb
+   (as on the path), each with its gate above and timed (``also``);
 4. the port's first slice (dycore -> diagnostics -> smoothing -> velocities,
    ``namelist_sus.slice_skip``), 1 + 100 steps, with its launch counts and
    agreement with ``tasmania_tpu_torch/drivers/slice_reference.json`` to 1e-4
@@ -186,9 +193,14 @@ printing one line; any failure raises and exits non-zero:
    width, no si_stage), ``sus_coriolis_implicit`` (SUS with the f-plane
    Coriolis process, f = 1e-4 rad/s, and the implicit vertical advection:
    the Crank-Nicolson column solve, plain PyTorch, in place of the RK3WS
-   vertical-advection kernel) and ``fc_coriolis`` (fc with Coriolis first
-   in its chain), each with the exact launch counts of its path,
-   finiteness and agreement with the JAX package's float32 result at the
+   vertical-advection kernel), ``fc_coriolis`` (fc with Coriolis first
+   in its chain), ``sus_yz`` (SUS on a y-z slice, 1x161x120, numerically
+   7x161x120: the relaxed boundary with nx == 1, the flagship's wind along y,
+   from the flagship's own relative humidity 0.95, since from 1.05 the
+   slice blows up within five steps in both packages; the generic stage, as
+   on the periodic boundary) and ``sus_schaer`` (SUS over the Schaer
+   mountain: the main path's kernels), each with the exact launch counts
+   of its path, finiteness and agreement with the JAX package's float32 result at the
    same configuration (the reference file of ``SURFACE_PATHS``), with phase
    7's limits (``VARIANT_LOOSER`` holds each path's looser numbers); then
    ``sus_periodic`` again in float64, with the same launch counts, within
@@ -220,7 +232,13 @@ printing one line; any failure raises and exits non-zero:
    ``COMPONENT_TOL`` (1e-6) of the largest magnitude of the port's float64
    CPU result of the same call (the exceptions beside the constant), with
    its device time a call (``device_ms``), as phase lines and one JSON line
-   (``components``).
+   (``components``); with them the rest of the domain and framework: the
+   three terrain-following grids (σ, Gal-Chen, SLEVE) over the Schaer
+   mountain with storage on the card, bit for bit their float32 CPU build
+   (host numpy), the diagnostic composite of the isentropic diagnostics and
+   the velocity components under ``"serial"`` and ``"as_parallel"`` (one
+   launch of the diagnostics kernel each), and RMSD, RRMSD and the column
+   sum of the two card states.
 
 The isentropic diagnostics kernel serves every diagnostics call, so phases
 4-7, 9, 10, 13 and 14 count it too (``LAUNCHES_PER_STEP``); phase 12 counts the
@@ -297,6 +315,10 @@ VARIANT_LOOSER = {
     # run in the gate (WITNESS_TOL)
     ("sus_periodic", "vmax"): 4e-4,
     ("sus_periodic", "sv_max"): 4e-4,
+    # sus_schaer (make_torch_flagship_reference.py --topography schaer
+    # --check-port: every other number within 4.8e-5, qc within 4.8e-5);
+    # sus_yz's readings are within 1.4e-6, under the defaults
+    ("sus_schaer", "vmax"): 2e-4,  # CPU reading 9.3e-5
     # sus_coriolis_implicit and fc_coriolis: the port's float32 CPU run came
     # within 2.6e-5 (vmax) and 3.2e-5 (accprec_mean_abs) of their references
     # on every number (make_torch_flagship_reference.py --coriolis 1e-4
@@ -360,12 +382,21 @@ LAUNCHES_PER_STEP = {
     # advection's column solve too, in place of the explicit RK3WS kernel
     "sus_coriolis_implicit": {k: n for k, n in _SUS.items() if k != "fused_vertical_advection_rk3ws"},
     "fc_coriolis": {**_TWO_KERNEL, "fused_isentropic_diagnostics": 6},
+    # the relaxed boundary with nx == 1 takes the generic stage, as the
+    # periodic boundary does (the JAX package routes a one-dimensional
+    # relaxed boundary there too); the Schaer mountain changes no route
+    "sus_yz": {**{k: n for k, n in _SUS.items() if k != "si_stage"}, "fused_advection_fields": 3,
+               "fused_momentum_step": 3, "fused_isentropic_diagnostics": 4},
+    "sus_schaer": _SUS,
 }
 # phase 13, the isentropic core's surface at full size: a coupling, its
 # namelist overrides and the reference file (the JAX package's float32
 # result, make_torch_flagship_reference.py --flux / --boundary); each run
 # from the couplings' supersaturated start, 1 + 20 steps
 THIRD = {"horizontal_flux_scheme": "third_order_upwind"}
+# the flagship on a y-z slice: one cell in x (numerically 2 nb + 1 = 7
+# columns), the flagship's 22.5 m/s wind along y (velocities in m s^-1)
+YZ = {"nx": 1, "x_velocity": 0.0, "y_velocity": 22.5}
 CORIOLIS = {"coriolis_parameter": 1e-4}  # rad s^-1
 SURFACE_PATHS = {
     "sus_third": ("sus", THIRD, "flagship_third_reference.json"),
@@ -376,6 +407,11 @@ SURFACE_PATHS = {
     "sus_coriolis_implicit": ("sus", {**CORIOLIS, "implicit_vertical_advection": True},
                               "flagship_coriolis_implicit_reference.json"),
     "fc_coriolis": ("fc", CORIOLIS, "variant_fc_coriolis_reference.json"),
+    # the y-z slice (make_torch_flagship_reference.py --yz; the reference's
+    # relative humidity is the flagship's own 0.95) and the Schaer mountain
+    # (--topography schaer)
+    "sus_yz": ("sus", YZ, "flagship_yz_reference.json"),
+    "sus_schaer": ("sus", {"topo_type": "schaer"}, "flagship_schaer_reference.json"),
 }
 # phase 8, the deep-domain mountain wave (tests/test_mountain_wave_validation.py:115-151)
 MOUNTAIN_WAVE = dict(nx=161, nz=120, hours=10.0, dt=20.0, theta_top=420.0, damp_depth=60,
@@ -454,6 +490,17 @@ BARE_ROUNDS = 3
 TALL_COLUMNS = (41, 41)
 TALL_NZ = 1100
 TALL_SED_NZ = 2100
+
+
+def namelist_overrides(overrides: dict) -> dict:
+    """``overrides`` as namelist values: the velocities (floats in m s^-1)
+    as the namelist's scalar fields."""
+    import numpy as np
+
+    from tasmania_tpu_torch.framework.field import FieldArray
+
+    return {k: FieldArray(np.asarray(v), "m s^-1", ()) if k.endswith("_velocity") else v
+            for k, v in overrides.items()}
 
 
 def variant_tol(coupling: str, key: str) -> float:
@@ -746,16 +793,46 @@ def sharded_phase(card, path_counts, path_steps, device="cuda", ranks_mesh=None,
 # placed on the card: its float32 numbers carry the host's float32
 # rounding (s is a difference of pressures), so it is held bit for bit to
 # the port's float32 CPU build, its distance from the float64 build printed
-HOST_BUILT = ("state_from_temperature",)
+# the distance from the float64 build printed.  The same phase holds the
+# rest of the domain and framework (queue 1 items 5 and 6): the three
+# terrain-following grids over the Schaer mountain at the flagship's size
+# and levels, grown to its full height (update_topography), their metric
+# terms host numpy, so each is held bit for bit to its float32 CPU build
+# like the state from a temperature (timed by the host's clock, one build);
+# the diagnostic composite of the isentropic diagnostics and the velocity
+# components under each execution policy (each one launch of the
+# diagnostics kernel, COMPONENT_LAUNCHES); and the offline diagnostics
+# (RMSD, RRMSD and the column sum) of the two states, numpy on their host
+# copies, against the same numpy on the float64 states
+HOST_BUILT = ("state_from_temperature", "sigma_grid", "gal_chen_grid", "sleve_grid")
 COMPONENT_SEED = 16
 COMPONENT_TOL = 1e-6
 COMPONENT_DT = 5.0
+COMPONENT_LAUNCHES = {"fused_isentropic_diagnostics": 2}
+# the composites' air density divides by a difference of two summed heights
+# (DIAG_RHO_TOL, as phase 3 holds it): in float32 on the CPU it reads 6e-6
+# of its largest magnitude from the float64 result (41x41x120)
+COMPONENT_LOOSER = {(f"composite_{p}", "air_density"): DIAG_RHO_TOL for p in ("serial", "as_parallel")}
+# the grids' vertical coordinates: σ from 0.2 to 1, heights from 20 km to 0
+GRID_Z = {"sigma_grid": ((0.2, 1.0), "1"), "gal_chen_grid": ((2e4, 0.0), "m"),
+          "sleve_grid": ((2e4, 0.0), "m")}
 
 
-def component_calls(domain, so, f):
+def component_calls(domain, so, f, pt):
     """``{name: call(state, prv) -> {output: tensor}}`` on ``domain`` with
-    storage ``so``; ``f`` the Coriolis parameter in rad s^-1."""
-    from datetime import datetime
+    storage ``so``; ``f`` the Coriolis parameter in rad s^-1, ``pt`` the
+    top pressure in Pa."""
+    from datetime import datetime, timedelta
+
+    import numpy as np
+
+    from tasmania_tpu_torch.domain.grids import GalChen3d, Sigma3d, SLEVE3d
+    from tasmania_tpu_torch.framework.composite import POLICIES, DiagnosticComponentComposite
+    from tasmania_tpu_torch.framework.offline_diagnostics import RMSD, RRMSD, ColumnSum
+    from tasmania_tpu_torch.isentropic.physics.diagnostics import (
+        IsentropicDiagnostics,
+        IsentropicVelocityComponents,
+    )
 
     from tasmania_tpu_torch.drivers.namelist_sus import load_namelist
     from tasmania_tpu_torch.dwarfs import HorizontalVelocity, VerticalDamping, WaterConstituent
@@ -825,6 +902,42 @@ def component_calls(domain, so, f):
         s1, p1 = raw(prv, "air_isentropic_density", "air_pressure_on_interface_levels")
         return {"s": damp(dt, s, s1, 0.5 * (s + s1)), "p": damp(dt, p, p1, 0.5 * (p + p1))}
 
+    composites = {p: DiagnosticComponentComposite(
+        IsentropicDiagnostics(domain, "numerical", moist=True, pt=FieldArray(np.asarray(pt), "Pa", ()), **kw),
+        IsentropicVelocityComponents(domain, **kw), execution_policy=p) for p in POLICIES}
+    hs = torch.as_tensor(np.asarray(grid.topography.steady_profile.to_units("m").data), dtype=so.dtype,
+                         device=so.device)
+
+    def composite(policy, st):
+        return flat(composites[policy]({**st, "topography_height": FieldArray(hs, "m", ("x", "y"))}))
+
+    offline_fields = {n: {"units": u} for n, u in (("air_isentropic_density", "kg m^-2 K^-1"),
+                                                     ("y_momentum_isentropic", "kg m^-1 K^-1 s^-1"),
+                                                     ("mass_fraction_of_water_vapor_in_air", "g kg^-1"))}
+
+    def offline(st, prv):
+        """The metrics of the two states, each a float64 tensor."""
+        out = {}
+        for metric in (RMSD(grid, offline_fields), RRMSD(grid, offline_fields, z=slice(15, None))):
+            out.update({f"{type(metric).__name__} {k}": torch.tensor(v, dtype=torch.float64)
+                        for k, v in metric(st, prv).items()})
+        out["column sum qv"] = torch.as_tensor(
+            ColumnSum(grid, "mass_fraction_of_water_vapor_in_air", "g kg^-1")(st))
+        return out
+
+    pg = domain.physical_grid
+
+    def terrain_grid(name):
+        """The grid over the namelist's Schaer mountain, grown to its
+        height; its four metric fields."""
+        cls = {"sigma_grid": Sigma3d, "gal_chen_grid": GalChen3d, "sleve_grid": SLEVE3d}[name]
+        zv, zu = GRID_Z[name]
+        g = cls(nl.domain_x, pg.nx, nl.domain_y, pg.ny, FieldArray(np.array(zv), zu, ("z",)), pg.nz,
+                topography_type="schaer", topography_kwargs=nl.topo_kwargs, storage_options=so)
+        g.update_topography(timedelta(seconds=1800))
+        return {n: getattr(g, n).data for n in ("height", "height_on_interface_levels", "reference_pressure",
+                                                 "reference_pressure_on_interface_levels")}
+
     def from_temperature():
         st = get_isentropic_state_from_temperature(
             grid, datetime(1992, 2, 20), nl.x_velocity, nl.y_velocity, 250.0, bubble_center_x=2e4,
@@ -849,6 +962,9 @@ def component_calls(domain, so, f):
         "horizontal_velocity": lambda st, prv: velocity(st),
         "water_constituent": lambda st, prv: water(st),
         "vertical_damping": damping,
+        **{f"composite_{p}": (lambda st, prv, p=p: composite(p, st)) for p in POLICIES},
+        "offline_diagnostics": offline,
+        **{name: (lambda st, prv, name=name: terrain_grid(name)) for name in GRID_Z},
     }
 
 
@@ -903,21 +1019,25 @@ def components_phase(card, device="cuda", size=None, timer=None):
     import numpy as np
 
     domain, _, _ = drv.build_domain_and_state(load_namelist(relative_humidity=1.05, so=f32, **grid))
-    domain64, state64, _ = drv.build_domain_and_state(load_namelist(relative_humidity=1.05, so=cpu64, **grid))
+    domain64, state64, pt64 = drv.build_domain_and_state(load_namelist(relative_humidity=1.05, so=cpu64, **grid))
+    pt = float(np.asarray(pt64.to_units("Pa").data))
     theta = np.asarray(domain64.numerical_grid.z.to_units("K").data)
     st, prv = component_states(state64, theta, device, torch.float32, COMPONENT_SEED)
     st64, prv64 = component_states(state64, theta, "cpu", torch.float64, COMPONENT_SEED)
-    calls, calls64 = component_calls(domain, f32, 1e-4), component_calls(domain64, cpu64, 1e-4)
+    calls, calls64 = component_calls(domain, f32, 1e-4, pt), component_calls(domain64, cpu64, 1e-4, pt)
     cpu32 = StorageOptions(dtype=torch.float32, device="cpu")
     domain_cpu32, _, _ = drv.build_domain_and_state(load_namelist(relative_humidity=1.05, so=cpu32, **grid))
-    calls_cpu32 = component_calls(domain_cpu32, cpu32, 1e-4)
-    # the path: each component once, no kernel launched (plain PyTorch)
+    calls_cpu32 = component_calls(domain_cpu32, cpu32, 1e-4, pt)
+    # the path: each component once, no kernel launched (plain PyTorch) but
+    # the composites' diagnostics
     if device == "cuda":
         torch.cuda.synchronize()
     _lib.reset_launch_counts()
     outs = {name: call(st, prv) for name, call in calls.items()}
-    if dict(_lib.launch_counts):
-        raise AssertionError(f"components: launched {dict(_lib.launch_counts)}")
+    on_card = torch.device(device).type == "cuda"
+    expected = COMPONENT_LAUNCHES if on_card else {}
+    if dict(_lib.launch_counts) != expected:
+        raise AssertionError(f"components: launched {dict(_lib.launch_counts)}, expected {expected}")
     rows = []
     for name, out in outs.items():
         ref = calls64[name](st64, prv64)
@@ -942,20 +1062,27 @@ def components_phase(card, device="cuda", size=None, timer=None):
                     base.abs().max()) / COMPONENT_DT
             else:
                 scale = float(r.abs().max())
-                limit = COMPONENT_TOL * scale
+                limit = COMPONENT_LOOSER.get((name, key), COMPONENT_TOL) * scale
             if not e <= limit:
                 raise AssertionError(f"component {name} {key}: max|d| = {e} > {limit} (scale {scale})")
             errs.append((key, e / scale if scale else e))
         call = calls[name]
-        ms, how = timer(lambda: call(st, prv))
+        if name in GRID_Z:
+            t0 = time.perf_counter()
+            call(st, prv)
+            ms, how = 1e3 * (time.perf_counter() - t0), "host clock, one build"
+        else:
+            ms, how = timer(lambda: call(st, prv))
         worst = max(e for _, e in errs)
         rows.append(dict(name=name, outputs=len(errs), rel_err=worst, device_ms=ms, timed_by=how))
         held = ("built on the host, equal to the float32 CPU build bit for bit; its distance"
                 if name in HOST_BUILT else "largest error")
         dtype = str(next(iter(out.values())).dtype).replace("torch.", "")
+        launched = ("one launch of the diagnostics kernel" if name.startswith("composite_") and on_card
+                    else "no kernel launched")
         phase("component", f"{name} at {'x'.join(map(str, st['air_isentropic_density'].data.shape))} "
               f"{dtype}: {ms:.4f} ms a call ({how}); {len(errs)} outputs, {held} {worst:.1e} of "
-              f"the largest magnitude of the float64 CPU result; no kernel launched")
+              f"the largest magnitude of the float64 CPU result; {launched}")
     return rows
 
 
@@ -1806,6 +1933,119 @@ def main() -> int:
           f"increment {inc}; fused_vadv_sedimentation_rk3ws {inc2}, relative (qr vt) {rel2}; "
           f"fused_sedimentation_rk3ws relative (qr vt) {rel3}")
     del ts, tdin
+    # the kernels of sus_yz (phase 13) at its shapes: the flagship on a y-z
+    # slice, numerically 7x161x120 (the relaxed boundary with nx == 1: 2 nb +
+    # 1 columns, fewer than one x-tile of each kernel), on the slice's
+    # initial state perturbed as above, the perturbations shared by the
+    # seven columns as the path's fields are (slab), each against its plain
+    # version with its gate above, timed as an ``also`` entry
+    ynl = load_namelist(**namelist_overrides(YZ))
+    ydomain, ystate, ypt = drv.build_domain_and_state(ynl)
+    ydycore, yphysics = drv.build_model(ynl, ydomain, ypt)
+    yprog = ydycore.prognostic
+    yraw = {k: v.data for k, v in ystate.items() if k != "time"}
+    ycell = yraw["air_isentropic_density"].shape
+    ylabel = f"{'x'.join(map(str, ycell))} (sus_yz)"
+
+    def slab(t):
+        """``t`` with every x-column equal to column nb, as on the slice."""
+        return t[ynl.nb : ynl.nb + 1].expand_as(t).contiguous()
+
+    ys, ysv = slab(perturbed(yraw["air_isentropic_density"])), slab(perturbed(yraw["y_momentum_isentropic"]))
+    ysu = slab(ys * noise(ycell, 0.05))
+    yq = [slab(perturbed(yraw[q])) for q in qn]
+    yerrs = []
+
+    def yz_check(name, got, ref, base=None, tol=KERNEL_TOL, scales=None):
+        """The gate of the kernel's row above: increments against ``base``,
+        else relative to each output's largest magnitude (``scales``)."""
+        if base is not None:
+            w, rel = check_increments(f"{name} ({ylabel})", got, ref, base, tol)
+        else:
+            w, rel = check_outputs(f"{name} ({ylabel})", got, ref, scales or [amax(r) for r in ref], tol)
+        kernels[name]["max_abs_err"] = max(kernels[name]["max_abs_err"], w)
+        yerrs.append(f"{name} {rel}")
+
+    ysmoother = yphysics.components[1]
+    yfields = [slab(perturbed(yraw[n])) for n in ysmoother.input_properties]
+    ysm = dict(order=ysmoother.order, nb=ysmoother.nb)
+    ref = fused_smoothing_plain(yfields, ysmoother.gamma, **ysm)
+    yz_check("fused_smoothing", fused_smoothing(yfields, ysmoother.gamma, **ysm), ref, tol=1e-6)
+    record_also("fused_smoothing", ylabel, lambda: fused_smoothing(yfields, ysmoother.gamma, **ysm),
+                lambda: fused_smoothing_plain(yfields, ysmoother.gamma, **ysm),
+                bound(nbytes(yfields) + nbytes(ref), (12.0 * ysmoother.order + 3.0) * len(yfields) * ys.numel()))
+    ysmag = next(p for p in yphysics.components if isinstance(p, TendencyStepper) and any(
+        isinstance(c, IsentropicSmagorinsky) for c in p.coupling.components)).coupling.components[0]
+    ydx, ydy = ysmag.spacings()
+    yskw = dict(dx=ydx, dy=ydy, cs=ysmag.cs, nb=ysmag.nb, dt=5.0)
+    ysin = (ys, ysu, ysv)
+    ref = fused_smagorinsky_rk2_plain(*ysin, **yskw)
+    yz_check("fused_smagorinsky_rk2", fused_smagorinsky_rk2(*ysin, **yskw), ref, base=ysin[1:])
+    record_also("fused_smagorinsky_rk2", ylabel, lambda: fused_smagorinsky_rk2(*ysin, **yskw),
+                lambda: fused_smagorinsky_rk2_plain(*ysin, **yskw),
+                bound(nbytes(ysin) + nbytes(ref), 2 * 100.0 * ys.numel()))
+    yqc = slab(uniform(ycell, 0.0, 2.0 * ke.a))
+    yqr = slab(uniform(ycell, 0.0, ke.a) * (uniform(ycell, 0.0, 1.0) > 0.3))
+    ykin = (yraw["air_density"], yraw["air_temperature"], yraw["air_pressure_on_interface_levels"],
+            yraw["exner_function_on_interface_levels"], slab(perturbed(yraw[qn[0]], 0.05)), yqc, yqr)
+    ref = fused_kessler_satadj_rk2_plain(*ykin, kc)
+    yz_check("fused_kessler_satadj_rk2", fused_kessler_satadj_rk2(*ykin, kc), ref)
+    record_also("fused_kessler_satadj_rk2", ylabel, lambda: fused_kessler_satadj_rk2(*ykin, kc),
+                lambda: fused_kessler_satadj_rk2_plain(*ykin, kc),
+                bound(nbytes(ykin) + nbytes(ref), 150.0 * ys.numel()))
+    yvin = (slab(noise(ycell, 0.02)), ys, ysu, ysv + 1.0)
+    yvq = (yq[0], yqc, yqr)
+    ref = fused_vertical_advection_rk3ws_plain(*yvin, yvq, **vkw)
+    yz_check("fused_vertical_advection_rk3ws", fused_vertical_advection_rk3ws(*yvin, yvq, **vkw), ref,
+             base=yvin[1:] + yvq)
+    record_also("fused_vertical_advection_rk3ws", ylabel, lambda: fused_vertical_advection_rk3ws(*yvin, yvq, **vkw),
+                lambda: fused_vertical_advection_rk3ws_plain(*yvin, yvq, **vkw),
+                bound(nbytes(yvin + yvq) + nbytes(ref), 18 * 22.0 * ys.numel()))
+    ydin = (yraw["air_density"], yraw["height_on_interface_levels"], yqr)
+    ref = fused_sedimentation_rk3ws_plain(*ydin, **sedkw)
+    yz_check("fused_sedimentation_rk3ws", fused_sedimentation_rk3ws(*ydin, **sedkw), ref)
+    record_also("fused_sedimentation_rk3ws", ylabel, lambda: fused_sedimentation_rk3ws(*ydin, **sedkw),
+                lambda: fused_sedimentation_rk3ws_plain(*ydin, **sedkw),
+                bound(nbytes(ydin) + nbytes(ref), (powers * 20.0 + 90.0) * ys.numel()))
+    ydia = yprog.diagnostics
+    yd_in = (ys, ydycore.topography_steady, ydia.theta)
+    ydkw = {**dkw, "pt": yprog.pt, "dz": ydia.dz}
+    for mode, flops in (("mtg", 30.0), ("moist", 55.0)):
+        ref = fused_isentropic_diagnostics_plain(*yd_in, mode=mode, **ydkw)
+        got = fused_isentropic_diagnostics(*yd_in, mode=mode, **ydkw)
+        got, ref = ((got,), (ref,)) if mode == "mtg" else (got, ref)
+        for k, (a, r) in enumerate(zip(got, ref)):
+            yz_check("fused_isentropic_diagnostics", [a], [r], tol=DIAG_RHO_TOL if k == 4 else KERNEL_TOL)
+        record_also("fused_isentropic_diagnostics", f"{mode}, {ylabel}",
+                    lambda m=mode: fused_isentropic_diagnostics(*yd_in, mode=m, **ydkw),
+                    lambda m=mode: fused_isentropic_diagnostics_plain(*yd_in, mode=m, **ydkw),
+                    bound(nbytes(yd_in) + nbytes(ref), flops * ys.numel()))
+    yu = yraw["x_velocity_at_u_locations"]
+    yv = slab(perturbed(yraw["y_velocity_at_v_locations"])) + 0.5
+    yadv_args = (yu, yv, [ys] + yq, [slab(perturbed(ys))] + [slab(perturbed(q)) for q in yq])
+    yakw = dict(nb=ynl.nb, dt=c.dt, dx=yprog.dx, dy=yprog.dy, q_product=(False,) + (True,) * len(qn))
+    yadv = fused_advection_fields_plain(*yadv_args, **yakw)
+    yz_check("fused_advection_fields", fused_advection_fields(*yadv_args, **yakw), yadv,
+             base=[ys] + [clip_pos(ys * q) for q in yq])
+    yflat = [a for v in yadv_args for a in (v if isinstance(v, list) else [v])]
+    record_also("fused_advection_fields", f"s and 3 water densities, no boundary, no tendencies, {ylabel}",
+                lambda: fused_advection_fields(*yadv_args, **yakw),
+                lambda: fused_advection_fields_plain(*yadv_args, **yakw),
+                bound(nbytes(yflat) + nbytes(yadv), 45.0 * len(yadv) * ys.numel()))
+    ys_new = ydomain.horizontal_boundary.enforce_field(yadv[0], "air_isentropic_density")
+    ymtg = ydia.get_montgomery_potential(ys_new, yprog.pt, ydycore.topography_steady)
+    yms_args = (yu, yv, ysu, ysv, slab(perturbed(ysu)), slab(perturbed(ysv)) + 1.0, ys,
+                yraw["montgomery_potential"], ys_new, ymtg)
+    ymkw = dict(order=5, nb=ynl.nb, dt=c.dt, dx=yprog.dx, dy=yprog.dy, eps=yprog.eps)
+    ref = fused_momentum_step_plain(*yms_args, **ymkw)
+    yz_check("fused_momentum_step", fused_momentum_step(*yms_args, **ymkw), ref, scales=[amax(*ref)] * 2)
+    record_also("fused_momentum_step", f"order 5, {ylabel}", lambda: fused_momentum_step(*yms_args, **ymkw),
+                lambda: fused_momentum_step_plain(*yms_args, **ymkw),
+                bound(nbytes(yms_args) + nbytes(ref), 200.0 * ys.numel()))
+    phase("check", f"at {ylabel}, errors (relative, or as a share of the largest increment): "
+          + " | ".join(yerrs))
+    del (ydomain, ystate, ydycore, yphysics, yraw, ys, ysv, ysu, yq, yfields, ysin, ykin, yqc, yqr, yvin, yvq,
+         ydin, yd_in, yu, yv, yadv_args, yadv, yflat, ys_new, ymtg, yms_args)
     phase("timing", f"{profiler_sessions['measurements']} times from pairs of profiler sessions that "
           f"agree on their device operations a call, in {profiler_sessions['sessions']} sessions "
           f"({profiler_sessions['empty']} without device time)")
@@ -1950,7 +2190,7 @@ def main() -> int:
     for path, (coupling, overrides, reference) in SURFACE_PATHS.items():
         cfg = json.loads(Path(drv.__file__).with_name(reference).read_text())["config"]
         nl_s = moist.load_namelist(coupling, niter=cfg["niter"], relative_humidity=cfg["relative_humidity"],
-                                   **overrides)
+                                   **namelist_overrides(overrides))
         if ((nl_s.nx, nl_s.ny, nl_s.nz, nl_s.horizontal_flux_scheme, nl_s.hb_type)
                 != (cfg["nx"], cfg["ny"], cfg["nz"], cfg["horizontal_flux_scheme"], cfg["hb_type"])
                 or any(cfg.get(k) != v for k, v in overrides.items() if k not in ("hb_type", "hb_kwargs"))):

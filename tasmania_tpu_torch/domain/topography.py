@@ -2,8 +2,8 @@
 
 The profile is host-side numpy; its linear growth over ``time`` is a plain
 float, so a driver can hand the current profile to the model as a tensor.
-Only the profiles the ported configurations use are here (flat, Gaussian,
-user-defined)."""
+The profiles are the JAX package's: flat, Gaussian, Schaer and
+user-defined."""
 
 from __future__ import annotations
 
@@ -69,6 +69,21 @@ def _gaussian(grid, max_height=None, center_x=None, center_y=None,
     return hmax * np.exp(-(((xx - cx) / wx) ** 2) - ((yy - cy) / wy) ** 2)
 
 
+def _schaer(grid, max_height=None, center_x=None, center_y=None,
+            width_x=None, width_y=None):
+    """The Schaer and Durran (1997) mountain,
+    h = hmax / [1 + ((x-cx)/sx)² + ((y-cy)/sy)²]^1.5."""
+    xv, yv = np.asarray(grid.x.data), np.asarray(grid.y.data)
+    xu, yu = grid.x.units, grid.y.units
+    hmax = _scalar(max_height, "m", 500.0, "m")
+    wx = _scalar(width_x, xu, 1.0, xu)
+    wy = _scalar(width_y, yu, 1.0, yu)
+    cx = _scalar(center_x, xu, 0.5 * (xv[0] + xv[-1]), xu)
+    cy = _scalar(center_y, yu, 0.5 * (yv[0] + yv[-1]), yu)
+    xx, yy = np.meshgrid(xv, yv, indexing="ij")
+    return hmax / (1.0 + ((xx - cx) / wx) ** 2 + ((yy - cy) / wy) ** 2) ** 1.5
+
+
 def _flat(grid):
     return np.zeros((grid.nx, grid.ny))
 
@@ -86,7 +101,8 @@ def _user_defined(grid, profile=None):
     return np.asarray(profile)
 
 
-_PROFILES = {"flat": _flat, "gaussian": _gaussian, "user_defined": _user_defined}
+_PROFILES = {"flat": _flat, "gaussian": _gaussian, "schaer": _schaer,
+             "user_defined": _user_defined}
 
 
 class PhysicalTopography(Topography):

@@ -22,6 +22,13 @@ stage (the advection of the fields and the momentum step, the boundary's
 enforcement in PyTorch) in place of the whole-stage kernel, as
 ``chip_smoke.py``'s ``sus_periodic`` runs it.
 
+``--yz`` runs the namelist on a y-z slice, as ``chip_smoke.py``'s
+``sus_yz``: one cell in x (``nx = 1``; the relaxed boundary makes the grid
+7x161x120, and the dycore takes the generic stage), the flagship's 22.5 m/s
+wind along y.  ``--topography schaer`` puts the Schaer mountain in place of
+the namelist's Gaussian one (its ``topo_kwargs`` unchanged), as
+``sus_schaer``.
+
 ``--coriolis F`` sets the namelist's Coriolis parameter (rad s^-1) and
 ``--implicit-vadv`` its implicit vertical advection (the SUS chain only);
 with the latter the script also profiles the implicit process alone on the
@@ -36,8 +43,8 @@ prints the device time of the replays by CUDA events around them.
 
 Usage: ``python -m tasmania_tpu_torch.drivers.profile_slice [--steps N]
 [--slice | --coupling C | --mountain-wave | --burgers CASE] [--merge NAME]
-[--boundary periodic] [--coriolis F] [--implicit-vadv] [--fused-loop]``
-(needs a CUDA device).
+[--boundary periodic] [--yz] [--topography schaer] [--coriolis F]
+[--implicit-vadv] [--fused-loop]`` (needs a CUDA device).
 """
 
 from __future__ import annotations
@@ -45,6 +52,7 @@ from __future__ import annotations
 import argparse
 import time
 
+import numpy as np
 import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
@@ -53,6 +61,7 @@ from tasmania_tpu_torch.drivers import driver_burgers as burgers
 from tasmania_tpu_torch.drivers import driver_isentropic_moist as moist
 from tasmania_tpu_torch.drivers import driver_mountain_wave as mw
 from tasmania_tpu_torch.drivers import driver_namelist_sus as drv
+from tasmania_tpu_torch.framework.field import FieldArray
 from tasmania_tpu_torch.framework.options import StorageOptions
 from tasmania_tpu_torch.isentropic.physics.implicit_vertical_advection import (
     IsentropicImplicitVerticalAdvectionDiagnostic,
@@ -60,8 +69,15 @@ from tasmania_tpu_torch.isentropic.physics.implicit_vertical_advection import (
 from tasmania_tpu_torch.utils.jitx import StepBody, StepGraph, traced_step
 
 
-# the namelist overrides of --boundary
+# the namelist overrides of --boundary and --topography
 BOUNDARIES = {"periodic": {"hb_type": "periodic", "hb_kwargs": {}}}
+TOPOGRAPHIES = ("schaer",)
+
+
+def yz_overrides() -> dict:
+    """The namelist overrides of --yz: one cell in x, the wind along y."""
+    return {"nx": 1, "x_velocity": FieldArray(np.asarray(0.0), "m s^-1", ()),
+            "y_velocity": FieldArray(np.asarray(22.5), "m s^-1", ())}
 
 
 def parse(argv=None) -> argparse.Namespace:
@@ -77,6 +93,10 @@ def parse(argv=None) -> argparse.Namespace:
                         help="a SUS process merge of the full chain (repeatable)")
     parser.add_argument("--boundary", choices=sorted(BOUNDARIES),
                         help="the isentropic model's lateral boundary in place of the namelist's")
+    parser.add_argument("--yz", action="store_true",
+                        help="the namelist on a y-z slice (nx = 1, the wind along y)")
+    parser.add_argument("--topography", choices=TOPOGRAPHIES,
+                        help="the isentropic model's mountain in place of the namelist's")
     parser.add_argument("--coriolis", type=float, default=None, metavar="F",
                         help="the Coriolis parameter in rad s^-1 (the f-plane process)")
     parser.add_argument("--implicit-vadv", action="store_true",
@@ -88,19 +108,25 @@ def parse(argv=None) -> argparse.Namespace:
         parser.error("--slice, --coupling, --mountain-wave and --burgers exclude each other")
     if cli.merge and (cli.slice or cli.mountain_wave or cli.burgers):
         parser.error("--merge applies to the full chain")
-    if (cli.boundary or cli.coriolis is not None) and (cli.mountain_wave or cli.burgers):
-        parser.error("--boundary and --coriolis apply to the isentropic model's namelist")
+    if ((cli.boundary or cli.yz or cli.topography or cli.coriolis is not None)
+            and (cli.mountain_wave or cli.burgers)):
+        parser.error("--boundary, --yz, --topography and --coriolis apply to the isentropic model's "
+                     "namelist")
     if cli.implicit_vadv and (cli.slice or cli.mountain_wave or cli.burgers or cli.coupling != "sus"):
         parser.error("--implicit-vadv applies to the full SUS chain")
     return cli
 
 
 def namelist(cli: argparse.Namespace):
-    """The isentropic run's namelist: coupling C's, with the merges and the
-    boundary of the command line."""
+    """The isentropic run's namelist: coupling C's, with the merges, the
+    boundary, the slice and the mountain of the command line."""
     physics = {"implicit_vertical_advection": cli.implicit_vadv}
     if cli.coriolis is not None:
         physics["coriolis_parameter"] = cli.coriolis
+    if cli.yz:
+        physics.update(yz_overrides())
+    if cli.topography:
+        physics["topo_type"] = cli.topography
     return moist.load_namelist(cli.coupling, process_merges=tuple(cli.merge),
                                **BOUNDARIES.get(cli.boundary, {}), **physics)
 
@@ -215,6 +241,10 @@ def main(argv=None) -> None:
              else f"full chain, {cli.coupling}" + "".join(f", merge {m}" for m in cli.merge))
     if cli.boundary:
         chain += f", {cli.boundary} boundary"
+    if cli.yz:
+        chain += ", y-z slice"
+    if cli.topography:
+        chain += f", {cli.topography} mountain"
     if cli.coriolis is not None:
         chain += f", Coriolis f = {cli.coriolis:g} rad/s"
     if cli.implicit_vadv:

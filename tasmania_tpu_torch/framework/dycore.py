@@ -11,11 +11,13 @@ Per stage, as in the JAX package's ``_stage_call``:
    state;
 3. the stage steps the state with the tendencies it declares in
    ``stage_tendency_properties``;
-4. the fast diagnostic component runs on the stage's output; its
+4. with ``substeps`` > 0 and a non-empty ``substep_output_properties``, the
+   variables that property names are stepped again from the stage's input
+   in ``int(substep_fractions[stage] * substeps)`` substeps of ``dt /
+   substeps`` (``substep_array_call``), the superfast tendency component
+   run before and the superfast diagnostic component after each substep;
+5. the fast diagnostic component runs on the stage's output; its
    diagnostics update it, and its tendencies go to the next stage.
-
-Substepping and the superfast components are not ported: the constructors
-take no such argument.
 """
 
 from __future__ import annotations
@@ -46,10 +48,14 @@ def _coupling(component):
 
 
 class DynamicalCore(nn.Module, abc.ABC):
-    def __init__(self, fast_tendency_component=None, fast_diagnostic_component=None) -> None:
+    def __init__(self, fast_tendency_component=None, fast_diagnostic_component=None, substeps: int = 0,
+                 superfast_tendency_component=None, superfast_diagnostic_component=None) -> None:
         super().__init__()
         self.fast_tendency_component = _coupling(fast_tendency_component)
         self.fast_diagnostic_component = _coupling(fast_diagnostic_component)
+        self.substeps = int(substeps)
+        self.superfast_tendency_component = _coupling(superfast_tendency_component)
+        self.superfast_diagnostic_component = _coupling(superfast_diagnostic_component)
 
     @property
     @abc.abstractmethod
@@ -77,20 +83,67 @@ class DynamicalCore(nn.Module, abc.ABC):
     ) -> Dict[str, Any]:
         """Raw stage step: tensors in declared units -> stepped tensors."""
 
+    # -- the substep interface: empty properties (the default) substep nothing
+    @property
+    def substep_input_properties(self) -> PropertyDict:
+        """The variables a substep reads."""
+        return {}
+
+    @property
+    def substep_tendency_properties(self) -> PropertyDict:
+        """The tendencies a substep may take."""
+        return {}
+
+    @property
+    def substep_output_properties(self) -> PropertyDict:
+        """The variables the substeps step again; empty: no substepping."""
+        return {}
+
+    @property
+    def substep_fractions(self):
+        """Each stage's share of ``substeps``."""
+        return tuple(1.0 for _ in range(self.stages))
+
+    def substep_array_call(
+        self, stage: int, substep: int, raw_state: Mapping[str, Any], raw_stage_state: Mapping[str, Any],
+        raw_substep_state: Mapping[str, Any], raw_tendencies: Mapping[str, Any], timestep: float,
+    ) -> Dict[str, Any]:
+        """One substep: ``raw_state`` is the timestep's start, ``raw_stage_state``
+        the output of ``stage_array_call``, ``raw_substep_state`` the latest
+        substepped values; ``timestep`` is the whole dt (a substep's is
+        ``timestep / self.substeps``)."""
+        raise NotImplementedError(
+            "substeps > 0 with non-empty substep_output_properties requires "
+            "the subclass to implement substep_array_call"
+        )
+
+    @property
+    def input_properties(self) -> PropertyDict:
+        """The stage's inputs, then the fast and superfast tendency
+        components' and the substeps' that the stage does not read."""
+        props = {k: dict(p) for k, p in self.stage_input_properties.items()}
+        for comp in (self.fast_tendency_component, self.superfast_tendency_component):
+            if comp is not None:
+                for name, p in comp.input_properties.items():
+                    props.setdefault(name, dict(p))
+        for name, p in self.substep_input_properties.items():
+            props.setdefault(name, dict(p))
+        return props
+
     def forward(self, state: Mapping[str, Any], tendencies: Mapping[str, Any], timestep) -> Dict[str, Any]:
         """Advance ``state`` one timestep under the slow ``tendencies``."""
         dt = ensure_timedelta_seconds(timestep)
         tmp_state = dict(state)
         fdc_tendencies: Dict[str, Any] = {}
         for stage in range(self.stages):
-            tmp_state, fdc_tendencies = self._stage_call(stage, dt, tendencies, tmp_state, fdc_tendencies)
+            tmp_state, fdc_tendencies = self._stage_call(stage, dt, state, tendencies, tmp_state, fdc_tendencies)
         if "time" in state:
             tmp_state["time"] = add_seconds(state["time"], dt)
         return tmp_state
 
     def _stage_call(
-        self, stage: int, dt: float, slow_tendencies: Mapping[str, Any], tmp_state: Dict[str, Any],
-        fdc_tendencies: Mapping[str, Any],
+        self, stage: int, dt: float, state: Mapping[str, Any], slow_tendencies: Mapping[str, Any],
+        tmp_state: Dict[str, Any], fdc_tendencies: Mapping[str, Any],
     ) -> Tuple[Dict[str, Any], Dict[str, Any]]:
         tends = merge_tendencies({k: v for k, v in slow_tendencies.items() if k != "time"}, fdc_tendencies)
         if self.fast_tendency_component is not None:
@@ -110,9 +163,51 @@ class DynamicalCore(nn.Module, abc.ABC):
         stage_state = update(tmp_state, wrap_outputs(raw_out, self.stage_output_properties))
         if "time" in raw_out:  # the stage's own time stamp
             stage_state["time"] = raw_out["time"]
+        if self.substeps > 0 and self.substep_output_properties:
+            stage_state = self._substep_loop(stage, dt, state, raw_out, tmp_state, stage_state)
 
         new_fdc_tendencies: Dict[str, Any] = {}
         if self.fast_diagnostic_component is not None:
             new_fdc_tendencies, diagnostics = self.fast_diagnostic_component(stage_state, dt)
             stage_state = update(stage_state, diagnostics)
         return stage_state, new_fdc_tendencies
+
+    def _substep_loop(
+        self, stage: int, dt: float, state: Mapping[str, Any], raw_stage_state: Mapping[str, Any],
+        stage_input_state: Mapping[str, Any], stage_state: Dict[str, Any],
+    ) -> Dict[str, Any]:
+        """Step the ``substep_output_properties`` variables again from their
+        values at the stage's input, in ``int(fraction * substeps)`` substeps
+        of ``dt / substeps`` (none where that truncates to 0: they keep the
+        stage's input), with the superfast components around each."""
+        frac = 1.0 if self.stages == 1 else self.substep_fractions[stage]
+        n = int(frac * self.substeps)
+        inputs = self.substep_input_properties
+        tendency_props = self.substep_tendency_properties
+        raw_state = get_array_dict({k: v for k, v in state.items() if k in inputs},
+                                   {k: p for k, p in inputs.items() if k in state})
+        out_state: Dict[str, Any] = dict(stage_state)
+        for name in self.substep_output_properties:
+            if name in stage_input_state:
+                out_state[name] = stage_input_state[name]
+        stc, sdc = self.superfast_tendency_component, self.superfast_diagnostic_component
+        sub_dt = dt / self.substeps
+        for substep in range(n):
+            tends: Mapping[str, Any] = {}
+            if stc is not None:
+                tends, diagnostics = stc(out_state, sub_dt)
+                out_state = update(out_state, diagnostics)
+            raw_substep_state = get_array_dict(out_state, inputs)
+            raw_tends = get_array_dict({k: v for k, v in tends.items() if k in tendency_props},
+                                       {k: p for k, p in tendency_props.items() if k in tends})
+            raw_out = self.substep_array_call(
+                stage, substep, raw_state, raw_stage_state, raw_substep_state, raw_tends, dt
+            )
+            out_state = update(out_state, wrap_outputs(raw_out, self.substep_output_properties))
+            if sdc is not None:
+                _, diagnostics = sdc(out_state, sub_dt)
+                out_state = update(out_state, diagnostics)
+        for name in self.substep_output_properties:
+            if name in out_state:
+                stage_state[name] = out_state[name]
+        return stage_state

@@ -59,6 +59,11 @@ def field_dims(name: str, base: DimNames = ("x", "y", "z")) -> DimNames:
     return tuple(f"{ax}_{tag}" if tag in name else ax for ax, tag in zip(base, tags))
 
 
+def field_shape(name: str, grid_shape: Tuple[int, int, int]) -> Tuple[int, int, int]:
+    """Shape of field ``name`` on a grid with ``grid_shape`` mass points."""
+    return tuple(n + int(tag in name) for n, tag in zip(grid_shape, (STAGGER_X, STAGGER_Y, STAGGER_Z)))
+
+
 def get_array_dict(
     state: Mapping[str, Any], properties: Mapping[str, Mapping[str, Any]]
 ) -> Dict[str, Any]:

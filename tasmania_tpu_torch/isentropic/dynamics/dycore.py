@@ -17,7 +17,12 @@ forms the mass fractions clip(sq/s), enforces the lateral BC on every field
 and damps s, su and sv toward the reference from the step's "now" values.
 Then the staggered velocities of the stepped state with their outermost
 layers taken from the lateral boundary.  The velocities are recomputed
-after every stage, so the next stage reads the stepped state's.
+after every stage, so the next stage reads the stepped state's: the core
+keeps none of the JAX package's stage-to-stage shortcuts (its frame
+pipeline and velocity skip, ``dycore.py:240-250``, which it refuses with a
+fast or superfast component or substeps), so ``substeps`` and the superfast
+components need no gate here.  The core declares no substep variables, as
+the JAX core declares none: its ``substeps`` step nothing.
 
 On a shard of a 2-D decomposition (``dycore.py:209-215``, ``:235``, ``:269``
 of the JAX package): a fused stage is followed by the boundary's
@@ -62,6 +67,9 @@ class IsentropicDynamicalCore(DynamicalCore):
         domain,
         fast_tendency_component=None,
         fast_diagnostic_component=None,
+        substeps: int = 0,
+        superfast_tendency_component=None,
+        superfast_diagnostic_component=None,
         moist: bool = False,
         time_integration_scheme: str = "rk3ws_si",
         horizontal_flux_scheme: str = "fifth_order_upwind",
@@ -74,7 +82,8 @@ class IsentropicDynamicalCore(DynamicalCore):
         *,
         storage_options: Optional[StorageOptions] = None,
     ) -> None:
-        super().__init__(fast_tendency_component, fast_diagnostic_component)
+        super().__init__(fast_tendency_component, fast_diagnostic_component, substeps,
+                         superfast_tendency_component, superfast_diagnostic_component)
         if time_integration_scheme not in SCHEMES:
             raise ValueError(
                 f"unknown time integration {time_integration_scheme!r} (have {sorted(SCHEMES)})"

@@ -122,7 +122,8 @@ class SIPrognostic(nn.Module):
                     "cell into the halo): pass halo=nb+1 to DistributedModel"
                 )
         else:
-            self.fused = isinstance(hb, Relaxed) and not hb.one_dx and self.order in KERNEL_ORDERS
+            self.fused = (isinstance(hb, Relaxed) and not (hb.one_dx or hb.one_dy)
+                          and self.order in KERNEL_ORDERS)
         self.horizontal_boundary = hb
         self.nb = hb.nb
         self.pt = float(np.asarray(pt.to_units("Pa").data)) if isinstance(pt, FieldArray) else float(pt)

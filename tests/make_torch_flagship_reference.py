@@ -48,9 +48,10 @@ boundary).
 
 Usage: ``python tests/make_torch_flagship_reference.py [--rain | --merges |
 --coupling C | --sharded] [--flux SCHEME] [--boundary TYPE] [--coriolis F]
-[--implicit-vadv]`` (about five minutes, a minute and a half with
-``--rain``, ``--merges``, ``--coupling``, ``--flux``, ``--boundary``,
-``--coriolis`` or ``--implicit-vadv``).  With ``--check-port`` it writes no reference:
+[--implicit-vadv] [--yz] [--topography NAME]`` (about five minutes, a
+minute and a half with ``--rain``, ``--merges``, ``--coupling``,
+``--flux``, ``--boundary``, ``--coriolis``, ``--implicit-vadv`` or
+``--topography``, seconds with ``--yz``).  With ``--check-port`` it writes no reference:
 it runs the port on the CPU in float32 at the same configuration and prints
 each number's relative deviation from the file, the measurement behind the
 limits ``chip_smoke.py`` holds the card to.  With ``--float64`` it runs the
@@ -72,6 +73,15 @@ SUS chain) and ``variant_fc_coriolis_reference.json`` (``--coupling fc
 ``"pallas"`` but not for its CPU emulation, ``"pallas:interpret"``, so this
 script registers the same function (``thomas_jax``) there in its own
 process.
+
+``--yz`` runs the SUS chain on a y-z slice of the flagship: ``nx = 1``
+(numerically 7 columns wide: the relaxed boundary with ``nx == 1``), the
+flagship's 22.5 m/s wind along y (``x_velocity = 0``, ``y_velocity =
+22.5``), from the flagship's own start (relative humidity 0.95: from the
+couplings' supersaturated start both packages blow up within five steps),
+1 warm-up + 20 steps: ``flagship_yz_reference.json``.  ``--topography schaer`` runs it over the
+Schaer mountain (``topo_type = "schaer"`` with the namelist's own
+``topo_kwargs``) at 161x161x120: ``flagship_schaer_reference.json``.
 
 ``--sharded`` makes ``sharded_reference.json``, the reference of the
 domain-decomposed run (BASELINE config 5, ``drivers/driver_sharded.py``):
@@ -115,11 +125,27 @@ COUPLINGS = ("fc", "lfc", "ps", "sts", "ssus")
 # --flux and --boundary: the values each takes
 FLUXES = ("third_order_upwind",)
 BOUNDARIES = ("periodic",)
+TOPOGRAPHIES = ("schaer",)
+# --yz: the y-z slice with the flagship's wind along y (m s^-1), from the
+# flagship's own start: from relative humidity 1.05 the slice blows up in
+# both packages within five steps (the smoothing leaves the x-frame
+# unsmoothed beside the smoothed column nb, and Smagorinsky differentiates
+# that across the slice's dx of 1 m)
+YZ = {"nx": 1, "x_velocity": 0.0, "y_velocity": 22.5, "relative_humidity": 0.95}
+VELOCITIES = ("x_velocity", "y_velocity")
+
+
+def namelist_values(overrides, field_array):
+    """``overrides`` with the velocities (floats in m s^-1) as scalar fields
+    of ``field_array``, the namelist's type of field (each package its own)."""
+    return {k: field_array(np.asarray(v), "m s^-1", ()) if k in VELOCITIES else v
+            for k, v in overrides.items()}
 
 
 def surface_overrides(argv):
-    """The namelist overrides of ``--flux``, ``--boundary``, ``--coriolis``
-    and ``--implicit-vadv``, and the file name's suffix ("" without any)."""
+    """The namelist overrides of ``--flux``, ``--boundary``, ``--coriolis``,
+    ``--implicit-vadv``, ``--yz`` and ``--topography``, and the file name's
+    suffix ("" without any)."""
     overrides, suffix = {}, ""
     if "--flux" in argv:
         flux = argv[argv.index("--flux") + 1]
@@ -139,6 +165,15 @@ def surface_overrides(argv):
     if "--implicit-vadv" in argv:
         overrides["implicit_vertical_advection"] = True
         suffix += "_implicit"
+    if "--yz" in argv:
+        overrides.update(YZ)
+        suffix += "_yz"
+    if "--topography" in argv:
+        topography = argv[argv.index("--topography") + 1]
+        if topography not in TOPOGRAPHIES:
+            raise SystemExit(f"--topography: one of {TOPOGRAPHIES}")
+        overrides["topo_type"] = topography
+        suffix += f"_{topography}"
     return overrides, suffix
 
 
@@ -160,8 +195,10 @@ def check_port(out, overrides, coupling=None, merges=(), float64=False) -> None:
 
     from tasmania_tpu_torch.drivers import driver_isentropic_moist as moist
     from tasmania_tpu_torch.drivers import driver_namelist_sus as drv
+    from tasmania_tpu_torch.framework.field import FieldArray
     from tasmania_tpu_torch.framework.options import StorageOptions
 
+    overrides = namelist_values(overrides, FieldArray)
     dtype = torch.float64 if float64 else torch.float32
     so = StorageOptions(dtype=dtype, device="cpu")
     if coupling is None:
@@ -290,7 +327,8 @@ def main() -> None:
     surface, suffix = surface_overrides(argv)
     if sum((rain, bool(merges), coupling is not None)) > 1 or (surface and (rain or merges)):
         raise SystemExit("--rain, --merges and --coupling exclude each other, and --flux, "
-                         "--boundary, --coriolis and --implicit-vadv go with --coupling or alone")
+                         "--boundary, --coriolis, --implicit-vadv, --yz and --topography go with "
+                         "--coupling or alone")
     if "implicit_vertical_advection" in surface and coupling is not None:
         raise SystemExit("--implicit-vadv: the SUS chain's switch (the other couplings ignore it)")
     if surface:
@@ -323,7 +361,7 @@ def main() -> None:
     jnl = importlib.import_module(f"drivers.namelist_{coupling or 'sus'}")
     nl = SimpleNamespace(**{k: getattr(jnl, k) for k in dir(jnl) if not k.startswith("_")})
     nl.backend = BACKEND
-    for key, value in overrides.items():
+    for key, value in namelist_values(overrides, FieldArray).items():
         setattr(nl, key, value)
     domain, state, step_impl = jax_step(nl, coupling)
     names = sorted(k for k in state if k != "time")
@@ -360,7 +398,7 @@ def main() -> None:
     }
     if coupling is not None:
         ref["config"]["coupling"] = coupling
-    for key in ("coriolis_parameter", "implicit_vertical_advection"):
+    for key in ("coriolis_parameter", "implicit_vertical_advection", *VELOCITIES, "topo_type"):
         if key in surface:
             ref["config"][key] = surface[key]
     if merges:
@@ -368,8 +406,9 @@ def main() -> None:
         ref["config"]["jax_switches"] = list(JAX_MERGE_SWITCHES)
     ref["command"] = "python tests/make_torch_flagship_reference.py" + (
         f" --coupling {coupling}" if coupling else " --rain" if rain else " --merges" if merges else ""
-    ) + "".join(f" {flag} {argv[argv.index(flag) + 1]}" for flag in ("--flux", "--boundary", "--coriolis")
-                if flag in argv) + (" --implicit-vadv" if "--implicit-vadv" in argv else "")
+    ) + "".join(f" {flag} {argv[argv.index(flag) + 1]}"
+                for flag in ("--flux", "--boundary", "--coriolis", "--topography") if flag in argv) + "".join(
+        f" {flag}" for flag in ("--implicit-vadv", "--yz") if flag in argv)
     out.write_text(json.dumps(ref, indent=1) + "\n")
     print(json.dumps(ref, indent=1))
     print(f"{elapsed:.1f} s")

@@ -213,6 +213,7 @@ def test_unported_options_raise():
     with pytest.raises(NotImplementedError, match="periodic"):
         Domain((0.0, 1.0), 9, (0.0, 1.0), 9, FieldArray(np.array([400.0, 300.0]), "K", ("z",)), 4,
                horizontal_boundary_type="open")
+    # the topography factory names the four profiles it has
     with pytest.raises(NotImplementedError, match="schaer"):
         Domain((0.0, 1.0), 9, (0.0, 1.0), 9, FieldArray(np.array([400.0, 300.0]), "K", ("z",)), 4,
-               topography_type="schaer")
+               topography_type="witch_of_agnesi")

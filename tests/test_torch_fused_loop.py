@@ -13,8 +13,9 @@ on the CPU, where a CUDA graph cannot run.
   capture, gives the eager ``run_steps`` result bit for bit over 1 + 3 steps
   for sus, sus with both merges, each other coupling (fc, lfc, ps, sts,
   ssus), sus and fc at third order, sus on the periodic boundary, sus with
-  Coriolis and the implicit vertical advection, fc with Coriolis (the
-  surface paths of ``chip_smoke.py`` phase 13) and the mountain wave.
+  Coriolis and the implicit vertical advection, fc with Coriolis, sus on a
+  y-z slice (1x17x8) and over the Schaer mountain (the surface paths of
+  ``chip_smoke.py`` phase 13) and the mountain wave.
 * The same for both cases of the Burgers driver, whose zhao step takes
   its start time from the body's table.
 * ``fused_loop=True`` raises on a CPU device in every driver, and
@@ -22,7 +23,9 @@ on the CPU, where a CUDA graph cannot run.
 * ``profile_slice.py --boundary periodic``, eager and under
   ``--fused-loop``, builds the namelist of ``chip_smoke.py``'s
   ``sus_periodic`` (the SUS namelist with ``hb_type="periodic"``,
-  ``hb_kwargs={}``), and without the option the namelist's own boundary.
+  ``hb_kwargs={}``), and without the option the namelist's own boundary;
+  ``--yz`` and ``--topography schaer`` those of ``sus_yz`` and
+  ``sus_schaer``.
 
 The capture and replay themselves run on the card
 (``tests/test_torch_kernels.py::test_fused_loop_graph_matches_eager``).
@@ -62,6 +65,9 @@ SURFACE_PATHS = {
     "sus_periodic": ("sus", {"hb_type": "periodic", "hb_kwargs": {}}),
     "sus_coriolis_implicit": ("sus", {"coriolis_parameter": 1e-4, "implicit_vertical_advection": True}),
     "fc_coriolis": ("fc", {"coriolis_parameter": 1e-4}),
+    "sus_yz": ("sus", {"nx": 1, "x_velocity": FieldArray(np.asarray(0.0), "m s^-1", ()),
+                       "y_velocity": FieldArray(np.asarray(22.5), "m s^-1", ())}),
+    "sus_schaer": ("sus", {"topo_type": "schaer"}),
 }
 # the mountain wave: 17 x 1 x 20, 1 + 3 steps of 20 s
 MW = dict(nx=17, nz=20, hours=4 * 20.0 / 3600.0, dt=20.0)
@@ -124,7 +130,7 @@ def assert_bitwise(got, ref):
 def test_body_matches_eager_run_steps(path):
     coupling, overrides = SURFACE_PATHS.get(path, ("sus" if path == "sus_merged" else path, {}))
     merges = MERGES if path == "sus_merged" else ()
-    nl = moist.load_namelist(coupling, **SIZE, niter=NSTEPS, so=CPU64, process_merges=merges, **overrides)
+    nl = moist.load_namelist(coupling, **{**SIZE, **overrides}, niter=NSTEPS, so=CPU64, process_merges=merges)
     ref = moist.run(nl, coupling, verbose=False)["fields"]
     _, state, dycore, step_impl = moist.build_variant(nl, coupling)
     names = sorted(k for k in state if k != "time")
@@ -258,3 +264,21 @@ def test_profile_slice_boundary_periodic(argv):
     for other in (["--mountain-wave"], ["--burgers", "bench"]):
         with pytest.raises(SystemExit):
             profile_slice.parse(argv + other + ["--boundary", "periodic"])
+
+
+@pytest.mark.parametrize("flags, path", [(["--yz"], "sus_yz"), (["--topography", "schaer"], "sus_schaer")])
+def test_profile_slice_yz_and_schaer(flags, path):
+    """``--yz`` and ``--topography schaer`` give the profile the namelist of
+    ``chip_smoke.py``'s ``sus_yz`` and ``sus_schaer`` (the velocities by
+    value); both refuse the runs that have no namelist."""
+    from chip_smoke import SURFACE_PATHS, namelist_overrides
+
+    nl = profile_slice.namelist(profile_slice.parse(flags))
+    want = load_namelist(**namelist_overrides(SURFACE_PATHS[path][1]))
+    assert _entries(nl) == _entries(want)
+    for name in ("x_velocity", "y_velocity"):
+        assert float(np.asarray(getattr(nl, name).data)) == float(np.asarray(getattr(want, name).data))
+    assert (nl.nx, nl.topo_type) == ((1, "gaussian") if path == "sus_yz" else (161, "schaer"))
+    for other in (["--mountain-wave"], ["--burgers", "bench"]):
+        with pytest.raises(SystemExit):
+            profile_slice.parse(flags + other)

@@ -37,10 +37,13 @@ The column kernels' tall path (``csrc/tall_column.cu``, above the fused
 kernels' 1024 levels, 2048 for sedimentation) at 1100 and 2100 levels of 4x3
 columns with the fused kernels' gates, counted under its own name; the fused
 kernels still taking their tallest columns; the wrappers naming their cell
-limit.  The fused loop: a CUDA graph of the step equal to the eager run bit
-for bit (every coupling, sus and fc at third order, sus on the periodic
-boundary, sus with Coriolis and the implicit vertical advection, fc with
-Coriolis at 41x41x20, the mountain wave, Burgers, 1 + 5 steps),
+limit.  Each kernel of the y-z slice's path (``chip_smoke.py``'s sus_yz) on
+its 7-column grids, 7x41x20 in both types and 7x161x120 in float32, with
+the gates above.  The fused loop: a CUDA graph of the step equal to the
+eager run bit for bit (every coupling, sus and fc at third order, sus on
+the periodic boundary, sus with Coriolis and the implicit vertical
+advection, fc with Coriolis at 41x41x20, sus on a 1x41x20 y-z slice and
+over the Schaer mountain, the mountain wave, Burgers, 1 + 5 steps),
 its captured step launching ``chip_smoke.py``'s ``LAUNCHES_PER_STEP``.  The
 input helpers here are shared with ``tests/test_torch_ops.py``,
 ``tests/test_torch_physics_ops.py`` and ``tests/test_torch_merges.py``.
@@ -283,14 +286,14 @@ KESSLER = KesslerConstants(
 SMAG = dict(dx=2200.0, dy=2150.0, cs=0.18, nb=3, dt=5.0)
 
 
-def kessler_inputs(seed):
+def kessler_inputs(seed, shape=(PX, PY, PZ)):
     """(rho, t, p_if, exn_if, qv, qc, qr) in numpy reaching every branch of the
     scheme: T 250-300 K, p 1e4-1e5 Pa, qv on both sides of saturation, qc on
     both sides of the threshold 1e-4 (a tenth of it zero), qr with zeros and
     a few negatives.  Saturation adjustment alone takes (t, p_if, exn_if, qv,
     qc) and a θ-tendency (:func:`theta_tendency`)."""
     rng = np.random.default_rng(seed)
-    cell, iface = (PX, PY, PZ), (PX, PY, PZ + 1)
+    cell, iface = shape, (*shape[:2], shape[2] + 1)
     t = rng.uniform(250.0, 300.0, cell)
     p_if = rng.uniform(1e4, 1e5, iface)
     exn_if = 1004.0 * (p_if / 1e5) ** (287.05 / 1004.0)
@@ -890,6 +893,91 @@ def test_vadv_sed_kernel_matches_pair(cuda_device, vorder, sorder, vt_mode, shap
         assert torch.equal(a, b), f"output {k}: max|d| = {float((a - b).abs().max())}"
 
 
+# ---------------------------------------------------------------- y-z slice
+# the kernels of the flagship on a y-z slice (chip_smoke.py's sus_yz): the
+# relaxed boundary with nx == 1 makes the numerical grid 2 nb + 1 = 7
+# columns wide, less than one x-tile of each kernel, whose x-halo reads at
+# i < nb and i >= nx - nb fall on the frame; at the path's sizes in float32
+# and at 7x41x20 in both types, every cell compared, frame included
+NX1 = 2 * NB + 1
+YZ_SHAPES = [pytest.param((NX1, 41, 20), torch.float64, id="7x41x20-float64"),
+             pytest.param((NX1, 41, 20), torch.float32, id="7x41x20-float32"),
+             pytest.param((NX1, 161, 120), torch.float32, id="7x161x120-float32")]
+YZ_KERNELS = ("smoothing", "smagorinsky", "kessler_satadj", "vertical_advection", "sedimentation",
+              "diagnostics_mtg", "diagnostics_moist", "advection_fields", "momentum_step")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape, dtype", YZ_SHAPES)
+@pytest.mark.parametrize("kernel", YZ_KERNELS)
+def test_yz_slice_kernel_vs_plain(cuda_device, kernel, shape, dtype):
+    """Each kernel of the sus_yz path as that path calls it (second-order
+    smoothing of six fields, Smagorinsky RK2 with nb = 3, Kessler with
+    saturation adjustment, third-order vertical advection of s, the momenta
+    and the three water species, second-order sedimentation on ``vt_mode``
+    step, the diagnostics' Montgomery and moist modes, the generic stage's
+    fifth-order advection of s and the water densities without the boundary
+    and its momentum step), with the gates of the tests above."""
+    t = lambda a: tensor(a, cuda_device).to(dtype)
+    tol = 1e-12 if dtype == torch.float64 else 1e-5
+    if kernel == "smoothing":
+        fields, gamma = smoothing_inputs(21, shape=shape)
+        tf, g = [t(a) for a in fields], t(gamma)
+        got = fused_smoothing(tf, g, order=2, nb=NB)
+        ref = fused_smoothing_plain(tf, g, order=2, nb=NB)
+        for k, (a, b) in enumerate(zip(got, ref)):
+            assert_scaled(a.double().cpu().numpy(), b.double().cpu().numpy(),
+                          1e-13 if dtype == torch.float64 else 1e-6, f"field {k}")
+    elif kernel == "smagorinsky":
+        s, su, sv = [t(a) for a in smagorinsky_inputs(22, shape)]
+        got = fused_smagorinsky_rk2(s, su, sv, **SMAG)
+        ref = fused_smagorinsky_rk2_plain(s, su, sv, **SMAG)
+        assert_updates(got, ref, (su, sv), dtype)
+    elif kernel == "kessler_satadj":
+        args = [t(a) for a in kessler_inputs(23, shape)]
+        got = fused_kessler_satadj_rk2(*args, KESSLER)
+        ref = fused_kessler_satadj_rk2_plain(*args, KESSLER)
+        for k, (a, b) in enumerate(zip(got, ref)):
+            assert_scaled(a.double().cpu().numpy(), b.double().cpu().numpy(), tol, f"output {k}")
+    elif kernel == "vertical_advection":
+        w, s, su, sv, *q = [t(a) for a in vertical_advection_inputs(24, shape)]
+        got = fused_vertical_advection_rk3ws(w, s, su, sv, tuple(q), order=3, dt=5.0, dz=1.0)
+        ref = fused_vertical_advection_rk3ws_plain(w, s, su, sv, tuple(q), order=3, dt=5.0, dz=1.0)
+        assert_updates(got, ref, (s, su, sv, *q), dtype)
+    elif kernel == "sedimentation":
+        args = [t(a) for a in sedimentation_inputs(25, shape)]
+        got = fused_sedimentation_rk3ws(*args, order=2, dt=5.0, vt_mode="step")
+        ref = fused_sedimentation_rk3ws_plain(*args, order=2, dt=5.0, vt_mode="step")
+        for k, (a, b) in enumerate(zip(got, ref)):
+            assert_scaled(a.double().cpu().numpy(), b.double().cpu().numpy(), tol, f"output {k}")
+    elif kernel.startswith("diagnostics_"):
+        mode = kernel[len("diagnostics_"):]
+        s, hs, theta = (t(a) for a in diagnostics_inputs(seed=26, shape=shape))
+        got = fused_isentropic_diagnostics(s, hs, theta, mode=mode, **DIAG_CONSTS)
+        ref = fused_isentropic_diagnostics_plain(s, hs, theta, mode=mode, **DIAG_CONSTS)
+        got, ref = ((got,), (ref,)) if mode == "mtg" else (got, ref)
+        for k, (a, b) in enumerate(zip(got, ref)):
+            gate = tol if dtype == torch.float64 or k != 4 else 4e-5
+            assert_scaled(a.double().cpu().numpy(), b.double().cpu().numpy(), gate, f"output {k}")
+    elif kernel == "advection_fields":
+        args, kw = advection_args(advection_inputs(seed=27, shape=shape), False, False, cuda_device)
+        args = _cast(args, dtype)
+        got = fused_advection_fields(*args, **kw, order=5)
+        ref = fused_advection_fields_plain(*args, **kw, order=5)
+        for k, (a, b) in enumerate(zip(got, ref)):
+            assert_scaled(a.double().cpu().numpy(), b.double().cpu().numpy(), tol, f"field {k}")
+    else:
+        args = _cast(momentum_step_args(momentum_step_inputs(seed=28, shape=shape), False, cuda_device),
+                     dtype)
+        kw = dict(order=5, nb=NB, dt=FRACS[1] * DTF, dx=CONSTS["dx"], dy=CONSTS["dy"], eps=0.5)
+        got = fused_momentum_step(*args, **kw)
+        ref = fused_momentum_step_plain(*args, **kw)
+        scale = max(float(r.abs().max()) for r in ref)
+        for k, (a, b) in enumerate(zip(got, ref)):
+            err = float((a.double() - b.double()).abs().max())
+            assert err <= tol * scale, f"output {k}: {err} > {tol} * {scale}"
+
+
 # ---------------------------------------------------------------- tall columns
 # above the fused kernels' heights (vertical advection and its merge with
 # sedimentation 1024 levels, sedimentation 2048) the wrappers take the tall
@@ -1019,16 +1107,17 @@ GRAPH_SIZE = dict(nx=41, ny=41, nz=20, niter=5)
 @pytest.mark.cuda
 @pytest.mark.parametrize("path", ["sus", "sus_merged", "fc", "lfc", "ps", "sts", "ssus", "mountain_wave",
                                   "burgers_bench", "burgers_zhao", "sus_third", "fc_third",
-                                  "sus_periodic", "sus_coriolis_implicit", "fc_coriolis"])
+                                  "sus_periodic", "sus_coriolis_implicit", "fc_coriolis", "sus_yz",
+                                  "sus_schaer"])
 def test_fused_loop_graph_matches_eager(cuda_device, path):
-    """41x41x20 (the mountain wave 41x1x20, Burgers 41x41), float32, 1 + 5
-    steps: the CUDA graph's final fields equal the eager run's bit for bit,
+    """41x41x20 (the mountain wave 41x1x20, Burgers 41x41, sus_yz 1x41x20),
+    float32, 1 + 5 steps: the CUDA graph's final fields equal the eager run's bit for bit,
     and one captured step launches what ``chip_smoke.py`` counts for the
     path (``LAUNCHES_PER_STEP``; Burgers no kernel), as one eager step
     does.  ``SURFACE_PATHS`` are couplings with namelist overrides (third
     order, the periodic boundary, Coriolis and the implicit vertical
-    advection)."""
-    from chip_smoke import LAUNCHES_PER_STEP, SURFACE_PATHS
+    advection, the y-z slice, the Schaer mountain)."""
+    from chip_smoke import LAUNCHES_PER_STEP, SURFACE_PATHS, namelist_overrides
     from tasmania_tpu_torch.drivers import driver_burgers as burgers
     from tasmania_tpu_torch.drivers import driver_isentropic_moist as moist
     from tasmania_tpu_torch.drivers import driver_mountain_wave as mw
@@ -1041,7 +1130,7 @@ def test_fused_loop_graph_matches_eager(cuda_device, path):
                 for f in (False, True)]
     elif path in SURFACE_PATHS:
         coupling, overrides, _ = SURFACE_PATHS[path]
-        nl = moist.load_namelist(coupling, **GRAPH_SIZE, **overrides)
+        nl = moist.load_namelist(coupling, **{**GRAPH_SIZE, **namelist_overrides(overrides)})
         runs = [moist.run(nl, coupling, verbose=False, fused_loop=f) for f in (False, True)]
     else:
         coupling = "sus" if path == "sus_merged" else path

@@ -245,16 +245,20 @@ def test_analytic_solution_matches_jax(x_staggered, z_staggered):
 
 
 def test_unported_paths_raise():
-    """What the port leaves out raises: the relaxed boundary of a grid one
-    cell deep in x and the ``centered_si`` stub (a stub in the reference
-    too); so does a flux scheme the reference does not have.  What it has ported since builds: the moist
-    stage on a one-dimensional boundary, third and first orders there and
-    on a two-dimensional relaxed grid, and tendencies on the generic
-    stage."""
+    """What the port leaves out raises: the ``centered_si`` stub (a stub in
+    the reference too); so does a flux scheme the reference does not have.
+    What it has ported since builds: the relaxed boundary of a grid one cell
+    deep in x (numerically 2 nb + 1 columns, on the generic stage as the
+    JAX package routes it), the moist stage on a one-dimensional boundary,
+    third and first orders there and on a two-dimensional relaxed grid, and
+    tendencies on the generic stage."""
     (_, _), (domain, _) = _both_boundaries()
-    with pytest.raises(NotImplementedError):
-        Domain((0.0, 1.0), 1, (-2e5, 2e5), 23, FieldArray(np.array([360.0, 300.0]), "K", ("z",)), 6,
-               horizontal_boundary_type="relaxed", nb=3, horizontal_boundary_kwargs={"nr": 6})
+    yz = Domain((0.0, 1.0), 1, (-2e5, 2e5), 23, FieldArray(np.array([360.0, 300.0]), "K", ("z",)), 6,
+                horizontal_boundary_type="relaxed", nb=3, horizontal_boundary_kwargs={"nr": 6},
+                storage_options=CPU64)
+    assert (yz.horizontal_boundary.ni, yz.horizontal_boundary.nj) == (7, 23)
+    assert not IsentropicDynamicalCore(yz, horizontal_flux_scheme="third_order_upwind",
+                                       storage_options=CPU64).prognostic.fused
     with pytest.raises(NotImplementedError, match="stub"):
         IsentropicDynamicalCore(domain, time_integration_scheme="centered_si", storage_options=CPU64).stages
     with pytest.raises(ValueError, match="unknown"):

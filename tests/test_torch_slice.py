@@ -101,7 +101,10 @@ def test_port_imports_no_jax():
     boundary and on the Dirichlet one), of each coupling of the variant
     driver (and ssus with both merges, fc at third order), the paths of
     Coriolis and implicit vertical advection (SUS with both, fc with
-    Coriolis), importing the physics packages' exports, a forward-Euler
+    Coriolis), SUS on a y-z slice and over the Schaer mountain, importing
+    the terrain-following grids, the storage and array utilities and the
+    rest of the framework (base components, composite, static checkers,
+    offline diagnostics, fakes, validation), importing the physics packages' exports, a forward-Euler
     dycore step, two steps of the mountain-wave driver and two steps
     of each case of the Burgers driver (which import the Burgers model, the
     Dirichlet boundary and the diffusion dwarf), and importing the other
@@ -132,6 +135,15 @@ def test_port_imports_no_jax():
         "moist.run(moist.load_namelist('ssus', **size, process_merges=merges), 'ssus', verbose=False)\n"
         "run(load_namelist(**size, coriolis_parameter=1e-4, implicit_vertical_advection=True), verbose=False)\n"
         "moist.run(moist.load_namelist('fc', **size, coriolis_parameter=1e-4), 'fc', verbose=False)\n"
+        "import numpy as np\n"
+        "from tasmania_tpu_torch.framework.field import FieldArray\n"
+        "wind = {k: FieldArray(np.asarray(v), 'm s^-1', ()) for k, v in (('x_velocity', 0.0), ('y_velocity', 22.5))}\n"
+        "run(load_namelist(**{**size, 'nx': 1}, **wind), verbose=False)\n"
+        "run(load_namelist(**size, topo_type='schaer'), verbose=False)\n"
+        "import tasmania_tpu_torch.domain.grids, tasmania_tpu_torch.utils.storage, tasmania_tpu_torch.utils.array\n"
+        "import tasmania_tpu_torch.framework.base_components, tasmania_tpu_torch.framework.composite\n"
+        "import tasmania_tpu_torch.framework.static_checkers, tasmania_tpu_torch.framework.offline_diagnostics\n"
+        "import tasmania_tpu_torch.framework.fakes, tasmania_tpu_torch.framework.validation\n"
         "import tasmania_tpu_torch.isentropic, tasmania_tpu_torch.isentropic.physics, tasmania_tpu_torch.physics\n"
         "import tasmania_tpu_torch.dwarfs\n"
         "from tasmania_tpu_torch.drivers import driver_mountain_wave as mw\n"
