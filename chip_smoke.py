@@ -238,7 +238,27 @@ printing one line; any failure raises and exits non-zero:
    (host numpy), the diagnostic composite of the isentropic diagnostics and
    the velocity components under ``"serial"`` and ``"as_parallel"`` (one
    launch of the diagnostics kernel each), and RMSD, RRMSD and the column
-   sum of the two card states.
+   sum of the two card states;
+16. I/O and recovery (run after phase 15, before phase 14; ``io_phase``),
+   the flagship eager in float32 at 161x161x120 with files in a temporary
+   directory: 1 + ``IO_STEPS`` steps checkpointed every ``IO_EVERY`` with
+   the NaN guard (its launches exact, path ``sus_io``), then a run resumed
+   from step ``IO_RESUME`` whose fields must equal the uninterrupted run's
+   bit for bit; the same checkpoint restored onto the CPU equal to its
+   restore on the card bit for bit; a step wrapper that writes a NaN at step
+   ``IO_POISON`` must trip the guard at the next boundary, naming the last
+   good checkpoint, with no checkpoint after it; 3 eager steps under
+   ``utils/timer.profile_trace`` in a process of its own (``TRACE_RUN``, as
+   a user's ``--profile`` run), whose Chrome trace must hold each SUS
+   kernel's CUDA functions (``TRACE_KERNELS``) exactly launches a step
+   times 3 (up to ``TRACE_ATTEMPTS`` traces: a profiler session can lose
+   an operation), beside 3 unprofiled steps; one step with ``Timer`` on
+   (synchronised), whose labels must name every component of the chain and
+   ``"stage"``; the initial and final states through ``NetCDFMonitor`` and
+   back (all fields but ``NETCDF_SKIP``), equal to their host copies, the rebuilt domain's grid and
+   topography the original's.  Save, restore, NetCDF write and load ms,
+   the checkpoint's and the trace's MB, as phase lines and one JSON line
+   (``io``).
 
 The isentropic diagnostics kernel serves every diagnostics call, so phases
 4-7, 9, 10, 13 and 14 count it too (``LAUNCHES_PER_STEP``); phase 12 counts the
@@ -1000,6 +1020,259 @@ def component_states(state, theta, device, dtype, seed):
         return out
 
     return build(np.random.default_rng(seed)), build(np.random.default_rng(seed + 1))
+
+
+# phase 16, I/O and recovery on the flagship: the checkpointed run, the step
+# it resumes from, the step a wrapper poisons, and the CUDA functions each
+# SUS wrapper launches a call (si_stage: its two launches, A and B)
+IO_STEPS = 30
+IO_EVERY = 10
+IO_RESUME = 20
+IO_POISON = 15
+IO_REPEATS = 3
+TRACE_STEPS = 3
+TRACE_ATTEMPTS = 3
+TRACE_KERNELS = {
+    "si_stage": ("stage_density_montgomery", "stage_momenta_epilogue"),
+    "fused_smoothing": ("smoothing_kernel",),
+    "fused_smagorinsky_rk2": ("smagorinsky_kernel",),
+    "fused_kessler_satadj_rk2": ("kessler_kernel",),
+    "fused_vertical_advection_rk3ws": ("vertical_advection_kernel",),
+    "fused_sedimentation_rk3ws": ("sedimentation_kernel",),
+    "fused_isentropic_diagnostics": ("diagnostics_kernel",),
+}
+# fields the NetCDF layout cannot hold beside the 3-D fields: the two
+# precipitation fields declare the dims ("x", "y", "z") at one level, so "z"
+# would take two sizes (the JAX package's monitor refuses them alike)
+NETCDF_SKIP = ("precipitation", "accumulated_precipitation")
+# the SUS chain's components: each names a Timer label, alone or in a fused
+# operation's "A+B" label
+CHAIN_COMPONENTS = ("IsentropicDiagnostics", "IsentropicHorizontalSmoothing", "IsentropicSmagorinsky",
+                    "IsentropicVelocityComponents", "KesslerMicrophysics",
+                    "KesslerSaturationAdjustmentPrognostic", "IsentropicVerticalAdvection",
+                    "KesslerFallVelocity", "KesslerSedimentation", "Precipitation")
+
+
+# phase 16's traced run, in a process of its own: 3 steps unprofiled, then 3
+# under --profile's trace; prints their ms a step
+TRACE_RUN = """
+import json, torch
+from tasmania_tpu_torch.drivers import driver_namelist_sus as drv
+from tasmania_tpu_torch.drivers.namelist_sus import load_namelist
+from tasmania_tpu_torch.framework.options import StorageOptions
+nl = load_namelist(niter={steps}, so=StorageOptions(dtype=torch.float32, device={device!r}), **{grid!r})
+plain = drv.run(nl, verbose=False)
+profiled = drv.run(nl, verbose=False, profile={trace_dir!r})
+print(json.dumps({{"plain": plain["ms_per_step"], "profiled": profiled["ms_per_step"]}}))
+"""
+
+
+def trace_counts(path) -> dict:
+    """The device kernels of a Chrome trace, counted by each CUDA function
+    of ``TRACE_KERNELS``."""
+    import re
+
+    events = json.loads(Path(path).read_text())["traceEvents"]
+    names = [e["name"] for e in events if e.get("cat") == "kernel"]
+    return {fn: sum(1 for n in names if re.search(rf"\b{fn}\b", n))
+            for fns in TRACE_KERNELS.values() for fn in fns}
+
+
+def io_phase(card, path_counts, path_steps, device="cuda", size=None):
+    """Phase 16: checkpoints, resume, the NaN guard, the profiler trace, the
+    Timer and the NetCDF round trip on the flagship (module docstring).
+    ``size`` (nx, ny, nz) rehearses it on the CPU at a small size, where no
+    kernel is launched and the trace holds no device kernel.  Adds the
+    checkpointed run's launches to ``path_counts`` (``sus_io``) and returns
+    the JSON numbers."""
+    import statistics
+    import tempfile
+
+    import numpy as np
+
+    from tasmania_tpu_torch.drivers import driver_namelist_sus as drv
+    from tasmania_tpu_torch.drivers.namelist_sus import load_namelist
+    from tasmania_tpu_torch.framework.field import FieldArray
+    from tasmania_tpu_torch.framework.options import StorageOptions
+    from tasmania_tpu_torch.ops import _lib
+    from tasmania_tpu_torch.utils.checkpoint import CheckpointManager
+    from tasmania_tpu_torch.utils.iox import NetCDFMonitor, load_netcdf_dataset
+    from tasmania_tpu_torch.utils.timer import Timer
+
+    on_card = torch.device(device).type == "cuda"
+    grid = dict(zip(("nx", "ny", "nz"), size)) if size else {}
+    so = StorageOptions(dtype=torch.float32, device=device)
+    nl = load_namelist(niter=IO_STEPS, so=so, **grid)
+    per_step = LAUNCHES_PER_STEP["sus"] if on_card else {}
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    def timed(fn):
+        sync()
+        t0 = time.perf_counter()
+        out = fn()
+        sync()
+        return out, 1e3 * (time.perf_counter() - t0)
+
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        # the checkpointed run, the phase's path
+        sync()
+        _lib.reset_launch_counts()
+        full = drv.run(nl, verbose=False, checkpoint_dir=str(tmp / "ck"), checkpoint_every=IO_EVERY,
+                       nan_guard=True)
+        counts = dict(_lib.launch_counts)
+        expected = {k: (1 + IO_STEPS) * n for k, n in per_step.items()}
+        if counts != expected:
+            raise AssertionError(f"sus_io: launched {counts}, expected {expected}")
+        path_counts["sus_io"], path_steps["sus_io"] = counts, 1 + IO_STEPS
+        mgr = CheckpointManager(str(tmp / "ck"))
+        steps = list(range(IO_EVERY, IO_STEPS + 1, IO_EVERY))[-3:]
+        if mgr.all_steps() != steps:
+            raise AssertionError(f"sus_io: checkpoints {mgr.all_steps()}, expected {steps}")
+        mb = mgr.nbytes(IO_RESUME) / 1e6
+        # resume from IO_RESUME: the last steps again, bit for bit
+        resumed = drv.run(nl, verbose=False, checkpoint_dir=str(tmp / "ck"), checkpoint_every=IO_EVERY,
+                          resume=IO_RESUME, nan_guard=True)
+        if resumed["start"] != IO_RESUME:
+            raise AssertionError(f"resume: started after step {resumed['start']}, not {IO_RESUME}")
+        differ = sorted(k for k, fa in full["fields"].items()
+                        if not torch.equal(resumed["fields"][k].data, fa.data))
+        if differ or set(resumed["fields"]) != set(full["fields"]):
+            raise AssertionError(f"resume: fields differ from the uninterrupted run: {differ}")
+        phase("io-resume", f"{len(full['fields'])} fields bit for bit the uninterrupted run's after "
+              f"{IO_STEPS - IO_RESUME} steps from checkpoint {IO_RESUME}; checkpointed run "
+              f"{full['ms_per_step']:.3f} ms/step over 1+{IO_STEPS} steps ({len(steps)} saves, the guard "
+              f"at each), resumed {resumed['ms_per_step']:.3f} ms/step on {card}")
+        # save and restore times, and the restore onto the CPU
+        timed_mgr = CheckpointManager(str(tmp / "timed"))
+        save_ms = [timed(lambda i=i: timed_mgr.save(i, full["fields"]))[1] for i in range(IO_REPEATS)]
+        card_state, restore_ms = None, []
+        for _ in range(IO_REPEATS):
+            card_state, ms = timed(lambda: mgr.restore(IO_RESUME))
+            restore_ms.append(ms)
+        cpu_state, cpu_restore_ms = timed(lambda: mgr.restore(IO_RESUME, device="cpu"))
+        for k, fa in card_state.items():
+            if fa.data.device.type != torch.device(device).type or cpu_state[k].data.device.type != "cpu":
+                raise AssertionError(f"restore: {k} on {fa.data.device} and {cpu_state[k].data.device}")
+            if not torch.equal(cpu_state[k].data, fa.data.cpu()):
+                raise AssertionError(f"restore: {k} on the CPU differs from the card's")
+        out.update(checkpoint_mb=mb, save_ms=statistics.median(save_ms),
+                   restore_ms=statistics.median(restore_ms), restore_cpu_ms=cpu_restore_ms)
+        phase("io-checkpoint", f"{mb:.1f} MB a checkpoint ({len(card_state)} fields); save "
+              f"{out['save_ms']:.1f} ms, restore {out['restore_ms']:.1f} ms (medians of {IO_REPEATS}), "
+              f"restore onto the CPU {cpu_restore_ms:.1f} ms, bit for bit the card's, on {card}")
+        del card_state, cpu_state, resumed
+
+        # the NaN guard: a NaN written at IO_POISON trips it at the next boundary
+        domain, state, pt = drv.build_domain_and_state(nl)
+        dycore, physics = drv.build_model(nl, domain, pt)
+        calls = [0]
+
+        def poisoned(st, dt):
+            new = physics(dycore(st, {}, dt), dt)
+            calls[0] += 1
+            if calls[0] == 1 + IO_POISON:  # the warm-up step, then IO_POISON
+                new["air_isentropic_density"].data[5, 7, 11] = float("nan")
+            return new
+
+        boundary = -(-IO_POISON // IO_EVERY) * IO_EVERY
+        last = boundary - IO_EVERY
+        want = f"at step {boundary}; last good checkpoint: step {last}"
+        try:
+            drv.run_steps(nl, state, poisoned, dycore.topography_steady, verbose=False,
+                          checkpoint_dir=str(tmp / "nan"), checkpoint_every=IO_EVERY, nan_guard=True)
+        except RuntimeError as err:
+            if want not in str(err):
+                raise AssertionError(f"nan guard: {err!r} does not say {want!r}") from err
+            message = str(err)
+        else:
+            raise AssertionError("nan guard: the poisoned run did not raise")
+        if CheckpointManager(str(tmp / "nan")).all_steps() != list(range(IO_EVERY, last + 1, IO_EVERY)):
+            raise AssertionError(f"nan guard: checkpoints {CheckpointManager(str(tmp / 'nan')).all_steps()}")
+        phase("io-nan-guard", f"NaN written at step {IO_POISON}: {message}; checkpoints "
+              f"{CheckpointManager(str(tmp / 'nan')).all_steps()}")
+        del dycore, physics, state
+
+        # the profiler: each SUS kernel in the trace as often as it launched,
+        # in a process of its own, as a user's run with --profile: in this
+        # one, after phase 3's hundreds of profiler sessions, a trace loses
+        # the first launches it should hold
+        want_trace = {fn: per_step.get(w, 0) * TRACE_STEPS
+                      for w, fns in TRACE_KERNELS.items() for fn in fns}
+        for attempt in range(1, TRACE_ATTEMPTS + 1):
+            trace_dir = tmp / f"trace{attempt}"
+            code = TRACE_RUN.format(steps=TRACE_STEPS, device=str(device), grid=grid, trace_dir=str(trace_dir))
+            run = subprocess.run([sys.executable, "-c", code], cwd=Path(__file__).resolve().parent,
+                                 capture_output=True, text=True, timeout=600)
+            if run.returncode:
+                raise AssertionError(f"profile: the traced run failed:\n{run.stderr[-4000:]}")
+            ms = json.loads(run.stdout.strip().splitlines()[-1])
+            (trace,) = trace_dir.glob("*.json")
+            got = trace_counts(trace)
+            if not on_card or got == want_trace:
+                break
+            phase("io-profile", f"trace {attempt}: {got}, expected {want_trace}")
+        else:
+            raise AssertionError(f"profile: no trace of {TRACE_ATTEMPTS} holds the launches {want_trace}")
+        out.update(trace_mb=trace.stat().st_size / 1e6, trace_attempts=attempt,
+                   profiled_ms_per_step=ms["profiled"], unprofiled_ms_per_step=ms["plain"])
+        phase("io-profile", f"{TRACE_STEPS} steps: {ms['profiled']:.3f} ms/step profiled, "
+              f"{ms['plain']:.3f} unprofiled (one process); trace {out['trace_mb']:.1f} MB (attempt "
+              f"{attempt}), CUDA functions {got} on {card}")
+
+        # the Timer, synchronised, over one eager step
+        domain, state, pt = drv.build_domain_and_state(nl)
+        dycore, physics = drv.build_model(nl, domain, pt)
+        st = {k: v for k, v in state.items() if k != "time"}
+        st["topography_height"] = FieldArray(dycore.topography_steady * 0.0, "m", ("x", "y"))
+        physics(dycore(dict(st), {}, 5.0), 5.0)  # warm-up, untimed
+        Timer.reset()
+        Timer.enabled = True
+        try:
+            with Timer.timing("step"):
+                physics(dycore(dict(st), {}, 5.0), 5.0)
+        finally:
+            Timer.enabled = False
+        log = Timer.log(units="ms")
+        labels = {ln.strip().split(": ")[0] for ln in log.splitlines()}
+        out["timer_ms"] = {label: Timer.get_time(label, "ms") for label in sorted(labels)}
+        Timer.reset()
+        missing = sorted(set(CHAIN_COMPONENTS + ("stage",)) - {p for label in labels for p in label.split("+")})
+        if missing:
+            raise AssertionError(f"timer: no label for {missing}")
+        phase("io-timer", f"one step, synchronised, on {card}: " + " | ".join(ln.strip() for ln in log.splitlines()))
+        del dycore, physics
+
+        # NetCDF: the initial and the final state, written and loaded back
+        final = {"time": nl.init_time + (1 + IO_STEPS) * nl.timestep, **full["fields"]}
+        names = tuple(k for k in final if k not in NETCDF_SKIP + ("time",))
+        mon = NetCDFMonitor(str(tmp / "states.nc"), domain, store_names=names)
+        mon.store(state)
+        mon.store(final)
+        _, write_ms = timed(mon.write)
+        (loaded_domain, _, loaded), load_ms = timed(lambda: load_netcdf_dataset(str(tmp / "states.nc")))
+        for orig, back in zip((state, final), loaded):
+            if back["time"] != orig["time"] or set(back) != set(names) | {"time"}:
+                raise AssertionError("netcdf: times or field names differ")
+            for k in names:
+                if not torch.equal(back[k].data, orig[k].data.cpu()):
+                    raise AssertionError(f"netcdf: {k} differs from its host copy")
+        for axis in ("x", "y", "z", "z_on_interface_levels", "x_at_u_locations", "y_at_v_locations"):
+            a = np.asarray(getattr(loaded_domain.physical_grid, axis).data)
+            if not np.array_equal(a, np.asarray(getattr(domain.physical_grid, axis).data)):
+                raise AssertionError(f"netcdf: the rebuilt grid's {axis} differs")
+        if not np.array_equal(np.asarray(loaded_domain.numerical_grid.topography.steady_profile.data),
+                              np.asarray(domain.numerical_grid.topography.steady_profile.data)):
+            raise AssertionError("netcdf: the rebuilt topography differs")
+        nc_mb = (tmp / "states.nc").stat().st_size / 1e6
+        out.update(netcdf_mb=nc_mb, netcdf_write_ms=write_ms, netcdf_load_ms=load_ms)
+        phase("io-netcdf", f"2 states of {len(names)} fields (not {', '.join(NETCDF_SKIP)}), {nc_mb:.1f} MB: write {write_ms:.1f} ms, load {load_ms:.1f} ms; "
+              "fields equal to their host copies, the grid and topography rebuilt equal")
+    return out
 
 
 def components_phase(card, device="cuda", size=None, timer=None):
@@ -2399,6 +2672,9 @@ def main() -> int:
 
     # -- 15. the physics surface's plain components ----------------------------
     print(json.dumps({"components": components_phase(card, device), "card": card}))
+
+    # -- 16. I/O and recovery on the flagship ---------------------------------
+    print(json.dumps({"io": io_phase(card, path_counts, path_steps, device), "card": card}))
 
     # -- 14. the decomposed run (BASELINE config 5) through driver_sharded ----
     sharded_phase(card, path_counts, path_steps)

@@ -121,6 +121,7 @@ class PhysicalTopography(Topography):
                 f"topography {topography_type!r} is not ported (have {sorted(_PROFILES)})"
             )
         self.type = topography_type
+        self.kwargs = {"smooth": smooth, **kwargs}
         steady = np.asarray(
             _PROFILES[topography_type](grid, **kwargs),
             dtype=np.asarray(grid.x.data).dtype,
@@ -145,6 +146,7 @@ class NumericalTopography(Topography):
     def __init__(self, boundary) -> None:
         phys = boundary.physical_grid.topography
         self.type = phys.type
+        self.kwargs = phys.kwargs
         steady = boundary.get_numerical_field(np.asarray(phys.steady_profile.data))
         profile = boundary.get_numerical_field(np.asarray(phys.profile.data))
         dims = phys.steady_profile.dims

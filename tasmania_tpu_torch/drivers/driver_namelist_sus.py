@@ -26,11 +26,24 @@ step (``utils/jitx.py``), captured after the eager warm-up step and timed
 apart; the graph copies back only the fields the step reads.  It needs a
 CUDA device and raises without one; it gives the eager run's bits.
 
+The eager loop takes the JAX driver's recovery flags (:class:`Recovery`;
+``run_steps``' keywords of the same names): ``--checkpoint-dir DIR`` saves
+the fields every ``--checkpoint-every`` steps (default 25) and after the
+last step (``utils/checkpoint.py``); ``--resume`` replaces the fields, after
+the warm-up step, by the latest checkpoint's and runs the steps after it;
+``--nan-guard`` checks the fields for a non-finite value at every
+checkpoint boundary and raises ``RuntimeError`` before saving a poisoned
+state.  ``--profile LOGDIR`` writes a ``torch.profiler`` trace of the timed
+loop into LOGDIR (``utils/timer.profile_trace``).  As in the JAX driver,
+the fused loop refuses the checkpoint flags; it refuses ``--profile`` too.
+
 Usage::
 
     python -m tasmania_tpu_torch.drivers.driver_namelist_sus [--nx N] [--ny N]
         [--nz N] [--niter N] [--device cuda|cpu] [--merge smooth_smag]
         [--merge vadv_sed] [--coriolis F] [--implicit-vadv] [--fused-loop]
+        [--checkpoint-dir DIR [--checkpoint-every N] [--resume]] [--nan-guard]
+        [--profile LOGDIR]
 
 The namelist's device is ``cuda``; without a GPU, ``run`` raises unless the
 namelist names the CPU (``--device cpu`` on the command line).
@@ -40,9 +53,10 @@ from __future__ import annotations
 
 import argparse
 import collections
+import contextlib
 import time
 from dataclasses import replace
-from typing import Any, Dict, Sequence
+from typing import Any, Dict, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -81,7 +95,9 @@ from tasmania_tpu_torch.physics.microphysics.kessler import (
     KesslerSedimentation,
 )
 from tasmania_tpu_torch.physics.microphysics.utils import Precipitation
+from tasmania_tpu_torch.utils.checkpoint import CheckpointManager
 from tasmania_tpu_torch.utils.jitx import StepBody, StepGraph, traced_step
+from tasmania_tpu_torch.utils.timer import profile_trace
 
 PROCESSES = (
     "diagnostics", "coriolis", "smoothing", "smagorinsky", "velocities",
@@ -274,17 +290,86 @@ def launches_since(before: collections.Counter) -> Dict[str, int]:
     return dict(collections.Counter(_lib.launch_counts) - before)
 
 
+class Recovery:
+    """Checkpoints, resume and the NaN guard of one eager run (the JAX SUS
+    driver's ``--checkpoint-dir``, ``--checkpoint-every``, ``--resume`` and
+    ``--nan-guard``, ``drivers/driver_namelist_sus.py:497-583``).
+
+    ``directory`` (None: no checkpoint) holds the checkpoints; at every
+    ``every``-th step, and after the last if it is not one, the fields are
+    saved as that step.  ``resume`` (True: the latest checkpoint, or a step
+    number; nothing if the directory holds none) replaces the fields after
+    the warm-up step and starts the loop after that step (``start``).
+    ``nan_guard`` sums the magnitude of every field at every ``every``-th
+    step and raises ``RuntimeError`` on a non-finite sum, before saving."""
+
+    def __init__(self, directory: Optional[str] = None, every: int = 25,
+                 resume: Union[bool, int] = False, nan_guard: bool = False) -> None:
+        if every < 1:
+            raise ValueError(f"checkpoint every {every} steps: give a positive count")
+        if resume is not False and directory is None:
+            raise ValueError("resume needs a checkpoint directory")
+        self.manager = None if directory is None else CheckpointManager(directory)
+        self.every = every
+        self.resume = resume
+        self.nan_guard = nan_guard
+        self.start = 0
+
+    def resumed(self, fields: Dict[str, FieldArray], device, verbose: bool = True):
+        """``fields`` with the checkpoint's fields in place (those it lacks
+        keep their values); sets ``start``."""
+        if self.resume is False:
+            return fields
+        step = self.manager.latest_step if self.resume is True else self.resume
+        if step is None:
+            return fields
+        restored = self.manager.restore(step, device=device)
+        missing = sorted(k for k in fields if k not in restored)
+        if missing and verbose:
+            print(f"warning: checkpoint lacks {missing}; keeping their values")
+        self.start = step
+        if verbose:
+            print(f"resumed from checkpoint step {step}")
+        return {k: restored.get(k, fa) for k, fa in fields.items()}
+
+    def after_step(self, n: int, fields: Dict[str, FieldArray]) -> None:
+        """At a boundary (``n`` a multiple of ``every``), the guard, then the
+        checkpoint of step ``n``."""
+        if n % self.every:
+            return
+        if self.nan_guard:
+            total = torch.stack([fa.data.abs().sum(dtype=torch.float64) for fa in fields.values()]).sum()
+            if not torch.isfinite(total):
+                last = self.manager.latest_step if self.manager is not None else None
+                raise RuntimeError(f"non-finite state detected at step {n}; last good checkpoint: "
+                                   f"step {last} (restart with --resume)")
+        if self.manager is not None:
+            self.manager.save(n, fields, force=True)
+
+    def finish(self, n: int, fields: Dict[str, FieldArray]) -> None:
+        """The last step's checkpoint, if it was not at a boundary."""
+        if self.manager is not None and n % self.every:
+            self.manager.save(n, fields, force=True)
+
+
 def step_sequence(step, fields, hs0, hs_steady, facts: Sequence[float], device, *,
-                  verbose: bool = True, fused_loop: bool = False):
+                  verbose: bool = True, fused_loop: bool = False,
+                  recovery: Optional[Recovery] = None, profile: Optional[str] = None):
     """The drivers' loop: one eager warm-up step at the topography ``hs0``,
     then ``len(facts)`` timed steps at ``facts[i] * hs_steady``, eager or,
     with ``fused_loop``, as replays of one CUDA graph of ``step``
     (``utils/jitx.py``: the warm-up step traced for the fields it reads,
-    then the capture, timed apart; ``ValueError`` on a CPU device).
-    Returns the final fields, the seconds of the timed steps (ending in a
-    synchronize), the kernel launches of one step (the warm-up's, or the
-    captured step's) and the seconds of the capture (None without one)."""
+    then the capture, timed apart; ``ValueError`` on a CPU device).  The
+    eager loop takes a :class:`Recovery` (a resumed run times only the steps
+    after ``recovery.start``) and, with ``profile``, writes a profiler trace
+    of the timed steps into that directory; the fused loop takes neither
+    (``ValueError``).  Returns the final fields, the seconds of the timed
+    steps (ending in a synchronize), the kernel launches of one step (the
+    warm-up's, or the captured step's) and the seconds of the capture (None
+    without one)."""
     check_device(device, fused_loop=fused_loop)
+    if fused_loop and (recovery is not None or profile is not None):
+        raise ValueError("the fused loop's graph replays take no checkpoint, NaN guard or profile")
     before = collections.Counter(_lib.launch_counts)
     t0 = time.perf_counter()
     if fused_loop:
@@ -296,11 +381,21 @@ def step_sequence(step, fields, hs0, hs_steady, facts: Sequence[float], device, 
     if verbose:
         print(f"warmup step: {time.perf_counter() - t0:.3f} s", flush=True)
     if not fused_loop:
-        t0 = time.perf_counter()
-        for fact in facts:
-            fields = step(fields, fact * hs_steady)
-        synchronize(device)
-        return fields, time.perf_counter() - t0, per_step, None
+        start = 0
+        if recovery is not None:
+            fields = recovery.resumed(fields, device, verbose)
+            start = recovery.start
+        with profile_trace(profile) if profile else contextlib.nullcontext():
+            t0 = time.perf_counter()
+            for i in range(start, len(facts)):
+                fields = step(fields, facts[i] * hs_steady)
+                if recovery is not None:
+                    recovery.after_step(i + 1, fields)
+            synchronize(device)
+            elapsed = time.perf_counter() - t0
+        if recovery is not None:
+            recovery.finish(len(facts), fields)
+        return fields, elapsed, per_step, None
 
     body = StepBody(step, fields, carried, hs_steady, facts)
     before = collections.Counter(_lib.launch_counts)
@@ -318,28 +413,36 @@ def step_sequence(step, fields, hs0, hs_steady, facts: Sequence[float], device, 
     return graph.fields(), time.perf_counter() - t0, per_step, capture_s
 
 
-def run(nl, skip=(), *, verbose: bool = True, fused_loop: bool = False) -> Dict[str, Any]:
+def run(nl, skip=(), *, verbose: bool = True, fused_loop: bool = False, **recovery) -> Dict[str, Any]:
     """Build the model, run the warm-up step and ``nl.niter`` timed steps on
     the namelist's device (with ``fused_loop``, as replays of a CUDA graph of
-    the step).  Returns the validation numbers, the timing, the final fields
-    and the kernel launches of one step."""
+    the step; ``recovery`` holds :func:`run_steps`' checkpoint, resume, NaN
+    guard and profile keywords).  Returns the validation numbers, the
+    timing, the final fields and the kernel launches of one step."""
     check_device(nl.so.device, fused_loop=fused_loop)
     domain, state, pt = build_domain_and_state(nl)
     dycore, physics = build_model(nl, domain, pt, skip)
     return run_steps(nl, state, lambda st, dt: physics(dycore(st, {}, dt), dt),
-                     dycore.topography_steady, verbose=verbose, fused_loop=fused_loop)
+                     dycore.topography_steady, verbose=verbose, fused_loop=fused_loop, **recovery)
 
 
 def run_steps(nl, state, step_impl, hs_steady, *, verbose: bool = True,
-              fused_loop: bool = False) -> Dict[str, Any]:
+              fused_loop: bool = False, checkpoint_dir: Optional[str] = None,
+              checkpoint_every: int = 25, resume: Union[bool, int] = False,
+              nan_guard: bool = False, profile: Optional[str] = None) -> Dict[str, Any]:
     """The JAX drivers' step sequence from ``state``: one warm-up step at
     zero mountain height, then ``nl.niter`` timed steps with the mountain at
     ``min((i+1)·dt/1800 s, 1)`` of ``hs_steady``; ``step_impl(state, dt)``
     is one timestep.  With ``fused_loop`` the timed steps are replays of one
     CUDA graph of the step (:func:`step_sequence`; ``ValueError`` on a CPU
-    device).  Returns :func:`run`'s result; ``launches_per_step`` holds the
-    kernel launches of the warm-up step, or of the captured step, and
-    ``capture_s`` the seconds of the capture (None without a graph)."""
+    device).  The eager loop takes the checkpoints, the resume and the NaN
+    guard (:class:`Recovery`: ``checkpoint_dir``, ``checkpoint_every``,
+    ``resume``, ``nan_guard``) and ``profile``, a directory for a profiler
+    trace of the timed steps.  Returns :func:`run`'s result;
+    ``launches_per_step`` holds the kernel launches of the warm-up step, or
+    of the captured step, ``capture_s`` the seconds of the capture (None
+    without a graph) and ``start`` the step a resumed run started after;
+    the throughput counts the steps after it."""
     nx, ny, nz = state["air_isentropic_density"].shape
     dt_s = nl.timestep.total_seconds()
     topo_time = nl.topo_kwargs["time"].total_seconds()
@@ -347,23 +450,28 @@ def run_steps(nl, state, step_impl, hs_steady, *, verbose: bool = True,
     step = fields_step(step_impl, field_names, dt_s)
     fields = {k: state[k] for k in field_names}
     facts = [min((i + 1) * dt_s / topo_time, 1.0) for i in range(nl.niter)]
+    recovery = None
+    if checkpoint_dir is not None or resume is not False or nan_guard:
+        recovery = Recovery(checkpoint_dir, checkpoint_every, resume, nan_guard)
     fields, elapsed, per_step, capture_s = step_sequence(
         step, fields, hs_steady * 0.0, hs_steady, facts, nl.so.device, verbose=verbose,
-        fused_loop=fused_loop)
+        fused_loop=fused_loop, recovery=recovery, profile=profile)
+    start = 0 if recovery is None else recovery.start
+    steps = max(nl.niter - start, 1)
 
     u = fields["x_velocity_at_u_locations"].data
     v = fields["y_velocity_at_v_locations"].data
     umax = float(u[:, :-1].max())
     vmax = float(v[:-1, :].max())
-    gps = nx * ny * nz * max(nl.niter, 1) / elapsed
+    gps = nx * ny * nz * steps / elapsed
     if verbose:
         print(f"Validation: umax = {umax:.5f}, vmax = {vmax:.5f}")
         print(f"Compute time: {elapsed:.3f} s.")
         print(f"Throughput: {gps:.3e} gridpoints/s")
     return {
         "umax": umax, "vmax": vmax, "elapsed": elapsed, "gps": gps,
-        "ms_per_step": 1e3 * elapsed / max(nl.niter, 1), "fields": fields,
-        "launches_per_step": per_step, "capture_s": capture_s,
+        "ms_per_step": 1e3 * elapsed / steps, "fields": fields,
+        "launches_per_step": per_step, "capture_s": capture_s, "start": start,
     }
 
 
@@ -451,8 +559,31 @@ def main(argv=None):
     from tasmania_tpu_torch.drivers.namelist_sus import load_namelist
 
     parser = size_parser(__doc__.split("\n\n")[0])
+    parser.add_argument("--profile", type=str, default=None, metavar="LOGDIR",
+                        help="write a torch.profiler trace of the timed loop into LOGDIR")
+    parser.add_argument("--checkpoint-dir", type=str, default=None,
+                        help="write checkpoints of the fields into this directory")
+    parser.add_argument("--checkpoint-every", type=int, default=25,
+                        help="steps between checkpoints (with --checkpoint-dir) and NaN-guard probes")
+    parser.add_argument("--resume", action="store_true",
+                        help="resume from the latest checkpoint in --checkpoint-dir")
+    parser.add_argument("--nan-guard", action="store_true",
+                        help="probe the state for non-finite values at every checkpoint boundary; "
+                             "abort (without checkpointing the poisoned state) so a supervisor can "
+                             "restart from the last good checkpoint with --resume")
     cli = parser.parse_args(argv)
-    res = run(namelist_from(parser, cli, load_namelist), fused_loop=cli.fused_loop)
+    if cli.fused_loop and (cli.checkpoint_dir or cli.resume or cli.nan_guard):
+        parser.error("--fused-loop runs the timed steps as replays of one CUDA graph; the "
+                     "checkpoint/resume/nan-guard machinery never sees intermediate states there.  "
+                     "Drop --fused-loop or the checkpointing flags.")
+    if cli.fused_loop and cli.profile:
+        parser.error("--profile traces the eager loop; the fused loop's graph replays are not "
+                     "traced.  Drop --fused-loop or --profile.")
+    if cli.resume and not cli.checkpoint_dir:
+        parser.error("--resume needs --checkpoint-dir")
+    res = run(namelist_from(parser, cli, load_namelist), fused_loop=cli.fused_loop,
+              checkpoint_dir=cli.checkpoint_dir, checkpoint_every=cli.checkpoint_every,
+              resume=cli.resume, nan_guard=cli.nan_guard, profile=cli.profile)
     print("Simulation successfully completed.")
     return res
 

@@ -23,9 +23,14 @@ from typing import Any, Callable, Dict, List, Mapping, Optional, Tuple
 from torch import nn
 
 from tasmania_tpu_torch.framework.composite import POLICIES, DiagnosticComponentComposite
-from tasmania_tpu_torch.framework.core_components import DiagnosticComponent, merge_tendencies
+from tasmania_tpu_torch.framework.core_components import (
+    DiagnosticComponent,
+    component_label,
+    merge_tendencies,
+)
 from tasmania_tpu_torch.framework.promoter import FromDiagnosticToTendency, FromTendencyToDiagnostic
 from tasmania_tpu_torch.utils.exceptions import PropertyError
+from tasmania_tpu_torch.utils.timer import Timer
 from tasmania_tpu_torch.utils.units import units_are_compatible
 
 PropertyDict = Dict[str, Dict[str, Any]]
@@ -107,7 +112,8 @@ class ConcurrentCoupling(nn.Module):
         comps = tuple(self.components)
         for matcher, fuser in _CHAIN_FUSERS:
             if matcher(comps, scheme):
-                return fuser(comps, state, dt, output_properties)
+                with Timer.timing(component_label(comps)):
+                    return fuser(comps, state, dt, output_properties)
         return None
 
     def forward(

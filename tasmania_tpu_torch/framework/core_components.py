@@ -22,6 +22,7 @@ from tasmania_tpu_torch.framework.field import (
 )
 from tasmania_tpu_torch.framework.options import StorageOptions
 from tasmania_tpu_torch.utils.constants import get_physical_constants
+from tasmania_tpu_torch.utils.timer import Timer
 
 PropertyDict = Mapping[str, Mapping[str, Any]]
 
@@ -44,6 +45,13 @@ def merge_tendencies(
         else:
             merged[name] = fa
     return merged
+
+
+def component_label(components) -> str:
+    """The ``Timer`` label of one operation that runs ``components`` at
+    once (a fused step, a process pair): their class names joined by "+",
+    promoters left out."""
+    return "+".join(type(c).__name__ for c in components if isinstance(c, _Component))
 
 
 class _Component(nn.Module, abc.ABC):
@@ -87,8 +95,10 @@ class DiagnosticComponent(_Component):
         """Raw tensors in (declared units) -> raw diagnostics out."""
 
     def forward(self, state: Mapping[str, Any]) -> Dict[str, FieldArray]:
-        raw = get_array_dict(state, self.input_properties)
-        return wrap_outputs(self.array_call(raw), self.diagnostic_properties)
+        with Timer.timing(type(self).__name__):
+            raw = get_array_dict(state, self.input_properties)
+            raw_diags = self.array_call(raw)
+        return wrap_outputs(raw_diags, self.diagnostic_properties)
 
 
 class TendencyComponent(_Component):
@@ -118,8 +128,9 @@ class TendencyComponent(_Component):
         out_tendencies: Optional[Mapping[str, FieldArray]] = None,
         overwrite_tendencies: Optional[Mapping[str, bool]] = None,
     ) -> Tuple[Dict[str, FieldArray], Dict[str, FieldArray]]:
-        raw = get_array_dict(state, self.input_properties)
-        raw_tends, raw_diags = self._raw_call(raw, timestep)
+        with Timer.timing(type(self).__name__):
+            raw = get_array_dict(state, self.input_properties)
+            raw_tends, raw_diags = self._raw_call(raw, timestep)
         tends = wrap_outputs(raw_tends, self.tendency_properties)
         diags = wrap_outputs(raw_diags, self.diagnostic_properties)
         return merge_tendencies(out_tendencies, tends, overwrite_tendencies), diags

@@ -37,6 +37,7 @@ from tasmania_tpu_torch.framework.field import (
     get_array_dict,
     wrap_outputs,
 )
+from tasmania_tpu_torch.utils.timer import Timer
 
 PropertyDict = Mapping[str, Mapping[str, Any]]
 
@@ -147,8 +148,9 @@ class DynamicalCore(nn.Module, abc.ABC):
     ) -> Tuple[Dict[str, Any], Dict[str, Any]]:
         tends = merge_tendencies({k: v for k, v in slow_tendencies.items() if k != "time"}, fdc_tendencies)
         if self.fast_tendency_component is not None:
-            tends, diagnostics = self.fast_tendency_component(tmp_state, dt, out_tendencies=tends)
-            tmp_state = update(tmp_state, diagnostics)
+            with Timer.timing("call_fast_tendency_component"):
+                tends, diagnostics = self.fast_tendency_component(tmp_state, dt, out_tendencies=tends)
+                tmp_state = update(tmp_state, diagnostics)
 
         raw = get_array_dict(tmp_state, self.stage_input_properties)
         if "time" in tmp_state:
@@ -159,17 +161,20 @@ class DynamicalCore(nn.Module, abc.ABC):
         raw_tends = get_array_dict(
             tends, {k: p for k, p in self.stage_tendency_properties.items() if k in tends}
         )
-        raw_out = self.stage_array_call(stage, raw, raw_tends, dt)
+        with Timer.timing("stage"):
+            raw_out = self.stage_array_call(stage, raw, raw_tends, dt)
         stage_state = update(tmp_state, wrap_outputs(raw_out, self.stage_output_properties))
         if "time" in raw_out:  # the stage's own time stamp
             stage_state["time"] = raw_out["time"]
         if self.substeps > 0 and self.substep_output_properties:
-            stage_state = self._substep_loop(stage, dt, state, raw_out, tmp_state, stage_state)
+            with Timer.timing("substeps"):
+                stage_state = self._substep_loop(stage, dt, state, raw_out, tmp_state, stage_state)
 
         new_fdc_tendencies: Dict[str, Any] = {}
         if self.fast_diagnostic_component is not None:
-            new_fdc_tendencies, diagnostics = self.fast_diagnostic_component(stage_state, dt)
-            stage_state = update(stage_state, diagnostics)
+            with Timer.timing("call_fast_diagnostic_component"):
+                new_fdc_tendencies, diagnostics = self.fast_diagnostic_component(stage_state, dt)
+                stage_state = update(stage_state, diagnostics)
         return stage_state, new_fdc_tendencies
 
     def _substep_loop(

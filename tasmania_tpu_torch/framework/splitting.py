@@ -31,11 +31,16 @@ from typing import AbstractSet, Any, Callable, Dict, List, Mapping, Optional, Se
 from torch import nn
 
 from tasmania_tpu_torch.framework.concurrent_coupling import ConcurrentCoupling
-from tasmania_tpu_torch.framework.core_components import DiagnosticComponent, TendencyComponent
+from tasmania_tpu_torch.framework.core_components import (
+    DiagnosticComponent,
+    TendencyComponent,
+    component_label,
+)
 from tasmania_tpu_torch.framework.dict_operator import addsub, update
 from tasmania_tpu_torch.framework.field import ensure_timedelta_seconds
 from tasmania_tpu_torch.framework.options import TimeIntegrationOptions
 from tasmania_tpu_torch.framework.steppers import SequentialTendencyStepper, TendencyStepper
+from tasmania_tpu_torch.utils.timer import Timer
 
 # (matcher(process_a, process_b) -> bool, fuser(process_a, process_b, state,
 #  dt) -> (diagnostics, stepped), merge name or None for an always-on pair)
@@ -72,6 +77,12 @@ def _pair_plan(processes, merges: AbstractSet[str] = frozenset()) -> List[Tuple[
             plan.append(("one",) + tuple(processes[i]))
             i += 1
     return plan
+
+
+def _components(process) -> List[Any]:
+    """A process's components: a stepper's coupling's, else the process."""
+    coupling = getattr(process, "coupling", None)
+    return list(coupling.components) if coupling is not None else [process]
 
 
 def _build_processes(options: Sequence[TimeIntegrationOptions], family=TendencyStepper) -> List[Tuple[Any, int]]:
@@ -121,7 +132,8 @@ class SequentialUpdateSplitting(_Splitting):
         for entry in _pair_plan(self._processes, self.merges):
             if entry[0] == "pair":
                 _, a, b, fuser = entry
-                diagnostics, stepped = fuser(a, b, out, td)
+                with Timer.timing(component_label(_components(a) + _components(b))):
+                    diagnostics, stepped = fuser(a, b, out, td)
                 out = update(update(out, diagnostics), stepped)
                 continue
             _, proc, substeps = entry

@@ -24,6 +24,7 @@ from tasmania_tpu_torch.ops.smagorinsky_step import (
     fused_smoothing_smagorinsky_rk2,
 )
 from tasmania_tpu_torch.physics.turbulence import Smagorinsky2d, frame_paste, smagorinsky_core
+from tasmania_tpu_torch.utils.timer import Timer
 
 DIMS = ("x", "y", "z")
 SU, SV = "x_momentum_isentropic", "y_momentum_isentropic"
@@ -50,12 +51,13 @@ class IsentropicSmagorinsky(Smagorinsky2d):
         on a shard of a decomposition."""
         if scheme != "rk2" or not self.horizontal_boundary.is_degenerate:
             return None
-        raw = get_array_dict(state, self.input_properties)
-        dx, dy = self.spacings()
-        su, sv = fused_smagorinsky_rk2(
-            raw["air_isentropic_density"], raw[SU], raw[SV],
-            dx=dx, dy=dy, cs=self.cs, nb=self.nb, dt=float(dt),
-        )
+        with Timer.timing(type(self).__name__):
+            raw = get_array_dict(state, self.input_properties)
+            dx, dy = self.spacings()
+            su, sv = fused_smagorinsky_rk2(
+                raw["air_isentropic_density"], raw[SU], raw[SV],
+                dx=dx, dy=dy, cs=self.cs, nb=self.nb, dt=float(dt),
+            )
         return {}, {
             SU: FieldArray(su, output_properties[SU]["units"], DIMS),
             SV: FieldArray(sv, output_properties[SV]["units"], DIMS),

@@ -24,6 +24,7 @@ from tasmania_tpu_torch.framework.core_components import TendencyComponent
 from tasmania_tpu_torch.framework.field import FieldArray, get_array_dict
 from tasmania_tpu_torch.isentropic.dynamics.vertical_fluxes import IsentropicMinimalVerticalFlux
 from tasmania_tpu_torch.ops.vertical_advection_step import fused_vertical_advection_rk3ws
+from tasmania_tpu_torch.utils.timer import Timer
 
 mfwv = "mass_fraction_of_water_vapor_in_air"
 mfcw = "mass_fraction_of_cloud_liquid_water_in_air"
@@ -99,12 +100,13 @@ class IsentropicVerticalAdvection(TendencyComponent):
         """The whole RK3WS step in one operation; None for another scheme."""
         if scheme != "rk3ws":
             return None
-        raw = get_array_dict(state, self.input_properties)
         names = self.fields
-        stepped = fused_vertical_advection_rk3ws(
-            raw[TTD], *(raw[n] for n in names[:3]), tuple(raw[n] for n in names[3:]),
-            order=self.vflux.order, dt=float(dt), dz=self.dz,
-        )
+        with Timer.timing(type(self).__name__):
+            raw = get_array_dict(state, self.input_properties)
+            stepped = fused_vertical_advection_rk3ws(
+                raw[TTD], *(raw[n] for n in names[:3]), tuple(raw[n] for n in names[3:]),
+                order=self.vflux.order, dt=float(dt), dz=self.dz,
+            )
         return {}, {
             n: FieldArray(a, output_properties[n]["units"], DIMS) for n, a in zip(names, stepped)
         }

@@ -44,7 +44,9 @@ eager run bit for bit (every coupling, sus and fc at third order, sus on
 the periodic boundary, sus with Coriolis and the implicit vertical
 advection, fc with Coriolis at 41x41x20, sus on a 1x41x20 y-z slice and
 over the Schaer mountain, the mountain wave, Burgers, 1 + 5 steps),
-its captured step launching ``chip_smoke.py``'s ``LAUNCHES_PER_STEP``.  The
+its captured step launching ``chip_smoke.py``'s ``LAUNCHES_PER_STEP``.
+Checkpoints: an eager run resumed from a checkpoint equal to the
+uninterrupted run bit for bit, and card fields restored onto the CPU.  The
 input helpers here are shared with ``tests/test_torch_ops.py``,
 ``tests/test_torch_physics_ops.py`` and ``tests/test_torch_merges.py``.
 """
@@ -1142,3 +1144,45 @@ def test_fused_loop_graph_matches_eager(cuda_device, path):
     for name, fa in eager["fields"].items():
         assert torch.equal(graph["fields"][name].data, fa.data), name
     assert eager["launches_per_step"] == graph["launches_per_step"] == LAUNCHES_PER_STEP.get(path, {})
+
+
+# ---------------------------------------------------------------- checkpoints
+
+
+@pytest.mark.cuda
+def test_checkpoint_resume_bitwise_on_card(cuda_device, tmp_path):
+    """41x41x20, float32, eager: a run checkpointed every 2 steps and
+    resumed from step 4 ends on the uninterrupted 1 + 6 steps' fields bit
+    for bit (no kernel of the SUS chain uses atomics)."""
+    from tasmania_tpu_torch.drivers import driver_namelist_sus as drv
+    from tasmania_tpu_torch.drivers.namelist_sus import load_namelist
+    from tasmania_tpu_torch.utils.checkpoint import CheckpointManager
+
+    nl = load_namelist(**{**GRAPH_SIZE, "niter": 6}, so=StorageOptions(dtype=torch.float32, device="cuda"))
+    full = drv.run(nl, verbose=False, checkpoint_dir=str(tmp_path / "ck"), checkpoint_every=2)
+    mgr = CheckpointManager(str(tmp_path / "ck"))
+    assert mgr.all_steps() == [2, 4, 6]
+    resumed = drv.run(nl, verbose=False, checkpoint_dir=str(tmp_path / "ck"), resume=4)
+    assert resumed["start"] == 4
+    for name, fa in full["fields"].items():
+        assert fa.data.is_cuda and resumed["fields"][name].data.is_cuda
+        assert torch.equal(resumed["fields"][name].data, fa.data), name
+
+
+@pytest.mark.cuda
+def test_checkpoint_restores_card_fields_on_cpu(cuda_device, tmp_path):
+    """A checkpoint of card fields restores onto the CPU (``device="cpu"``)
+    with the card's values bit for bit, and by default onto the card."""
+    from tasmania_tpu_torch.utils.checkpoint import CheckpointManager
+
+    rng = np.random.default_rng(3)
+    state = {name: FieldArray(torch.as_tensor(rng.normal(size=(41, 41, 20)), dtype=torch.float32,
+                                              device=cuda_device), "1")
+             for name in ("a", "b")}
+    mgr = CheckpointManager(str(tmp_path / "ck"))
+    mgr.save(1, state)
+    on_cpu, on_card = mgr.restore(device="cpu"), mgr.restore()
+    for name, fa in state.items():
+        assert on_cpu[name].data.device.type == "cpu" and on_card[name].data.is_cuda
+        assert torch.equal(on_cpu[name].data, fa.data.cpu())
+        assert torch.equal(on_card[name].data, fa.data)

@@ -108,7 +108,9 @@ def test_port_imports_no_jax():
     dycore step, two steps of the mountain-wave driver and two steps
     of each case of the Burgers driver (which import the Burgers model, the
     Dirichlet boundary and the diffusion dwarf), and importing the other
-    boundaries and dwarfs, leaves JAX and the JAX package unloaded."""
+    boundaries and dwarfs, importing ``utils.{iox,checkpoint,timer}`` and
+    ``plot``, and one checkpointed step of the SUS driver (saved, then
+    resumed, with the NaN guard), leaves JAX and the JAX package unloaded."""
     code = (
         "import sys, torch\n"
         "import tasmania_tpu_torch.utils.jitx\n"
@@ -154,6 +156,13 @@ def test_port_imports_no_jax():
         "from tasmania_tpu_torch.drivers import driver_burgers\n"
         "for case in driver_burgers.CASES:\n"
         "    driver_burgers.run_case(case, 16, steps=1, so=so, verbose=False)\n"
+        "import tempfile\n"
+        "import tasmania_tpu_torch.utils.iox, tasmania_tpu_torch.utils.checkpoint, tasmania_tpu_torch.utils.timer\n"
+        "import tasmania_tpu_torch.plot\n"
+        "with tempfile.TemporaryDirectory() as ck:\n"
+        "    for resume in (False, True):\n"
+        "        run(load_namelist(**size), verbose=False, checkpoint_dir=ck, checkpoint_every=1,\n"
+        "            resume=resume, nan_guard=True)\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'tasmania_tpu.')) or m == 'tasmania_tpu')\n"
         "assert not bad, bad\n"
     )
