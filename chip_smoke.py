@@ -258,10 +258,28 @@ printing one line; any failure raises and exits non-zero:
    back (all fields but ``NETCDF_SKIP``), equal to their host copies, the rebuilt domain's grid and
    topography the original's.  Save, restore, NetCDF write and load ms,
    the checkpoint's and the trace's MB, as phase lines and one JSON line
-   (``io``).
+   (``io``);
+17. the registry (run after phase 12, before phase 15; ``registry_phase``):
+   (a) a topography that copies ``Gaussian`` and a subclass of ``Relaxed``,
+   registered in the phase under names of their own
+   (``register_user_flavours``), build the flagship by name; 1 +
+   ``REGISTRY_STEPS`` steps eager and as a CUDA graph, whose fields must
+   equal the eager run built through ``"gaussian"`` and ``"relaxed"`` bit
+   for bit, with sus's exact launches (path ``sus_registry``); the graph
+   step of both in ``REGISTRY_PAIRS`` alternating pairs of
+   ``FUSED_TIMED_STEPS`` steps; (b) the same run under the backend names
+   ``"jax"`` and ``"pallas"``, eager and as a graph, with the same launches
+   and bits; (c) every registered stencil and subroutine through
+   ``compile_stencil`` (backend ``"jax"``) on seeded float32 card tensors at
+   161x161x120, within ``COMPONENT_TOL`` of the port's float64 CPU result,
+   no kernel launched, with its device time a call; (d) phase 12's 24
+   dwarfs built through their factories, each with phase 12's bits and #3's
+   launch count; (e) the allocators and the factory mixin's, which must
+   return float32 tensors on the card; phase lines and one JSON line
+   (``registry``).
 
 The isentropic diagnostics kernel serves every diagnostics call, so phases
-4-7, 9, 10, 13 and 14 count it too (``LAUNCHES_PER_STEP``); phase 12 counts the
+4-7, 9, 10, 13, 14 and 17 count it too (``LAUNCHES_PER_STEP``); phase 12 counts the
 smoothing kernel under the path ``dwarfs``.  Every phase checks the launch
 counts exactly: each kernel of the path as often as its path launches it a
 step (phase 10: a step's launches twice), and no other kernel.  The last two
@@ -408,6 +426,9 @@ LAUNCHES_PER_STEP = {
     "sus_yz": {**{k: n for k, n in _SUS.items() if k != "si_stage"}, "fused_advection_fields": 3,
                "fused_momentum_step": 3, "fused_isentropic_diagnostics": 4},
     "sus_schaer": _SUS,
+    # phase 17: the flagship built through a user's registered topography and
+    # boundary (and under the JAX backend names) runs sus's kernels
+    "sus_registry": _SUS,
 }
 # phase 13, the isentropic core's surface at full size: a coupling, its
 # namelist overrides and the reference file (the JAX package's float32
@@ -1359,6 +1380,269 @@ def components_phase(card, device="cuda", size=None, timer=None):
     return rows
 
 
+# phase 12's and phase 17's dwarfs: each family's module and base class
+DWARF_FAMILIES = {"diffusion": ("horizontal_diffusion", "HorizontalDiffusion"),
+                  "hyperdiffusion": ("horizontal_hyperdiffusion", "HorizontalHyperDiffusion"),
+                  "smoothing": ("horizontal_smoothing", "HorizontalSmoothing")}
+
+
+def dwarf_family(kind):
+    import importlib
+
+    module, name = DWARF_FAMILIES[kind]
+    return getattr(importlib.import_module(f"tasmania_tpu_torch.dwarfs.{module}"), name)
+
+
+def build_dwarf(kind, name, so, backend=None):
+    """Phase 12's dwarf ``name`` of ``kind`` (the flagship's spacing), built
+    by its registered class, or with ``backend`` through the family's
+    factory."""
+    from tasmania_tpu_torch.drivers.namelist_sus import load_namelist
+
+    nl = load_namelist()
+    ddx = (nl.domain_x[1] - nl.domain_x[0]) / (DWARF_SHAPE[0] - 1)
+    ddy = (nl.domain_y[1] - nl.domain_y[0]) / (DWARF_SHAPE[1] - 1)
+    args = ((DWARF_SHAPE, *DWARF_SMOOTH, DWARF_NB) if kind == "smoothing"
+            else (DWARF_SHAPE, ddx, ddy, *DWARF_DIFFUSION, DWARF_NB))
+    family = dwarf_family(kind)
+    if backend is None:
+        return family.registry[name](*args, storage_options=so)
+    return family.factory(name, *args, backend=backend, storage_options=so)
+
+
+# phase 17, the registry: the flagship built by name through a user's
+# registrations and under the JAX backend names, every registered stencil on
+# the card against the port's float64 CPU result (COMPONENT_TOL), phase 12's
+# dwarfs through their factories and the allocators
+USER_TOPOGRAPHY = "user_gaussian"
+USER_BOUNDARY = "user_relaxed"
+REGISTRY_BACKENDS = ("jax", "pallas")
+REGISTRY_STEPS = 20
+# the graph step of the built-in and the user's names: pairs in this call
+REGISTRY_PAIRS = 10
+STENCIL_SEED = 17
+STENCIL_SHAPE = (161, 161, 120)
+# f and dt of the algebra, dx and dy of the Laplacian (the flagship's spacing)
+STENCIL_EXTERNALS = {"f": 0.7, "dt": 5.0, "dx": 2.2e3, "dy": 2.2e3}
+
+
+def register_user_flavours():
+    """Register, as a user would, a topography that copies ``Gaussian`` and
+    a subclass of ``Relaxed``, under names of their own (once); returns the
+    names and a function that removes the two registrations."""
+    from tasmania_tpu_torch.domain.boundaries.relaxed import Relaxed
+    from tasmania_tpu_torch.domain.horizontal_boundary import HorizontalBoundary
+    from tasmania_tpu_torch.domain.topography import Gaussian, PhysicalTopography
+    from tasmania_tpu_torch.framework.registry import factor_register
+
+    if USER_TOPOGRAPHY not in PhysicalTopography.registry:
+        @factor_register(USER_TOPOGRAPHY)
+        class UserGaussian(Gaussian):
+            """Gaussian's mountain under the user's name."""
+
+    if USER_BOUNDARY not in HorizontalBoundary.registry:
+        @factor_register(USER_BOUNDARY)
+        class UserRelaxed(Relaxed):
+            """The relaxed boundary under the user's name."""
+
+    def unregister():
+        PhysicalTopography.registry.pop(USER_TOPOGRAPHY, None)
+        HorizontalBoundary.registry.pop(USER_BOUNDARY, None)
+
+    return {"topography": USER_TOPOGRAPHY, "boundary": USER_BOUNDARY, "unregister": unregister}
+
+
+def stencil_inputs(name, fn, shape, seed):
+    """Seeded float64 host inputs of a registered definition: its positional
+    arrays (a diagonally dominant system for the Thomas solve)."""
+    import inspect
+
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    if name == "thomas":
+        return (rng.uniform(-1.0, 1.0, shape), 2.5 + rng.uniform(0.0, 1.0, shape),
+                rng.uniform(-1.0, 1.0, shape), rng.standard_normal(shape))
+    arity = sum(p.kind == p.POSITIONAL_OR_KEYWORD for p in inspect.signature(fn).parameters.values())
+    return tuple(rng.standard_normal(shape) for _ in range(arity))
+
+
+def registry_phase(card, path_counts, path_steps, dwarf_outs, dwarf_phi, device="cuda", size=None,
+                   timer=None, graphs=True):
+    """Phase 17 (module docstring).  ``dwarf_outs`` are phase 12's outputs
+    of ``dwarf_phi``, keyed by (kind, name).  ``size`` (nx, ny, nz) and
+    ``timer`` rehearse it on the CPU at a small size, without the graphs
+    (``graphs``) and with no kernel launched.  Adds the user-registered
+    run's launches to ``path_counts`` (``sus_registry``) and returns the
+    JSON numbers."""
+    import numpy as np
+
+    from tasmania_tpu_torch.drivers import driver_isentropic_moist as moist
+    from tasmania_tpu_torch.drivers import driver_namelist_sus as drv
+    from tasmania_tpu_torch.drivers.namelist_sus import load_namelist
+    from tasmania_tpu_torch.framework import allocators
+    from tasmania_tpu_torch.framework.options import BackendOptions, StorageOptions
+    from tasmania_tpu_torch.framework.registry import registered_names
+    from tasmania_tpu_torch.framework.stencil import (
+        STENCIL_REGISTRY,
+        SUBROUTINE_REGISTRY,
+        StencilFactory,
+        compile_stencil,
+        compile_subroutine,
+    )
+    from tasmania_tpu_torch.ops import _lib
+
+    timer = timer or device_ms
+    on_card = torch.device(device).type == "cuda"
+    grid = dict(zip(("nx", "ny", "nz"), size)) if size else {}
+    so = StorageOptions(dtype=torch.float32, device=device)
+    per_step = LAUNCHES_PER_STEP["sus_registry"] if on_card else {}
+    user = register_user_flavours()
+    by_name = dict(topo_type=user["topography"], hb_type=user["boundary"])
+    common = dict(so=so, niter=REGISTRY_STEPS, **grid)
+    namelists = {"built_in": load_namelist(**common), "user": load_namelist(**common, **by_name),
+                 **{b: load_namelist(**common, backend=b, **by_name) for b in REGISTRY_BACKENDS}}
+    out = {"user_names": {k: user[k] for k in ("topography", "boundary")}, "runs": {}}
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    # (a), (b): each run eager and as a graph, from zeroed counts; every
+    # run's fields equal the built-in names' eager run's bit for bit
+    base = None
+    for tag, nl in namelists.items():
+        for fused in (False, True) if graphs else (False,):
+            sync()
+            _lib.reset_launch_counts()
+            res = drv.run(nl, verbose=False, fused_loop=fused)
+            sync()
+            counts = dict(_lib.launch_counts)
+            steps = 2 if fused else 1 + nl.niter
+            for name in sorted(set(per_step) | set(counts)):
+                if counts.get(name, 0) != steps * per_step.get(name, 0):
+                    raise AssertionError(f"registry {tag} ({'graph' if fused else 'eager'}): {name} launched "
+                                         f"{counts.get(name, 0)} times, expected {steps * per_step.get(name, 0)}")
+            if res["launches_per_step"] != per_step:
+                raise AssertionError(f"registry {tag}: a step launched {res['launches_per_step']}")
+            if base is None:
+                base = res["fields"]
+                bad = [k for k, fa in base.items() if not bool(torch.isfinite(fa.data).all())]
+                if bad:
+                    raise AssertionError(f"registry: non-finite fields {bad}")
+            unequal = sorted(k for k, fa in base.items() if not torch.equal(res["fields"][k].data, fa.data))
+            if set(res["fields"]) != set(base) or unequal:
+                raise AssertionError(f"registry {tag} ({'graph' if fused else 'eager'}): fields {unequal} "
+                                     f"differ from the built-in names' eager run")
+            if tag == "user" and not fused:
+                path_counts["sus_registry"], path_steps["sus_registry"] = counts, 1 + nl.niter
+            out["runs"][f"{tag}_{'graph' if fused else 'eager'}"] = dict(
+                launches=counts, ms_per_step=res["ms_per_step"])
+            phase("registry", f"{tag} ({nl.topo_type}, {nl.hb_type}, backend {nl.backend}), "
+                  f"{'graph' if fused else 'eager'}, {nl.nx}x{nl.ny}x{nl.nz}, 1+{nl.niter} steps: "
+                  f"{res['ms_per_step']:.3f} ms/step; its {len(base)} fields equal the built-in names' "
+                  f"eager run's bit for bit; launches {counts}")
+            del res
+    del base
+
+    # the graph step of the built-in and the user's names in alternating pairs
+    if graphs:
+        runs = {"built_in": [], "user": []}
+        built = {}
+        for tag in runs:
+            nl_t = load_namelist(so=so, niter=FUSED_TIMED_STEPS, **grid,
+                                 **(by_name if tag == "user" else {}))
+            _, t_state, t_dycore, t_step = moist.build_variant(nl_t, "sus")
+            built[tag] = (nl_t, t_state, t_step, t_dycore.topography_steady)
+        for i in range(REGISTRY_PAIRS):
+            for tag in (("built_in", "user") if i % 2 == 0 else ("user", "built_in")):
+                nl_t, t_state, t_step, hs = built[tag]
+                runs[tag].append(drv.run_steps(nl_t, t_state, t_step, hs, verbose=False,
+                                               fused_loop=True)["ms_per_step"])
+        del built
+        med = {tag: sorted(r)[len(r) // 2] for tag, r in runs.items()}
+        out["graph_ms_per_step"] = runs
+        phase("registry-timing", f"graph step, {FUSED_TIMED_STEPS} timed steps a run, {REGISTRY_PAIRS} pairs on "
+              f"{card}: built-in names {' '.join(f'{t:.3f}' for t in runs['built_in'])} (median "
+              f"{med['built_in']:.3f}); the user's {' '.join(f'{t:.3f}' for t in runs['user'])} (median "
+              f"{med['user']:.3f}) ms/step")
+
+    # (c) every registered stencil and subroutine on seeded float32 tensors
+    bo = BackendOptions(externals=STENCIL_EXTERNALS)
+    shape = STENCIL_SHAPE if size is None else tuple(size)
+    rows = []
+    sync()
+    _lib.reset_launch_counts()
+    for kind, reg, compile_ in (("stencil", STENCIL_REGISTRY, compile_stencil),
+                                ("subroutine", SUBROUTINE_REGISTRY, compile_subroutine)):
+        for name in reg.names():
+            host = [np.asarray(a, dtype=np.float32) for a in
+                    stencil_inputs(name, reg.query(name, "torch"), shape, STENCIL_SEED)]
+            fn, fn64 = compile_(name, "jax", bo), compile_(name, "torch", bo)
+            args = [torch.as_tensor(a, device=device) for a in host]
+            got = fn(*args)
+            ref = fn64(*(torch.as_tensor(a, dtype=torch.float64) for a in host))
+            g = got.double().cpu()
+            scale = float(ref.abs().max())
+            err = float((g - ref).abs().max())
+            if not (got.device.type == torch.device(device).type and got.dtype == torch.float32
+                    and bool(torch.isfinite(g).all()) and err <= COMPONENT_TOL * scale):
+                raise AssertionError(f"{kind} {name}: max|d| = {err} > {COMPONENT_TOL} * {scale} "
+                                     f"({got.dtype} on {got.device})")
+            ms, how = timer(lambda: fn(*args))
+            b = bound(nbytes(args) + got.numel() * got.element_size(), 0.0)
+            rows.append(dict(kind=kind, name=name, rel_err=err / scale, device_ms=ms, timed_by=how,
+                             bound_ms=b["bound_ms"], bound_by=b["bound_by"]))
+            phase("registry-stencil", f"{kind} {name} (backend jax) at {'x'.join(map(str, shape))} "
+                  f"float32: {ms:.4f} ms a call ({how}), bound {b['bound_ms']:.4f} ms by {b['bound_by']}; "
+                  f"error {err / scale:.1e} of the largest magnitude of the float64 CPU result")
+            del args, got, g, ref
+    sync()
+    if dict(_lib.launch_counts):
+        raise AssertionError(f"registry stencils: launched {dict(_lib.launch_counts)}, expected none")
+    out["stencils"] = rows
+
+    # (d) phase 12's dwarfs through their factories, under a JAX backend name
+    sync()
+    _lib.reset_launch_counts()
+    built = {(k, n): build_dwarf(k, n, so, backend="jax") for k, n in dwarf_outs}
+    outs = {key: d(dwarf_phi) for key, d in built.items()}
+    sync()
+    counts = dict(_lib.launch_counts)
+    expected = ({"fused_smoothing": sum(d.axes == "xy" for (k, _), d in built.items() if k == "smoothing")}
+                if on_card else {})
+    if counts != expected:
+        raise AssertionError(f"registry dwarfs: launched {counts}, expected {expected}")
+    for key, got in outs.items():
+        if type(built[key]) is not dwarf_family(key[0]).registry[key[1]] or not torch.equal(got, dwarf_outs[key]):
+            raise AssertionError(f"registry dwarf {key}: differs from phase 12's")
+    names = {k: list(registered_names(dwarf_family(k))) for k in DWARF_FAMILIES}
+    if sorted(outs) != sorted((k, n) for k, ns in names.items() for n in ns):
+        raise AssertionError(f"registry dwarfs: built {sorted(outs)}, registered {names}")
+    out["dwarfs"] = dict(count=len(outs), launches=counts)
+    phase("registry-dwarfs", f"{len(outs)} dwarfs built through their factories (backend jax) give "
+          f"phase 12's bits; launches {counts}")
+    del built, outs
+
+    # (e) the allocators and the factory mixin on the card
+    placed = []
+    for backend in ("torch", *REGISTRY_BACKENDS):
+        sf = StencilFactory(backend, storage_options=so)
+        for t in (allocators.zeros(backend, (4, 3), storage_options=so),
+                  allocators.ones(backend, (4, 3), storage_options=so),
+                  allocators.empty(backend, (4, 3), storage_options=so),
+                  allocators.as_storage(backend, np.arange(12.0).reshape(4, 3), storage_options=so),
+                  sf.zeros((4, 3)), sf.ones((4, 3)), sf.empty((4, 3)), sf.as_storage([1.0, 2.0])):
+            if t.device.type != torch.device(device).type or t.dtype != torch.float32:
+                raise AssertionError(f"allocator under {backend}: {t.dtype} on {t.device}")
+            placed.append(str(t.device))
+    out["allocators"] = dict(tensors=len(placed), devices=sorted(set(placed)))
+    phase("registry-allocators", f"{len(placed)} tensors from zeros, ones, empty and as_storage (and the "
+          f"factory mixin's) under torch, jax and pallas: float32 on {sorted(set(placed))}")
+    user["unregister"]()
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -1380,12 +1664,7 @@ def main() -> int:
     from tasmania_tpu_torch.drivers import driver_mountain_wave as mw
     from tasmania_tpu_torch.drivers import driver_namelist_sus as drv
     from tasmania_tpu_torch.drivers.namelist_sus import load_namelist
-    from tasmania_tpu_torch.dwarfs.horizontal_diffusion import TYPES as diffusion_types
-    from tasmania_tpu_torch.dwarfs.horizontal_diffusion import HorizontalDiffusion
-    from tasmania_tpu_torch.dwarfs.horizontal_hyperdiffusion import TYPES as hyperdiffusion_types
-    from tasmania_tpu_torch.dwarfs.horizontal_hyperdiffusion import HorizontalHyperDiffusion
-    from tasmania_tpu_torch.dwarfs.horizontal_smoothing import TYPES as smoothing_types
-    from tasmania_tpu_torch.dwarfs.horizontal_smoothing import HorizontalSmoothing
+    from tasmania_tpu_torch.framework.registry import registered_names
     from tasmania_tpu_torch.framework.options import StorageOptions
     from tasmania_tpu_torch.framework.steppers import TendencyStepper
     from tasmania_tpu_torch.isentropic.physics.turbulence import IsentropicSmagorinsky
@@ -2624,24 +2903,13 @@ def main() -> int:
     print(json.dumps({"burgers_timing": burgers_timing, "card": card}))
 
     # -- 12. the diffusion, hyperdiffusion and smoothing dwarfs (BASELINE config 2)
-    dwarf_types = {"diffusion": (HorizontalDiffusion, sorted(diffusion_types)),
-                   "hyperdiffusion": (HorizontalHyperDiffusion, sorted(hyperdiffusion_types)),
-                   "smoothing": (HorizontalSmoothing, sorted(smoothing_types))}
-    dgrid = nl.domain_x, nl.domain_y
-    ddx = (dgrid[0][1] - dgrid[0][0]) / (DWARF_SHAPE[0] - 1)
-    ddy = (dgrid[1][1] - dgrid[1][0]) / (DWARF_SHAPE[1] - 1)
     phi64 = torch.as_tensor(np.random.default_rng(DWARF_SEED).standard_normal(DWARF_SHAPE),
                             dtype=torch.float32).double()
     phi = phi64.to(device=device, dtype=torch.float32)
     cpu64 = StorageOptions(dtype=torch.float64, device="cpu")
-
-    def dwarf(kind, name, so):
-        cls, _ = dwarf_types[kind]
-        if kind == "smoothing":
-            return cls(name, DWARF_SHAPE, *DWARF_SMOOTH, DWARF_NB, storage_options=so)
-        return cls(name, DWARF_SHAPE, ddx, ddy, *DWARF_DIFFUSION, DWARF_NB, storage_options=so)
-
-    dwarfs = {(k, n): dwarf(k, n, f32) for k, (_, names) in dwarf_types.items() for n in names}
+    dwarf = build_dwarf  # each by its registered class; phase 17 builds them through the factories
+    dwarfs = {(k, n): dwarf(k, n, f32) for k in DWARF_FAMILIES
+              for n in sorted(registered_names(dwarf_family(k)))}
     # the path: each dwarf once; the 2-D smoothing filters through #3, nothing else launched
     torch.cuda.synchronize()
     _lib.reset_launch_counts()
@@ -2667,8 +2935,14 @@ def main() -> int:
         phase("dwarf", f"{kind} {name} at {'x'.join(map(str, DWARF_SHAPE))} float32: {ms:.4f} ms "
               f"({how}), bound {db['bound_ms']:.4f} ms by {db['bound_by']}; error {err / scale:.1e} of "
               f"the largest magnitude of the float64 CPU result")
-    del outs, dwarfs
+    del dwarfs
     print(json.dumps({"dwarfs": dwarf_rows, "card": card}))
+
+    # -- 17. the registry: the flagship built by name, the backend names, the
+    # stencils, the dwarfs through their factories, the allocators ---------
+    print(json.dumps({"registry": registry_phase(card, path_counts, path_steps, outs, phi, device),
+                      "card": card}))
+    del outs
 
     # -- 15. the physics surface's plain components ----------------------------
     print(json.dumps({"components": components_phase(card, device), "card": card}))

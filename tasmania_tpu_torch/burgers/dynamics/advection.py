@@ -1,5 +1,7 @@
 """Advection terms of the inviscid Burgers equations, orders 1-6
-(counterpart of ``tasmania_tpu/burgers/dynamics/advection.py``).
+(counterpart of ``tasmania_tpu/burgers/dynamics/advection.py``): the
+registered schemes ``FirstOrder`` ... ``SixthOrder`` of the factory base
+``BurgersAdvection``.
 
 Odd orders are upwind-biased (a centred term plus a dissipation weighted by
 |u|), even orders centred.  ``extent`` is the halo each needs (1, 1, 2, 2,
@@ -9,6 +11,9 @@ u·∇u and u·∇v) on the inner window.
 """
 
 from __future__ import annotations
+
+from tasmania_tpu_torch.framework.registry import factor_register, factorize
+from tasmania_tpu_torch.framework.stencil import DEFAULT_BACKEND
 
 
 def _first_order(dx, dy, u, v):
@@ -103,33 +108,64 @@ def _fifth_or_sixth(dx, dy, u, v, upwind: bool):
     return tuple(terms)
 
 
-def _fifth_order(dx, dy, u, v):
-    return _fifth_or_sixth(dx, dy, u, v, upwind=True)
-
-
-def _sixth_order(dx, dy, u, v):
-    return _fifth_or_sixth(dx, dy, u, v, upwind=False)
-
-
-#: flux scheme -> (extent, the four terms)
-SCHEMES = {
-    "first_order": (1, _first_order),
-    "second_order": (1, _second_order),
-    "third_order": (2, _third_order),
-    "fourth_order": (2, _fourth_order),
-    "fifth_order": (3, _fifth_order),
-    "sixth_order": (3, _sixth_order),
-}
-
-
 class BurgersAdvection:
-    """The advection terms of one flux scheme; ``extent`` is its halo."""
+    """Factory base: ``BurgersAdvection.factory("third_order")``; ``extent``
+    is a scheme's halo."""
 
-    def __init__(self, flux_scheme: str) -> None:
-        if flux_scheme not in SCHEMES:
-            raise ValueError(f"unknown flux scheme {flux_scheme!r} (have {sorted(SCHEMES)})")
-        self.flux_scheme = flux_scheme
-        self.extent, self._terms = SCHEMES[flux_scheme]
+    registry = {}
+    extent: int = 1
+
+    @staticmethod
+    def factory(flux_scheme: str, backend: str = DEFAULT_BACKEND) -> "BurgersAdvection":
+        return factorize(flux_scheme, BurgersAdvection, ())
 
     def __call__(self, dx: float, dy: float, u, v):
-        return self._terms(dx, dy, u, v)
+        raise NotImplementedError
+
+
+@factor_register("first_order")
+class FirstOrder(BurgersAdvection):
+    extent = 1
+
+    def __call__(self, dx, dy, u, v):
+        return _first_order(dx, dy, u, v)
+
+
+@factor_register("second_order")
+class SecondOrder(BurgersAdvection):
+    extent = 1
+
+    def __call__(self, dx, dy, u, v):
+        return _second_order(dx, dy, u, v)
+
+
+@factor_register("third_order")
+class ThirdOrder(BurgersAdvection):
+    extent = 2
+
+    def __call__(self, dx, dy, u, v):
+        return _third_order(dx, dy, u, v)
+
+
+@factor_register("fourth_order")
+class FourthOrder(BurgersAdvection):
+    extent = 2
+
+    def __call__(self, dx, dy, u, v):
+        return _fourth_order(dx, dy, u, v)
+
+
+@factor_register("fifth_order")
+class FifthOrder(BurgersAdvection):
+    extent = 3
+
+    def __call__(self, dx, dy, u, v):
+        return _fifth_or_sixth(dx, dy, u, v, upwind=True)
+
+
+@factor_register("sixth_order")
+class SixthOrder(BurgersAdvection):
+    extent = 3
+
+    def __call__(self, dx, dy, u, v):
+        return _fifth_or_sixth(dx, dy, u, v, upwind=False)

@@ -5,10 +5,12 @@ the stepper, then enforces the lateral boundary at the stage's time."""
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping
+from typing import Any, Dict, Mapping, Optional
 
 from tasmania_tpu_torch.burgers.dynamics.stepper import BurgersStepper
 from tasmania_tpu_torch.framework.dycore import DynamicalCore
+from tasmania_tpu_torch.framework.options import BackendOptions, StorageOptions
+from tasmania_tpu_torch.framework.stencil import DEFAULT_BACKEND
 
 DIMS = ("x", "y", "z")
 #: the reference's flux names, mapped to the advection's
@@ -17,15 +19,20 @@ FLUX_ALIASES = {"upwind": "first_order", "centered": "second_order"}
 
 class BurgersDynamicalCore(DynamicalCore):
     def __init__(self, domain, fast_tendency_component=None,
-                 time_integration_scheme: str = "forward_euler", flux_scheme: str = "upwind") -> None:
-        super().__init__(fast_tendency_component, None)
+                 time_integration_scheme: str = "forward_euler", flux_scheme: str = "upwind", *,
+                 backend: str = DEFAULT_BACKEND, backend_options: Optional[BackendOptions] = None,
+                 storage_options: Optional[StorageOptions] = None) -> None:
+        super().__init__(fast_tendency_component, None, backend=backend,
+                         backend_options=backend_options, storage_options=storage_options)
         self.grid = domain.numerical_grid
         if self.grid.nz != 1:
             raise ValueError(f"the Burgers model needs nz == 1, not {self.grid.nz}")
         self.horizontal_boundary = domain.horizontal_boundary
-        self.stepper = BurgersStepper(time_integration_scheme, self.grid.grid_xy,
-                                      self.horizontal_boundary.nb,
-                                      FLUX_ALIASES.get(flux_scheme, flux_scheme))
+        self.stepper = BurgersStepper.factory(
+            time_integration_scheme, self.grid.grid_xy, self.horizontal_boundary.nb,
+            FLUX_ALIASES.get(flux_scheme, flux_scheme), backend=backend,
+            backend_options=backend_options, storage_options=self.storage_options,
+        )
 
     @property
     def stage_input_properties(self):

@@ -1,5 +1,7 @@
 """Time steppers of the Burgers dynamical core (counterpart of
-``tasmania_tpu/burgers/dynamics/stepper.py``).
+``tasmania_tpu/burgers/dynamics/stepper.py``): the registered schemes
+``ForwardEuler``, ``RK2`` and ``RK3WS`` of the factory base
+``BurgersStepper``.
 
 Each stage steps from the base state (the state at stage 0) with the
 advection of the latest provisional state, ``out = u0 - dt_s·(A(u) - tnd)``,
@@ -18,36 +20,58 @@ t + dt/2 twice, RK3WS t + dt/3, + dt/6, + dt/2 (each offset at a
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping
+from typing import Any, Dict, Mapping, Optional
 
 import numpy as np
 
 from tasmania_tpu_torch.burgers.dynamics.advection import BurgersAdvection
 from tasmania_tpu_torch.framework.field import add_seconds
-
-#: scheme -> the divisors of dt that give each stage's step and the offset
-#: of its time stamp
-SCHEMES = {
-    "forward_euler": ((1.0,), (1.0,)),
-    "rk2": ((2.0, 1.0), (2.0, 2.0)),
-    "rk3ws": ((3.0, 2.0, 1.0), (3.0, 6.0, 2.0)),
-}
+from tasmania_tpu_torch.framework.options import BackendOptions, StorageOptions
+from tasmania_tpu_torch.framework.registry import factor_register, factorize
+from tasmania_tpu_torch.framework.stencil import DEFAULT_BACKEND, StencilFactory
 
 
-class BurgersStepper:
-    def __init__(self, time_integration_scheme: str, grid_xy, nb: int, flux_scheme: str) -> None:
-        if time_integration_scheme not in SCHEMES:
-            raise ValueError(f"unknown time integration {time_integration_scheme!r} "
-                             f"(have {sorted(SCHEMES)})")
-        self.scheme = time_integration_scheme
-        self.divisors, self.offset_divisors = SCHEMES[time_integration_scheme]
-        self.advection = BurgersAdvection(flux_scheme)
+class BurgersStepper(StencilFactory):
+    """Factory base: ``BurgersStepper.factory("rk3ws", grid_xy, nb,
+    "third_order")``.  A scheme is the divisors of dt that give each stage's
+    step (``divisors``) and the offset of its time stamp
+    (``offset_divisors``)."""
+
+    registry = {}
+    divisors: tuple = ()
+    offset_divisors: tuple = ()
+
+    def __init__(
+        self,
+        grid_xy,
+        nb: int,
+        flux_scheme: str,
+        backend: str = DEFAULT_BACKEND,
+        backend_options: Optional[BackendOptions] = None,
+        storage_options: Optional[StorageOptions] = None,
+    ) -> None:
+        super().__init__(backend, backend_options, storage_options)
+        self.advection = BurgersAdvection.factory(flux_scheme, backend)
         if nb < self.advection.extent:
             raise ValueError(f"nb={nb} must be >= the flux extent {self.advection.extent}")
         self.nb = nb
         self.dx = float(np.asarray(grid_xy.dx.to_units("m").data))
         self.dy = float(np.asarray(grid_xy.dy.to_units("m").data))
         self._base = None
+
+    @staticmethod
+    def factory(
+        time_integration_scheme: str,
+        grid_xy,
+        nb: int,
+        flux_scheme: str,
+        *,
+        backend: str = DEFAULT_BACKEND,
+        backend_options: Optional[BackendOptions] = None,
+        storage_options: Optional[StorageOptions] = None,
+    ) -> "BurgersStepper":
+        return factorize(time_integration_scheme, BurgersStepper,
+                         (grid_xy, nb, flux_scheme, backend, backend_options, storage_options))
 
     @property
     def stages(self) -> int:
@@ -79,3 +103,20 @@ class BurgersStepper:
         if "time" in state:
             out["time"] = add_seconds(state["time"], timestep / self.offset_divisors[stage])
         return out
+
+
+@factor_register("forward_euler")
+class ForwardEuler(BurgersStepper):
+    divisors, offset_divisors = (1.0,), (1.0,)
+
+
+@factor_register("rk2")
+class RK2(BurgersStepper):
+    divisors, offset_divisors = (2.0, 1.0), (2.0, 2.0)
+
+
+@factor_register("rk3ws")
+class RK3WS(RK2):
+    """Wicker-Skamarock RK3 (a subclass of RK2, as in the reference)."""
+
+    divisors, offset_divisors = (3.0, 2.0, 1.0), (3.0, 6.0, 2.0)

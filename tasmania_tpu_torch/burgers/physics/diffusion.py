@@ -26,9 +26,10 @@ class BurgersHorizontalDiffusion(TendencyComponent):
             coeff = float(np.asarray(diffusion_coeff.to_units("m^2 s^-1").data))
         else:
             coeff = float(diffusion_coeff if diffusion_coeff is not None else 0.0)
-        self.diffuser = HorizontalDiffusion(
+        self.diffuser = HorizontalDiffusion.factory(
             diffusion_type, (g.nx, g.ny, 1), dx, dy, coeff, coeff, 0,
-            nb=self.horizontal_boundary.nb, storage_options=self.storage_options,
+            nb=self.horizontal_boundary.nb, backend=self.backend, backend_options=self.backend_options,
+            storage_options=self.storage_options,
         )
 
     @property

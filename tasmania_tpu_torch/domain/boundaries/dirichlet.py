@@ -24,6 +24,7 @@ from tasmania_tpu_torch.domain.horizontal_boundary import (
     change_dims,
     field_extent,
 )
+from tasmania_tpu_torch.framework.registry import factor_register
 
 
 def placeholder(time, grid, slice_x=None, slice_y=None, field_name=None, field_units=None):
@@ -47,8 +48,9 @@ class ArrayCore:
         return self.values[field_name][slice_x or slice(None), slice_y or slice(None)]
 
 
+@factor_register("dirichlet")
 class Dirichlet(HorizontalBoundary):
-    def __init__(self, grid, nb, storage_options=None, core=placeholder):
+    def __init__(self, grid, nb, storage_options=None, core=placeholder, **kwargs):
         self.one_dx = grid.ny == 1
         self.one_dy = grid.nx == 1
         if not self.one_dy and nb > grid.nx / 2:
@@ -59,7 +61,7 @@ class Dirichlet(HorizontalBoundary):
         if params[:2] != ("time", "grid"):
             raise ValueError("the core's signature must be core(time, grid, slice_x=None, "
                              "slice_y=None, field_name=None, field_units=None)")
-        super().__init__(grid, nb, storage_options=storage_options)
+        super().__init__(grid, nb, storage_options=storage_options, **kwargs)
         self.kwargs["core"] = core
 
     ni = property(lambda self: self.nx)

@@ -5,11 +5,13 @@ enforcement leaves every field as it is (counterpart of
 from __future__ import annotations
 
 from tasmania_tpu_torch.domain.horizontal_boundary import HorizontalBoundary, change_dims
+from tasmania_tpu_torch.framework.registry import factor_register
 
 
+@factor_register("identity")
 class Identity(HorizontalBoundary):
-    def __init__(self, grid, nb, storage_options=None):
-        super().__init__(grid, nb, storage_options=storage_options)
+    def __init__(self, grid, nb, storage_options=None, **kwargs):
+        super().__init__(grid, nb, storage_options=storage_options, **kwargs)
 
     ni = property(lambda self: self.nx)
     nj = property(lambda self: self.ny)

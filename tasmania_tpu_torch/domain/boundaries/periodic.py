@@ -18,21 +18,23 @@ from tasmania_tpu_torch.domain.horizontal_boundary import (
     extend_axis,
     repeat_axis,
 )
+from tasmania_tpu_torch.framework.registry import factor_register
 
 
 def _copy(field):
     return np.array(field, copy=True) if isinstance(field, np.ndarray) else field.clone()
 
 
+@factor_register("periodic")
 class Periodic(HorizontalBoundary):
-    def __init__(self, grid, nb, storage_options=None):
+    def __init__(self, grid, nb, storage_options=None, **kwargs):
         self.one_dx = grid.ny == 1
         self.one_dy = grid.nx == 1
         if not self.one_dy and nb > grid.nx / 2:
             raise ValueError("nb cannot exceed nx/2")
         if not self.one_dx and nb > grid.ny / 2:
             raise ValueError("nb cannot exceed ny/2")
-        super().__init__(grid, nb, storage_options=storage_options)
+        super().__init__(grid, nb, storage_options=storage_options, **kwargs)
 
     ni = property(lambda self: self.nx + 2 * self.nb)
     nj = property(lambda self: self.ny + 2 * self.nb)

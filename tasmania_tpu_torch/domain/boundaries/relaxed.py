@@ -25,6 +25,7 @@ from tasmania_tpu_torch.domain.horizontal_boundary import (
     field_extent,
     repeat_axis,
 )
+from tasmania_tpu_torch.framework.registry import factor_register
 
 
 def _relaxation_ramp(nr: int, nb: int) -> np.ndarray:
@@ -42,10 +43,11 @@ def enforce_relaxed(phi, gamma, ref):
     )
 
 
+@factor_register("relaxed")
 class Relaxed(HorizontalBoundary):
     """Relaxation toward the reference state over ``nr`` boundary layers."""
 
-    def __init__(self, grid, nb, storage_options=None, nr: int = 8):
+    def __init__(self, grid, nb, storage_options=None, nr: int = 8, **kwargs):
         self.one_dx = grid.ny == 1
         self.one_dy = grid.nx == 1
         if self.one_dx and not nr <= grid.nx / 2:
@@ -58,7 +60,7 @@ class Relaxed(HorizontalBoundary):
             raise ValueError("nr cannot exceed 8")
         if nb > nr:
             raise ValueError("nb cannot exceed nr")
-        super().__init__(grid, nb, storage_options=storage_options)
+        super().__init__(grid, nb, storage_options=storage_options, **kwargs)
         self.kwargs["nr"] = nr
         so = self.storage_options
         self.register_buffer(

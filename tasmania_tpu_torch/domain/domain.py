@@ -8,7 +8,8 @@ from typing import Any, Dict, Optional
 
 from tasmania_tpu_torch.domain.grid import PhysicalGrid
 from tasmania_tpu_torch.domain.horizontal_boundary import HorizontalBoundary
-from tasmania_tpu_torch.framework.options import StorageOptions
+from tasmania_tpu_torch.framework.options import BackendOptions, StorageOptions
+from tasmania_tpu_torch.framework.stencil import DEFAULT_BACKEND
 
 
 class Domain:
@@ -27,6 +28,8 @@ class Domain:
         topography_type: str = "flat",
         topography_kwargs: Optional[Dict[str, Any]] = None,
         *,
+        backend: str = DEFAULT_BACKEND,
+        backend_options: Optional[BackendOptions] = None,
         storage_options: Optional[StorageOptions] = None,
     ) -> None:
         self.physical_grid = PhysicalGrid(
@@ -45,6 +48,8 @@ class Domain:
             horizontal_boundary_type,
             self.physical_grid,
             nb,
+            backend=backend,
+            backend_options=backend_options,
             storage_options=storage_options,
             **(horizontal_boundary_kwargs or {}),
         )

@@ -95,7 +95,7 @@ class PhysicalGrid(Grid):
         if not lo <= zi_v <= hi:
             raise ValueError(f"z_interface should be in the range ({lo}, {hi}).")
 
-        topo = PhysicalTopography(topography_type, grid_xy, **(topography_kwargs or {}))
+        topo = PhysicalTopography.factory(topography_type, grid_xy, **(topography_kwargs or {}))
         super().__init__(grid_xy, z, zhl, zi, topo)
 
 

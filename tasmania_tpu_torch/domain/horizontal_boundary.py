@@ -15,8 +15,14 @@ import torch
 from torch import nn
 
 from tasmania_tpu_torch.framework.field import FieldArray
-from tasmania_tpu_torch.framework.options import StorageOptions
+from tasmania_tpu_torch.framework.options import BackendOptions, StorageOptions
+from tasmania_tpu_torch.framework.registry import factorize
+from tasmania_tpu_torch.framework.stencil import DEFAULT_BACKEND, StencilFactory
 from tasmania_tpu_torch.utils.units import conversion_factor, units_are_same
+
+
+#: the boundaries the port registers (``domain/boundaries``)
+BUILT_IN = ("dirichlet", "identity", "periodic", "relaxed")
 
 
 def change_dims(axis: FieldArray, dims: Optional[str] = None) -> FieldArray:
@@ -52,15 +58,27 @@ def field_extent(
     return mi, mj, mk
 
 
-class HorizontalBoundary(nn.Module):
-    """Base class: physical grid, numerical grid and reference state."""
+class HorizontalBoundary(nn.Module, StencilFactory):
+    """Base class: physical grid, numerical grid and reference state.
+    Factory base of the boundaries: ``HorizontalBoundary.factory("relaxed",
+    grid, nb, nr=6)``; a subclass registers under a name
+    (``@factor_register``)."""
+
+    registry: Dict[str, Any] = {}
 
     def __init__(
-        self, grid, nb: int, *, storage_options: Optional[StorageOptions] = None
+        self,
+        grid,
+        nb: int,
+        *,
+        backend: str = DEFAULT_BACKEND,
+        backend_options: Optional[BackendOptions] = None,
+        storage_options: Optional[StorageOptions] = None,
     ) -> None:
-        super().__init__()
-        self.storage_options = storage_options or StorageOptions()
+        nn.Module.__init__(self)
+        StencilFactory.__init__(self, backend, backend_options, storage_options)
         self.physical_grid = grid
+        self.type = getattr(type(self), "registry_name", "")
         self.nb = nb
         self.kwargs: Dict[str, Any] = {}
         self._ref_units: Dict[str, str] = {}
@@ -149,20 +167,26 @@ class HorizontalBoundary(nn.Module):
         grid,
         nb: int,
         *,
+        backend: str = DEFAULT_BACKEND,
+        backend_options: Optional[BackendOptions] = None,
         storage_options: Optional[StorageOptions] = None,
         **kwargs,
     ) -> "HorizontalBoundary":
-        from tasmania_tpu_torch.domain.boundaries.dirichlet import Dirichlet
-        from tasmania_tpu_torch.domain.boundaries.identity import Identity
-        from tasmania_tpu_torch.domain.boundaries.periodic import Periodic
-        from tasmania_tpu_torch.domain.boundaries.relaxed import Relaxed
+        import tasmania_tpu_torch.domain.boundaries  # noqa: F401  (registers the built-in four)
 
-        types = {"dirichlet": Dirichlet, "identity": Identity, "periodic": Periodic,
-                 "relaxed": Relaxed}
-        if boundary_type not in types:
-            raise NotImplementedError(
-                f"horizontal boundary {boundary_type!r} is not ported (have {sorted(types)})"
-            )
-        obj = types[boundary_type](grid, nb, storage_options=storage_options, **kwargs)
+        child_kwargs = {"backend": backend, "backend_options": backend_options,
+                        "storage_options": storage_options, **kwargs}
+        obj = factorize(boundary_type, HorizontalBoundary, (grid, nb), child_kwargs)
         obj.type = boundary_type
         return obj
+
+    @property
+    def family(self) -> str:
+        """The name of the built-in boundary this one is or derives from
+        (``"relaxed"`` for a subclass of ``Relaxed`` registered under
+        another name), else its own name."""
+        for cls in type(self).__mro__:
+            name = cls.__dict__.get("registry_name")
+            if name in BUILT_IN:
+                return name
+        return self.type

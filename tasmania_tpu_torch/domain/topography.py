@@ -2,17 +2,19 @@
 
 The profile is host-side numpy; its linear growth over ``time`` is a plain
 float, so a driver can hand the current profile to the model as a tensor.
-The profiles are the JAX package's: flat, Gaussian, Schaer and
-user-defined."""
+The profiles are the JAX package's, registered on ``PhysicalTopography``:
+``Flat``, ``Gaussian``, ``Schaer`` and ``UserDefined``."""
 
 from __future__ import annotations
 
+import abc
 from datetime import timedelta
-from typing import Optional
+from typing import Dict, Optional
 
 import numpy as np
 
 from tasmania_tpu_torch.framework.field import FieldArray
+from tasmania_tpu_torch.framework.registry import factor_register, factorize
 from tasmania_tpu_torch.utils.units import conversion_factor
 
 
@@ -55,77 +57,33 @@ class Topography:
             )
 
 
-def _gaussian(grid, max_height=None, center_x=None, center_y=None,
-              width_x=None, width_y=None):
-    """h = hmax·exp(-((x-cx)/sx)² - ((y-cy)/sy)²)."""
+def _centred_axes(grid, kwargs):
+    """hmax, the widths and the centres (defaults 500 m, 1 and the domain's
+    centre) in the grid's units, and the (nx, ny) mass-point coordinates."""
     xv, yv = np.asarray(grid.x.data), np.asarray(grid.y.data)
     xu, yu = grid.x.units, grid.y.units
-    hmax = _scalar(max_height, "m", 500.0, "m")
-    wx = _scalar(width_x, xu, 1.0, xu)
-    wy = _scalar(width_y, yu, 1.0, yu)
-    cx = _scalar(center_x, xu, 0.5 * (xv[0] + xv[-1]), xu)
-    cy = _scalar(center_y, yu, 0.5 * (yv[0] + yv[-1]), yu)
+    hmax = _scalar(kwargs.get("max_height"), "m", 500.0, "m")
+    wx = _scalar(kwargs.get("width_x"), xu, 1.0, xu)
+    wy = _scalar(kwargs.get("width_y"), yu, 1.0, yu)
+    cx = _scalar(kwargs.get("center_x"), xu, 0.5 * (xv[0] + xv[-1]), xu)
+    cy = _scalar(kwargs.get("center_y"), yu, 0.5 * (yv[0] + yv[-1]), yu)
     xx, yy = np.meshgrid(xv, yv, indexing="ij")
-    return hmax * np.exp(-(((xx - cx) / wx) ** 2) - ((yy - cy) / wy) ** 2)
+    return hmax, wx, wy, cx, cy, xx, yy
 
 
-def _schaer(grid, max_height=None, center_x=None, center_y=None,
-            width_x=None, width_y=None):
-    """The Schaer and Durran (1997) mountain,
-    h = hmax / [1 + ((x-cx)/sx)² + ((y-cy)/sy)²]^1.5."""
-    xv, yv = np.asarray(grid.x.data), np.asarray(grid.y.data)
-    xu, yu = grid.x.units, grid.y.units
-    hmax = _scalar(max_height, "m", 500.0, "m")
-    wx = _scalar(width_x, xu, 1.0, xu)
-    wy = _scalar(width_y, yu, 1.0, yu)
-    cx = _scalar(center_x, xu, 0.5 * (xv[0] + xv[-1]), xu)
-    cy = _scalar(center_y, yu, 0.5 * (yv[0] + yv[-1]), yu)
-    xx, yy = np.meshgrid(xv, yv, indexing="ij")
-    return hmax / (1.0 + ((xx - cx) / wx) ** 2 + ((yy - cy) / wy) ** 2) ** 1.5
+class PhysicalTopography(Topography, abc.ABC):
+    """Topography over a physical horizontal grid; factory base of the
+    profiles: ``PhysicalTopography.factory("gaussian", grid, **kwargs)``.
+    A subclass computes its steady profile (``compute_steady_profile``) and
+    registers under a name (``@factor_register``)."""
 
+    registry: Dict[str, type] = {}
 
-def _flat(grid):
-    return np.zeros((grid.nx, grid.ny))
-
-
-def _user_defined(grid, profile=None):
-    """``profile``: a callable ``f(x, y)`` on the (nx, ny) host arrays of the
-    mass points, an array or a ``FieldArray``; None is flat."""
-    if profile is None:
-        return _flat(grid)
-    if callable(profile):
-        xx, yy = np.meshgrid(np.asarray(grid.x.data), np.asarray(grid.y.data), indexing="ij")
-        return np.asarray(profile(xx, yy))
-    if isinstance(profile, FieldArray):
-        return np.asarray(profile.to_units("m").data)
-    return np.asarray(profile)
-
-
-_PROFILES = {"flat": _flat, "gaussian": _gaussian, "schaer": _schaer,
-             "user_defined": _user_defined}
-
-
-class PhysicalTopography(Topography):
-    """Topography over a physical horizontal grid."""
-
-    def __init__(
-        self,
-        topography_type: str,
-        grid,
-        time: Optional[timedelta] = None,
-        smooth: bool = False,
-        **kwargs,
-    ) -> None:
-        if topography_type not in _PROFILES:
-            raise NotImplementedError(
-                f"topography {topography_type!r} is not ported (have {sorted(_PROFILES)})"
-            )
-        self.type = topography_type
+    def __init__(self, grid, time: Optional[timedelta], smooth: bool, **kwargs) -> None:
+        self.type: Optional[str] = getattr(self, "registry_name", None)
         self.kwargs = {"smooth": smooth, **kwargs}
-        steady = np.asarray(
-            _PROFILES[topography_type](grid, **kwargs),
-            dtype=np.asarray(grid.x.data).dtype,
-        )
+        steady = np.asarray(self.compute_steady_profile(grid, **kwargs),
+                            dtype=np.asarray(grid.x.data).dtype)
         if smooth and steady.shape[0] > 2 and steady.shape[1] > 2:
             steady = steady.copy()
             steady[1:-1, 1:-1] += 0.125 * (
@@ -135,9 +93,81 @@ class PhysicalTopography(Topography):
                 + steady[1:-1, 2:]
                 - 4.0 * steady[1:-1, 1:-1]
             )
-        super().__init__(
-            FieldArray(steady, "m", (grid.x.dims[0], grid.y.dims[0])), time=time
-        )
+        super().__init__(FieldArray(steady, "m", (grid.x.dims[0], grid.y.dims[0])), time=time)
+
+    @abc.abstractmethod
+    def compute_steady_profile(self, grid, **kwargs) -> np.ndarray:
+        """The steady profile in m over the (nx, ny) mass points of ``grid``."""
+
+    @staticmethod
+    def factory(
+        topography_type: str,
+        grid,
+        time: Optional[timedelta] = None,
+        smooth: bool = False,
+        **kwargs,
+    ) -> "PhysicalTopography":
+        obj = factorize(topography_type, PhysicalTopography, (grid, time, smooth), kwargs)
+        obj.type = topography_type
+        return obj
+
+
+@factor_register("flat")
+class Flat(PhysicalTopography):
+    def __init__(self, grid, time, smooth, **kwargs):
+        super().__init__(grid, time, smooth)
+
+    def compute_steady_profile(self, grid, **kwargs):
+        return np.zeros((grid.nx, grid.ny))
+
+
+@factor_register("gaussian")
+class Gaussian(PhysicalTopography):
+    """h = hmax·exp(-((x-cx)/sx)² - ((y-cy)/sy)²)."""
+
+    def __init__(self, grid, time, smooth, *, max_height=None, center_x=None, center_y=None,
+                 width_x=None, width_y=None, **kwargs):
+        super().__init__(grid, time, smooth, max_height=max_height, center_x=center_x,
+                         center_y=center_y, width_x=width_x, width_y=width_y)
+
+    def compute_steady_profile(self, grid, **kwargs):
+        hmax, wx, wy, cx, cy, xx, yy = _centred_axes(grid, kwargs)
+        return hmax * np.exp(-(((xx - cx) / wx) ** 2) - ((yy - cy) / wy) ** 2)
+
+
+@factor_register("schaer")
+class Schaer(PhysicalTopography):
+    """The Schaer and Durran (1997) mountain,
+    h = hmax / [1 + ((x-cx)/sx)² + ((y-cy)/sy)²]^1.5."""
+
+    def __init__(self, grid, time, smooth, *, max_height=None, center_x=None, center_y=None,
+                 width_x=None, width_y=None, **kwargs):
+        super().__init__(grid, time, smooth, max_height=max_height, center_x=center_x,
+                         center_y=center_y, width_x=width_x, width_y=width_y)
+
+    def compute_steady_profile(self, grid, **kwargs):
+        hmax, wx, wy, cx, cy, xx, yy = _centred_axes(grid, kwargs)
+        return hmax / (1.0 + ((xx - cx) / wx) ** 2 + ((yy - cy) / wy) ** 2) ** 1.5
+
+
+@factor_register("user_defined")
+class UserDefined(PhysicalTopography):
+    """``profile``: a callable ``f(x, y)`` on the (nx, ny) host arrays of the
+    mass points, an array or a ``FieldArray``; None is flat."""
+
+    def __init__(self, grid, time, smooth, *, profile=None, **kwargs):
+        super().__init__(grid, time, smooth, profile=profile)
+
+    def compute_steady_profile(self, grid, **kwargs):
+        profile = kwargs.get("profile")
+        if profile is None:
+            return np.zeros((grid.nx, grid.ny))
+        if callable(profile):
+            xx, yy = np.meshgrid(np.asarray(grid.x.data), np.asarray(grid.y.data), indexing="ij")
+            return np.asarray(profile(xx, yy))
+        if isinstance(profile, FieldArray):
+            return np.asarray(profile.to_units("m").data)
+        return np.asarray(profile)
 
 
 class NumericalTopography(Topography):

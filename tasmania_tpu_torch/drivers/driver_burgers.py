@@ -81,7 +81,7 @@ def bench_fields(nx: int, ny: int, nb: int, seed: int, so: StorageOptions) -> Di
 
 def bench_step(nx: int, nb: int, dt: float = BENCH_DT):
     """``step(fields, _)``: one RK3WS step of ``bench_burgers``."""
-    adv = BurgersAdvection("third_order")
+    adv = BurgersAdvection.factory("third_order")
     ext = adv.extent
     dx = dy = 1.0 / nx
 

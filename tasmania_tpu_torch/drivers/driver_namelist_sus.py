@@ -116,6 +116,8 @@ def build_domain_and_state(nl):
         horizontal_boundary_kwargs=nl.hb_kwargs,
         topography_type=nl.topo_type,
         topography_kwargs=nl.topo_kwargs,
+        backend=nl.backend,
+        backend_options=nl.bo,
         storage_options=so,
     )
     cgrid = domain.numerical_grid
@@ -151,6 +153,8 @@ def make_dycore(nl, domain, pt, **fast_components):
         damp_depth=nl.damp_depth,
         damp_max=nl.damp_max,
         damp_at_every_stage=nl.damp_at_every_stage,
+        backend=nl.backend,
+        backend_options=nl.bo,
         storage_options=nl.so,
         **fast_components,
     )
@@ -162,32 +166,32 @@ def build_components(nl, domain, pt):
     Coriolis (``"cf"``) when the namelist's ``coriolis_parameter`` is set,
     and, when its ``implicit_vertical_advection`` is, the implicit vertical
     advection (``"ivf"``), which only the SUS chain takes."""
-    so = nl.so
+    common = dict(backend=nl.backend, backend_options=nl.bo, storage_options=nl.so)
     c = {
-        "dv": IsentropicDiagnostics(domain, "numerical", moist=True, pt=pt, storage_options=so),
-        "turb": IsentropicSmagorinsky(domain, nl.smagorinsky_constant, storage_options=so),
-        "vc": IsentropicVelocityComponents(domain, storage_options=so),
-        "t2d": AirPotentialTemperatureToDiagnostic(domain, "numerical"),
-        "d2t": AirPotentialTemperatureToTendency(domain, "numerical"),
+        "dv": IsentropicDiagnostics(domain, "numerical", moist=True, pt=pt, **common),
+        "turb": IsentropicSmagorinsky(domain, nl.smagorinsky_constant, **common),
+        "vc": IsentropicVelocityComponents(domain, **common),
+        "t2d": AirPotentialTemperatureToDiagnostic(domain, "numerical", **common),
+        "d2t": AirPotentialTemperatureToTendency(domain, "numerical", **common),
         "ke": KesslerMicrophysics(
             domain, "numerical",
             autoconversion_threshold=nl.autoconversion_threshold,
             autoconversion_rate=nl.autoconversion_rate,
             collection_rate=nl.collection_rate,
-            storage_options=so,
+            **common,
         ),
         "sa": KesslerSaturationAdjustmentPrognostic(
-            domain, "numerical", saturation_rate=nl.saturation_rate, storage_options=so,
+            domain, "numerical", saturation_rate=nl.saturation_rate, **common,
         ),
-        "vf": IsentropicVerticalAdvection(domain, flux_scheme=nl.vertical_flux_scheme, storage_options=so),
-        "rfv": KesslerFallVelocity(domain, "numerical", storage_options=so),
+        "vf": IsentropicVerticalAdvection(domain, flux_scheme=nl.vertical_flux_scheme, **common),
+        "rfv": KesslerFallVelocity(domain, "numerical", **common),
         "sd": KesslerSedimentation(
             domain, "numerical",
             sedimentation_flux_scheme=nl.sedimentation_flux_scheme,
             vt_mode=nl.sedimentation_vt_mode,
-            storage_options=so,
+            **common,
         ),
-        "ap": Precipitation(domain, "numerical", storage_options=so),
+        "ap": Precipitation(domain, "numerical", **common),
         "hs": IsentropicHorizontalSmoothing(
             domain,
             nl.smooth_type,
@@ -198,14 +202,14 @@ def build_components(nl, domain, pt):
             smooth_moist_coeff=nl.smooth_moist_coeff,
             smooth_moist_coeff_max=nl.smooth_moist_coeff_max,
             smooth_moist_damp_depth=nl.smooth_moist_damp_depth,
-            storage_options=so,
+            **common,
         ),
     }
     if nl.implicit_vertical_advection:
-        c["ivf"] = IsentropicImplicitVerticalAdvectionDiagnostic(domain, moist=True, storage_options=so)
+        c["ivf"] = IsentropicImplicitVerticalAdvectionDiagnostic(domain, moist=True, **common)
     if nl.coriolis_parameter is not None:
         c["cf"] = IsentropicConservativeCoriolis(domain, "numerical", nl.coriolis_parameter,
-                                                 storage_options=so)
+                                                 **common)
     return c
 
 
@@ -237,7 +241,8 @@ def physics_options(nl, c, skip=(), implicit_vertical_advection=False):
         ("sedimentation", dict(component=ConcurrentCoupling(c["rfv"], c["sd"]), scheme="rk3ws")),
         ("precipitation", dict(component=ConcurrentCoupling(c["rfv"], c["ap"]))),
     ]
-    return [TimeIntegrationOptions(**kw) for name, kw in processes if kw is not None and name not in skip]
+    return [TimeIntegrationOptions(**kw, backend=nl.backend, backend_options=nl.bo)
+            for name, kw in processes if kw is not None and name not in skip]
 
 
 def build_model(nl, domain, pt, skip=()):
@@ -515,6 +520,9 @@ def size_parser(description: str) -> argparse.ArgumentParser:
     parser.add_argument("--nz", type=int, default=None)
     parser.add_argument("--niter", type=int, default=None)
     parser.add_argument("--device", type=str, default="cuda")
+    parser.add_argument("--backend", type=str, default=None,
+                        help="the backend of the registered stencils (torch, numpy; the JAX "
+                             "names jax, pallas, pallas:interpret run as torch)")
     parser.add_argument("--merge", action="append", default=[], metavar="NAME",
                         help="run a SUS process pair as one kernel: smooth_smag, vadv_sed "
                              "(repeatable)")
@@ -551,6 +559,8 @@ def namelist_from(parser, cli, load_namelist):
         overrides["coriolis_parameter"] = cli.coriolis
     if cli.implicit_vadv:
         overrides["implicit_vertical_advection"] = True
+    if cli.backend:
+        overrides["backend"] = cli.backend
     overrides["so"] = replace(load_namelist().so, device=device)
     return load_namelist(**overrides)
 

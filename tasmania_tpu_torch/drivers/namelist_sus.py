@@ -21,7 +21,7 @@ import numpy as np
 import torch
 
 from tasmania_tpu_torch.framework.field import FieldArray
-from tasmania_tpu_torch.framework.options import StorageOptions
+from tasmania_tpu_torch.framework.options import BackendOptions, StorageOptions
 
 # computational domain
 domain_x = (-176e3, 176e3)
@@ -36,7 +36,12 @@ hb_type = "relaxed"
 nb = 3
 hb_kwargs = {"nr": 6}
 
-# storage
+# backend and storage: the backend names the registered stencils the
+# components compile (the JAX names "jax", "pallas" and "pallas:interpret"
+# run as "torch"); the device alone decides between a kernel and its plain
+# version
+backend = "torch"
+bo = BackendOptions()
 so = StorageOptions(dtype=torch.float32, device="cuda")
 enable_checks = False
 

@@ -18,15 +18,12 @@ import numpy as np
 import torch
 from torch import nn
 
-from tasmania_tpu_torch.framework.options import StorageOptions
+from tasmania_tpu_torch.framework.options import BackendOptions, StorageOptions
+from tasmania_tpu_torch.framework.registry import factor_register, factorize
+from tasmania_tpu_torch.framework.stencil import DEFAULT_BACKEND, StencilFactory
 
 #: second-difference weights of each order, from offset -n to +n, and their divisor
 STENCILS = {2: ((1.0, -2.0, 1.0), 1.0), 4: ((-1.0, 16.0, -30.0, 16.0, -1.0), 12.0)}
-#: name -> (order, the axes it differences)
-TYPES = {
-    "second_order": (2, "xy"), "second_order_1dx": (2, "x"), "second_order_1dy": (2, "y"),
-    "fourth_order": (4, "xy"), "fourth_order_1dx": (4, "x"), "fourth_order_1dy": (4, "y"),
-}
 
 
 def build_damped_coeff(nz: int, coeff: float, coeff_max: float, damp_depth: int, dtype) -> np.ndarray:
@@ -53,25 +50,31 @@ def interior_paste(shape, nb_x: int, nb_y: int, interior: torch.Tensor) -> torch
     return out
 
 
-class HorizontalDiffusion(nn.Module):
-    """Buffer: the coefficient profile ``gamma`` (nz,)."""
+class HorizontalDiffusion(nn.Module, StencilFactory):
+    """Buffer: the coefficient profile ``gamma`` (nz,).  Factory base of the
+    diffusers, each its ``order`` and the ``axes`` it differences:
+    ``HorizontalDiffusion.factory("fourth_order", shape, dx, dy, ...)``."""
+
+    registry = {}
+    order: int = 2
+    axes: str = "xy"
 
     def __init__(
-        self, diffusion_type: str, shape: Tuple[int, int, int], dx: float, dy: float,
+        self, shape: Tuple[int, int, int], dx: float, dy: float,
         diffusion_coeff: float, diffusion_coeff_max: float, diffusion_damp_depth: int,
-        nb: Optional[int] = None, *, storage_options: Optional[StorageOptions] = None,
+        nb: Optional[int] = None, *, backend: str = DEFAULT_BACKEND,
+        backend_options: Optional[BackendOptions] = None,
+        storage_options: Optional[StorageOptions] = None,
     ) -> None:
-        super().__init__()
-        if diffusion_type not in TYPES:
-            raise ValueError(f"unknown diffusion {diffusion_type!r} (have {sorted(TYPES)})")
-        self.order, self.axes = TYPES[diffusion_type]
+        nn.Module.__init__(self)
+        StencilFactory.__init__(self, backend, backend_options, storage_options)
         min_nb = self.order // 2
         self.nb = min_nb if (nb is None or nb < min_nb) else nb
         for axis, n in zip("xy", shape[:2]):
             if axis in self.axes and n < 2 * self.nb + 1:
                 raise ValueError(f"the {axis} extent {n} must be at least {2 * self.nb + 1}")
         self.dx, self.dy = float(dx), float(dy)
-        so = storage_options or StorageOptions()
+        so = self.storage_options
         gamma = build_damped_coeff(shape[2], diffusion_coeff, diffusion_coeff_max,
                                    diffusion_damp_depth, so.np_dtype)
         self.register_buffer("gamma", torch.as_tensor(gamma, dtype=so.dtype, device=so.device))
@@ -101,3 +104,37 @@ class HorizontalDiffusion(nn.Module):
         nb_x = self.nb if "x" in self.axes else 0
         nb_y = self.nb if "y" in self.axes else 0
         return interior_paste(phi.shape, nb_x, nb_y, gamma * lap)
+
+    @staticmethod
+    def factory(name: str, *args, **kwargs) -> "HorizontalDiffusion":
+        return factorize(name, HorizontalDiffusion, args, kwargs)
+
+
+@factor_register("second_order")
+class SecondOrder(HorizontalDiffusion):
+    order, axes = 2, "xy"
+
+
+@factor_register("second_order_1dx")
+class SecondOrder1DX(HorizontalDiffusion):
+    order, axes = 2, "x"
+
+
+@factor_register("second_order_1dy")
+class SecondOrder1DY(HorizontalDiffusion):
+    order, axes = 2, "y"
+
+
+@factor_register("fourth_order")
+class FourthOrder(HorizontalDiffusion):
+    order, axes = 4, "xy"
+
+
+@factor_register("fourth_order_1dx")
+class FourthOrder1DX(HorizontalDiffusion):
+    order, axes = 4, "x"
+
+
+@factor_register("fourth_order_1dy")
+class FourthOrder1DY(HorizontalDiffusion):
+    order, axes = 4, "y"

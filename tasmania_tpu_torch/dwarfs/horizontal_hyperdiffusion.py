@@ -16,14 +16,10 @@ import torch
 from torch import nn
 
 from tasmania_tpu_torch.dwarfs.horizontal_diffusion import build_damped_coeff, interior_paste
-from tasmania_tpu_torch.framework.options import StorageOptions
+from tasmania_tpu_torch.framework.options import BackendOptions, StorageOptions
+from tasmania_tpu_torch.framework.registry import factor_register, factorize
+from tasmania_tpu_torch.framework.stencil import DEFAULT_BACKEND, StencilFactory
 
-#: name -> (order, the axes it differences)
-TYPES = {
-    f"{word}_order{suffix}": (order, axes)
-    for order, word in ((1, "first"), (2, "second"), (3, "third"))
-    for suffix, axes in (("", "xy"), ("_1dx", "x"), ("_1dy", "y"))
-}
 
 
 def laplacian(dx: float, dy: float, phi):
@@ -41,21 +37,27 @@ def laplacian_y(dy: float, phi):
     return (phi[:, :-2] - 2.0 * phi[:, 1:-1] + phi[:, 2:]) / (dy * dy)
 
 
-class HorizontalHyperDiffusion(nn.Module):
-    """Buffer: the coefficient profile ``gamma`` (nz,)."""
+class HorizontalHyperDiffusion(nn.Module, StencilFactory):
+    """Buffer: the coefficient profile ``gamma`` (nz,).  Factory base of the
+    hyperdiffusers, each its ``order`` (Laplacians iterated) and the ``axes``
+    it differences: ``HorizontalHyperDiffusion.factory("third_order", ...)``."""
+
+    registry = {}
+    order: int = 1
+    axes: str = "xy"
 
     def __init__(
-        self, diffusion_type: str, shape: Tuple[int, int, int], dx: float, dy: float,
+        self, shape: Tuple[int, int, int], dx: float, dy: float,
         diffusion_coeff: float, diffusion_coeff_max: float, diffusion_damp_depth: int,
-        nb: Optional[int] = None, *, storage_options: Optional[StorageOptions] = None,
+        nb: Optional[int] = None, *, backend: str = DEFAULT_BACKEND,
+        backend_options: Optional[BackendOptions] = None,
+        storage_options: Optional[StorageOptions] = None,
     ) -> None:
-        super().__init__()
-        if diffusion_type not in TYPES:
-            raise ValueError(f"unknown hyperdiffusion {diffusion_type!r} (have {sorted(TYPES)})")
-        self.order, self.axes = TYPES[diffusion_type]
+        nn.Module.__init__(self)
+        StencilFactory.__init__(self, backend, backend_options, storage_options)
         self.nb = self.order if (nb is None or nb < self.order) else nb
         self.dx, self.dy = float(dx), float(dy)
-        so = storage_options or StorageOptions()
+        so = self.storage_options
         gamma = build_damped_coeff(shape[2], diffusion_coeff, diffusion_coeff_max,
                                    diffusion_damp_depth, so.np_dtype)
         self.register_buffer("gamma", torch.as_tensor(gamma, dtype=so.dtype, device=so.device))
@@ -76,3 +78,52 @@ class HorizontalHyperDiffusion(nn.Module):
             else:
                 win = laplacian(self.dx, self.dy, win)
         return interior_paste(phi.shape, nb_x, nb_y, self.gamma.to(phi.dtype) * win)
+
+    @staticmethod
+    def factory(name: str, *args, **kwargs) -> "HorizontalHyperDiffusion":
+        return factorize(name, HorizontalHyperDiffusion, args, kwargs)
+
+
+@factor_register("first_order")
+class FirstOrder(HorizontalHyperDiffusion):
+    order, axes = 1, "xy"
+
+
+@factor_register("first_order_1dx")
+class FirstOrder1DX(HorizontalHyperDiffusion):
+    order, axes = 1, "x"
+
+
+@factor_register("first_order_1dy")
+class FirstOrder1DY(HorizontalHyperDiffusion):
+    order, axes = 1, "y"
+
+
+@factor_register("second_order")
+class SecondOrder(HorizontalHyperDiffusion):
+    order, axes = 2, "xy"
+
+
+@factor_register("second_order_1dx")
+class SecondOrder1DX(HorizontalHyperDiffusion):
+    order, axes = 2, "x"
+
+
+@factor_register("second_order_1dy")
+class SecondOrder1DY(HorizontalHyperDiffusion):
+    order, axes = 2, "y"
+
+
+@factor_register("third_order")
+class ThirdOrder(HorizontalHyperDiffusion):
+    order, axes = 3, "xy"
+
+
+@factor_register("third_order_1dx")
+class ThirdOrder1DX(HorizontalHyperDiffusion):
+    order, axes = 3, "x"
+
+
+@factor_register("third_order_1dy")
+class ThirdOrder1DY(HorizontalHyperDiffusion):
+    order, axes = 3, "y"

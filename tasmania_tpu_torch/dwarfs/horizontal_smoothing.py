@@ -16,33 +16,34 @@ import torch
 from torch import nn
 
 from tasmania_tpu_torch.dwarfs.horizontal_diffusion import build_damped_coeff
-from tasmania_tpu_torch.framework.options import StorageOptions
+from tasmania_tpu_torch.framework.options import BackendOptions, StorageOptions
+from tasmania_tpu_torch.framework.registry import factor_register, factorize
+from tasmania_tpu_torch.framework.stencil import DEFAULT_BACKEND, StencilFactory
 from tasmania_tpu_torch.ops.smoothing_step import fused_smoothing
 
-#: name -> (order, the axes it filters)
-TYPES = {
-    f"{word}_order{suffix}": (order, axes)
-    for order, word in ((1, "first"), (2, "second"), (3, "third"))
-    for suffix, axes in (("", "xy"), ("_1dx", "x"), ("_1dy", "y"))
-}
 #: the one-dimensional filters' weight of the centre
 CW_1D = {1: 0.5, 2: 0.375, 3: 0.3125}
 
 
-class HorizontalSmoothing(nn.Module):
-    """Buffer: the coefficient profile ``gamma`` (nz,)."""
+class HorizontalSmoothing(nn.Module, StencilFactory):
+    """Buffer: the coefficient profile ``gamma`` (nz,).  Factory base of the
+    filters, each its ``order`` and the ``axes`` it filters:
+    ``HorizontalSmoothing.factory("third_order", shape, ...)``."""
+
+    registry = {}
+    order: int = 1
+    axes: str = "xy"
 
     def __init__(
-        self, smooth_type: str, shape: Tuple[int, int, int], smooth_coeff: float,
+        self, shape: Tuple[int, int, int], smooth_coeff: float,
         smooth_coeff_max: float, smooth_damp_depth: int, nb: Optional[int] = None, *,
+        backend: str = DEFAULT_BACKEND, backend_options: Optional[BackendOptions] = None,
         storage_options: Optional[StorageOptions] = None,
     ) -> None:
-        super().__init__()
-        if smooth_type not in TYPES:
-            raise ValueError(f"unknown smoothing {smooth_type!r} (have {sorted(TYPES)})")
-        self.order, self.axes = TYPES[smooth_type]
+        nn.Module.__init__(self)
+        StencilFactory.__init__(self, backend, backend_options, storage_options)
         self.nb = self.order if (nb is None or nb < self.order) else nb
-        so = storage_options or StorageOptions()
+        so = self.storage_options
         gamma = build_damped_coeff(shape[2], smooth_coeff, smooth_coeff_max, smooth_damp_depth,
                                    so.np_dtype)
         self.register_buffer("gamma", torch.as_tensor(gamma, dtype=so.dtype, device=so.device))
@@ -78,3 +79,52 @@ class HorizontalSmoothing(nn.Module):
         out = phi.clone()
         out[tuple(idx)] = (1.0 - CW_1D[n] * g) * phi[tuple(idx)] + self._filter_1d(w, g, axis)
         return out
+
+    @staticmethod
+    def factory(name: str, *args, **kwargs) -> "HorizontalSmoothing":
+        return factorize(name, HorizontalSmoothing, args, kwargs)
+
+
+@factor_register("first_order")
+class FirstOrder(HorizontalSmoothing):
+    order, axes = 1, "xy"
+
+
+@factor_register("first_order_1dx")
+class FirstOrder1DX(HorizontalSmoothing):
+    order, axes = 1, "x"
+
+
+@factor_register("first_order_1dy")
+class FirstOrder1DY(HorizontalSmoothing):
+    order, axes = 1, "y"
+
+
+@factor_register("second_order")
+class SecondOrder(HorizontalSmoothing):
+    order, axes = 2, "xy"
+
+
+@factor_register("second_order_1dx")
+class SecondOrder1DX(HorizontalSmoothing):
+    order, axes = 2, "x"
+
+
+@factor_register("second_order_1dy")
+class SecondOrder1DY(HorizontalSmoothing):
+    order, axes = 2, "y"
+
+
+@factor_register("third_order")
+class ThirdOrder(HorizontalSmoothing):
+    order, axes = 3, "xy"
+
+
+@factor_register("third_order_1dx")
+class ThirdOrder1DX(HorizontalSmoothing):
+    order, axes = 3, "x"
+
+
+@factor_register("third_order_1dy")
+class ThirdOrder1DY(HorizontalSmoothing):
+    order, axes = 3, "y"

@@ -12,20 +12,27 @@ one-dimensional boundary calls the damper itself."""
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import numpy as np
 import torch
 from torch import nn
 
-from tasmania_tpu_torch.framework.options import StorageOptions
+from tasmania_tpu_torch.framework.options import BackendOptions, StorageOptions
+from tasmania_tpu_torch.framework.registry import factor_register, factorize
+from tasmania_tpu_torch.framework.stencil import DEFAULT_BACKEND, StencilFactory
 from tasmania_tpu_torch.utils.units import conversion_factor
 
 
-class VerticalDamping(nn.Module):
+class VerticalDamping(nn.Module, StencilFactory):
     """The damping profile on the main levels (``rmat``, with its support
     depth ``dd``: the levels k < dd hold every nonzero coefficient) and on
     the interfaces (``rmat_if``, the bottom interface undamped); the
-    timestep is in seconds and the coefficients in ``time_units``^-1."""
+    timestep is in seconds and the coefficients in ``time_units``^-1.
+    Factory base of the dampers: ``VerticalDamping.factory("rayleigh", grid,
+    ...)``."""
+
+    registry = {}
 
     def __init__(
         self,
@@ -34,10 +41,13 @@ class VerticalDamping(nn.Module):
         damp_coeff_max: float = 0.0002,
         time_units: str = "s",
         *,
-        storage_options: StorageOptions | None = None,
+        backend: str = DEFAULT_BACKEND,
+        backend_options: Optional[BackendOptions] = None,
+        storage_options: Optional[StorageOptions] = None,
     ) -> None:
-        super().__init__()
-        so = storage_options or StorageOptions()
+        nn.Module.__init__(self)
+        StencilFactory.__init__(self, backend, backend_options, storage_options)
+        so = self.storage_options
         damp_depth = min(damp_depth, grid.nz)  # shallow test grids
         self.damp_depth = damp_depth
         self.dt_factor = conversion_factor("s", time_units)
@@ -65,13 +75,11 @@ class VerticalDamping(nn.Module):
 
     @staticmethod
     def factory(damp_type: str, grid, *args, **kwargs) -> "VerticalDamping":
-        """The damper named ``damp_type`` (``"rayleigh"``)."""
-        types = {"rayleigh": Rayleigh}
-        if damp_type not in types:
-            raise NotImplementedError(f"vertical damping {damp_type!r} is not ported (have {sorted(types)})")
-        return types[damp_type](grid, *args, **kwargs)
+        """The damper registered as ``damp_type`` (``"rayleigh"``)."""
+        return factorize(damp_type, VerticalDamping, (grid, *args), kwargs)
 
 
+@factor_register("rayleigh")
 class Rayleigh(VerticalDamping):
     def forward(self, dt: float, field_now, field_new, field_ref):
         """``field_new`` damped toward ``field_ref`` from ``field_now`` over a

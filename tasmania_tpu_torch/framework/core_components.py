@@ -1,15 +1,20 @@
-"""Diagnostic and tendency components (counterpart of
+"""Diagnostic, tendency and stepper components (counterpart of
 ``tasmania_tpu/framework/core_components.py``).
 
-A component is an ``nn.Module``: ``array_call`` maps raw tensors to raw
-tensors, and ``forward`` converts units at the boundary and wraps the results
-into ``FieldArray``s.  A tendency component's ``array_call`` returns
-``(tendencies, diagnostics)``; an implicit one also takes the timestep.
+A component is an ``nn.Module`` and a ``StencilFactory``: ``array_call``
+maps raw tensors to raw tensors, and ``forward`` converts units at the
+boundary and wraps the results into ``FieldArray``s.  A tendency
+component's ``array_call`` returns ``(tendencies, diagnostics)``; an
+implicit one also takes the timestep; a ``Stepper``'s takes the timestep
+and returns ``(diagnostics, new state)``.  Every base takes the JAX
+package's ``backend`` and ``backend_options`` keywords, which name the
+stencils a component compiles and choose no kernel (``framework/stencil.py``).
 """
 
 from __future__ import annotations
 
 import abc
+from datetime import timedelta
 from typing import Any, Dict, Mapping, Optional, Tuple
 
 from torch import nn
@@ -20,7 +25,8 @@ from tasmania_tpu_torch.framework.field import (
     get_array_dict,
     wrap_outputs,
 )
-from tasmania_tpu_torch.framework.options import StorageOptions
+from tasmania_tpu_torch.framework.options import BackendOptions, StorageOptions
+from tasmania_tpu_torch.framework.stencil import DEFAULT_BACKEND, StencilFactory
 from tasmania_tpu_torch.utils.constants import get_physical_constants
 from tasmania_tpu_torch.utils.timer import Timer
 
@@ -54,8 +60,8 @@ def component_label(components) -> str:
     return "+".join(type(c).__name__ for c in components if isinstance(c, _Component))
 
 
-class _Component(nn.Module, abc.ABC):
-    """Domain binding, storage options and physical constants."""
+class _Component(nn.Module, StencilFactory, abc.ABC):
+    """Domain binding, backend and storage options and physical constants."""
 
     #: ``{name: (value, units)}``, overridable through ``physical_constants``
     default_physical_constants: Dict[str, Any] = {}
@@ -66,14 +72,16 @@ class _Component(nn.Module, abc.ABC):
         grid_type: str = "numerical",
         *,
         physical_constants: Optional[Mapping[str, Any]] = None,
+        backend: str = DEFAULT_BACKEND,
+        backend_options: Optional[BackendOptions] = None,
         storage_options: Optional[StorageOptions] = None,
     ) -> None:
-        super().__init__()
+        nn.Module.__init__(self)
+        StencilFactory.__init__(self, backend, backend_options, storage_options)
         if grid_type not in ("numerical", "physical"):
             raise ValueError(f"grid_type must be 'numerical' or 'physical', got {grid_type!r}")
         self.grid = domain.numerical_grid if grid_type == "numerical" else domain.physical_grid
         self.horizontal_boundary = domain.horizontal_boundary
-        self.storage_options = storage_options or StorageOptions()
         self.rpc = get_physical_constants(self.default_physical_constants, physical_constants)
 
     @property
@@ -148,3 +156,33 @@ class ImplicitTendencyComponent(TendencyComponent):
     def _raw_call(self, raw, timestep):
         dt = ensure_timedelta_seconds(timestep) if timestep is not None else 0.0
         return self.array_call(raw, dt)
+
+
+class Stepper(_Component):
+    """Steps a subset of the state over a timestep directly."""
+
+    @property
+    @abc.abstractmethod
+    def output_properties(self) -> PropertyDict:
+        ...
+
+    @property
+    def diagnostic_properties(self) -> PropertyDict:
+        return {}
+
+    @abc.abstractmethod
+    def array_call(
+        self, state: Mapping[str, Any], timestep: float
+    ) -> Tuple[Dict[str, Any], Dict[str, Any]]:
+        """Raw state + dt (seconds) -> (raw diagnostics, raw new state)."""
+
+    def forward(self, state: Mapping[str, Any], timestep) -> Tuple[Dict[str, FieldArray], Dict[str, FieldArray]]:
+        dt = ensure_timedelta_seconds(timestep)
+        with Timer.timing(type(self).__name__):
+            raw = get_array_dict(state, self.input_properties)
+            raw_diags, raw_out = self.array_call(raw, dt)
+        diags = wrap_outputs(raw_diags, self.diagnostic_properties)
+        out = wrap_outputs(raw_out, self.output_properties)
+        if "time" in state:
+            out["time"] = state["time"] + timedelta(seconds=dt)
+        return diags, out

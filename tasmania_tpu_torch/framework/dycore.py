@@ -23,7 +23,7 @@ Per stage, as in the JAX package's ``_stage_call``:
 from __future__ import annotations
 
 import abc
-from typing import Any, Dict, Mapping, Tuple
+from typing import Any, Dict, Mapping, Optional, Tuple
 
 from torch import nn
 
@@ -37,6 +37,8 @@ from tasmania_tpu_torch.framework.field import (
     get_array_dict,
     wrap_outputs,
 )
+from tasmania_tpu_torch.framework.options import BackendOptions, StorageOptions
+from tasmania_tpu_torch.framework.stencil import DEFAULT_BACKEND, StencilFactory
 from tasmania_tpu_torch.utils.timer import Timer
 
 PropertyDict = Mapping[str, Mapping[str, Any]]
@@ -48,10 +50,13 @@ def _coupling(component):
     return ConcurrentCoupling(component)
 
 
-class DynamicalCore(nn.Module, abc.ABC):
+class DynamicalCore(nn.Module, StencilFactory, abc.ABC):
     def __init__(self, fast_tendency_component=None, fast_diagnostic_component=None, substeps: int = 0,
-                 superfast_tendency_component=None, superfast_diagnostic_component=None) -> None:
-        super().__init__()
+                 superfast_tendency_component=None, superfast_diagnostic_component=None, *,
+                 backend: str = DEFAULT_BACKEND, backend_options: Optional[BackendOptions] = None,
+                 storage_options: Optional[StorageOptions] = None) -> None:
+        nn.Module.__init__(self)
+        StencilFactory.__init__(self, backend, backend_options, storage_options)
         self.fast_tendency_component = _coupling(fast_tendency_component)
         self.fast_diagnostic_component = _coupling(fast_diagnostic_component)
         self.substeps = int(substeps)

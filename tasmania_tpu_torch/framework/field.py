@@ -53,6 +53,11 @@ class FieldArray:
         return f"FieldArray(shape={self.shape}, units={self.units!r}, dims={self.dims})"
 
 
+def field_stagger_axes(name: str) -> Tuple[bool, bool, bool]:
+    """(x-staggered, y-staggered, z-staggered) from the field's name."""
+    return (STAGGER_X in name, STAGGER_Y in name, STAGGER_Z in name)
+
+
 def field_dims(name: str, base: DimNames = ("x", "y", "z")) -> DimNames:
     """Dimension labels of field ``name`` from the staggering naming convention."""
     tags = (STAGGER_X, STAGGER_Y, STAGGER_Z)
@@ -86,6 +91,17 @@ def wrap_outputs(
         name: FieldArray(arr, properties.get(name, {}).get("units", "1"), field_dims(name))
         for name, arr in raw.items()
     }
+
+
+def get_field_dict(
+    raw: Mapping[str, Any], properties: Mapping[str, Mapping[str, Any]], time=None
+) -> Dict[str, Any]:
+    """:func:`wrap_outputs` of ``raw`` (its ``"time"`` left out), with
+    ``time`` as the dict's ``"time"`` where given."""
+    out: Dict[str, Any] = wrap_outputs({k: v for k, v in raw.items() if k != "time"}, properties)
+    if time is not None:
+        out["time"] = time
+    return out
 
 
 def ensure_timedelta_seconds(dt: Union[float, int, timedelta]) -> float:

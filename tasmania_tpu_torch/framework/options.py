@@ -1,15 +1,32 @@
-"""Storage and time-integration options (counterpart of
+"""Backend, storage and time-integration options (counterpart of
 ``tasmania_tpu/framework/options.py``).
 
-The port has no backend or compile options: PyTorch runs eagerly, and the
-device a tensor lies on decides between a kernel and its plain version."""
+PyTorch runs eagerly, and the device a tensor lies on decides between a
+kernel and its plain version: no backend name and no backend option chooses
+between them.  ``BackendOptions`` keeps the JAX package's fields so that
+user code ports unchanged; its ``externals`` are bound into a stencil as
+there, and ``jit`` and ``donate`` wrap nothing (the port's compiled unit is
+a step's CUDA graph, ``utils/jitx.py``)."""
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Optional
+from typing import Any, Dict, Mapping, Optional
 
 import torch
+
+
+@dataclasses.dataclass
+class BackendOptions:
+    """Compile-time options of a stencil: ``externals`` are keyword
+    constants bound into each definition that declares them."""
+
+    dtypes: Optional[Mapping[str, Any]] = None
+    externals: Dict[str, Any] = dataclasses.field(default_factory=dict)
+    jit: bool = True
+    donate: bool = False
+    validate_args: bool = False
+    exec_info: Optional[Dict[str, Any]] = None
 
 
 @dataclasses.dataclass
@@ -35,3 +52,7 @@ class TimeIntegrationOptions:
     scheme: Optional[str] = None
     enforce_horizontal_boundary: bool = False
     substeps: int = 1
+    backend: str = "torch"
+    backend_options: Optional[BackendOptions] = None
+    storage_options: Optional[StorageOptions] = None
+    kwargs: Dict[str, Any] = dataclasses.field(default_factory=dict)

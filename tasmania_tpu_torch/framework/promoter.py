@@ -14,15 +14,18 @@ from typing import Any, Dict, Mapping
 from torch import nn
 
 from tasmania_tpu_torch.framework.field import FieldArray
+from tasmania_tpu_torch.framework.stencil import DEFAULT_BACKEND, StencilFactory
 
 PropertyDict = Mapping[str, Mapping[str, Any]]
 
 
-class FromDiagnosticToTendency(nn.Module, abc.ABC):
+class FromDiagnosticToTendency(nn.Module, StencilFactory, abc.ABC):
     """Lift state diagnostics into the tendency namespace."""
 
-    def __init__(self, domain, grid_type: str = "numerical", **kwargs) -> None:
-        super().__init__()
+    def __init__(self, domain, grid_type: str = "numerical", *, backend: str = DEFAULT_BACKEND,
+                 backend_options=None, storage_options=None, **kwargs) -> None:
+        nn.Module.__init__(self)
+        StencilFactory.__init__(self, backend, backend_options, storage_options)
         self.horizontal_boundary = domain.horizontal_boundary
 
     @property
@@ -46,11 +49,13 @@ class FromDiagnosticToTendency(nn.Module, abc.ABC):
         return out
 
 
-class FromTendencyToDiagnostic(nn.Module, abc.ABC):
+class FromTendencyToDiagnostic(nn.Module, StencilFactory, abc.ABC):
     """Expose computed tendencies as state diagnostics."""
 
-    def __init__(self, domain, grid_type: str = "numerical", **kwargs) -> None:
-        super().__init__()
+    def __init__(self, domain, grid_type: str = "numerical", *, backend: str = DEFAULT_BACKEND,
+                 backend_options=None, storage_options=None, **kwargs) -> None:
+        nn.Module.__init__(self)
+        StencilFactory.__init__(self, backend, backend_options, storage_options)
         self.horizontal_boundary = domain.horizontal_boundary
 
     @property

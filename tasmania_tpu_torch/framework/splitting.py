@@ -98,6 +98,8 @@ def _build_processes(options: Sequence[TimeIntegrationOptions], family=TendencyS
             stepper = family.factory(
                 opt.scheme, opt.component,
                 enforce_horizontal_boundary=opt.enforce_horizontal_boundary,
+                backend=opt.backend, backend_options=opt.backend_options,
+                storage_options=opt.storage_options, **opt.kwargs,
             )
             out.append((stepper, opt.substeps))
     return out

@@ -15,56 +15,64 @@ sequential-tendency steppers, ``x'`` the provisional state:
               out = x' + dt·f(x2)
 
 The diagnostics returned are those of the first stage (RK2SA's: of the
-second).  ``isentropic/physics/sequential_tendency_stepper.py`` adds the
-sequential-tendency scheme ``"isentropic_vertical_advection"``; a factory
-selects among the subclasses imported.  RK2 and RK3WS first
-ask the coupling, then its single component, for one operation that runs the
-whole step (``fused_rk_step``); that is the kernel path on the card.  The
-sequential-tendency steppers always go stage by stage.
+second).  Each family is a factory base whose schemes register by name
+(``@factor_register``): ``TendencyStepper.factory("rk3ws", ...)``;
+``isentropic/physics/sequential_tendency_stepper.py`` registers the
+sequential-tendency scheme ``"isentropic_vertical_advection"``.  RK2 and
+RK3WS first ask the coupling, then its single component, for one operation
+that runs the whole step (``fused_rk_step``, by the scheme's ``name``);
+that is the kernel path on the card.  The sequential-tendency steppers
+always go stage by stage.
 """
 
 from __future__ import annotations
 
 from datetime import timedelta
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 from torch import nn
 
 from tasmania_tpu_torch.framework.concurrent_coupling import ConcurrentCoupling
 from tasmania_tpu_torch.framework.dict_operator import fma, sts_rk2_0, sts_rk3ws_0
 from tasmania_tpu_torch.framework.field import ensure_timedelta_seconds
+from tasmania_tpu_torch.framework.options import BackendOptions, StorageOptions
+from tasmania_tpu_torch.framework.registry import factor_register, factorize
+from tasmania_tpu_torch.framework.stencil import DEFAULT_BACKEND, StencilFactory
 from tasmania_tpu_torch.utils.units import strip_per_second
 
 PropertyDict = Dict[str, Dict[str, Any]]
 
 
-class _Stepper(nn.Module):
+class _Stepper(nn.Module, StencilFactory):
     """A coupling, the variables it has tendencies for (each in its state
     units: the coupling's input units, else the tendency's units times a
     second) and the optional boundary enforcement between stages."""
 
     name = ""
 
-    def __init__(self, *components, enforce_horizontal_boundary: bool = False) -> None:
-        super().__init__()
+    def __init__(
+        self,
+        *components,
+        execution_policy: str = "serial",
+        enforce_horizontal_boundary: bool = False,
+        enable_checks: bool = True,
+        backend: str = DEFAULT_BACKEND,
+        backend_options: Optional[BackendOptions] = None,
+        storage_options: Optional[StorageOptions] = None,
+        **kwargs,
+    ) -> None:
+        nn.Module.__init__(self)
+        StencilFactory.__init__(self, backend, backend_options, storage_options)
         if len(components) == 1 and isinstance(components[0], ConcurrentCoupling):
             self.coupling = components[0]
         else:
-            self.coupling = ConcurrentCoupling(*components)
+            self.coupling = ConcurrentCoupling(*components, execution_policy=execution_policy)
         cin = self.coupling.input_properties
         self.output_properties: PropertyDict = {}
         for name, tprops in self.coupling.tendency_properties.items():
             units = cin[name]["units"] if name in cin else strip_per_second(tprops.get("units", "s^-1"))
             self.output_properties[name] = {**tprops, "units": units}
         self.enforce_hb = enforce_horizontal_boundary and self.coupling.horizontal_boundary is not None
-
-    @classmethod
-    def factory(cls, scheme: str, *components, **kwargs):
-        """The stepper of this family for ``scheme``."""
-        schemes = {sub.name: sub for sub in cls.__subclasses__()}
-        if scheme not in schemes:
-            raise NotImplementedError(f"time integration scheme {scheme!r} is not ported (have {sorted(schemes)})")
-        return schemes[scheme](*components, **kwargs)
 
     def _post_stage(self, state, stepped):
         """Enforce the lateral boundary where asked; the stage's full state."""
@@ -80,7 +88,13 @@ class _Stepper(nn.Module):
 
 class TendencyStepper(_Stepper):
     """Steps the variables a coupling has tendencies for; ``__call__`` returns
-    ``(diagnostics, new_state)``."""
+    ``(diagnostics, new_state)``.  Factory base of the tendency steppers."""
+
+    registry: Dict[str, type] = {}
+
+    @staticmethod
+    def factory(scheme: str, *components, **kwargs) -> "TendencyStepper":
+        return factorize(scheme, TendencyStepper, components, kwargs)
 
     def forward(self, state, timestep) -> Tuple[Dict[str, Any], Dict[str, Any]]:
         dt = ensure_timedelta_seconds(timestep)
@@ -112,6 +126,7 @@ class TendencyStepper(_Stepper):
         return diagnostics, stepped, stage_state
 
 
+@factor_register("forward_euler")
 class ForwardEuler(TendencyStepper):
     name = "forward_euler"
 
@@ -120,6 +135,7 @@ class ForwardEuler(TendencyStepper):
         return diagnostics, out
 
 
+@factor_register("rk2")
 class RK2(TendencyStepper):
     name = "rk2"
 
@@ -132,6 +148,7 @@ class RK2(TendencyStepper):
         return diagnostics, out
 
 
+@factor_register("rk2sa")
 class RK2SA(TendencyStepper):
     """RK2 that returns the diagnostics of its second stage, for a component
     whose diagnostics are the adjusted state
@@ -145,6 +162,7 @@ class RK2SA(TendencyStepper):
         return diagnostics, out
 
 
+@factor_register("rk3ws")
 class RK3WS(TendencyStepper):
     """Wicker-Skamarock three-stage Runge-Kutta."""
 
@@ -163,7 +181,14 @@ class RK3WS(TendencyStepper):
 class SequentialTendencyStepper(_Stepper):
     """Evaluates the tendencies on the current state and applies them to the
     provisional one; ``__call__(state, prv_state, timestep)`` returns
-    ``(diagnostics, new_provisional_state)``."""
+    ``(diagnostics, new_provisional_state)``.  Factory base of the
+    sequential-tendency steppers."""
+
+    registry: Dict[str, type] = {}
+
+    @staticmethod
+    def factory(scheme: str, *components, **kwargs) -> "SequentialTendencyStepper":
+        return factorize(scheme, SequentialTendencyStepper, components, kwargs)
 
     def forward(self, state, prv_state, timestep) -> Tuple[Dict[str, Any], Dict[str, Any]]:
         dt = ensure_timedelta_seconds(timestep)
@@ -183,6 +208,7 @@ class SequentialTendencyStepper(_Stepper):
         return self._post_stage(state, fma(prv_state, k, dt, self.output_properties))[0]
 
 
+@factor_register("forward_euler")
 class ForwardEulerSTS(SequentialTendencyStepper):
     name = "forward_euler"
 
@@ -191,6 +217,7 @@ class ForwardEulerSTS(SequentialTendencyStepper):
         return diagnostics, self._last(state, prv_state, k1, dt)
 
 
+@factor_register("rk2")
 class RK2STS(SequentialTendencyStepper):
     name = "rk2"
 
@@ -201,6 +228,7 @@ class RK2STS(SequentialTendencyStepper):
         return diagnostics, self._last(state, prv_state, k2, dt)
 
 
+@factor_register("rk3ws")
 class RK3WSSTS(SequentialTendencyStepper):
     name = "rk3ws"
 

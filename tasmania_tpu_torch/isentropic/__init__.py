@@ -1,3 +1,7 @@
+from tasmania_tpu_torch.isentropic.dynamics.horizontal_fluxes import (
+    IsentropicHorizontalFlux,
+    IsentropicMinimalHorizontalFlux,
+)
 from tasmania_tpu_torch.isentropic.state import (
     get_isentropic_state_from_brunt_vaisala_frequency,
     get_isentropic_state_from_temperature,
@@ -14,12 +18,19 @@ def __getattr__(name):
         from tasmania_tpu_torch.isentropic.dynamics.dycore import IsentropicDynamicalCore
 
         return IsentropicDynamicalCore
+    if name == "IsentropicPrognostic":
+        from tasmania_tpu_torch.isentropic.dynamics.prognostic import IsentropicPrognostic
+
+        return IsentropicPrognostic
     raise AttributeError(name)
 
 
 __all__ = [
     "IsentropicDiagnostics",
     "IsentropicDynamicalCore",
+    "IsentropicHorizontalFlux",
+    "IsentropicMinimalHorizontalFlux",
+    "IsentropicPrognostic",
     "get_isentropic_state_from_brunt_vaisala_frequency",
     "get_isentropic_state_from_temperature",
 ]

@@ -39,12 +39,13 @@ import numpy as np
 import torch
 
 from tasmania_tpu_torch.dwarfs.diagnostics import get_velocity_components
-from tasmania_tpu_torch.dwarfs.vertical_damping import Rayleigh
+from tasmania_tpu_torch.dwarfs.vertical_damping import VerticalDamping
 from tasmania_tpu_torch.framework.dycore import DynamicalCore
-from tasmania_tpu_torch.framework.options import StorageOptions
+from tasmania_tpu_torch.framework.options import BackendOptions, StorageOptions
+from tasmania_tpu_torch.framework.stencil import DEFAULT_BACKEND
 from tasmania_tpu_torch.isentropic.dynamics.prognostic import (
-    SCHEMES,
     SQ_NAMES,
+    IsentropicPrognostic,
     UNITS,
     mfcw,
     mfpw,
@@ -80,28 +81,27 @@ class IsentropicDynamicalCore(DynamicalCore):
         damp_depth: int = 15,
         damp_max: float = 0.0002,
         *,
+        backend: str = DEFAULT_BACKEND,
+        backend_options: Optional[BackendOptions] = None,
         storage_options: Optional[StorageOptions] = None,
     ) -> None:
         super().__init__(fast_tendency_component, fast_diagnostic_component, substeps,
-                         superfast_tendency_component, superfast_diagnostic_component)
-        if time_integration_scheme not in SCHEMES:
-            raise ValueError(
-                f"unknown time integration {time_integration_scheme!r} (have {sorted(SCHEMES)})"
-            )
-        # the reference registers no other damping (dwarfs/vertical_damping.py:79)
-        if damp and damp_type != "rayleigh":
-            raise ValueError(f"unknown damping {damp_type!r} (have 'rayleigh')")
-        so = storage_options or StorageOptions()
+                         superfast_tendency_component, superfast_diagnostic_component,
+                         backend=backend, backend_options=backend_options,
+                         storage_options=storage_options)
+        so = self.storage_options
         self.horizontal_boundary = domain.horizontal_boundary
         self.moist = moist
         self.damp_at_every_stage = damp_at_every_stage
-        self.prognostic = SCHEMES[time_integration_scheme](
-            horizontal_flux_scheme, domain, moist, storage_options=so,
-            **(time_integration_properties or {}),
+        self.prognostic = IsentropicPrognostic.factory(
+            time_integration_scheme, horizontal_flux_scheme, domain, moist, backend=backend,
+            backend_options=backend_options, storage_options=so, **(time_integration_properties or {}),
         )
         grid = domain.numerical_grid
         self.damper = (
-            Rayleigh(grid, damp_depth, damp_max, storage_options=so) if damp else None
+            VerticalDamping.factory(damp_type, grid, damp_depth, damp_max, backend=backend,
+                                    backend_options=backend_options, storage_options=so)
+            if damp else None
         )
         steady = np.asarray(grid.topography.steady_profile.to_units("m").data)
         self.register_buffer(

@@ -50,9 +50,14 @@ from torch import nn
 
 from tasmania_tpu_torch.domain.boundaries.relaxed import Relaxed
 from tasmania_tpu_torch.framework.field import FieldArray
-from tasmania_tpu_torch.framework.options import StorageOptions
+from tasmania_tpu_torch.framework.options import BackendOptions, StorageOptions
+from tasmania_tpu_torch.framework.registry import factor_register, factorize
+from tasmania_tpu_torch.framework.stencil import DEFAULT_BACKEND, StencilFactory
 from tasmania_tpu_torch.isentropic.dynamics.diagnostics import IsentropicDiagnostics
-from tasmania_tpu_torch.isentropic.dynamics.horizontal_fluxes import KERNEL_ORDERS, extent, flux_order
+from tasmania_tpu_torch.isentropic.dynamics.horizontal_fluxes import (
+    KERNEL_ORDERS,
+    IsentropicMinimalHorizontalFlux,
+)
 from tasmania_tpu_torch.ops.advection_step import (
     fused_advection_fields,
     fused_advection_fields_plain,
@@ -82,10 +87,13 @@ UNITS = {
 }
 
 
-class SIPrognostic(nn.Module):
+class IsentropicPrognostic(nn.Module, StencilFactory):
     """A semi-implicit scheme of ``stages`` stages, stage k of
-    ``substep_fractions[k]`` times the timestep."""
+    ``substep_fractions[k]`` times the timestep.  Factory base of the
+    schemes: ``IsentropicPrognostic.factory("rk3ws_si", "fifth_order_upwind",
+    domain, moist, pt=pt)``."""
 
+    registry = {}
     stages: int
     substep_fractions: tuple
 
@@ -97,15 +105,19 @@ class SIPrognostic(nn.Module):
         *,
         pt=0.0,
         eps: float = 0.5,
+        backend: str = DEFAULT_BACKEND,
+        backend_options: Optional[BackendOptions] = None,
         storage_options: Optional[StorageOptions] = None,
     ) -> None:
-        super().__init__()
-        so = storage_options or StorageOptions()
+        nn.Module.__init__(self)
+        StencilFactory.__init__(self, backend, backend_options, storage_options)
+        so = self.storage_options
         hb = domain.horizontal_boundary
         grid = domain.numerical_grid
-        self.order = flux_order(horizontal_flux_scheme)
-        if hb.nb < extent(self.order):
-            raise ValueError(f"nb={hb.nb} must be >= the flux extent {extent(self.order)}")
+        self.hflux = IsentropicMinimalHorizontalFlux.factory(horizontal_flux_scheme, backend=backend)
+        self.order = self.hflux.order
+        if hb.nb < self.hflux.extent:
+            raise ValueError(f"nb={hb.nb} must be >= the flux extent {self.hflux.extent}")
         if not 0.0 <= eps <= 1.0:
             raise ValueError("off-centering eps must be in [0, 1]")
         #: a shard of a 2-D decomposition (not the degenerate single shard)
@@ -313,7 +325,15 @@ class SIPrognostic(nn.Module):
         return out
 
 
-class ForwardEulerSI(SIPrognostic):
+    @staticmethod
+    def factory(time_integration_scheme: str, horizontal_flux_scheme: str, domain, moist: bool,
+                **kwargs) -> "IsentropicPrognostic":
+        return factorize(time_integration_scheme, IsentropicPrognostic,
+                         (horizontal_flux_scheme, domain, moist), kwargs)
+
+
+@factor_register("forward_euler_si")
+class ForwardEulerSI(IsentropicPrognostic):
     """One semi-implicit stage of the whole timestep
     (``prognostic.py:1040-1055``)."""
 
@@ -321,15 +341,8 @@ class ForwardEulerSI(SIPrognostic):
     substep_fractions = (1.0,)
 
 
-class RK3WSSI(SIPrognostic):
-    """Three-stage semi-implicit Wicker-Skamarock Runge-Kutta
-    (``prognostic.py:1077-1094``)."""
-
-    stages = 3
-    substep_fractions = (1.0 / 3.0, 0.5, 1.0)
-
-
-class CenteredSI(SIPrognostic):
+@factor_register("centered_si")
+class CenteredSI(IsentropicPrognostic):
     """The reference's stub (``prognostic.py:1058-1075``): it defines only
     the name, and using it raises, as it does there."""
 
@@ -341,4 +354,10 @@ class CenteredSI(SIPrognostic):
         raise NotImplementedError("centered_si is a stub in the reference too")
 
 
-SCHEMES = {"forward_euler_si": ForwardEulerSI, "centered_si": CenteredSI, "rk3ws_si": RK3WSSI}
+@factor_register("rk3ws_si")
+class RK3WSSI(IsentropicPrognostic):
+    """Three-stage semi-implicit Wicker-Skamarock Runge-Kutta
+    (``prognostic.py:1077-1094``)."""
+
+    stages = 3
+    substep_fractions = (1.0 / 3.0, 0.5, 1.0)

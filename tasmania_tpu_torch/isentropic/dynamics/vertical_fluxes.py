@@ -11,21 +11,29 @@ from __future__ import annotations
 
 import torch
 
+from tasmania_tpu_torch.framework.registry import factor_register, factorize
+from tasmania_tpu_torch.framework.stencil import DEFAULT_BACKEND
+
 
 class IsentropicMinimalVerticalFlux:
+    """Factory base: ``IsentropicMinimalVerticalFlux.factory("upwind")``."""
+
+    registry = {}
     extent = 1
     order = 1
 
-    @staticmethod
-    def factory(scheme: str) -> "IsentropicMinimalVerticalFlux":
-        if scheme not in _SCHEMES:
-            raise ValueError(f"unknown vertical flux scheme {scheme!r} (have {sorted(_SCHEMES)})")
-        return _SCHEMES[scheme]()
+    def __init__(self, *, backend: str = DEFAULT_BACKEND) -> None:
+        self.backend = backend
+
+    @classmethod
+    def factory(cls, scheme: str, *, backend: str = DEFAULT_BACKEND) -> "IsentropicMinimalVerticalFlux":
+        return factorize(scheme, IsentropicMinimalVerticalFlux, (), {"backend": backend})
 
     def __call__(self, dt, dz, w, phi):
         raise NotImplementedError
 
 
+@factor_register("upwind")
 class Upwind(IsentropicMinimalVerticalFlux):
     extent, order = 1, 1
 
@@ -34,6 +42,7 @@ class Upwind(IsentropicMinimalVerticalFlux):
         return wf * torch.where(wf > 0.0, phi[:, :, 1:], phi[:, :, :-1])
 
 
+@factor_register("centered")
 class Centered(IsentropicMinimalVerticalFlux):
     extent, order = 1, 2
 
@@ -41,6 +50,7 @@ class Centered(IsentropicMinimalVerticalFlux):
         return w[:, :, 1:-1] * 0.5 * (phi[:, :, 1:] + phi[:, :, :-1])
 
 
+@factor_register("third_order_upwind")
 class ThirdOrderUpwind(IsentropicMinimalVerticalFlux):
     extent, order = 2, 3
 
@@ -53,6 +63,7 @@ class ThirdOrderUpwind(IsentropicMinimalVerticalFlux):
         )
 
 
+@factor_register("fifth_order_upwind")
 class FifthOrderUpwind(IsentropicMinimalVerticalFlux):
     extent, order = 3, 5
 
@@ -68,10 +79,3 @@ class FifthOrderUpwind(IsentropicMinimalVerticalFlux):
             + (phi[:, :, :-5] - phi[:, :, 5:])
         )
 
-
-_SCHEMES = {
-    "upwind": Upwind,
-    "centered": Centered,
-    "third_order_upwind": ThirdOrderUpwind,
-    "fifth_order_upwind": FifthOrderUpwind,
-}

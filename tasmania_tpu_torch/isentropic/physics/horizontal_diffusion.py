@@ -52,20 +52,22 @@ class IsentropicHorizontalDiffusion(TendencyComponent):
     ) -> None:
         super().__init__(domain, "numerical", **kwargs)
         self.moist = moist
-        g, nb, so = self.grid, self.horizontal_boundary.nb, self.storage_options
+        g, nb = self.grid, self.horizontal_boundary.nb
+        kw = dict(backend=self.backend, backend_options=self.backend_options,
+                  storage_options=self.storage_options)
         shape = (g.nx, g.ny, g.nz)
         dx = float(np.asarray(g.dx.to_units("m").data))
         dy = float(np.asarray(g.dy.to_units("m").data))
         coeff = _coeff(diffusion_coeff, 0.0)
-        self.core = HorizontalDiffusion(
+        self.core = HorizontalDiffusion.factory(
             diffusion_type, shape, dx, dy, coeff, _coeff(diffusion_coeff_max, coeff),
-            diffusion_damp_depth, nb, storage_options=so,
+            diffusion_damp_depth, nb, **kw
         )
         if moist:
             mcoeff = _coeff(diffusion_moist_coeff, coeff)
-            self.core_moist = HorizontalDiffusion(
+            self.core_moist = HorizontalDiffusion.factory(
                 diffusion_type, shape, dx, dy, mcoeff, _coeff(diffusion_moist_coeff_max, mcoeff),
-                diffusion_moist_damp_depth or 0, nb, storage_options=so,
+                diffusion_moist_damp_depth or 0, nb, **kw
             )
 
     @property

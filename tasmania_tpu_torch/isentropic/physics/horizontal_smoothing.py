@@ -43,19 +43,21 @@ class IsentropicHorizontalSmoothing(DiagnosticComponent):
     ) -> None:
         super().__init__(domain, "numerical", **kwargs)
         self.moist = moist
-        g, nb, so = self.grid, self.horizontal_boundary.nb, self.storage_options
+        g, nb = self.grid, self.horizontal_boundary.nb
+        kw = dict(backend=self.backend, backend_options=self.backend_options,
+                  storage_options=self.storage_options)
         shape = (g.nx, g.ny, g.nz)
         cmax = smooth_coeff_max if smooth_coeff_max is not None else smooth_coeff
-        self.core = HorizontalSmoothing(
-            smooth_type, shape, smooth_coeff, cmax, smooth_damp_depth, nb, storage_options=so
+        self.core = HorizontalSmoothing.factory(
+            smooth_type, shape, smooth_coeff, cmax, smooth_damp_depth, nb, **kw
         )
         self.order, self.nb, self.axes = self.core.order, self.core.nb, self.core.axes
         cores = [self.core] * 3
         if moist:
             mc = smooth_moist_coeff if smooth_moist_coeff is not None else smooth_coeff
             mcm = smooth_moist_coeff_max if smooth_moist_coeff_max is not None else mc
-            self.core_moist = HorizontalSmoothing(
-                smooth_type, shape, mc, mcm, smooth_moist_damp_depth or 0, nb, storage_options=so
+            self.core_moist = HorizontalSmoothing.factory(
+                smooth_type, shape, mc, mcm, smooth_moist_damp_depth or 0, nb, **kw
             )
             cores += [self.core_moist] * 3
         self.cores = cores

@@ -7,9 +7,12 @@ d[k] = φ[k] − γ·(w[k-1]·φ[k-1] − w[k+1]·φ[k+1]), and identity first a
 rows.  The fields are s, su, sv and, when moist, s·q for the three water
 species; a, b and c depend on w alone, so the six systems share them and
 the port solves them together: the right-hand sides stacked on one axis of
-a level-major tensor, the sweep of the coefficients done once
-(``framework/stencil_definitions.thomas_level_major``).  The arithmetic of
-each field is the JAX package's, in its order.
+a level-major tensor, the sweep of the coefficients done once.  The solve is
+the registered stencil ``"thomas"`` of the component's backend
+(``compile_stencil``, as in the JAX package), given the level-major tensors
+as views whose last axis is the level (``framework/stencil_definitions.thomas``
+copies nothing on the way in).  The arithmetic of each field is the JAX
+package's, in its order.
 
 The JAX package computes this with ``lax.scan`` and no Pallas kernel, so the
 port is plain PyTorch: about nz levels of plane-sized operations in each
@@ -28,7 +31,6 @@ import numpy as np
 import torch
 
 from tasmania_tpu_torch.framework.core_components import ImplicitTendencyComponent
-from tasmania_tpu_torch.framework.stencil_definitions import thomas_level_major
 
 mfwv = "mass_fraction_of_water_vapor_in_air"
 mfcw = "mass_fraction_of_cloud_liquid_water_in_air"
@@ -67,19 +69,14 @@ def setup_thomas(gamma: float, w, phi, phi_prv=None):
     return a, b, c, d
 
 
-def solve_columns(gamma: float, w, fields, anchors=None):
+def solve_columns(thomas, gamma: float, w, fields, anchors=None):
     """The CN solutions of ``fields`` (each (nx, ny, n)), optionally anchored
-    to ``anchors``, as one level-major tensor (n, m, nx, ny)."""
+    to ``anchors``, by the registered solve ``thomas``: (m, nx, ny, n), one
+    contiguous field per index of the first axis."""
     w_lm = w.permute(2, 0, 1).contiguous()
     phi = level_major(fields)
     phi_prv = None if anchors is None else level_major(anchors)
-    return thomas_level_major(*setup_thomas(gamma, w_lm, phi, phi_prv))
-
-
-def columns(x):
-    """(m, nx, ny, n): a level-major (n, m, nx, ny) tensor back in the
-    reference layout, one contiguous field per index of the first axis."""
-    return x.permute(1, 2, 3, 0).contiguous()
+    return thomas(*(t.movedim(0, -1) for t in setup_thomas(gamma, w_lm, phi, phi_prv)))
 
 
 def vertical_velocity(state, stgz: bool):
@@ -103,6 +100,7 @@ class _ImplicitVerticalAdvectionBase(ImplicitTendencyComponent):
         self.moist = moist
         self.stgz = tendency_of_air_potential_temperature_on_interface_levels
         self.dz = float(np.asarray(self.grid.dz.to_units("K").data))
+        self.thomas = self.compile_stencil("thomas")
 
     @property
     def input_properties(self):
@@ -136,10 +134,10 @@ class _ImplicitVerticalAdvectionBase(ImplicitTendencyComponent):
         fields = [s, state[SU], state[SV]]
         if self.moist:
             fields += [s * state[q] for q in WATER]
-        x = solve_columns(dt / (4.0 * self.dz), vertical_velocity(state, self.stgz), fields)
+        x = solve_columns(self.thomas, dt / (4.0 * self.dz), vertical_velocity(state, self.stgz), fields)
         if self.moist:
-            x[:, 3:].div_(x[:, :1])
-        return dict(zip(self.stepped_properties, columns(x)))
+            x[3:].div_(x[:1])
+        return dict(zip(self.stepped_properties, x))
 
 
 class IsentropicImplicitVerticalAdvectionDiagnostic(_ImplicitVerticalAdvectionBase):

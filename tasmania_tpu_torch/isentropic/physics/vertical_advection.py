@@ -50,7 +50,7 @@ class IsentropicVerticalAdvection(TendencyComponent):
     def __init__(self, domain, grid_type: str = "numerical", flux_scheme: str = "upwind",
                  **kwargs) -> None:
         super().__init__(domain, grid_type, **kwargs)
-        self.vflux = IsentropicMinimalVerticalFlux.factory(flux_scheme)
+        self.vflux = IsentropicMinimalVerticalFlux.factory(flux_scheme, backend=self.backend)
         self.dz = float(np.asarray(self.grid.dz.to_units("K").data))
 
     @property

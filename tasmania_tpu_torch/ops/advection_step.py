@@ -130,6 +130,18 @@ def fused_advection_fields(
     return outs
 
 
+def fused_advection_step(u, v, phi_now, phi_int, tnd=None, *, order: int = 3, nb: int = 3,
+                         dt: float = 1.0, dx: float = 1.0, dy: float = 1.0):
+    """``fused_advection_fields`` on the stacked layout: ``phi_now``,
+    ``phi_int`` and ``tnd`` of shape (F, nx, ny, nz), the result stacked the
+    same way (the JAX package's convenience wrapper, ``advection_step.py:380``)."""
+    outs = fused_advection_fields(
+        u, v, phi_now.unbind(0), phi_int.unbind(0), None if tnd is None else tnd.unbind(0),
+        nb=nb, dt=dt, dx=dx, dy=dy, order=order,
+    )
+    return torch.stack(outs)
+
+
 def fused_momentum_step_plain(
     u, v, su_now, sv_now, su_int, sv_int, s_now, mtg_now, s_new, mtg_new, su_tnd=None,
     sv_tnd=None, *, order: int, nb: int, dt: float, dx: float, dy: float, eps: float,

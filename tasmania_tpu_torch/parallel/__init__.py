@@ -2,4 +2,33 @@
 (counterpart of ``tasmania_tpu/parallel/``): the rank grid and the
 decomposition (``mesh``), the halo exchange (``halo``), a shard's lateral
 boundary (``distributed``), the decomposed timestep (``runner``), the local
-rank launcher (``launch``) and ``torchrun`` wiring (``multihost``)."""
+rank launcher (``launch``) and ``torchrun`` wiring (``multihost``).
+
+The JAX package's ``make_mesh`` returns a ``jax.sharding.Mesh``; the port's
+counterpart is ``mesh.make_rank_grid``."""
+
+from tasmania_tpu_torch.parallel.halo import halo_exchange
+from tasmania_tpu_torch.parallel.mesh import CartesianDecomposition, make_rank_grid
+
+
+def __getattr__(name):
+    # lazy: the shard's boundary and the runner import the domain and the dycore
+    if name in ("DistributedBoundary", "LocalDomain"):
+        from tasmania_tpu_torch.parallel import distributed
+
+        return getattr(distributed, name)
+    if name == "DistributedModel":
+        from tasmania_tpu_torch.parallel.runner import DistributedModel
+
+        return DistributedModel
+    raise AttributeError(name)
+
+
+__all__ = [
+    "halo_exchange",
+    "CartesianDecomposition",
+    "make_rank_grid",
+    "DistributedBoundary",
+    "LocalDomain",
+    "DistributedModel",
+]

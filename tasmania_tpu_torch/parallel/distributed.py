@@ -38,13 +38,11 @@ import torch
 
 from tasmania_tpu_torch.domain.boundaries.relaxed import enforce_relaxed
 from tasmania_tpu_torch.domain.grid import PhysicalGrid
-from tasmania_tpu_torch.domain.horizontal_boundary import HorizontalBoundary, change_dims
+from tasmania_tpu_torch.domain.horizontal_boundary import BUILT_IN, HorizontalBoundary, change_dims
 from tasmania_tpu_torch.framework.field import FieldArray
 from tasmania_tpu_torch.utils.units import conversion_factor, units_are_same
 from tasmania_tpu_torch.parallel.halo import Exchange, halo_exchange, halo_exchange_multi
 from tasmania_tpu_torch.parallel.mesh import CartesianDecomposition
-
-INNER_TYPES = ("relaxed", "periodic", "identity", "dirichlet")
 
 
 def stagger_axes(field_name: Optional[str]) -> Tuple[bool, bool]:
@@ -103,10 +101,10 @@ class DistributedBoundary(HorizontalBoundary):
         gpg = global_domain.physical_grid
         if gpg.nx < 2 or gpg.ny < 2:
             raise ValueError("a grid one cell deep runs on a single device only")
-        inner = ghb.type
-        if inner not in INNER_TYPES:
+        inner = ghb.family
+        if inner not in BUILT_IN:
             raise NotImplementedError(
-                f"the decomposed step takes the boundaries {INNER_TYPES}, not {inner!r}"
+                f"the decomposed step takes the boundaries {BUILT_IN}, not {inner!r}"
             )
         # the global grid's frame cropped off a reference field (periodic)
         self._physical_field = ghb.get_physical_field if inner == "periodic" else None

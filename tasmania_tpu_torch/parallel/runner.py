@@ -71,7 +71,7 @@ class DistributedModel:
         gpg = global_domain.physical_grid
         ghb = global_domain.horizontal_boundary
         nb = ghb.nb
-        periodic = ghb.type == "periodic"
+        periodic = ghb.family == "periodic"
         self.grid, self.rank = grid, rank
         self.pads = axis_pads(grid, nb, nb if halo is None else int(halo), periodic)
         self.decomp = CartesianDecomposition(gpg.nx, gpg.ny, grid, nb, *self.pads)

@@ -268,7 +268,7 @@ class KesslerSedimentation(ImplicitTendencyComponent):
         super().__init__(domain, grid_type, **kwargs)
         if vt_mode not in VT_MODES:
             raise ValueError(f"vt_mode must be one of {VT_MODES}, got {vt_mode!r}")
-        self.sflux = SedimentationFlux.factory(sedimentation_flux_scheme)
+        self.sflux = SedimentationFlux.factory(sedimentation_flux_scheme, self.backend)
         self.vt_mode = vt_mode
 
     @property

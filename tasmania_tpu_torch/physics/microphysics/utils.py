@@ -13,6 +13,8 @@ from tasmania_tpu_torch.framework.core_components import (
     DiagnosticComponent,
     ImplicitTendencyComponent,
 )
+from tasmania_tpu_torch.framework.registry import factor_register, factorize
+from tasmania_tpu_torch.framework.stencil import DEFAULT_BACKEND
 
 mfwv = "mass_fraction_of_water_vapor_in_air"
 mfcw = "mass_fraction_of_cloud_liquid_water_in_air"
@@ -79,20 +81,21 @@ class Precipitation(ImplicitTendencyComponent):
 
 
 class SedimentationFlux:
-    """The vertical derivative of the sedimentation flux, on levels [nb, nz)."""
+    """The vertical derivative of the sedimentation flux, on levels [nb, nz).
+    Factory base: ``SedimentationFlux.factory("first_order_upwind")``."""
 
+    registry = {}
     nb = 1
 
     @staticmethod
-    def factory(flux_type: str) -> "SedimentationFlux":
-        if flux_type not in _FLUXES:
-            raise ValueError(f"unknown sedimentation flux {flux_type!r} (have {sorted(_FLUXES)})")
-        return _FLUXES[flux_type]()
+    def factory(flux_type: str, backend: str = DEFAULT_BACKEND) -> "SedimentationFlux":
+        return factorize(flux_type, SedimentationFlux, ())
 
     def __call__(self, rho, h, q, vt):
         raise NotImplementedError
 
 
+@factor_register("first_order_upwind")
 class FirstOrderUpwind(SedimentationFlux):
     nb = 1
 
@@ -102,6 +105,7 @@ class FirstOrderUpwind(SedimentationFlux):
         ) / (h[:, :, :-1] - h[:, :, 1:])
 
 
+@factor_register("second_order_upwind")
 class SecondOrderUpwind(SedimentationFlux):
     nb = 2
 
@@ -121,5 +125,3 @@ class SecondOrderUpwind(SedimentationFlux):
             + c * rho[:, :, :-2] * q[:, :, :-2] * vt[:, :, :-2]
         )
 
-
-_FLUXES = {"first_order_upwind": FirstOrderUpwind, "second_order_upwind": SecondOrderUpwind}

@@ -6,6 +6,14 @@ import numpy as np
 import torch
 
 
+def get_namespace(x):
+    """``numpy`` for host arrays and scalars, ``torch`` otherwise: the
+    namespace one definition uses to serve both."""
+    if isinstance(x, np.ndarray) or np.isscalar(x):
+        return np
+    return torch
+
+
 def to_numpy(x) -> np.ndarray:
     """Any array or tensor as a host numpy array (a tensor on the card is
     copied to the host, which waits for the device)."""

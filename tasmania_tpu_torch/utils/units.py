@@ -144,12 +144,19 @@ def units_are_compatible(a: str, b: str) -> bool:
     return parse_units(a).dims == parse_units(b).dims
 
 
+def multiply_units(a: str, b: str) -> str:
+    """The symbolic product of two unit strings."""
+    a, b = a.strip(), b.strip()
+    if a in ("", "1", "dimensionless"):
+        return b or "1"
+    if b in ("", "1", "dimensionless"):
+        return a
+    return f"{a} {b}"
+
+
 def per_second(units: str) -> str:
     """Units of the time tendency of a field carrying ``units``."""
-    units = units.strip()
-    if units in ("", "1", "dimensionless"):
-        return "s^-1"
-    return f"{units} s^-1"
+    return multiply_units(units, "s^-1")
 
 
 def strip_per_second(units: str) -> str:

@@ -94,7 +94,7 @@ def _assert_close(got, ref, tol=1e-12, name=""):
 @pytest.mark.parametrize("scheme", FLUXES)
 def test_advection_matches(scheme):
     u, v = _rand((12, 12, 1), 0), _rand((12, 12, 1), 1)
-    port = BurgersAdvection(scheme)
+    port = BurgersAdvection.factory(scheme)
     ref = JaxAdvection.factory(scheme)
     assert port.extent == ref.extent
     got = port(0.3, 0.7, torch.as_tensor(u), torch.as_tensor(v))
@@ -113,7 +113,7 @@ def test_stepper_step_matches(scheme, tendency):
     u, v = _rand((14, 12, 1), 2), _rand((14, 12, 1), 3)
     tnd = {"x_velocity": _rand((14, 12, 1), 4), "y_velocity": _rand((14, 12, 1), 5)} if tendency else {}
     jst = JaxStepper.factory(scheme, jd.numerical_grid.grid_xy, nb, "third_order")
-    pst = BurgersStepper(scheme, pd.numerical_grid.grid_xy, nb, "third_order")
+    pst = BurgersStepper.factory(scheme, pd.numerical_grid.grid_xy, nb, "third_order")
     assert pst.stages == jst.stages
     js = {"time": ITIME, "x_velocity": jnp.asarray(u), "y_velocity": jnp.asarray(v)}
     ps = {"time": ITIME, "x_velocity": torch.as_tensor(u), "y_velocity": torch.as_tensor(v)}

@@ -26,6 +26,7 @@ from tasmania_tpu_torch.interop import state_from_numpy, state_to_numpy
 from tasmania_tpu_torch.isentropic.state import (
     get_isentropic_state_from_brunt_vaisala_frequency,
 )
+from tasmania_tpu_torch.utils.exceptions import FactoryRegistryError
 
 NX, NY, NZ = 17, 19, 8
 # the port's components allocate on the card unless told otherwise
@@ -210,10 +211,10 @@ def test_storage_defaults_to_the_card():
 
 def test_unported_options_raise():
     # the factory names the four boundaries it has
-    with pytest.raises(NotImplementedError, match="periodic"):
+    with pytest.raises(FactoryRegistryError, match="periodic"):
         Domain((0.0, 1.0), 9, (0.0, 1.0), 9, FieldArray(np.array([400.0, 300.0]), "K", ("z",)), 4,
                horizontal_boundary_type="open")
     # the topography factory names the four profiles it has
-    with pytest.raises(NotImplementedError, match="schaer"):
+    with pytest.raises(FactoryRegistryError, match="schaer"):
         Domain((0.0, 1.0), 9, (0.0, 1.0), 9, FieldArray(np.array([400.0, 300.0]), "K", ("z",)), 4,
                topography_type="witch_of_agnesi")

@@ -35,12 +35,12 @@ from tasmania_tpu.isentropic.physics import (
     IsentropicHorizontalSmoothing as JaxIsentropicSmoothing,
 )
 from tasmania_tpu_torch.domain.domain import Domain
-from tasmania_tpu_torch.dwarfs import horizontal_diffusion, horizontal_hyperdiffusion, horizontal_smoothing
 from tasmania_tpu_torch.dwarfs.horizontal_diffusion import HorizontalDiffusion
 from tasmania_tpu_torch.dwarfs.horizontal_hyperdiffusion import HorizontalHyperDiffusion
 from tasmania_tpu_torch.dwarfs.horizontal_smoothing import HorizontalSmoothing
 from tasmania_tpu_torch.framework.field import FieldArray
 from tasmania_tpu_torch.framework.options import StorageOptions
+from tasmania_tpu_torch.framework.registry import registered_names
 from tasmania_tpu_torch.isentropic.physics.horizontal_diffusion import IsentropicHorizontalDiffusion
 from tasmania_tpu_torch.isentropic.physics.horizontal_smoothing import IsentropicHorizontalSmoothing
 from tasmania_tpu_torch.isentropic.state import get_isentropic_state_from_brunt_vaisala_frequency
@@ -62,27 +62,27 @@ def _field():
     return np.random.default_rng(3).standard_normal(SHAPE)
 
 
-@pytest.mark.parametrize("name", sorted(horizontal_diffusion.TYPES))
+@pytest.mark.parametrize("name", sorted(registered_names(HorizontalDiffusion)))
 def test_diffusion_matches(name):
     phi = _field()
-    port = HorizontalDiffusion(name, SHAPE, DX, DY, *PROFILE, NB, storage_options=CPU64)
+    port = HorizontalDiffusion.factory(name, SHAPE, DX, DY, *PROFILE, NB, storage_options=CPU64)
     ref = JaxDiffusion.factory(name, SHAPE, DX, DY, *PROFILE, NB)
     np.testing.assert_array_equal(port.gamma.numpy(), np.asarray(ref._gamma)[0, 0])
     _assert_close(port(torch.as_tensor(phi)).numpy(), ref(jnp.asarray(phi)), name)
 
 
-@pytest.mark.parametrize("name", sorted(horizontal_hyperdiffusion.TYPES))
+@pytest.mark.parametrize("name", sorted(registered_names(HorizontalHyperDiffusion)))
 def test_hyperdiffusion_matches(name):
     phi = _field()
-    port = HorizontalHyperDiffusion(name, SHAPE, DX, DY, *PROFILE, NB, storage_options=CPU64)
+    port = HorizontalHyperDiffusion.factory(name, SHAPE, DX, DY, *PROFILE, NB, storage_options=CPU64)
     ref = JaxHyperDiffusion.factory(name, SHAPE, DX, DY, *PROFILE, NB)
     _assert_close(port(torch.as_tensor(phi)).numpy(), ref(jnp.asarray(phi)), name)
 
 
-@pytest.mark.parametrize("name", sorted(horizontal_smoothing.TYPES))
+@pytest.mark.parametrize("name", sorted(registered_names(HorizontalSmoothing)))
 def test_smoothing_matches(name):
     phi = _field()
-    port = HorizontalSmoothing(name, SHAPE, *PROFILE, NB, storage_options=CPU64)
+    port = HorizontalSmoothing.factory(name, SHAPE, *PROFILE, NB, storage_options=CPU64)
     ref = JaxSmoothing.factory(name, SHAPE, *PROFILE, NB)
     assert port.nb == ref.nb
     _assert_close(port(torch.as_tensor(phi)).numpy(), ref(jnp.asarray(phi)), name)

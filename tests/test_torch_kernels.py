@@ -1146,6 +1146,35 @@ def test_fused_loop_graph_matches_eager(cuda_device, path):
     assert eager["launches_per_step"] == graph["launches_per_step"] == LAUNCHES_PER_STEP.get(path, {})
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("backend", ["torch", "jax", "pallas"])
+def test_registered_names_and_backend_names_launch_as_sus(cuda_device, backend):
+    """41x41x20, float32, 1 + 5 steps, eager and as a CUDA graph: the
+    flagship built through a topography and a boundary a user registered
+    under new names, under each backend name, launches sus's kernels a step
+    (``LAUNCHES_PER_STEP["sus_registry"]``) and gives the fields of the run
+    built through "gaussian" and "relaxed" bit for bit: no backend name
+    routes a plain version onto the card."""
+    from chip_smoke import LAUNCHES_PER_STEP, register_user_flavours
+    from tasmania_tpu_torch.drivers import driver_namelist_sus as drv
+    from tasmania_tpu_torch.drivers.namelist_sus import load_namelist
+
+    user = register_user_flavours()
+    try:
+        so = StorageOptions(dtype=torch.float32, device="cuda")
+        base = drv.run(load_namelist(**GRAPH_SIZE, so=so), verbose=False)
+        assert base["launches_per_step"] == LAUNCHES_PER_STEP["sus_registry"]
+        nl = load_namelist(**GRAPH_SIZE, so=so, backend=backend, topo_type=user["topography"],
+                           hb_type=user["boundary"])
+        for fused in (False, True):
+            res = drv.run(nl, verbose=False, fused_loop=fused)
+            assert res["launches_per_step"] == LAUNCHES_PER_STEP["sus_registry"], fused
+            for name, fa in base["fields"].items():
+                assert torch.equal(res["fields"][name].data, fa.data), (fused, name)
+    finally:
+        user["unregister"]()
+
+
 # ---------------------------------------------------------------- checkpoints
 
 

@@ -54,7 +54,7 @@ from tasmania_tpu.ops.vertical_advection_step import (
 from tasmania_tpu_torch.drivers import driver_isentropic_moist as port_moist
 from tasmania_tpu_torch.drivers import driver_namelist_sus as port_driver
 from tasmania_tpu_torch.drivers.namelist_sus import load_namelist
-from tasmania_tpu_torch.dwarfs.horizontal_smoothing import TYPES as SMOOTHING_TYPES
+from tasmania_tpu_torch.dwarfs.horizontal_smoothing import HorizontalSmoothing
 from tasmania_tpu_torch.framework.options import StorageOptions
 from tasmania_tpu_torch.framework.splitting import SequentialUpdateSplitting, _pair_plan
 from tasmania_tpu_torch.interop import state_to_numpy
@@ -283,7 +283,7 @@ def _jax_merges_smooth_smag(nb, smooth_type, n):
 @pytest.mark.parametrize("nb", [2, 3])
 def test_smooth_smag_planned_where_the_jax_matcher_merges(nb, smooth_type):
     n = 21  # the JAX matcher asks nx >= 8 + 2 order + 4 for its x-tile
-    expected = nb >= max(SMOOTHING_TYPES[smooth_type][0], 2)
+    expected = nb >= max(HorizontalSmoothing.registry[smooth_type].order, 2)
     assert _jax_merges_smooth_smag(nb, smooth_type, n) == expected
     merged = "smooth_smag" in _merged_pairs(("smooth_smag",), nx=n, ny=n, nb=nb, smooth_type=smooth_type)
     assert merged == expected

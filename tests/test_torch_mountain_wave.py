@@ -46,6 +46,7 @@ from tasmania_tpu_torch.framework.options import StorageOptions
 from tasmania_tpu_torch.interop import state_from_numpy, state_to_numpy
 from tasmania_tpu_torch.isentropic.dynamics.dycore import IsentropicDynamicalCore
 from tasmania_tpu_torch.isentropic.state import get_isentropic_state_from_brunt_vaisala_frequency
+from tasmania_tpu_torch.utils.exceptions import FactoryRegistryError
 from tasmania_tpu_torch.utils.meteo import get_isothermal_isentropic_analytical_solution
 from tests.test_torch_flagship import assert_fields_agree
 
@@ -261,7 +262,7 @@ def test_unported_paths_raise():
                                        storage_options=CPU64).prognostic.fused
     with pytest.raises(NotImplementedError, match="stub"):
         IsentropicDynamicalCore(domain, time_integration_scheme="centered_si", storage_options=CPU64).stages
-    with pytest.raises(ValueError, match="unknown"):
+    with pytest.raises(FactoryRegistryError, match="unknown"):
         IsentropicDynamicalCore(domain, horizontal_flux_scheme="maccormack", storage_options=CPU64)
     two_d = Domain((0.0, 1e5), 17, (0.0, 1e5), 17, FieldArray(np.array([360.0, 300.0]), "K", ("z",)), 6,
                    horizontal_boundary_type="relaxed", nb=3, horizontal_boundary_kwargs={"nr": 6},

@@ -109,8 +109,10 @@ def test_port_imports_no_jax():
     of each case of the Burgers driver (which import the Burgers model, the
     Dirichlet boundary and the diffusion dwarf), and importing the other
     boundaries and dwarfs, importing ``utils.{iox,checkpoint,timer}`` and
-    ``plot``, and one checkpointed step of the SUS driver (saved, then
-    resumed, with the NaN guard), leaves JAX and the JAX package unloaded."""
+    ``plot``, one checkpointed step of the SUS driver (saved, then
+    resumed, with the NaN guard), a step under the backend name ``"jax"``,
+    and importing every package of the port and resolving each of its
+    exports leaves JAX and the JAX package unloaded."""
     code = (
         "import sys, torch\n"
         "import tasmania_tpu_torch.utils.jitx\n"
@@ -163,6 +165,13 @@ def test_port_imports_no_jax():
         "    for resume in (False, True):\n"
         "        run(load_namelist(**size), verbose=False, checkpoint_dir=ck, checkpoint_every=1,\n"
         "            resume=resume, nan_guard=True)\n"
+        "run(load_namelist(**size, backend='jax'), verbose=False)\n"
+        "import importlib, pkgutil, tasmania_tpu_torch\n"
+        "for m in pkgutil.walk_packages(tasmania_tpu_torch.__path__, 'tasmania_tpu_torch.'):\n"
+        "    if m.ispkg:\n"
+        "        pkg = importlib.import_module(m.name)\n"
+        "        [getattr(pkg, n) for n in getattr(pkg, '__all__', ())]\n"
+        "[getattr(tasmania_tpu_torch, n) for n in (*tasmania_tpu_torch.SUBPACKAGES, 'FieldArray')]\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'tasmania_tpu.')) or m == 'tasmania_tpu')\n"
         "assert not bad, bad\n"
     )
