@@ -276,10 +276,36 @@ printing one line; any failure raises and exits non-zero:
    dwarfs built through their factories, each with phase 12's bits and #3's
    launch count; (e) the allocators and the factory mixin's, which must
    return float32 tensors on the card; phase lines and one JSON line
-   (``registry``).
+   (``registry``);
+18. distribution and tools (run after phase 14; ``distribution_phase``),
+   float32: (a) the SUS driver's ``--spmd`` on four gloo ranks (2x2)
+   sharing the card at phase 14's grid (256x256x64), 1 + ``DIST_STEPS``
+   steps checkpointed every ``DIST_EVERY`` (each rank its blocks of a
+   sharded step), then resumed from step ``DIST_RESUME`` on 2x2 (bit for
+   bit the uninterrupted run), on 4x1 and on the single device (within
+   ``SHARDED_FIELD_TOL``, ρ within ``DIAG_RHO_TOL``), and the single
+   device's checkpoint restored onto each rank of 2x2 bit for bit; the
+   checkpoint's MB, its saves', restores' and assembly's ms; (c) the same
+   run on the hybrid grid of two nodes of two ranks (``LOCAL_WORLD_SIZE=2``,
+   the nodes tiled 2x1 and 1x2), each node's ranks one block, bit for bit
+   the plain 2x2 run; (b) ``--spmd`` on the card's one NCCL rank at the
+   flagship with ``--fused-loop``: the degenerate grid, sus's graph bits and
+   launches; (d) ``driver_dist_bench --mesh 1,1`` at the flagship: the
+   single device's bits, ``DIST_BENCH_PAIRS`` alternating pairs of graph
+   steps and their ratio (no gate on time); (e) ``driver_weak_scaling``
+   on 1 and 4 gloo ranks of ``WEAK_BLOCK`` x ``WEAK_BLOCK`` x ``WEAK_NZ``
+   with ``--analyze`` at ``NVLINK_GBS`` (a data-sheet figure): each rank's
+   counted exchange bytes equal to the ring's; (f) every ``driver_profile``
+   variant at the flagship, 1 + ``DIST_STEPS`` graph steps, launching
+   exactly the kernels its skip set leaves (``expected_launches``), and
+   ``full`` beside sus's graph step in ``PROFILE_PAIRS`` alternating pairs,
+   their medians within the spread of sus's runs; phase lines and one JSON
+   line (``distribution``).  Phase 3 also times a one-element PyTorch fill
+   with ``device_ms``, the launch floor beside the pastes, which the
+   ``kernels`` line carries as ``launch_floor_ms``.
 
 The isentropic diagnostics kernel serves every diagnostics call, so phases
-4-7, 9, 10, 13, 14 and 17 count it too (``LAUNCHES_PER_STEP``); phase 12 counts the
+4-7, 9, 10, 13, 14, 17 and 18 count it too (``LAUNCHES_PER_STEP``); phase 12 counts the
 smoothing kernel under the path ``dwarfs``.  Every phase checks the launch
 counts exactly: each kernel of the path as often as its path launches it a
 step (phase 10: a step's launches twice), and no other kernel.  The last two
@@ -1643,6 +1669,297 @@ def registry_phase(card, path_counts, path_steps, dwarf_outs, dwarf_phi, device=
     return out
 
 
+# phase 18, distribution and tools: the sharded checkpoints at phase 14's
+# configuration (SHARDED_REFERENCE's grid, float32, four gloo ranks sharing
+# the card), 1 + DIST_STEPS steps checkpointed every DIST_EVERY and resumed
+# from step DIST_RESUME; --spmd on the card's one rank and driver_profile's
+# variants at the flagship, 1 + DIST_STEPS graph steps; driver_dist_bench's
+# 1x1 mesh at the flagship, DIST_BENCH_PAIRS alternating pairs of
+# FUSED_TIMED_STEPS graph steps; driver_weak_scaling at WEAK_BLOCK x
+# WEAK_BLOCK x WEAK_NZ a rank on 1 and 4 ranks, WEAK_STEPS steps
+DIST_STEPS = 20
+DIST_EVERY = 10
+DIST_RESUME = 10
+DIST_BENCH_PAIRS = 5
+PROFILE_PAIRS = 3
+WEAK_BLOCK = 128
+WEAK_NZ = 64
+WEAK_STEPS = 10
+# the H100 SXM data sheet's NVLink (fourth generation): 900 GB/s a GPU, both
+# directions together; a spec, not a measurement
+NVLINK_GBS = 450.0
+NODE_GRIDS = ((2, 1), (1, 2))
+
+
+def node_blocks(coords, local_world):
+    """Raise unless each node's ranks (``local_world`` consecutive ranks)
+    sit in one contiguous rectangle of the grid; returns the rectangles."""
+    rects = []
+    for first in range(0, len(coords), local_world):
+        pts = coords[first : first + local_world]
+        xs, ys = [p[0] for p in pts], [p[1] for p in pts]
+        rect = (min(xs), max(xs), min(ys), max(ys))
+        if (rect[1] - rect[0] + 1) * (rect[3] - rect[2] + 1) != len(set(pts)) or len(set(pts)) != len(pts):
+            raise AssertionError(f"hybrid grid: node of ranks {first}..{first + local_world - 1} holds "
+                                 f"{pts}, not a contiguous block")
+        rects.append(rect)
+    return rects
+
+
+def distribution_phase(card, path_counts, path_steps, device="cuda", size=None, flagship=None):
+    """Phase 18 (module docstring).  ``size`` (nx, ny, nz) replaces phase
+    14's grid and ``flagship`` (nx, ny, nz) the flagship's, so that the
+    phase can be rehearsed on the CPU (no graph, no launch counted there)."""
+    import statistics
+    import tempfile
+
+    import numpy as np
+
+    from tasmania_tpu_torch.drivers import driver_dist_bench as ddb
+    from tasmania_tpu_torch.drivers import driver_namelist_sus as drv
+    from tasmania_tpu_torch.drivers import driver_profile as dprof
+    from tasmania_tpu_torch.drivers import driver_weak_scaling as dws
+    from tasmania_tpu_torch.drivers.namelist_sus import load_namelist
+    from tasmania_tpu_torch.framework.options import StorageOptions
+    from tasmania_tpu_torch.ops import _lib
+    from tasmania_tpu_torch.parallel.mesh import RankGrid
+    from tasmania_tpu_torch.parallel.runner import ShardLayout
+    from tasmania_tpu_torch.utils.checkpoint import CheckpointManager
+
+    on_card = torch.device(device).type == "cuda"
+    so = StorageOptions(dtype=torch.float32, device=device)
+    sref = json.loads(Path(drv.__file__).with_name(SHARDED_REFERENCE).read_text())["config"]
+    nx, ny, nz = size or (sref["nx"], sref["ny"], sref["nz"])
+    grid = dict(nx=nx, ny=ny, nz=nz)
+    flag = dict(zip(("nx", "ny", "nz"), flagship)) if flagship else {}
+    sharded = LAUNCHES_PER_STEP["sharded"] if on_card else {}
+    sus = LAUNCHES_PER_STEP["sus"] if on_card else {}
+    out = {}
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    def counts_equal(tag, counts, per_step, steps):
+        want = {k: n * steps for k, n in per_step.items() if n}
+        if {k: n for k, n in counts.items() if n} != want:
+            raise AssertionError(f"{tag}: launched {counts}, expected {want}")
+
+    def tol_of(name):
+        return DIAG_RHO_TOL if name == "air_density" else SHARDED_FIELD_TOL
+
+    def bitwise(tag, got, ref):
+        unequal = sorted(k for k, a in ref.items() if not np.array_equal(got[k], a))
+        if unequal or set(got) != set(ref):
+            raise AssertionError(f"{tag}: {unequal or sorted(set(got) ^ set(ref))} differ")
+
+    def spmd(ranks, mesh, steps, **job):
+        _lib.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = drv.run_spmd(dict(grid, niter=steps, so=so), ranks=ranks, comm="gloo", device=device,
+                           mesh=mesh, verbose=False, timeout_s=SHARDED_TIMEOUT_S, **job)
+        res["wall_s"] = time.perf_counter() - t0
+        if dict(_lib.launch_counts):
+            raise AssertionError(f"spmd: the parent launched {dict(_lib.launch_counts)}")
+        if any(res["imported_by_rank"]):
+            raise AssertionError(f"spmd: ranks imported {res['imported_by_rank']}")
+        return res
+
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        ck = str(tmp / "sharded")
+        # (a) the uninterrupted run on 2x2, checkpointed; the resumes
+        full = spmd(4, (2, 2), DIST_STEPS, checkpoint_dir=ck, checkpoint_every=DIST_EVERY)
+        for r, counts in enumerate(full["launches_by_rank"]):
+            counts_equal(f"spmd 2x2 rank {r}", counts, sharded, 1 + DIST_STEPS)
+        mgr = CheckpointManager(ck)
+        if mgr.all_steps() != list(range(DIST_EVERY, DIST_STEPS + 1, DIST_EVERY)):
+            raise AssertionError(f"spmd: checkpoint steps {mgr.all_steps()}")
+        mb = mgr.nbytes(DIST_RESUME) / 1e6
+        save_ms = [1e3 * t for t in full["checkpoint_save_s"]]
+        sync()
+        t0 = time.perf_counter()
+        assembled = mgr.restore(DIST_RESUME, device=device)
+        sync()
+        assemble_ms = 1e3 * (time.perf_counter() - t0)
+        del assembled
+        fields = full["fields"]
+        same = spmd(4, (2, 2), DIST_STEPS, checkpoint_dir=ck, resume=DIST_RESUME)
+        bitwise("spmd resumed on 2x2", same["fields"], fields)
+        for r, counts in enumerate(same["launches_by_rank"]):
+            counts_equal(f"spmd resumed 2x2 rank {r}", counts, sharded, 1 + DIST_STEPS - DIST_RESUME)
+        tall = spmd(4, (4, 1), DIST_STEPS, checkpoint_dir=ck, resume=DIST_RESUME)
+        for r, counts in enumerate(tall["launches_by_rank"]):
+            counts_equal(f"spmd resumed 4x1 rank {r}", counts, sharded, 1 + DIST_STEPS - DIST_RESUME)
+        d41 = field_differences(tall["fields"], fields)
+        check_differences("spmd resumed on 4x1", d41, tol_of)
+        nl = load_namelist(niter=DIST_STEPS, so=so, **grid)
+        _lib.reset_launch_counts()
+        one = drv.run(nl, verbose=False, checkpoint_dir=ck, resume=DIST_RESUME)
+        counts_equal("single device resumed", dict(_lib.launch_counts), sus, 1 + DIST_STEPS - DIST_RESUME)
+        single = {k: fa.data.cpu().numpy() for k, fa in one["fields"].items()}
+        d11 = field_differences(single, fields)
+        check_differences("single device resumed from the sharded checkpoint", d11, tol_of)
+        # the single device's checkpoint of step DIST_STEPS (its final save,
+        # over the sharded one) restored onto each rank of 2x2
+        if mgr.meta(DIST_STEPS).get("sharded"):
+            raise AssertionError("the single device's run did not write a single-process step")
+        domain, state, _ = drv.build_domain_and_state(nl)
+        restore_ms = []
+        for r in range(4):
+            layout = ShardLayout(domain, RankGrid(2, 2), r, halo=nl.nb + 1)
+            layout.set_fields(state)
+            sync()
+            t0 = time.perf_counter()
+            restored = mgr.restore(DIST_STEPS, model=layout, device=device)
+            sync()
+            restore_ms.append(1e3 * (time.perf_counter() - t0))
+            ref, _ = layout.scatter_state(one["fields"])
+            for k, block in ref.items():
+                if not torch.equal(restored[k].data, block):
+                    raise AssertionError(f"single-device checkpoint onto 2x2 rank {r}: {k} differs")
+        del one, domain, state
+        path_counts["spmd"], path_steps["spmd"] = full["launches_by_rank"][0], 1 + DIST_STEPS
+        out["checkpoint"] = dict(
+            mb=mb, save_ms_by_rank0=save_ms, restore_ms_by_rank=[
+                1e3 * t for t in [same["restore_s"], tall["restore_s"]]],
+            assemble_ms=assemble_ms, single_to_2x2_restore_ms=restore_ms,
+            resume_4x1={k: e for k, (e, _) in d41.items()},
+            resume_single={k: e for k, (e, _) in d11.items()},
+            wall_s=[full["wall_s"], same["wall_s"], tall["wall_s"]])
+        phase("dist-checkpoint", f"{nx}x{ny}x{nz} float32, 1+{DIST_STEPS} steps on 2x2 gloo ranks sharing "
+              f"{card}, checkpointed every {DIST_EVERY}: {mb:.1f} MB a step; rank 0's saves "
+              f"{' '.join(f'{t:.1f}' for t in save_ms)} ms (the ranks' barriers included); the "
+              f"restore of step {DIST_RESUME} on the ranks of 2x2 {1e3 * same['restore_s']:.1f} ms "
+              f"and 4x1 {1e3 * tall['restore_s']:.1f} ms (rank 0), assembled whole on one process "
+              f"{assemble_ms:.1f} ms; the single device's step onto 2x2 "
+              f"{' '.join(f'{t:.1f}' for t in restore_ms)} ms a rank, bit for bit")
+        phase("dist-resume", f"from step {DIST_RESUME}: on 2x2 bit for bit the uninterrupted run; on 4x1 "
+              f"{' '.join(f'{k}={e:.1e}' for k, (e, _) in d41.items())}; on the single device "
+              f"{' '.join(f'{k}={e:.1e}' for k, (e, _) in d11.items())}")
+        del same, tall, single
+
+        # (c) the hybrid grid: two nodes of two ranks, the nodes tiled 2x1 and 1x2
+        hybrid = {}
+        for node_grid in NODE_GRIDS:
+            res = spmd(4, (2, 2), DIST_STEPS, local_world=2, node_grid=node_grid)
+            rects = node_blocks(res["coords_by_rank"], 2)
+            bitwise(f"hybrid grid, nodes {node_grid}", res["fields"], fields)
+            for r, counts in enumerate(res["launches_by_rank"]):
+                counts_equal(f"hybrid {node_grid} rank {r}", counts, sharded, 1 + DIST_STEPS)
+            hybrid[f"{node_grid[0]}x{node_grid[1]}"] = dict(coords=res["coords_by_rank"], wall_s=res["wall_s"])
+            phase("dist-hybrid", f"nodes {node_grid[0]}x{node_grid[1]} of two ranks (LOCAL_WORLD_SIZE=2): rank "
+                  f"coordinates {res['coords_by_rank']}, each node one block {rects}; every field equal "
+                  f"to the plain 2x2 run's bit for bit")
+        out["hybrid"] = hybrid
+        del fields, full
+
+    # (b) --spmd on the card's one rank at the flagship, as a CUDA graph
+    fl = load_namelist(niter=DIST_STEPS, so=so, **flag)
+    _lib.reset_launch_counts()
+    ref = drv.run(fl, verbose=False, fused_loop=on_card)
+    counts_equal("sus graph", dict(_lib.launch_counts), sus, 2 if on_card else 1 + DIST_STEPS)
+    ref_fields = {k: fa.data.cpu().numpy() for k, fa in ref["fields"].items()}
+    _lib.reset_launch_counts()
+    one = drv.run_spmd(dict(flag, niter=DIST_STEPS, so=so), ranks=1, comm="nccl" if on_card else "gloo",
+                       device=device, fused_loop=on_card, verbose=False)
+    if not one["degenerate"] or any(one["imported_by_rank"]):
+        raise AssertionError(f"spmd on one rank: degenerate {one['degenerate']}, imported {one['imported_by_rank']}")
+    counts_equal("spmd on one rank", one["launches_by_rank"][0], sus, 2 if on_card else 1 + DIST_STEPS)
+    if on_card and one["launches_per_step"] != sus:
+        raise AssertionError(f"spmd on one rank: {one['launches_per_step']} a step, expected {sus}")
+    bitwise("spmd on one rank against sus's graph run", one["fields"], ref_fields)
+    path_counts["spmd_one_rank"], path_steps["spmd_one_rank"] = one["launches_by_rank"][0], 2 if on_card else 1 + DIST_STEPS
+    out["spmd_one_rank"] = dict(ms_per_step=one["ms_per_step"], sus_graph_ms_per_step=ref["ms_per_step"])
+    phase("dist-spmd", f"--spmd on one {'NCCL' if on_card else 'gloo'} rank, {fl.nx}x{fl.ny}x{fl.nz}, 1+{DIST_STEPS} "
+          f"{'graph' if on_card else 'eager'} steps: the degenerate grid, every field equal to sus's "
+          f"{'graph' if on_card else 'eager'} run bit for bit, launches a step {one['launches_per_step']}; "
+          f"{one['ms_per_step']:.3f} ms/step beside sus's {ref['ms_per_step']:.3f} on {card}")
+    del one, ref, ref_fields
+
+    # (d) driver_dist_bench on 1x1 at the flagship
+    _lib.reset_launch_counts()
+    bench = ddb.bench(mesh=(1, 1), comm="nccl" if on_card else "gloo", device=device,
+                      niter=FUSED_TIMED_STEPS if on_card else 2, pairs=DIST_BENCH_PAIRS, **flag)
+    bench_counts = dict(_lib.launch_counts)
+    counts_equal("dist bench", bench_counts, sus, 4 if on_card else 2 * (1 + DIST_BENCH_PAIRS * 2))
+    if not (bench["degenerate"] and bench["bitwise"]):
+        raise AssertionError(f"dist bench 1x1: degenerate {bench['degenerate']}, unequal {bench['unequal']}")
+    path_counts["dist_bench"], path_steps["dist_bench"] = bench_counts, 4 if on_card else 1
+    out["dist_bench"] = {k: v for k, v in bench.items() if k not in ("fields", "single_fields", "unequal")}
+    phase("dist-bench", f"driver_dist_bench --mesh 1,1 ({'graph' if bench['graph'] else 'eager'}): degenerate, "
+          f"pads {bench['pads']}, every field the single device's bit for bit after {bench['niter']} steps; "
+          f"{DIST_BENCH_PAIRS} alternating pairs of {bench['niter']} steps: runner "
+          f"{' '.join(f'{t:.4f}' for t in bench['dist_ms_per_step_runs'])} ms/step (median "
+          f"{bench['ms_per_step']:.4f}), single device "
+          f"{' '.join(f'{t:.4f}' for t in bench['single_ms_per_step_runs'])} (median "
+          f"{bench['single_device_ms_per_step']:.4f}), ratio {bench['ratio']:.4f} on {card}")
+    del bench
+
+    # (e) driver_weak_scaling: the counted exchange bytes against the ring
+    block = WEAK_BLOCK if size is None else nx // 2
+    wnz = WEAK_NZ if size is None else nz
+    table = dws.weak_scaling([1, 4], block=block, nz=wnz, niter=WEAK_STEPS, comm="gloo", device=device,
+                             analyze_comm=True, link_gbs=NVLINK_GBS, verbose=False)
+    for row in table["rows"]:
+        if any(row["imported_by_rank"]):
+            raise AssertionError(f"weak scaling: ranks imported {row['imported_by_rank']}")
+        for r in row["by_rank"]:
+            if r["exchange_bytes_per_step"] != r["ring_bytes_per_step"]:
+                raise AssertionError(f"weak scaling, {row['n']} ranks, rank {r['rank']}: counted "
+                                     f"{r['exchange_bytes_per_step']} bytes a step, the ring "
+                                     f"{r['ring_bytes_per_step']}")
+        if row["n"] == 1 and row["exchange_bytes_per_step"]:
+            raise AssertionError("weak scaling: one rank sent halo bytes")
+        phase("dist-weak-scaling", f"{row['n']} gloo rank(s) sharing {card}, mesh {row['mesh']}, "
+              f"{row['nx']}x{row['ny']}x{row['nz']}: {row['gps']:.4e} gridpoints/s, {row['gps_per_rank']:.4e} a "
+              f"rank, efficiency {row['weak_scaling_efficiency']:.4f}; exchange bytes a step a rank "
+              f"{[r['exchange_bytes_per_step'] for r in row['by_rank']]} = the ring's")
+    a = table["analysis"]
+    phase("dist-weak-analysis", f"{a['n']} ranks: {a['exchanges_per_step']:.0f} exchanges, "
+          f"{a['messages_per_step']:.0f} messages and {a['exchange_bytes_per_step_per_rank']:.0f} bytes a step a "
+          f"rank; compute {a['t_compute_s'] * 1e3:.3f} ms a {block}x{block}x{wnz} block from the single rank's "
+          f"measured {a['gps_single_rank_measured']:.4e} gridpoints/s; at {NVLINK_GBS} GB/s a direction (the "
+          f"H100 SXM data sheet's NVLink, a spec) {a['t_comm_s'] * 1e3:.4f} ms, projected efficiency "
+          f"overlapped {a['projected_efficiency_overlapped']:.4f}, serial {a['projected_efficiency_serial']:.4f}; "
+          f"operations {a['flops']}; {table['note']}")
+    out["weak_scaling"] = {k: v for k, v in table.items()}
+
+    # (f) driver_profile at the flagship: each variant's launches, and full
+    # beside sus's graph step in alternating pairs
+    rows = {}
+    for name in dprof.VARIANTS:
+        res = dprof.run_variant(fl, name, fused_loop=on_card)
+        want = dprof.expected_launches(name) if on_card else {}
+        if on_card and res["launches_per_step"] != want:
+            raise AssertionError(f"driver_profile {name}: {res['launches_per_step']} a step, expected {want}")
+        rows[name] = res["ms_per_step"]
+        phase("dist-profile", f"{name:24s} {res['ms_per_step']:8.3f} ms/step"
+              + (f"  (full - this = {rows['full'] - res['ms_per_step']:+.3f} ms)" if name != "full" else "")
+              + f"; launches a step {res['launches_per_step']}")
+        del res
+    times = {"full": [], "sus": []}
+    for i in range(PROFILE_PAIRS):
+        for which in (("sus", "full") if i % 2 == 0 else ("full", "sus")):
+            if which == "sus":
+                times["sus"].append(drv.run(fl, verbose=False, fused_loop=on_card)["ms_per_step"])
+            else:
+                times["full"].append(dprof.run_variant(fl, "full", fused_loop=on_card)["ms_per_step"])
+    med = {k: statistics.median(v) for k, v in times.items()}
+    spread = max(times["sus"]) - min(times["sus"])
+    if on_card and not abs(med["full"] - med["sus"]) <= spread:
+        raise AssertionError(f"driver_profile full {times['full']} against sus's graph steps {times['sus']}: "
+                             f"the medians differ by more than the spread {spread}")
+    out["profile"] = dict(ms_per_step=rows, full_runs=times["full"], sus_runs=times["sus"])
+    phase("dist-profile-full", f"full {' '.join(f'{t:.4f}' for t in times['full'])} ms/step (median "
+          f"{med['full']:.4f}) beside sus's graph steps {' '.join(f'{t:.4f}' for t in times['sus'])} (median "
+          f"{med['sus']:.4f}, spread {spread:.4f}) on {card}")
+    out["seconds"] = time.perf_counter() - t_phase
+    phase("dist", f"phase 18 took {out['seconds']:.1f} s")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -1955,6 +2272,14 @@ def main() -> int:
            lambda: paste_x_edges(full1, lo1, hi1),
            lambda: paste_x_edges_multi_plain([full1], [lo1], [hi1]), bound(2 * nbytes([lo1, hi1]), 0.0),
            library_fn=lambda: torch._foreach_copy_([full1[:nb], full1[-nb:]], [lo1, hi1]))
+
+    # the launch floor beside the pastes: one PyTorch fill of one element,
+    # timed as the kernels are
+    one = torch.empty(1, device=device)
+    launch_floor_ms, how = device_ms(lambda: one.fill_(1.0))
+    phase("kernel", f"launch floor: a one-element fill takes {launch_floor_ms:.4f} ms (timed by {how}), "
+          f"beside paste_x_edges_multi {kernels['paste_x_edges_multi']['ms']:.4f} ms and paste_x_edges "
+          f"{kernels['paste_x_edges']['ms']:.4f} ms")
 
     # Kessler + saturation adjustment: the initial thermodynamics, qv near
     # saturation, qc on both sides of the autoconversion threshold, qr with zeros
@@ -2953,6 +3278,11 @@ def main() -> int:
     # -- 14. the decomposed run (BASELINE config 5) through driver_sharded ----
     sharded_phase(card, path_counts, path_steps)
 
+    # -- 18. distribution and tools: sharded checkpoints, --spmd, the hybrid
+    # grid, driver_dist_bench, driver_weak_scaling, driver_profile --------
+    print(json.dumps({"distribution": distribution_phase(card, path_counts, path_steps, device),
+                      "card": card}))
+
     # each kernel's launches in the full-size run of the first path that runs
     # it (the flagship for the six of the SUS chain, the merged run for the
     # two merges), and in every path; the two pastes and the Smagorinsky
@@ -2963,7 +3293,8 @@ def main() -> int:
         entry["launches_per_step_by_path"] = {
             p: n.get(name, 0) / path_steps[p] for p, n in path_counts.items()
         }
-    print(json.dumps({"kernels": [{"name": n, **e} for n, e in kernels.items()]}))
+    print(json.dumps({"kernels": [{"name": n, **e} for n, e in kernels.items()],
+                      "launch_floor_ms": launch_floor_ms}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -37,13 +37,30 @@ state.  ``--profile LOGDIR`` writes a ``torch.profiler`` trace of the timed
 loop into LOGDIR (``utils/timer.profile_trace``).  As in the JAX driver,
 the fused loop refuses the checkpoint flags; it refuses ``--profile`` too.
 
+``--spmd`` (the JAX flag shards the whole step over every visible device,
+``drivers/driver_namelist_sus.py:273-275``, ``:394-419``) runs the whole
+step through ``parallel/runner.py::DistributedModel`` on ``--ranks N``
+local ranks (default 1) of ``make_rank_grid(N)``, or, with ``--multihost``,
+as one rank of a ``torchrun`` group on ``make_hybrid_rank_grid`` (each
+node's ranks one block; ``--node-grid PRX,PRY`` tiles the nodes in 2-D).
+nx and ny are trimmed to multiples of the grid's extents.  ``--comm``
+names the process group's backend (default ``nccl`` on the card, ``gloo``
+on the CPU; ``nccl`` takes a card a rank, ``gloo`` lets ranks share one).
+One rank is the degenerate 1x1 grid, the single-device program, and takes
+``--fused-loop``; more ranks step eagerly (``--fused-loop`` raises).  The
+recovery flags work under ``--spmd`` on the eager loop: each rank writes
+its blocks of a sharded checkpoint (``utils/checkpoint.py``), ``--resume``
+restores the latest one onto the current grid whatever grid wrote it, and
+the NaN guard stops every rank at the same boundary.
+
 Usage::
 
     python -m tasmania_tpu_torch.drivers.driver_namelist_sus [--nx N] [--ny N]
         [--nz N] [--niter N] [--device cuda|cpu] [--merge smooth_smag]
         [--merge vadv_sed] [--coriolis F] [--implicit-vadv] [--fused-loop]
         [--checkpoint-dir DIR [--checkpoint-every N] [--resume]] [--nan-guard]
-        [--profile LOGDIR]
+        [--profile LOGDIR] [--spmd [--ranks N] [--comm nccl|gloo]
+        [--multihost [--node-grid PRX,PRY]]]
 
 The namelist's device is ``cuda``; without a GPU, ``run`` raises unless the
 namelist names the CPU (``--device cpu`` on the command line).
@@ -54,14 +71,16 @@ from __future__ import annotations
 import argparse
 import collections
 import contextlib
+import tempfile
 import time
 from dataclasses import replace
-from typing import Any, Dict, Optional, Sequence, Union
+from typing import Any, Dict, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
 from tasmania_tpu_torch.domain.domain import Domain
+from tasmania_tpu_torch.drivers.namelist_sus import load_namelist
 from tasmania_tpu_torch.framework.concurrent_coupling import ConcurrentCoupling
 from tasmania_tpu_torch.framework.field import FieldArray
 from tasmania_tpu_torch.framework.options import TimeIntegrationOptions
@@ -306,10 +325,16 @@ class Recovery:
     number; nothing if the directory holds none) replaces the fields after
     the warm-up step and starts the loop after that step (``start``).
     ``nan_guard`` sums the magnitude of every field at every ``every``-th
-    step and raises ``RuntimeError`` on a non-finite sum, before saving."""
+    step and raises ``RuntimeError`` on a non-finite sum, before saving.
+
+    With ``model`` (a ``DistributedModel``: the fields are its rank's owned
+    blocks) the checkpoints are sharded, the resume lays the checkpoint out
+    for the model's grid, and the guard's verdict is the ranks' maximum, so
+    every rank stops at the same boundary."""
 
     def __init__(self, directory: Optional[str] = None, every: int = 25,
-                 resume: Union[bool, int] = False, nan_guard: bool = False) -> None:
+                 resume: Union[bool, int] = False, nan_guard: bool = False,
+                 model=None) -> None:
         if every < 1:
             raise ValueError(f"checkpoint every {every} steps: give a positive count")
         if resume is not False and directory is None:
@@ -318,7 +343,10 @@ class Recovery:
         self.every = every
         self.resume = resume
         self.nan_guard = nan_guard
+        self.model = model
         self.start = 0
+        self.save_s: list = []  # each save's seconds on the host clock
+        self.restore_s: Optional[float] = None
 
     def resumed(self, fields: Dict[str, FieldArray], device, verbose: bool = True):
         """``fields`` with the checkpoint's fields in place (those it lacks
@@ -328,7 +356,9 @@ class Recovery:
         step = self.manager.latest_step if self.resume is True else self.resume
         if step is None:
             return fields
-        restored = self.manager.restore(step, device=device)
+        t0 = time.perf_counter()
+        restored = self.manager.restore(step, model=self.model, device=device)
+        self.restore_s = time.perf_counter() - t0
         missing = sorted(k for k in fields if k not in restored)
         if missing and verbose:
             print(f"warning: checkpoint lacks {missing}; keeping their values")
@@ -342,39 +372,45 @@ class Recovery:
         checkpoint of step ``n``."""
         if n % self.every:
             return
-        if self.nan_guard:
-            total = torch.stack([fa.data.abs().sum(dtype=torch.float64) for fa in fields.values()]).sum()
-            if not torch.isfinite(total):
-                last = self.manager.latest_step if self.manager is not None else None
-                raise RuntimeError(f"non-finite state detected at step {n}; last good checkpoint: "
-                                   f"step {last} (restart with --resume)")
+        if self.nan_guard and not self._finite(fields):
+            last = self.manager.latest_step if self.manager is not None else None
+            raise RuntimeError(f"non-finite state detected at step {n}; last good checkpoint: "
+                               f"step {last} (restart with --resume)")
         if self.manager is not None:
-            self.manager.save(n, fields, force=True)
+            self._save(n, fields)
+
+    def _save(self, n: int, fields: Dict[str, FieldArray]) -> None:
+        t0 = time.perf_counter()
+        self.manager.save(n, fields, force=True, model=self.model)
+        self.save_s.append(time.perf_counter() - t0)
+
+    def _finite(self, fields: Dict[str, FieldArray]) -> bool:
+        total = torch.stack([fa.data.abs().sum(dtype=torch.float64) for fa in fields.values()]).sum()
+        bad = not bool(torch.isfinite(total))
+        if self.model is None or self.model.grid.size == 1:
+            return not bad
+        import torch.distributed as dist
+
+        ex = self.model.ex
+        flag = torch.tensor([float(bad)], device="cpu" if ex.backend == "gloo" else total.device)
+        dist.all_reduce(flag, op=dist.ReduceOp.MAX, group=ex.group)
+        return not bool(flag.item())
 
     def finish(self, n: int, fields: Dict[str, FieldArray]) -> None:
         """The last step's checkpoint, if it was not at a boundary."""
         if self.manager is not None and n % self.every:
-            self.manager.save(n, fields, force=True)
+            self._save(n, fields)
 
 
-def step_sequence(step, fields, hs0, hs_steady, facts: Sequence[float], device, *,
-                  verbose: bool = True, fused_loop: bool = False,
-                  recovery: Optional[Recovery] = None, profile: Optional[str] = None):
-    """The drivers' loop: one eager warm-up step at the topography ``hs0``,
-    then ``len(facts)`` timed steps at ``facts[i] * hs_steady``, eager or,
-    with ``fused_loop``, as replays of one CUDA graph of ``step``
-    (``utils/jitx.py``: the warm-up step traced for the fields it reads,
-    then the capture, timed apart; ``ValueError`` on a CPU device).  The
-    eager loop takes a :class:`Recovery` (a resumed run times only the steps
-    after ``recovery.start``) and, with ``profile``, writes a profiler trace
-    of the timed steps into that directory; the fused loop takes neither
-    (``ValueError``).  Returns the final fields, the seconds of the timed
-    steps (ending in a synchronize), the kernel launches of one step (the
-    warm-up's, or the captured step's) and the seconds of the capture (None
-    without one)."""
-    check_device(device, fused_loop=fused_loop)
-    if fused_loop and (recovery is not None or profile is not None):
-        raise ValueError("the fused loop's graph replays take no checkpoint, NaN guard or profile")
+def warm_up(step, fields, hs0, hs_steady, facts: Sequence[float], device, *,
+            fused_loop: bool = False, verbose: bool = True):
+    """One eager warm-up step at the topography ``hs0`` and, with
+    ``fused_loop``, one CUDA graph of ``step`` captured after it (the warm-up
+    traced for the fields the step reads, ``utils/jitx.py``; the graph's
+    ``i``-th replay steps at ``facts[i] * hs_steady``).  Returns the fields
+    after the warm-up, the graph (None without ``fused_loop``), the kernel
+    launches of one step (the warm-up's, or the captured step's) and the
+    seconds of the capture (None without one)."""
     before = collections.Counter(_lib.launch_counts)
     t0 = time.perf_counter()
     if fused_loop:
@@ -386,6 +422,38 @@ def step_sequence(step, fields, hs0, hs_steady, facts: Sequence[float], device, 
     if verbose:
         print(f"warmup step: {time.perf_counter() - t0:.3f} s", flush=True)
     if not fused_loop:
+        return fields, None, per_step, None
+    body = StepBody(step, fields, carried, hs_steady, facts)
+    before = collections.Counter(_lib.launch_counts)
+    t0 = time.perf_counter()
+    graph = StepGraph(body)
+    torch.cuda.synchronize()
+    capture_s = time.perf_counter() - t0
+    if verbose:
+        print(f"fused loop carries {len(carried)}/{len(fields)} fields")
+        print(f"capture: {capture_s:.3f} s", flush=True)
+    return fields, graph, launches_since(before), capture_s
+
+
+def step_sequence(step, fields, hs0, hs_steady, facts: Sequence[float], device, *,
+                  verbose: bool = True, fused_loop: bool = False,
+                  recovery: Optional[Recovery] = None, profile: Optional[str] = None):
+    """The drivers' loop: :func:`warm_up`, then ``len(facts)`` timed steps
+    at ``facts[i] * hs_steady``, eager or, with ``fused_loop``, as replays of
+    the warm-up's CUDA graph (``ValueError`` on a CPU device).  The eager
+    loop takes a :class:`Recovery` (a resumed run times only the steps after
+    ``recovery.start``) and, with ``profile``, writes a profiler trace of the
+    timed steps into that directory; the fused loop takes neither
+    (``ValueError``).  Returns the final fields, the seconds of the timed
+    steps (ending in a synchronize), the kernel launches of one step (the
+    warm-up's, or the captured step's) and the seconds of the capture (None
+    without one)."""
+    check_device(device, fused_loop=fused_loop)
+    if fused_loop and (recovery is not None or profile is not None):
+        raise ValueError("the fused loop's graph replays take no checkpoint, NaN guard or profile")
+    fields, graph, per_step, capture_s = warm_up(step, fields, hs0, hs_steady, facts, device,
+                                                 fused_loop=fused_loop, verbose=verbose)
+    if graph is None:
         start = 0
         if recovery is not None:
             fields = recovery.resumed(fields, device, verbose)
@@ -402,16 +470,6 @@ def step_sequence(step, fields, hs0, hs_steady, facts: Sequence[float], device, 
             recovery.finish(len(facts), fields)
         return fields, elapsed, per_step, None
 
-    body = StepBody(step, fields, carried, hs_steady, facts)
-    before = collections.Counter(_lib.launch_counts)
-    t0 = time.perf_counter()
-    graph = StepGraph(body)
-    torch.cuda.synchronize()
-    capture_s = time.perf_counter() - t0
-    if verbose:
-        print(f"fused loop carries {len(carried)}/{len(fields)} fields")
-        print(f"capture: {capture_s:.3f} s", flush=True)
-    per_step = launches_since(before)
     t0 = time.perf_counter()
     graph.replay(len(facts))
     torch.cuda.synchronize()
@@ -480,6 +538,124 @@ def run_steps(nl, state, step_impl, hs_steady, *, verbose: bool = True,
     }
 
 
+def steady_topography(domain, nl) -> torch.Tensor:
+    """The mountain's steady height on the global numerical grid, as the
+    dycore keeps it (``topography_steady``)."""
+    steady = np.asarray(domain.numerical_grid.topography.steady_profile.to_units("m").data)
+    return torch.as_tensor(steady, dtype=nl.so.dtype, device=nl.so.device)
+
+
+def spmd_rank_run(ctx, *, overrides: Dict[str, Any], skip=(), fused_loop: bool = False,
+                  hybrid: bool = False, node_grid: Optional[Tuple[int, int]] = None,
+                  halo: Optional[int] = None, verbose: bool = False,
+                  checkpoint_dir: Optional[str] = None, checkpoint_every: int = 25,
+                  resume: Union[bool, int] = False, nan_guard: bool = False) -> Dict[str, Any]:
+    """One rank's part of a ``--spmd`` run (a job of ``parallel.launch``):
+    the namelist with ``overrides`` on the rank's device, the whole step
+    through ``DistributedModel`` on the rank's grid (with ``hybrid``,
+    ``make_hybrid_rank_grid`` of the grid's shape and ``node_grid`` from the
+    rank's environment), ring ``halo`` (default nb + 1), then :func:`run`'s
+    step sequence, with ``fused_loop`` (one rank only) or the recovery
+    keywords.
+
+    Every rank returns its kernel launches (counted from zero before the
+    warm-up step), its grid coordinates, its exchanges' counts and, if the
+    guard stopped the run, nothing: the guard's ``RuntimeError`` propagates.
+    Rank 0 also returns the gathered global fields (numpy) and :func:`run`'s
+    numbers."""
+    from tasmania_tpu_torch.parallel.multihost import make_hybrid_rank_grid
+    from tasmania_tpu_torch.parallel.runner import DistributedModel
+
+    grid = make_hybrid_rank_grid(ctx.grid.shape, node_grid) if hybrid else ctx.grid
+    so = replace(overrides.get("so", load_namelist().so), device=ctx.device)
+    nl = load_namelist(**{**overrides, "so": so})
+    domain, state, pt = build_domain_and_state(nl)
+    dt_s = nl.timestep.total_seconds()
+    dm = DistributedModel(domain, state, grid, ctx.rank, lambda dom: build_model(nl, dom, pt, skip),
+                          dt_s, backend=ctx.backend, halo=nl.nb + 1 if halo is None else halo)
+    fields = {n: FieldArray(b, dm.units[n], dm.dims[n]) for n, b in dm.scatter_state(state).items()}
+    hs_steady = dm.put_topography(steady_topography(domain, nl))
+    loud = verbose and ctx.rank == 0
+    if loud:
+        print(f"SPMD grid {grid.px}x{grid.py} of {ctx.backend} ranks (pads {dm.pads}), "
+              f"{nl.nx}x{nl.ny}x{nl.nz}, device {ctx.device}", flush=True)
+    recovery = None
+    if checkpoint_dir is not None or resume is not False or nan_guard:
+        recovery = Recovery(checkpoint_dir, checkpoint_every, resume, nan_guard, model=dm)
+    topo_time = nl.topo_kwargs["time"].total_seconds()
+    facts = [min((i + 1) * dt_s / topo_time, 1.0) for i in range(nl.niter)]
+    _lib.reset_launch_counts()
+    fields, elapsed, per_step, capture_s = step_sequence(
+        dm.step_state, fields, hs_steady * 0.0, hs_steady, facts, ctx.device, verbose=loud,
+        fused_loop=fused_loop, recovery=recovery)
+    out = {"launches_per_step": per_step, "launches": dict(_lib.launch_counts),
+           "degenerate": dm.degenerate, "pads": dm.pads, "coords": grid.coords(ctx.rank),
+           "grid_order": [grid.rank_of(i, j) for i in range(grid.px) for j in range(grid.py)],
+           "exchange": dm.ex.counter.snapshot(),
+           "checkpoint_save_s": [] if recovery is None else recovery.save_s,
+           "restore_s": None if recovery is None else recovery.restore_s}
+    full = dm.gather_state({n: fa.data for n, fa in fields.items()})
+    if full is None:
+        return out
+    start = 0 if recovery is None else recovery.start
+    steps = max(nl.niter - start, 1)
+    full = {k: fa.data.numpy() for k, fa in full.items()}
+    u, v = full["x_velocity_at_u_locations"], full["y_velocity_at_v_locations"]
+    out.update(fields=full, umax=float(u[:, :-1].max()), vmax=float(v[:-1, :].max()),
+               elapsed=elapsed, ms_per_step=1e3 * elapsed / steps, start=start,
+               gps=nl.nx * nl.ny * nl.nz * steps / elapsed, capture_s=capture_s,
+               grid=(nl.nx, nl.ny, nl.nz))
+    if loud:
+        print(f"Validation: umax = {out['umax']:.5f}, vmax = {out['vmax']:.5f}")
+        print(f"Compute time: {elapsed:.3f} s.")
+        print(f"Throughput: {out['gps']:.3e} gridpoints/s")
+    return out
+
+
+def run_spmd(overrides: Dict[str, Any], *, ranks: int = 1, comm: Optional[str] = None,
+             device: str = "cuda", mesh: Optional[Tuple[int, int]] = None,
+             local_world: Optional[int] = None, node_grid: Optional[Tuple[int, int]] = None,
+             fused_loop: bool = False, workdir=None, timeout_s: float = 600.0,
+             verbose: bool = True, **job) -> Dict[str, Any]:
+    """``--spmd``: the namelist with ``overrides`` (nx and ny trimmed to
+    multiples of the grid's extents) on ``ranks`` local ranks of
+    ``make_rank_grid(ranks, mesh)`` (``comm``: default ``nccl`` on a CUDA
+    device, ``gloo`` on the CPU).  With ``local_world``, each rank is told
+    that ``local_world`` ranks run a node and lays the grid out with
+    ``make_hybrid_rank_grid(mesh, node_grid)``.  ``job`` holds
+    :func:`spmd_rank_run`'s other keywords (``skip``, ``halo``, the recovery
+    keywords).  Returns rank 0's result with every rank's launches,
+    coordinates, exchanges and imported modules."""
+    from tasmania_tpu_torch.drivers.driver_sharded import trimmed_extents
+    from tasmania_tpu_torch.parallel.launch import RunSpec, check_backend, run_ranks
+    from tasmania_tpu_torch.parallel.mesh import make_rank_grid
+
+    comm = comm or ("nccl" if torch.device(device).type == "cuda" else "gloo")
+    check_backend(comm, device, ranks)
+    if fused_loop and ranks > 1:
+        raise ValueError("--fused-loop is not available decomposed: a gloo halo exchange cannot be "
+                         "captured in a CUDA graph (run --spmd on one rank for the graph)")
+    grid = make_rank_grid(ranks, mesh)
+    nl = load_namelist(**{k: v for k, v in overrides.items() if k != "so"})
+    nx, ny = trimmed_extents(nl.nx, nl.ny, grid)
+    overrides = {**overrides, "nx": nx, "ny": ny}
+    spec = RunSpec(target="tasmania_tpu_torch.drivers.driver_namelist_sus:spmd_rank_run",
+                   world=ranks, backend=comm, device=device, mesh=grid.shape, timeout_s=timeout_s,
+                   local_world=local_world,
+                   kwargs=dict(overrides=overrides, fused_loop=fused_loop, verbose=verbose,
+                               hybrid=local_world is not None, node_grid=node_grid, **job))
+    with tempfile.TemporaryDirectory(prefix="tasmania_spmd_") as tmp:
+        results = run_ranks(spec, workdir or tmp)
+    out = dict(results[0]["result"])
+    out.update(mesh=grid.shape,
+               launches_per_step_by_rank=[r["result"]["launches_per_step"] for r in results],
+               launches_by_rank=[r["result"]["launches"] for r in results],
+               coords_by_rank=[tuple(r["result"]["coords"]) for r in results],
+               exchange_by_rank=[r["result"]["exchange"] for r in results],
+               imported_by_rank=[r["imported"] for r in results])
+    return out
+
+
 VALIDATION_FIELDS = {
     "s": "air_isentropic_density",
     "su": "x_momentum_isentropic",
@@ -540,6 +716,13 @@ def size_parser(description: str) -> argparse.ArgumentParser:
 def namelist_from(parser, cli, load_namelist):
     """The namelist with the command line's overrides; the parser exits if
     it names a CUDA device this machine does not have."""
+    return load_namelist(**namelist_overrides(parser, cli, load_namelist))
+
+
+def namelist_overrides(parser, cli, load_namelist) -> Dict[str, Any]:
+    """The command line's overrides of the namelist (its storage options on
+    the command line's device); the parser exits if it names a CUDA device
+    this machine does not have."""
     device = torch.device(cli.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         parser.error("no CUDA device is available (pass --device cpu to run on the CPU)")
@@ -562,12 +745,10 @@ def namelist_from(parser, cli, load_namelist):
     if cli.backend:
         overrides["backend"] = cli.backend
     overrides["so"] = replace(load_namelist().so, device=device)
-    return load_namelist(**overrides)
+    return overrides
 
 
 def main(argv=None):
-    from tasmania_tpu_torch.drivers.namelist_sus import load_namelist
-
     parser = size_parser(__doc__.split("\n\n")[0])
     parser.add_argument("--profile", type=str, default=None, metavar="LOGDIR",
                         help="write a torch.profiler trace of the timed loop into LOGDIR")
@@ -581,6 +762,16 @@ def main(argv=None):
                         help="probe the state for non-finite values at every checkpoint boundary; "
                              "abort (without checkpointing the poisoned state) so a supervisor can "
                              "restart from the last good checkpoint with --resume")
+    parser.add_argument("--spmd", action="store_true",
+                        help="run the whole step decomposed over a grid of ranks (DistributedModel)")
+    parser.add_argument("--ranks", type=int, default=1, help="with --spmd: N local ranks")
+    parser.add_argument("--comm", choices=("nccl", "gloo"), default=None,
+                        help="with --spmd: the ranks' backend (default nccl on the card, gloo on "
+                             "the CPU)")
+    parser.add_argument("--multihost", action="store_true",
+                        help="with --spmd: run as one rank of a torchrun group on the hybrid grid")
+    parser.add_argument("--node-grid", type=str, default=None, metavar="PRX,PRY",
+                        help="with --multihost: tile the nodes' blocks in a PRXxPRY grid")
     cli = parser.parse_args(argv)
     if cli.fused_loop and (cli.checkpoint_dir or cli.resume or cli.nan_guard):
         parser.error("--fused-loop runs the timed steps as replays of one CUDA graph; the "
@@ -591,11 +782,46 @@ def main(argv=None):
                      "traced.  Drop --fused-loop or --profile.")
     if cli.resume and not cli.checkpoint_dir:
         parser.error("--resume needs --checkpoint-dir")
-    res = run(namelist_from(parser, cli, load_namelist), fused_loop=cli.fused_loop,
-              checkpoint_dir=cli.checkpoint_dir, checkpoint_every=cli.checkpoint_every,
-              resume=cli.resume, nan_guard=cli.nan_guard, profile=cli.profile)
+    if not cli.spmd and (cli.ranks != 1 or cli.comm or cli.multihost or cli.node_grid):
+        parser.error("--ranks, --comm, --multihost and --node-grid go with --spmd")
+    if cli.spmd and cli.profile:
+        parser.error("--profile traces the single-device run; drop --spmd or --profile")
+    recovery = dict(checkpoint_dir=cli.checkpoint_dir, checkpoint_every=cli.checkpoint_every,
+                    resume=cli.resume, nan_guard=cli.nan_guard)
+    if cli.spmd:
+        overrides = namelist_overrides(parser, cli, load_namelist)
+        node_grid = tuple(int(k) for k in cli.node_grid.split(",")) if cli.node_grid else None
+        if cli.multihost:
+            res = _spmd_multihost(cli, overrides, node_grid, recovery)
+        else:
+            res = run_spmd(overrides, ranks=cli.ranks, comm=cli.comm, device=cli.device,
+                           fused_loop=cli.fused_loop, **recovery)
+    else:
+        res = run(namelist_from(parser, cli, load_namelist), fused_loop=cli.fused_loop,
+                  profile=cli.profile, **recovery)
     print("Simulation successfully completed.")
     return res
+
+
+def _spmd_multihost(cli, overrides, node_grid, recovery) -> Dict[str, Any]:
+    """This process as one rank of a ``torchrun`` group, on the hybrid grid."""
+    from tasmania_tpu_torch.drivers.driver_sharded import trimmed_extents
+    from tasmania_tpu_torch.parallel.launch import RankContext, check_backend, rank_device
+    from tasmania_tpu_torch.parallel.mesh import make_rank_grid
+    from tasmania_tpu_torch.parallel.multihost import initialize_distributed
+
+    comm = cli.comm or ("nccl" if torch.device(cli.device).type == "cuda" else "gloo")
+    rank, world, local = initialize_distributed(comm)
+    check_backend(comm, cli.device, 1)
+    if cli.fused_loop and world > 1:
+        raise ValueError("--fused-loop is not available decomposed: a gloo halo exchange cannot be "
+                         "captured in a CUDA graph")
+    grid = make_rank_grid(world)
+    nl = load_namelist(**{k: v for k, v in overrides.items() if k != "so"})
+    nx, ny = trimmed_extents(nl.nx, nl.ny, grid)
+    ctx = RankContext(rank, grid, comm, rank_device(comm, cli.device, local))
+    return spmd_rank_run(ctx, overrides={**overrides, "nx": nx, "ny": ny}, fused_loop=cli.fused_loop,
+                         hybrid=True, node_grid=node_grid, verbose=True, **recovery)
 
 
 if __name__ == "__main__":

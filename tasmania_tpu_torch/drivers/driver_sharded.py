@@ -35,13 +35,13 @@ import time
 from dataclasses import replace
 from typing import Any, Dict, Optional, Tuple
 
-import numpy as np
 import torch
 
 from tasmania_tpu_torch.drivers.driver_namelist_sus import (
     build_domain_and_state,
     build_model,
     make_dycore,
+    steady_topography,
     synchronize,
 )
 from tasmania_tpu_torch.drivers.namelist_sus import load_namelist
@@ -72,11 +72,6 @@ def model_factory(nl, pt, physics: bool):
     if physics:
         return lambda dom: build_model(nl, dom, pt)
     return lambda dom: (make_dycore(nl, dom, pt), None)
-
-
-def steady_topography(domain, nl) -> torch.Tensor:
-    steady = np.asarray(domain.numerical_grid.topography.steady_profile.to_units("m").data)
-    return torch.as_tensor(steady, dtype=nl.so.dtype, device=nl.so.device)
 
 
 def rank_run(ctx: RankContext, *, nx: int, ny: int, nz: int, niter: int, physics: bool,

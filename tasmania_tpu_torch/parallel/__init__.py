@@ -4,11 +4,13 @@ decomposition (``mesh``), the halo exchange (``halo``), a shard's lateral
 boundary (``distributed``), the decomposed timestep (``runner``), the local
 rank launcher (``launch``) and ``torchrun`` wiring (``multihost``).
 
-The JAX package's ``make_mesh`` returns a ``jax.sharding.Mesh``; the port's
-counterpart is ``mesh.make_rank_grid``."""
+The JAX package's ``make_mesh`` and ``make_hybrid_mesh`` return a
+``jax.sharding.Mesh``; the port's counterparts are ``mesh.make_rank_grid``
+and ``multihost.make_hybrid_rank_grid``."""
 
 from tasmania_tpu_torch.parallel.halo import halo_exchange
 from tasmania_tpu_torch.parallel.mesh import CartesianDecomposition, make_rank_grid
+from tasmania_tpu_torch.parallel.multihost import make_hybrid_rank_grid
 
 
 def __getattr__(name):
@@ -28,6 +30,7 @@ __all__ = [
     "halo_exchange",
     "CartesianDecomposition",
     "make_rank_grid",
+    "make_hybrid_rank_grid",
     "DistributedBoundary",
     "LocalDomain",
     "DistributedModel",

@@ -20,12 +20,16 @@ crossing.  The received strips are copied into a copy of each block.
 The backend is an argument, never a fallback: ``"gloo"`` carries host
 tensors, so a rank whose blocks lie on the card stages its strips through
 host memory; ``"nccl"`` sends the card's tensors as they are.
+
+Each :class:`Exchange` counts what it sends in an :class:`ExchangeCounter`:
+plain integers on the host, formed from the tensors' shapes, so counting
+adds no device synchronisation.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
-from typing import List, Optional, Sequence, Tuple
+from dataclasses import dataclass, field
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -36,17 +40,42 @@ BACKENDS = ("gloo", "nccl")
 TAG_HI, TAG_LO = 1, 2
 
 
+@dataclass
+class ExchangeCounter:
+    """What a rank's exchanges sent: ``exchanges`` (calls that exchange at
+    least one axis with a neighbour), ``messages`` and ``bytes_sent``; and,
+    for checking the bytes against the ring, ``column_bytes`` (the bytes of
+    one column of every field of each such call, summed over the calls)
+    and ``blocks`` (the horizontal shapes of the exchanged blocks)."""
+
+    exchanges: int = 0
+    messages: int = 0
+    bytes_sent: int = 0
+    column_bytes: int = 0
+    blocks: set = field(default_factory=set)
+
+    def snapshot(self) -> Dict[str, int]:
+        return {"exchanges": self.exchanges, "messages": self.messages,
+                "bytes_sent": self.bytes_sent, "column_bytes": self.column_bytes}
+
+    def reset(self) -> None:
+        self.exchanges = self.messages = self.bytes_sent = self.column_bytes = 0
+        self.blocks = set()
+
+
 @dataclass(frozen=True)
 class Exchange:
     """What one rank needs to exchange halos: the rank grid, its rank, the
     backend of its process group (``"gloo"`` or ``"nccl"``), whether the
-    domain is periodic, and the group (None: the default group)."""
+    domain is periodic, and the group (None: the default group); and the
+    counter of what it sends."""
 
     grid: RankGrid
     rank: int
     backend: str
     periodic: bool
     group: Optional[object] = None
+    counter: ExchangeCounter = field(default_factory=ExchangeCounter, compare=False)
 
     def __post_init__(self) -> None:
         if self.backend not in BACKENDS:
@@ -124,6 +153,8 @@ def _exchange_axis_multi(fields: Sequence[torch.Tensor], nb: int, axis: int,
         recvs.append((from_left, left, TAG_HI))
     if right is not None:
         recvs.append((from_right, right, TAG_LO))
+    ex.counter.messages += len(sends)
+    ex.counter.bytes_sent += sum(buf.numel() * buf.element_size() for buf, _, _ in sends)
     _post(ex, sends, recvs)
     off = 0
     for out in outs:
@@ -145,8 +176,27 @@ def halo_exchange_multi(fields: Sequence[torch.Tensor], pads: Tuple[int, int],
     fields = list(fields)
     if fields and any(f.dtype != fields[0].dtype for f in fields):
         raise ValueError("halo_exchange_multi packs one message: the fields must share a dtype")
+    if fields and any(n > 1 and pad for n, pad in zip(ex.grid.shape, pads)):
+        c = ex.counter
+        c.exchanges += 1
+        c.column_bytes += sum(f[:1, :1].numel() * f.element_size() for f in fields)
+        c.blocks.update(tuple(f.shape[:2]) for f in fields)
     fields = _exchange_axis_multi(fields, pads[0], 0, ex)
     return _exchange_axis_multi(fields, pads[1], 1, ex)
+
+
+def ring_bytes(ex: Exchange, pads: Tuple[int, int], block: Tuple[int, int],
+               column_bytes: int) -> int:
+    """The bytes the exchanges of ``ex``'s rank send, worked out from the
+    ring: on each decomposed axis, a strip ``pad`` wide across the
+    halo-extended ``block`` (mi, mj) to each neighbour, for exchanges whose
+    fields' columns hold ``column_bytes`` in all (``ExchangeCounter``)."""
+    mi, mj = block
+    strips = 0
+    for axis, (pad, across) in enumerate(zip(pads, (mj, mi))):
+        if ex.grid.shape[axis] > 1 and pad:
+            strips += sum(n is not None for n in ex.neighbours(axis)) * pad * across
+    return column_bytes * strips
 
 
 def halo_exchange(f: torch.Tensor, pads: Tuple[int, int], ex: Exchange) -> torch.Tensor:

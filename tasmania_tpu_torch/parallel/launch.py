@@ -15,6 +15,11 @@ Under ``"gloo"`` the ranks may share one card (they exchange halos through
 host memory); under ``"nccl"`` rank r takes card r, and more ranks than
 cards raise before anything starts (NCCL refuses two ranks on one card).
 The kernels are built once, in the parent, before the ranks start.
+
+A spec may make ``local_world`` ranks a node: each rank then finds
+``LOCAL_WORLD_SIZE`` and ``LOCAL_RANK`` in its environment, as ``torchrun``
+sets them on a machine of several nodes, so ranks of one machine can stand
+for nodes (``multihost.make_hybrid_rank_grid`` lays them out).
 """
 
 from __future__ import annotations
@@ -55,6 +60,7 @@ class RunSpec:
     mesh: Optional[Tuple[int, int]] = None
     kwargs: Dict[str, Any] = field(default_factory=dict)
     timeout_s: float = 60.0
+    local_world: Optional[int] = None
 
 
 def check_backend(backend: str, device: str, world: int) -> None:
@@ -141,9 +147,16 @@ def run_ranks(spec: RunSpec, workdir) -> List[Dict[str, Any]]:
     env.setdefault("GLOO_SOCKET_IFNAME", "lo")  # the ranks are on this machine
     root = str(Path(__file__).resolve().parents[2])
     env["PYTHONPATH"] = os.pathsep.join([root] + [p for p in [env.get("PYTHONPATH")] if p])
+
+    def rank_env(r: int) -> Dict[str, str]:
+        if spec.local_world is None:
+            return env
+        return {**env, "LOCAL_WORLD_SIZE": str(spec.local_world),
+                "LOCAL_RANK": str(r % spec.local_world)}
+
     procs = [
         subprocess.Popen([sys.executable, "-m", "tasmania_tpu_torch.parallel.launch",
-                          str(spec_path), str(r)], env=env)
+                          str(spec_path), str(r)], env=rank_env(r))
         for r in range(spec.world)
     ]
     limit = time.monotonic() + 2 * spec.timeout_s

@@ -4,8 +4,10 @@
 The JAX package lays its devices out as a ``jax.sharding.Mesh`` with axes
 ``('x', 'y')``; here each shard is one process of a ``torch.distributed``
 group, and :class:`RankGrid` places rank ``r`` at ``divmod(r, py)``, the
-row-major order in which ``make_mesh`` reshapes its device list.  The
-vertical axis stays whole on every rank, so column scans never communicate.
+row-major order in which ``make_mesh`` reshapes its device list, unless it
+is given an explicit order of the ranks (as ``multihost.make_hybrid_rank_grid``
+gives one, keeping each node's ranks in one block).  The vertical axis
+stays whole on every rank, so column scans never communicate.
 """
 
 from __future__ import annotations
@@ -26,10 +28,23 @@ def _factor_2d(n: int) -> Tuple[int, int]:
 
 @dataclass(frozen=True)
 class RankGrid:
-    """A (px, py) grid of ranks, rank r at (r // py, r % py)."""
+    """A (px, py) grid of ranks: ``order[ix * py + iy]`` is the rank at
+    (ix, iy); without an order (or with the identity), rank r sits at
+    (r // py, r % py)."""
 
     px: int
     py: int
+    order: Optional[Tuple[int, ...]] = None
+
+    def __post_init__(self) -> None:
+        if self.order is None:
+            return
+        order = tuple(int(r) for r in self.order)
+        if sorted(order) != list(range(self.px * self.py)):
+            raise ValueError(f"rank order {order} is not a permutation of the "
+                             f"{self.px}x{self.py} grid's ranks")
+        identity = order == tuple(range(len(order)))
+        object.__setattr__(self, "order", None if identity else order)
 
     @property
     def shape(self) -> Tuple[int, int]:
@@ -42,10 +57,11 @@ class RankGrid:
     def coords(self, rank: int) -> Tuple[int, int]:
         if not 0 <= rank < self.size:
             raise ValueError(f"rank {rank} outside a {self.px}x{self.py} grid")
-        return divmod(rank, self.py)
+        return divmod(rank if self.order is None else self.order.index(rank), self.py)
 
     def rank_of(self, ix: int, iy: int) -> int:
-        return ix * self.py + iy
+        k = ix * self.py + iy
+        return k if self.order is None else self.order[k]
 
 
 def make_rank_grid(n: int, shape: Optional[Tuple[int, int]] = None) -> RankGrid:

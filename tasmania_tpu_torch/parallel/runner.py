@@ -15,11 +15,18 @@ face from the step itself.
 
 A (1, 1) grid on a non-periodic domain has no ring: its components are
 bound to the global domain and the step is the single-device program.
+
+:class:`ShardLayout` is where a rank's shard lies in the global state,
+without the components: the window of each field a rank owns (its block
+and, for a staggered field, the face just past it), the scatter of a global
+state or of such windows, and the parts a rank writes to a checkpoint.  A
+sharded checkpoint (``utils/checkpoint.py``) restores through it onto any
+grid of ranks, one layout at a time.
 """
 
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, Mapping, Optional, Tuple
+from typing import Any, Callable, Dict, List, Mapping, Optional, Tuple
 
 import torch
 import torch.distributed as dist
@@ -42,6 +49,130 @@ def pad_edge(f: torch.Tensor, hx: int, hy: int) -> torch.Tensor:
     ix = torch.arange(-hx, f.shape[0] + hx, device=f.device).clamp(0, f.shape[0] - 1)
     iy = torch.arange(-hy, f.shape[1] + hy, device=f.device).clamp(0, f.shape[1] - 1)
     return f.index_select(0, ix).index_select(1, iy)
+
+
+Region = Tuple[int, int, int, int]  # x0, x1, y0, y1 in global cells
+
+
+class ShardLayout:
+    """Where ``rank``'s shard of a ``grid`` of ranks lies in the state of
+    ``global_domain`` (ring ``halo`` on a decomposed axis, default nb), for
+    the fields that :meth:`set_fields` names.
+
+    Fields are laid out as the decomposed step keeps them: on the global
+    physical grid (a periodic grid's frame cropped), the owned block of a
+    staggered field cell-anchored and the face just past it apart
+    (``faces``).  On the degenerate grid (one rank, no ring) the rank owns
+    every field whole, as the single device holds it."""
+
+    def __init__(self, global_domain, grid: RankGrid, rank: int, *,
+                 halo: Optional[int] = None) -> None:
+        gpg = global_domain.physical_grid
+        ghb = global_domain.horizontal_boundary
+        nb = ghb.nb
+        self.grid, self.rank = grid, rank
+        self.periodic = ghb.family == "periodic"
+        self.pads = axis_pads(grid, nb, nb if halo is None else int(halo), self.periodic)
+        self.decomp = CartesianDecomposition(gpg.nx, gpg.ny, grid, nb, *self.pads)
+        self.degenerate = grid.size == 1 and self.pads == (0, 0)
+        self.extent = (gpg.nx, gpg.ny)
+        self._global_hb = ghb
+        self.names: List[str] = []
+        self.units: Dict[str, str] = {}
+        self.dims: Dict[str, Tuple[str, ...]] = {}
+
+    def set_fields(self, state: Mapping[str, Any]) -> None:
+        """The fields of ``state`` that the layout places (every field of two
+        or more dimensions but the time), with their units and dims."""
+        self.names = sorted(
+            k for k, v in state.items()
+            if k != "time" and isinstance(v, FieldArray) and v.data.dim() >= 2
+        )
+        self.units = {k: state[k].units for k in self.names}
+        self.dims = {k: state[k].dims for k in self.names}
+
+    def physical(self, d: torch.Tensor, name) -> torch.Tensor:
+        crop = getattr(self._global_hb, "get_physical_field", None)
+        return d if crop is None else crop(d, name)
+
+    # -- regions ----------------------------------------------------------- #
+    def global_shape(self, name: str, rest: Tuple[int, ...] = ()) -> Tuple[int, ...]:
+        sx, sy = stagger_axes(name)
+        return (self.extent[0] + sx, self.extent[1] + sy) + tuple(rest)
+
+    def block_region(self, name: str, rank: Optional[int] = None) -> Region:
+        """The global cells of ``rank``'s owned block of ``name`` (the whole
+        field on the degenerate grid)."""
+        if self.degenerate:
+            gx, gy = self.global_shape(name)
+            return 0, gx, 0, gy
+        ix, iy = self.grid.coords(self.rank if rank is None else rank)
+        bx, by = self.decomp.bx, self.decomp.by
+        return ix * bx, (ix + 1) * bx, iy * by, (iy + 1) * by
+
+    def face_region(self, name: str, rank: Optional[int] = None) -> Optional[Region]:
+        """The global cells of the face just past ``rank``'s block of a
+        staggered field (None for a cell field, or on the degenerate grid)."""
+        sx, sy = stagger_axes(name)
+        if self.degenerate or not (sx or sy):
+            return None
+        x0, x1, y0, y1 = self.block_region(name, rank)
+        return (x1, x1 + 1, y0, y1) if sx else (x0, x1, y1, y1 + 1)
+
+    def window(self, name: str) -> Region:
+        """The global cells this rank's block and its face cover."""
+        x0, x1, y0, y1 = self.block_region(name)
+        face = self.face_region(name)
+        if face is not None:
+            x1, y1 = max(x1, face[1]), max(y1, face[3])
+        return x0, x1, y0, y1
+
+    # -- scatter and gather ----------------------------------------------- #
+    def split_windows(self, windows: Mapping[str, torch.Tensor]):
+        """This rank's owned blocks and last faces from its :meth:`window`
+        of each field: (blocks, faces)."""
+        if self.degenerate:
+            return {n: windows[n] for n in self.names}, {}
+        bx, by = self.decomp.bx, self.decomp.by
+        blocks, faces = {}, {}
+        for name in self.names:
+            w = windows[name]
+            sx, sy = stagger_axes(name)
+            if sx:
+                faces[name] = w[bx : bx + 1, :by].contiguous()
+            if sy:
+                faces[name] = w[:bx, by : by + 1].contiguous()
+            blocks[name] = w[:bx, :by].contiguous()
+        return blocks, faces
+
+    def scatter_state(self, global_state: Mapping[str, Any]):
+        """This rank's owned blocks and last faces of a global state (on its
+        global numerical grid): (blocks, faces)."""
+        if self.degenerate:
+            return {n: global_state[n].data for n in self.names}, {}
+        windows = {}
+        for name in self.names:
+            x0, x1, y0, y1 = self.window(name)
+            windows[name] = self.physical(global_state[name].data, name)[x0:x1, y0:y1]
+        return self.split_windows(windows)
+
+    def regions(self, rank: Optional[int] = None) -> Dict[str, List[int]]:
+        """The global cells ``[x0, x1, y0, y1]`` of what ``rank`` (default
+        this layout's) writes to a sharded checkpoint: ``"block:<name>"``,
+        its owned block, and ``"face:<name>"``, the face past it."""
+        out = {}
+        for name in self.names:
+            out[f"block:{name}"] = list(self.block_region(name, rank))
+            face = self.face_region(name, rank)
+            if face is not None:
+                out[f"face:{name}"] = list(face)
+        return out
+
+    def parts(self, blocks: Mapping[str, torch.Tensor],
+              faces: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """This rank's blocks and faces under the keys of :meth:`regions`."""
+        return {key: (blocks if key.startswith("block:") else faces)[key.split(":", 1)[1]]
+                for key in self.regions()}
 
 
 class DistributedModel:
@@ -68,16 +199,14 @@ class DistributedModel:
         halo: Optional[int] = None,
         group=None,
     ) -> None:
-        gpg = global_domain.physical_grid
         ghb = global_domain.horizontal_boundary
-        nb = ghb.nb
-        periodic = ghb.family == "periodic"
+        self.layout = ShardLayout(global_domain, grid, rank, halo=halo)
+        self.layout.set_fields(global_state)
         self.grid, self.rank = grid, rank
-        self.pads = axis_pads(grid, nb, nb if halo is None else int(halo), periodic)
-        self.decomp = CartesianDecomposition(gpg.nx, gpg.ny, grid, nb, *self.pads)
-        self.ex = Exchange(grid, rank, backend, periodic, group)
+        self.pads, self.decomp = self.layout.pads, self.layout.decomp
+        self.ex = Exchange(grid, rank, backend, self.layout.periodic, group)
         self.dt = float(dt)
-        self.degenerate = grid.size == 1 and self.pads == (0, 0)
+        self.degenerate = self.layout.degenerate
         self._global_hb = ghb
         if self.degenerate:
             # the whole domain on one shard without a ring: the single-device
@@ -88,50 +217,40 @@ class DistributedModel:
             self.hb = DistributedBoundary(global_domain, self.decomp, self.ex)
             self.hb.set_reference_state(ghb.reference_state)
             self.dycore, self.physics = model_factory(LocalDomain(self.hb))
-        self.names = sorted(
-            k for k, v in global_state.items()
-            if k != "time" and isinstance(v, FieldArray) and v.data.dim() >= 2
-        )
-        self.units = {k: global_state[k].units for k in self.names}
-        self.dims = {k: global_state[k].dims for k in self.names}
+        self.names = self.layout.names
+        self.units, self.dims = self.layout.units, self.layout.dims
+        self.device = global_state[self.names[0]].data.device
         self.last_faces: Dict[str, torch.Tensor] = {}
 
     # -- the state's layout ------------------------------------------------------ #
-    def _owned(self, d: torch.Tensor) -> torch.Tensor:
-        ix, iy = self.grid.coords(self.rank)
-        bx, by = self.decomp.bx, self.decomp.by
-        return d[ix * bx : (ix + 1) * bx, iy * by : (iy + 1) * by].contiguous()
-
-    def _physical(self, d, name):
-        crop = getattr(self._global_hb, "get_physical_field", None)
-        return d if crop is None else crop(d, name)
-
     def scatter_state(self, global_state: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
         """This rank's owned blocks of a global state (every rank holds the
         global state): staggered fields cell-anchored, the face just past
         the block kept in ``last_faces``."""
-        if self.degenerate:
-            return {n: global_state[n].data for n in self.names}
-        ix, iy = self.grid.coords(self.rank)
-        bx, by = self.decomp.bx, self.decomp.by
-        out, self.last_faces = {}, {}
-        for name in self.names:
-            d = self._physical(global_state[name].data, name)
-            sx, sy = stagger_axes(name)
-            if sx:
-                self.last_faces[name] = d[(ix + 1) * bx : (ix + 1) * bx + 1,
-                                          iy * by : (iy + 1) * by].contiguous()
-            if sy:
-                self.last_faces[name] = d[ix * bx : (ix + 1) * bx,
-                                          (iy + 1) * by : (iy + 1) * by + 1].contiguous()
-            out[name] = self._owned(d)
+        out, self.last_faces = self.layout.scatter_state(global_state)
         return out
+
+    def scatter_windows(self, windows: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """This rank's owned blocks from its window of each field
+        (``layout.window``: the block and, staggered, the face past it, as
+        a restored checkpoint gives them); the faces kept in
+        ``last_faces``."""
+        out, self.last_faces = self.layout.split_windows(windows)
+        return out
+
+    def checkpoint_parts(self, fields: Mapping[str, torch.Tensor]):
+        """What this rank writes to a sharded checkpoint of ``fields`` (its
+        owned blocks) and its ``last_faces``: ``layout.parts``."""
+        return self.layout.parts(fields, self.last_faces)
 
     def put_topography(self, hs: torch.Tensor) -> torch.Tensor:
         """This rank's owned block of the topography height on the global
         numerical grid (as the state's fields: a periodic grid's frame is
         cropped first)."""
-        return hs if self.degenerate else self._owned(self._physical(hs, None))
+        if self.degenerate:
+            return hs
+        x0, x1, y0, y1 = self.layout.block_region("")
+        return self.layout.physical(hs, None)[x0:x1, y0:y1].contiguous()
 
     def gather_state(self, fields: Mapping[str, torch.Tensor]) -> Optional[Dict[str, FieldArray]]:
         """The global state on rank 0 (host tensors), None on the others:
@@ -210,6 +329,19 @@ class DistributedModel:
             if sy:
                 self.last_faces[name] = d[hx : hx + bx, hy + by : hy + by + 1].contiguous()
         return out
+
+    def step_state(self, fields: Mapping[str, FieldArray], hs: torch.Tensor) -> Dict[str, FieldArray]:
+        """:meth:`step` on ``FieldArray``s, as the drivers' step loop takes a
+        step; on the degenerate grid the single-device step itself (the
+        fields passed through, so that a traced step sees only the fields
+        the components read)."""
+        if self.degenerate:
+            st = dict(fields)
+            st["topography_height"] = FieldArray(hs, "m", ("x", "y"))
+            st = self._model(st)
+            return {n: st[n] for n in self.names}
+        out = self.step({n: fields[n].data for n in self.names}, hs)
+        return {n: FieldArray(out[n], self.units[n], self.dims[n]) for n in self.names}
 
     def _model(self, st):
         st = self.dycore(st, {}, self.dt)

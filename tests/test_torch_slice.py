@@ -111,7 +111,10 @@ def test_port_imports_no_jax():
     boundaries and dwarfs, importing ``utils.{iox,checkpoint,timer}`` and
     ``plot``, one checkpointed step of the SUS driver (saved, then
     resumed, with the NaN guard), a step under the backend name ``"jax"``,
-    and importing every package of the port and resolving each of its
+    a CPU run of ``driver_profile``, ``driver_dist_bench`` and
+    ``driver_weak_scaling`` and of the SUS driver under ``--spmd`` with a
+    checkpoint and a resume (their ranks reporting no JAX either), and
+    importing every package of the port and resolving each of its
     exports leaves JAX and the JAX package unloaded."""
     code = (
         "import sys, torch\n"
@@ -166,6 +169,19 @@ def test_port_imports_no_jax():
         "        run(load_namelist(**size), verbose=False, checkpoint_dir=ck, checkpoint_every=1,\n"
         "            resume=resume, nan_guard=True)\n"
         "run(load_namelist(**size, backend='jax'), verbose=False)\n"
+        "from tasmania_tpu_torch.drivers import driver_profile, driver_dist_bench, driver_weak_scaling\n"
+        "tiny = ['--device', 'cpu', '--nx', '17', '--nz', '8']\n"
+        "driver_profile.main(tiny + ['--niter', '1', '--variants', 'full,physics_only'])\n"
+        "driver_dist_bench.main(tiny + ['--comm', 'gloo', '--niter', '1'])\n"
+        "table = driver_weak_scaling.main(['--device', 'cpu', '--ranks', '1', '--block', '16',\n"
+        "                                  '--nz', '8', '--niter', '1', '--analyze'])\n"
+        "assert table['rows'][0]['imported_by_rank'] == [[]]\n"
+        "from tasmania_tpu_torch.drivers.driver_namelist_sus import main as sus_main\n"
+        "with tempfile.TemporaryDirectory() as ck:\n"
+        "    for extra in ([], ['--resume']):\n"
+        "        res = sus_main(tiny + ['--niter', '2', '--spmd', '--ranks', '2', '--checkpoint-dir', ck,\n"
+        "                               '--checkpoint-every', '1'] + extra)\n"
+        "        assert res['imported_by_rank'] == [[], []]\n"
         "import importlib, pkgutil, tasmania_tpu_torch\n"
         "for m in pkgutil.walk_packages(tasmania_tpu_torch.__path__, 'tasmania_tpu_torch.'):\n"
         "    if m.ispkg:\n"
