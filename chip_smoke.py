@@ -299,13 +299,36 @@ printing one line; any failure raises and exits non-zero:
    variant at the flagship, 1 + ``DIST_STEPS`` graph steps, launching
    exactly the kernels its skip set leaves (``expected_launches``), and
    ``full`` beside sus's graph step in ``PROFILE_PAIRS`` alternating pairs,
-   their medians within the spread of sus's runs; phase lines and one JSON
-   line (``distribution``).  Phase 3 also times a one-element PyTorch fill
-   with ``device_ms``, the launch floor beside the pastes, which the
-   ``kernels`` line carries as ``launch_floor_ms``.
+   each full run's fields equal to sus's bit for bit and its launches
+   ``expected_launches("full")`` (the times printed, not gated: the range of
+   a few samples of a heavy-tailed step time bounds no difference of
+   medians); phase lines and one JSON line (``distribution``).  Phase 3
+   also times a one-element PyTorch fill with ``device_ms``, the launch
+   floor beside the pastes, which the ``kernels`` line carries as
+   ``launch_floor_ms``;
+19. the last one-card tools (run after phase 18; ``tools_phase``), float32,
+   no check against time: (a) the mountain wave's ``--sweep`` (the three
+   cases of ``driver_mountain_wave.SWEEP_CASES``, 5 h, each as a CUDA
+   graph): each case's launches a step exactly
+   ``LAUNCHES_PER_STEP["mountain_wave"]``, finite fields, and corr,
+   corr_focused, rms_err_focused and the amplitude ratio within
+   ``SWEEP_ABS_TOL`` and ``SWEEP_REL_TOL`` of ``SWEEP_REFERENCE`` (the JAX
+   package's float32 run); the convergence orders printed beside the
+   reference's, not gated; (b) ``--diagnose`` at the first case: its 18
+   rows and its localisation within ``DIAGNOSE_TOL`` and
+   ``LOCALISATION_TOL`` of the reference, the profiles written to an
+   ``.npz`` under a temporary directory and read back; (c)
+   ``bench_variants`` at the flagship, ``TOOLS_NT`` steps a round: each
+   coupling's launches a step its ``LAUNCHES_PER_STEP`` entry, its fields
+   after the first round equal bit for bit to an eager
+   ``driver_isentropic_moist.run`` of 1 + ``TOOLS_NT`` steps, its ms/step
+   and gridpoints/s printed; (d) ``bench_kernels`` and ``driver_roofline``:
+   every case's outputs finite and its launches equal to its timed calls,
+   the copy rate, each row and the largest share printed; phase lines and
+   one JSON line (``tools``).
 
 The isentropic diagnostics kernel serves every diagnostics call, so phases
-4-7, 9, 10, 13, 14, 17 and 18 count it too (``LAUNCHES_PER_STEP``); phase 12 counts the
+4-7, 9, 10, 13, 14 and 17-19 count it too (``LAUNCHES_PER_STEP``); phase 12 counts the
 smoothing kernel under the path ``dwarfs``.  Every phase checks the launch
 counts exactly: each kernel of the path as often as its path launches it a
 step (phase 10: a step's launches twice), and no other kernel.  The last two
@@ -613,39 +636,9 @@ def device_ms(fn, reps: int = 20, warmup: int = 3, attempts: int = 4) -> tuple[f
     with CUDA events around ``reps`` back-to-back calls, an upper bound that
     holds the host's work wherever it is longer than the device's.  Returns
     (ms, "profiler" or "cuda events")."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from tasmania_tpu_torch.drivers.kernel_timing import device_ms as timed
 
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    previous = None
-    for _ in range(attempts):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-        per_name: dict = {}
-        for e in prof.events():
-            if e.device_type == DeviceType.CUDA:
-                t, n = per_name.get(e.name, (0.0, 0))
-                per_name[e.name] = (t + e.time_range.elapsed_us(), n + 1)
-        profiler_sessions["sessions"] += 1
-        if not per_name:
-            profiler_sessions["empty"] += 1
-            continue
-        a_call = {name: round(n / reps) for name, (_, n) in per_name.items()}
-        if a_call == previous:
-            profiler_sessions["measurements"] += 1
-            return 1e-3 * sum(t / n * a_call[name] for name, (t, n) in per_name.items()), "profiler"
-        previous = a_call
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / reps, "cuda events"
+    return timed(fn, "cuda", reps, warmup, attempts, sessions=profiler_sessions)
 
 
 def nbytes(tensors) -> int:
@@ -1681,7 +1674,7 @@ DIST_STEPS = 20
 DIST_EVERY = 10
 DIST_RESUME = 10
 DIST_BENCH_PAIRS = 5
-PROFILE_PAIRS = 3
+PROFILE_PAIRS = 5
 WEAK_BLOCK = 128
 WEAK_NZ = 64
 WEAK_STEPS = 10
@@ -1939,24 +1932,220 @@ def distribution_phase(card, path_counts, path_steps, device="cuda", size=None, 
               + (f"  (full - this = {rows['full'] - res['ms_per_step']:+.3f} ms)" if name != "full" else "")
               + f"; launches a step {res['launches_per_step']}")
         del res
+    # full beside sus in alternating pairs: the times are printed, not
+    # gated; every full run must end on sus's fields bit for bit with the
+    # launches expected_launches("full") gives
     times = {"full": [], "sus": []}
+    sus_fields = None
     for i in range(PROFILE_PAIRS):
         for which in (("sus", "full") if i % 2 == 0 else ("full", "sus")):
             if which == "sus":
-                times["sus"].append(drv.run(fl, verbose=False, fused_loop=on_card)["ms_per_step"])
+                res = drv.run(fl, verbose=False, fused_loop=on_card)
+                if sus_fields is None:
+                    sus_fields = {k: fa.data.cpu().numpy() for k, fa in res["fields"].items()}
             else:
-                times["full"].append(dprof.run_variant(fl, "full", fused_loop=on_card)["ms_per_step"])
+                res = dprof.run_variant(fl, "full", fused_loop=on_card)
+                if on_card and res["launches_per_step"] != dprof.expected_launches("full"):
+                    raise AssertionError(f"driver_profile full: {res['launches_per_step']} a step, expected "
+                                         f"{dprof.expected_launches('full')}")
+                full_fields = {k: fa.data.cpu().numpy() for k, fa in res["fields"].items()}
+            times[which].append(res["ms_per_step"])
+            del res
+        bitwise(f"driver_profile full (pair {i}) against sus", full_fields, sus_fields)
     med = {k: statistics.median(v) for k, v in times.items()}
-    spread = max(times["sus"]) - min(times["sus"])
-    if on_card and not abs(med["full"] - med["sus"]) <= spread:
-        raise AssertionError(f"driver_profile full {times['full']} against sus's graph steps {times['sus']}: "
-                             f"the medians differ by more than the spread {spread}")
     out["profile"] = dict(ms_per_step=rows, full_runs=times["full"], sus_runs=times["sus"])
-    phase("dist-profile-full", f"full {' '.join(f'{t:.4f}' for t in times['full'])} ms/step (median "
-          f"{med['full']:.4f}) beside sus's graph steps {' '.join(f'{t:.4f}' for t in times['sus'])} (median "
-          f"{med['sus']:.4f}, spread {spread:.4f}) on {card}")
+    phase("dist-profile-full", f"every full run's fields equal to sus's bit for bit after 1+{DIST_STEPS} "
+          f"steps, launches expected_launches('full'); full {' '.join(f'{t:.4f}' for t in times['full'])} "
+          f"ms/step (median {med['full']:.4f}) beside sus's graph steps "
+          f"{' '.join(f'{t:.4f}' for t in times['sus'])} (median {med['sus']:.4f}) on {card} (not gated)")
     out["seconds"] = time.perf_counter() - t_phase
     phase("dist", f"phase 18 took {out['seconds']:.1f} s")
+    return out
+
+
+# phase 19, the last one-card tools: the mountain wave's --sweep (each case
+# as a CUDA graph) and --diagnose against SWEEP_REFERENCE (the JAX package's
+# float32 runs on the CPU, make_torch_mountain_wave_reference.py --sweep
+# --diagnose), bench_variants at the flagship with TOOLS_NT steps a round,
+# bench_kernels and driver_roofline; no check compares times
+SWEEP_REFERENCE = "mountain_wave_sweep_reference.json"
+TOOLS_NT = 20
+# agreement with SWEEP_REFERENCE, absolute on the correlations and relative
+# on the rest: about twice the port's float32 CPU reading
+# (make_torch_mountain_wave_reference.py --sweep --diagnose --check-port:
+# corr 1.78e-2 (321x120), corr_focused 5.8e-3, rms_err_focused 1.76e-2,
+# amplitude_ratio 3.73e-2 (81x60); the diagnose rows' corr 7.6e-3 and
+# rms_error 2.0e-2, the localisation 2.5e-2).  rms_analytic is the analytic
+# solution's, float64 numpy on the host on both sides: it read 0.  The
+# sweep's orders are log2 of a ratio of two nearly equal errors (the
+# shallow sponge's reflection sets the error, docs/mountain_wave_validation.md):
+# printed beside the reference's, not gated
+SWEEP_ABS_TOL = {"corr": 4e-2, "corr_focused": 1.2e-2}
+SWEEP_REL_TOL = {"rms_err_focused": 4e-2, "amplitude_ratio": 8e-2}
+DIAGNOSE_TOL = {"corr": 1.6e-2, "rms_analytic": 1e-12, "rms_error": 4e-2}
+LOCALISATION_TOL = 5e-2
+
+
+def tools_phase(card, path_counts, path_steps, device="cuda", sweep_cases=None, hours=None,
+                flagship=None, kernel_size=None):
+    """Phase 19 (module docstring).  ``sweep_cases`` ((nx, nz, dt), ...,
+    the first also the diagnose's case), ``hours``, ``flagship`` (nx, ny,
+    nz) and ``kernel_size`` (nx, nz) let the phase be rehearsed on the CPU
+    at small sizes (no graph, no launch counted, no reference compared)."""
+    import tempfile
+
+    import numpy as np
+
+    from tasmania_tpu_torch.drivers import bench_kernels as bk
+    from tasmania_tpu_torch.drivers import bench_variants as bvar
+    from tasmania_tpu_torch.drivers import driver_isentropic_moist as moist
+    from tasmania_tpu_torch.drivers import driver_mountain_wave as mw
+    from tasmania_tpu_torch.drivers import driver_roofline as roof
+    from tasmania_tpu_torch.framework.options import StorageOptions
+    from tasmania_tpu_torch.ops import _lib
+
+    on_card = torch.device(device).type == "cuda"
+    so = StorageOptions(dtype=torch.float32, device=device)
+    mw_per_step = LAUNCHES_PER_STEP["mountain_wave"] if on_card else {}
+    ref = json.loads(Path(mw.__file__).with_name(SWEEP_REFERENCE).read_text())
+    compare = sweep_cases is None
+    if compare and ([tuple(c) for c in ref["sweep"]["config"]["cases"]] != list(mw.SWEEP_CASES)
+                    or (ref["diagnose"]["config"]["nx"], ref["diagnose"]["config"]["nz"],
+                        ref["diagnose"]["config"]["dt"]) != mw.SWEEP_CASES[0]):
+        raise AssertionError(f"{SWEEP_REFERENCE} is not at the sweep's and the diagnose's cases")
+    cases = list(sweep_cases or mw.SWEEP_CASES)
+    hours = hours or ref["sweep"]["config"]["hours"]
+    out = {}
+
+    def launched(tag, counts, per_step, times):
+        want = {k: n * times for k, n in per_step.items() if n}
+        if {k: n for k, n in counts.items() if n} != want:
+            raise AssertionError(f"{tag}: launched {counts}, expected {want}")
+
+    def deviation(tag, got, want, key, absolute, tol):
+        dev = abs(got - want) / (1.0 if absolute else abs(want))
+        if compare and not dev <= tol:
+            raise AssertionError(f"{tag} {key}: {got} against the reference's {want} (deviation {dev:.2e} > {tol})")
+        return dev
+
+    t_phase = time.perf_counter()
+    # (a) --sweep, each case as a graph
+    _lib.reset_launch_counts()
+    sw = mw.sweep(cases, hours, so=so, fused_loop=on_card, verbose=False)
+    counts = dict(_lib.launch_counts)
+    launched("sweep", counts, mw_per_step, 2 * len(cases) if on_card else 0)
+    path_counts["sweep"], path_steps["sweep"] = counts, 2 * len(cases)
+    out["sweep"] = []
+    for i, res in enumerate(sw["results"]):
+        if on_card and res["launches_per_step"] != mw_per_step:
+            raise AssertionError(f"sweep {res['nx']}x{res['nz']}: {res['launches_per_step']} a step")
+        bad = [k for k, fa in res["fields"].items() if not bool(torch.isfinite(fa.data).all())]
+        if bad:
+            raise AssertionError(f"sweep {res['nx']}x{res['nz']}: non-finite fields {bad}")
+        want = ref["sweep"]["rows"][i] if compare else res
+        devs = {k: deviation(f"sweep {res['nx']}x{res['nz']}", res[k], want[k], k, k in SWEEP_ABS_TOL,
+                             {**SWEEP_ABS_TOL, **SWEEP_REL_TOL}[k]) for k in (*SWEEP_ABS_TOL, *SWEEP_REL_TOL)}
+        out["sweep"].append({**mw.row(res), "deviations": devs})
+        phase("tools-sweep", f"{res['nx']}x1x{res['nz']}, {res['steps']} steps of {res['dt']} s "
+              f"({'graph' if on_card else 'eager'}): {res['ms_per_step']:.4f} ms/step on {card}; "
+              + " ".join(f"{k} {res[k]:.6g} (reference {want[k]:.6g}, {d:.1e})" for k, d in devs.items()))
+    out["orders"] = sw["orders"]
+    phase("tools-sweep-orders", " | ".join(
+        f"{o['from_nx']}->{o['to_nx']}: {o['convergence_order']:.4f}"
+        + (f" (JAX float32 {r['convergence_order']:.4f})" if compare else "")
+        for o, r in zip(sw["orders"], ref["sweep"]["orders"])) + " (not gated: about zero by design)")
+    del sw
+
+    # (b) --diagnose at the first case, its profiles written under a
+    # temporary directory
+    nx, nz, dt = cases[0]
+    with tempfile.TemporaryDirectory() as tmp:
+        npz = Path(tmp) / "mw_fields.npz"
+        _lib.reset_launch_counts()
+        d = mw.diagnose(nx, nz, hours, dt, out=str(npz), so=so, fused_loop=on_card, verbose=False)
+        counts = dict(_lib.launch_counts)
+        launched("diagnose", counts, mw_per_step, 2 if on_card else 0)
+        path_counts["diagnose"], path_steps["diagnose"] = counts, 2
+        saved = np.load(npz)
+        prof = d["result"]["profiles"]
+        if sorted(saved.files) != ["kd", "u_an", "u_num", "xs"] or not all(
+                np.array_equal(saved[k], prof[k]) for k in saved.files):
+            raise AssertionError(f"diagnose: {npz.name} holds {saved.files}, not the run's profiles")
+    dref = ref["diagnose"] if compare else {"rows": d["rows"], "localisation": d["localisation"]}
+    worst = dict.fromkeys(DIAGNOSE_TOL, 0.0)
+    for got, want in zip(d["rows"], dref["rows"]):
+        if (got["window_halfwidths"], got["sponge_clearance"]) != (want["window_halfwidths"], want["sponge_clearance"]):
+            raise AssertionError(f"diagnose: row {got} is not the reference's {want}")
+        for k, tol in DIAGNOSE_TOL.items():
+            worst[k] = max(worst[k], deviation(f"diagnose window {got['window_halfwidths']} clearance "
+                                               f"{got['sponge_clearance']}", got[k], want[k], k, k == "corr", tol))
+    loc, lref = d["localisation"], dref["localisation"]
+    pairs = [(k, loc[k], lref[k]) for k in loc if not isinstance(loc[k], list)]
+    pairs += [(f"quartile {q}", g, w) for q, (g, w) in enumerate(zip(loc["rms_by_k_quartile_top_to_sfc"],
+                                                                   lref["rms_by_k_quartile_top_to_sfc"]))]
+    loc_dev = max(deviation("diagnose localisation", g, w, k, False, LOCALISATION_TOL) for k, g, w in pairs)
+    out["diagnose"] = dict(rows=d["rows"], localisation=loc, largest_deviation={**worst, "localisation": loc_dev})
+    phase("tools-diagnose", f"{nx}x1x{nz}, {d['result']['steps']} steps of {dt} s: 18 rows, the largest "
+          f"deviations from the reference corr {worst['corr']:.1e} (<= {DIAGNOSE_TOL['corr']}), rms_analytic "
+          f"{worst['rms_analytic']:.1e}, rms_error {worst['rms_error']:.1e} (<= {DIAGNOSE_TOL['rms_error']}); "
+          f"localisation {loc_dev:.1e} (<= {LOCALISATION_TOL}): " + json.dumps(loc)
+          + f"; the profiles written to a temporary .npz and read back equal")
+    del d
+
+    # (c) bench_variants at the flagship: exact launches, the eager bits
+    flag = dict(zip(("nx", "ny", "nz"), flagship)) if flagship else {}
+    _lib.reset_launch_counts()
+    bv = bvar.bench_variants(bvar.VARIANTS, TOOLS_NT, device=device, verbose=False, **flag)
+    counts = dict(_lib.launch_counts)
+    total: dict = {}
+    for c in bvar.VARIANTS:
+        for k, n in (LAUNCHES_PER_STEP[c] if on_card else {}).items():
+            total[k] = total.get(k, 0) + n
+    launched("bench_variants", counts, total, 2 if on_card else 0)
+    path_counts["bench_variants"], path_steps["bench_variants"] = counts, 2
+    for c, r in bv["rows"].items():
+        if on_card and r["launches_per_step"] != LAUNCHES_PER_STEP[c]:
+            raise AssertionError(f"bench_variants {c}: {r['launches_per_step']} a step, expected "
+                                 f"{LAUNCHES_PER_STEP[c]}")
+        nl = moist.load_namelist(c, niter=TOOLS_NT, so=so, **flag)
+        _lib.reset_launch_counts()
+        eager = moist.run(nl, c, verbose=False)["fields"]
+        launched(f"bench_variants {c}, the eager run", dict(_lib.launch_counts),
+                 LAUNCHES_PER_STEP[c] if on_card else {}, 1 + TOOLS_NT)
+        unequal = sorted(k for k, fa in eager.items() if not torch.equal(bv["fields"][c][k].data, fa.data))
+        if unequal or set(eager) != set(bv["fields"][c]):
+            raise AssertionError(f"bench_variants {c}: {unequal} differ from the eager run's")
+        del eager
+        phase("tools-bench-variants", f"{c}: 1+{TOOLS_NT} steps, every field the eager run's bit for bit, "
+              f"launches a step {r['launches_per_step']}; {r['ms_per_step']:.4f} ms/step (median of "
+              f"{len(r['ms_per_step_runs'])}, range {r['ms_per_step_range'][0]:.4f}-{r['ms_per_step_range'][1]:.4f}), "
+              f"{r['gridpoints_per_s']:.4e} gridpoints/s, umax {r['umax']:.5f}, vmax {r['vmax']:.5f}, build and "
+              f"capture {r['build_capture_s']:.2f} s on {card}")
+    out["bench_variants"] = bv["rows"]
+    del bv
+
+    # (d) bench_kernels and driver_roofline: finite outputs, a launch a
+    # timed call (both checked in kernel_timing.measure); nothing gated
+    kx, kz = kernel_size or (bk.NX, bk.NZ)
+    tables = {"bench_kernels": bk.bench(device, kx, kz),
+              "roofline": roof.roofline(device, kx, kx, kz)}
+    for tool, table in tables.items():
+        c = table["copy"]
+        phase(f"tools-{tool}", f"copy rate {c['gbs']:.1f} GB/s (median of {len(c['runs'])}, range "
+              f"{c['spread'][0]:.1f}-{c['spread'][1]:.1f}, {c['bytes_read'] / 1e6:.0f} MB read and written a call) "
+              f"on {card}" + "".join(f"; TIMING FAULT: a run read {g:.1f} GB/s, above the 3.35 TB/s spec"
+                                     for g in c["above_spec"]))
+        for r in table["rows"]:
+            phase(f"tools-{tool}", f"#{r['number']} {r['name']}: {r['ms']:.4f} ms ({r['timed_by']}), "
+                  f"{r['bytes'] / 1e6:.1f} MB, {r['gbs']:.1f} GB/s, {r['share_of_copy_pct']:.1f}% of the copy "
+                  f"rate, {r['share_of_spec_pct']:.1f}% of 3.35 TB/s (a spec); working set "
+                  f"{r['working_set_bytes'] / 1e6:.1f} MB in {r['copies']} copies; {r['launches']} launches in "
+                  f"{r['calls']} timed calls" + ("; TIMING FAULT: above the copy rate" if r["fault"] else ""))
+        largest = max(table["rows"], key=lambda r: r["share_of_copy_pct"])
+        phase(f"tools-{tool}", f"largest share {largest['share_of_copy_pct']:.1f}% ({largest['name']})")
+    out.update(tables)
+    out["seconds"] = time.perf_counter() - t_phase
+    phase("tools", f"phase 19 took {out['seconds']:.1f} s")
     return out
 
 
@@ -3282,6 +3471,10 @@ def main() -> int:
     # grid, driver_dist_bench, driver_weak_scaling, driver_profile --------
     print(json.dumps({"distribution": distribution_phase(card, path_counts, path_steps, device),
                       "card": card}))
+
+    # -- 19. the last one-card tools: --sweep, --diagnose, bench_variants,
+    # bench_kernels, driver_roofline --------------------------------------
+    print(json.dumps({"tools": tools_phase(card, path_counts, path_steps, device), "card": card}))
 
     # each kernel's launches in the full-size run of the first path that runs
     # it (the flagship for the six of the SUS chain, the merged run for the

@@ -58,13 +58,14 @@ MIN_PAIRS = 5
 def stepper(step, fields, hs_steady: torch.Tensor, facts, *, graph: bool):
     """After :func:`warm_up`'s step at zero mountain height: a function that
     advances ``n`` steps with the mountain at ``facts[i]`` of ``hs_steady``
-    (the last fact once past them) and returns their seconds, and the
-    :class:`StepBody` whose ``fields()`` are the last step's.  With
+    (the last fact once past them) and returns their seconds, the
+    :class:`StepBody` whose ``fields()`` are the last step's, and the kernel
+    launches of one step (the warm-up's, or the captured step's).  With
     ``graph`` the steps are replays of the warm-up's CUDA graph, else the
     body called eagerly, every field copied back."""
     device = hs_steady.device
-    fields, captured, _, _ = warm_up(step, fields, hs_steady * 0.0, hs_steady, facts, device,
-                                     fused_loop=graph, verbose=False)
+    fields, captured, per_step, _ = warm_up(step, fields, hs_steady * 0.0, hs_steady, facts, device,
+                                            fused_loop=graph, verbose=False)
     body = captured.body if captured is not None else StepBody(step, fields, set(fields), hs_steady, facts)
 
     def advance(n: int) -> float:
@@ -78,7 +79,7 @@ def stepper(step, fields, hs_steady: torch.Tensor, facts, *, graph: bool):
         synchronize(device)
         return time.perf_counter() - t0
 
-    return advance, body
+    return advance, body, per_step
 
 
 def bench_degenerate(nl, *, comm: str = "nccl", halo: Optional[int] = None,
@@ -116,7 +117,7 @@ def bench_degenerate(nl, *, comm: str = "nccl", halo: Optional[int] = None,
             times[which].append(1e3 * loops[which][0](nl.niter) / nl.niter)
         if i == 0:
             compared = {w: {k: fa.data.cpu().numpy() for k, fa in body.fields().items()}
-                        for w, (_, body) in loops.items()}
+                        for w, (_, body, _) in loops.items()}
     unequal = sorted(k for k, a in compared["single"].items()
                      if not np.array_equal(compared["dist"][k], a))
     med = {w: float(np.median(t)) for w, t in times.items()}

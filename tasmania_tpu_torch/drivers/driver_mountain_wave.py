@@ -19,12 +19,19 @@ damping depth and maximum from the environment (``MW_XHALF``,
 arguments (command-line flags) with the same defaults, and nothing is read
 from the environment.
 
+``--sweep`` is the resolution-convergence study (:func:`sweep`: the three
+cases of ``SWEEP_CASES`` and the observed order of the focused rms error
+between consecutive cases); ``--diagnose`` the window and sponge attribution
+study at ``--nx``, ``--nz``, ``--dt`` (:func:`diagnose`), which wins over
+``--sweep`` as in the JAX driver, and writes the u profiles to
+``--diagnose-out`` (an ``.npz``) only when that is given.
+
 Usage::
 
     python -m tasmania_tpu_torch.drivers.driver_mountain_wave [--nx 81] [--nz 60]
         [--hours 5] [--dt 20] [--growth-hours 0] [--x-half 2e5] [--theta-top 360]
         [--damp-depth N] [--damp-max 5e-4] [--dtype float32|float64]
-        [--device cuda|cpu] [--fused-loop]
+        [--device cuda|cpu] [--fused-loop] [--sweep] [--diagnose [--diagnose-out PATH]]
 
 The device defaults to ``cuda``; without a GPU the run raises unless the CPU
 is named (``--device cpu``).  The first of the steps is a warm-up; the rest
@@ -40,7 +47,7 @@ from __future__ import annotations
 import argparse
 import json
 from datetime import datetime, timedelta
-from typing import Any, Dict, Optional
+from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -59,6 +66,12 @@ U0 = 10.0
 H_MOUNTAIN, A_HALF = 1.0, 1e4
 # the analytic gate of the deep domain (tests/test_mountain_wave_validation.py:146-151)
 WINDOWS = (2, 3, 4)
+# the JAX --sweep's cases (nx, nz, dt): dx halves from one to the next
+SWEEP_CASES = ((81, 60, 20.0), (161, 90, 10.0), (321, 120, 5.0))
+# --diagnose: the comparison windows' half-widths in units of a ("full" the
+# whole x-axis) and the clearances below the sponge, in levels
+DIAGNOSE_WINDOWS = (2.0, 4.0, 6.0, 10.0, 20.0, "full")
+DIAGNOSE_CLEARANCES = (0, 4, 8)
 
 
 def build(nx: int, nz: int, growth_hours: float = 0.0, *, x_half: float = 2e5,
@@ -170,8 +183,10 @@ def run_case(nx: int, nz: int, hours: float, dt: float, growth_hours: float = 0.
     replays of one CUDA graph of the step (``ValueError`` on a CPU device).
     Returns :func:`validation`'s numbers, the grid size, ``ms_per_step`` (all
     but the first step, timed), the final ``fields``, the kernel launches of
-    one step (the warm-up's, or the captured step's) and ``capture_s``, the
-    seconds of the capture (None without a graph)."""
+    one step (the warm-up's, or the captured step's), ``capture_s``, the
+    seconds of the capture (None without a graph), and ``profiles``: the
+    numerical and analytic u on the u-points as float64 numpy (nx+1, nz),
+    their x and the damping depth (``u_num``, ``u_an``, ``xs``, ``kd``)."""
     so = so or StorageOptions(dtype=torch.float32, device="cuda")
     check_device(so.device, fused_loop=fused_loop)
     damp_depth = max(8, nz // 5) if damp_depth is None else damp_depth
@@ -192,15 +207,106 @@ def run_case(nx: int, nz: int, hours: float, dt: float, growth_hours: float = 0.
         [fact(i) for i in range(1, nt)], so.device, verbose=verbose, fused_loop=fused_loop)
 
     u_num = fields["x_velocity_at_u_locations"].data[:, 0, :].double().cpu().numpy()
+    u_an = analytic_u(domain)
     xs = np.asarray(domain.physical_grid.x_at_u_locations.data)
     res: Dict[str, Any] = {"nx": nx, "nz": nz, "hours": hours, "dt": dt, "steps": nt}
-    res.update(validation(u_num, analytic_u(domain), xs, damp_depth))
+    res.update(validation(u_num, u_an, xs, damp_depth))
     res["ms_per_step"] = 1e3 * elapsed / max(nt - 1, 1)
     if verbose:
         print(json.dumps(res), flush=True)
         print(f"{res['ms_per_step']:.3f} ms/step over {nt - 1} steps on {so.device}")
-    res.update(fields=fields, launches_per_step=per_step, capture_s=capture_s)
+    res.update(fields=fields, launches_per_step=per_step, capture_s=capture_s,
+               profiles=dict(u_num=u_num, u_an=u_an, xs=xs, kd=damp_depth))
     return res
+
+
+# the keys of run_case's result that are not numbers of the row
+NOT_ROW = ("fields", "launches_per_step", "capture_s", "profiles")
+
+
+def row(res: Dict[str, Any]) -> Dict[str, Any]:
+    """The numbers of a :func:`run_case` result, without its fields."""
+    return {k: v for k, v in res.items() if k not in NOT_ROW}
+
+
+def convergence_order(coarse: Dict[str, Any], fine: Dict[str, Any]) -> Dict[str, Any]:
+    """The observed order of the focused rms error from ``coarse`` to
+    ``fine`` (dx halves between them), as the JAX ``--sweep`` computes it
+    (``drivers/driver_mountain_wave.py:248-256``), unrounded."""
+    p = float(np.log2(coarse["rms_err_focused"] / fine["rms_err_focused"]))
+    return {"convergence_order": p, "from_nx": coarse["nx"], "to_nx": fine["nx"]}
+
+
+def sweep(cases=SWEEP_CASES, hours: float = 5.0, growth_hours: float = 0.0, *,
+          verbose: bool = True, **kwargs) -> Dict[str, Any]:
+    """The resolution-convergence study: :func:`run_case` at each (nx, nz,
+    dt) of ``cases`` (``kwargs`` are its keywords: the domain, the damping,
+    ``so``, ``fused_loop``), then the convergence order of each consecutive
+    pair.  Returns ``{"results": run_case's results, "orders": [...]}``;
+    prints each case's row, then each order, as JSON lines."""
+    results = [run_case(nx, nz, hours, dt, growth_hours, verbose=False, **kwargs) for nx, nz, dt in cases]
+    orders = [convergence_order(a, b) for a, b in zip(results, results[1:])]
+    if verbose:
+        for line in [row(r) for r in results] + orders:
+            print(json.dumps(line), flush=True)
+    return {"results": results, "orders": orders}
+
+
+def window_rows(u_num, u_an, xs, kd: int) -> List[Dict[str, Any]]:
+    """The JAX ``diagnose``'s 18 rows (``drivers/driver_mountain_wave.py:172-188``):
+    for each window |x| <= w·a of ``DIAGNOSE_WINDOWS`` and each clearance
+    of ``DIAGNOSE_CLEARANCES`` below the damping depth ``kd``, the
+    correlation of the numerical and analytic u-perturbations (unrounded),
+    the rms of the analytic one and the rms of their difference."""
+    rows = []
+    for w in DIAGNOSE_WINDOWS:
+        m = np.ones(len(xs), dtype=bool) if w == "full" else np.abs(xs) <= w * A_HALF
+        for koff in DIAGNOSE_CLEARANCES:
+            dn, da = u_num[m, kd + koff:] - U0, u_an[m, kd + koff:] - U0
+            rows.append({
+                "window_halfwidths": w, "sponge_clearance": koff,
+                "corr": float(np.corrcoef(dn.ravel(), da.ravel())[0, 1]),
+                "rms_analytic": float(np.sqrt(np.mean(da**2))),
+                "rms_error": float(np.sqrt(np.mean((dn - da) ** 2))),
+            })
+    return rows
+
+
+def localisation(u_num, u_an, xs, kd: int) -> Dict[str, Any]:
+    """The JAX ``diagnose``'s error localisation (``drivers/driver_mountain_wave.py:189-210``),
+    under its keys: the rms of the u error below the sponge's clearance of 4
+    levels upstream of -2a, over |x| <= 2a and downstream of 2a, and by
+    quarters of those levels from the top down."""
+    err = (u_num - u_an)[:, kd + 4:]
+    nq = err.shape[1]
+    return {
+        "rms_upstream(x<-2a)": float(np.sqrt(np.mean(err[xs < -2 * A_HALF] ** 2))),
+        "rms_mountain(|x|<2a)": float(np.sqrt(np.mean(err[np.abs(xs) <= 2 * A_HALF] ** 2))),
+        "rms_downstream(x>2a)": float(np.sqrt(np.mean(err[xs > 2 * A_HALF] ** 2))),
+        "rms_by_k_quartile_top_to_sfc": [
+            float(np.sqrt(np.mean(err[:, q * nq // 4:(q + 1) * nq // 4] ** 2))) for q in range(4)
+        ],
+    }
+
+
+def diagnose(nx: int, nz: int, hours: float, dt: float, growth_hours: float = 0.0, *,
+             out: Optional[str] = None, verbose: bool = True, **kwargs) -> Dict[str, Any]:
+    """The JAX ``diagnose`` (``drivers/driver_mountain_wave.py:163-210``):
+    one :func:`run_case` (``kwargs`` its keywords), then, on the host from
+    its float64 u profiles, :func:`window_rows` and :func:`localisation`.
+    Prints the case's row, the 18 rows and the localisation as JSON lines;
+    writes ``u_num``, ``u_an``, ``xs`` and ``kd`` to ``out`` (an ``.npz``)
+    only when it is given.  Returns ``{"result", "rows", "localisation"}``."""
+    res = run_case(nx, nz, hours, dt, growth_hours, verbose=False, **kwargs)
+    prof = res["profiles"]
+    args = (prof["u_num"], prof["u_an"], prof["xs"], prof["kd"])
+    rows, loc = window_rows(*args), localisation(*args)
+    if verbose:
+        for line in [row(res), *rows, loc]:
+            print(json.dumps(line), flush=True)
+    if out is not None:
+        np.savez(out, **prof)
+    return {"result": res, "rows": rows, "localisation": loc}
 
 
 def main(argv=None):
@@ -220,13 +326,23 @@ def main(argv=None):
     parser.add_argument("--fused-loop", action="store_true",
                         help="run the timed steps as replays of one CUDA graph of the step "
                              "(needs a CUDA device)")
+    parser.add_argument("--sweep", action="store_true",
+                        help="resolution-convergence study over SWEEP_CASES (ignores --nx, --nz, --dt)")
+    parser.add_argument("--diagnose", action="store_true",
+                        help="window/sponge attribution study at (--nx, --nz); wins over --sweep")
+    parser.add_argument("--diagnose-out", type=str, default=None, metavar="PATH",
+                        help="with --diagnose, write u_num, u_an, xs and kd to this .npz")
     cli = parser.parse_args(argv)
     if torch.device(cli.device).type == "cuda" and not torch.cuda.is_available():
         parser.error("no CUDA device is available (pass --device cpu to run on the CPU)")
-    so = StorageOptions(dtype=getattr(torch, cli.dtype), device=cli.device)
-    return run_case(cli.nx, cli.nz, cli.hours, cli.dt, cli.growth_hours, x_half=cli.x_half,
-                    theta_top=cli.theta_top, damp_depth=cli.damp_depth, damp_max=cli.damp_max,
-                    so=so, fused_loop=cli.fused_loop)
+    kwargs = dict(x_half=cli.x_half, theta_top=cli.theta_top, damp_depth=cli.damp_depth,
+                  damp_max=cli.damp_max, so=StorageOptions(dtype=getattr(torch, cli.dtype), device=cli.device),
+                  fused_loop=cli.fused_loop)
+    if cli.diagnose:
+        return diagnose(cli.nx, cli.nz, cli.hours, cli.dt, cli.growth_hours, out=cli.diagnose_out, **kwargs)
+    if cli.sweep:
+        return sweep(SWEEP_CASES, cli.hours, cli.growth_hours, **kwargs)
+    return run_case(cli.nx, cli.nz, cli.hours, cli.dt, cli.growth_hours, **kwargs)
 
 
 if __name__ == "__main__":

@@ -14,7 +14,10 @@ couplings, the mountain wave, the SUS chain with both process merges,
 sus_merged, and the surface paths sus_third, fc_third, sus_periodic,
 sus_coriolis_implicit and fc_coriolis;
 phase 12's one call of each dwarf, ``dwarfs``; phase 14's rank of the
-decomposed run, ``sharded``)
+decomposed run, ``sharded``; the later phases' paths, among them phase
+19's ``sweep`` and ``diagnose`` (graphs: the warm-up and the capture of
+each case) and ``bench_variants``, whose step is the six couplings' steps
+together)
 and the times that run measured on the card: kernel, plain version and,
 where one exists, the single PyTorch call computing the same function; a
 kernel timed also at other shapes or in other modes (``also`` in the log:

@@ -113,7 +113,9 @@ def test_port_imports_no_jax():
     resumed, with the NaN guard), a step under the backend name ``"jax"``,
     a CPU run of ``driver_profile``, ``driver_dist_bench`` and
     ``driver_weak_scaling`` and of the SUS driver under ``--spmd`` with a
-    checkpoint and a resume (their ranks reporting no JAX either), and
+    checkpoint and a resume (their ranks reporting no JAX either), the
+    mountain-wave driver's ``--sweep`` and ``--diagnose``, ``bench_variants``
+    and one ``driver_roofline`` case, and
     importing every package of the port and resolving each of its
     exports leaves JAX and the JAX package unloaded."""
     code = (
@@ -176,6 +178,12 @@ def test_port_imports_no_jax():
         "table = driver_weak_scaling.main(['--device', 'cpu', '--ranks', '1', '--block', '16',\n"
         "                                  '--nz', '8', '--niter', '1', '--analyze'])\n"
         "assert table['rows'][0]['imported_by_rank'] == [[]]\n"
+        "hours = ['--hours', str(40.0 / 3600.0)]\n"
+        "mw.main(['--device', 'cpu', '--sweep'] + hours)\n"
+        "mw.main(['--device', 'cpu', '--nx', '41', '--nz', '20', '--diagnose'] + hours)\n"
+        "from tasmania_tpu_torch.drivers import bench_variants, driver_roofline, kernel_timing\n"
+        "bench_variants.main(tiny + ['--nt', '1', '--variants', 'sus'])\n"
+        "kernel_timing.measure(driver_roofline.build_cases('cpu', 9, 9, 8)[0], 'cpu', 1.0, reps=1)\n"
         "from tasmania_tpu_torch.drivers.driver_namelist_sus import main as sus_main\n"
         "with tempfile.TemporaryDirectory() as ck:\n"
         "    for extra in ([], ['--resume']):\n"
