@@ -325,13 +325,39 @@ printing one line; any failure raises and exits non-zero:
    and gridpoints/s printed; (d) ``bench_kernels`` and ``driver_roofline``:
    every case's outputs finite and its launches equal to its timed calls,
    the copy rate, each row and the largest share printed; phase lines and
-   one JSON line (``tools``).
+   one JSON line (``tools``);
+20. the graph by default (``graph_default``, run after phase 11, and
+   ``graph_recovery``, after phase 19), float32, gated on bits and launches
+   only: (a) each driver's entry point with no mode given (sus, sus_merged,
+   fc, lfc, ps, sts, ssus, the mountain wave and both Burgers cases, at the
+   step counts of phases 5, 7, 8, 9 and 11) must capture a CUDA graph
+   (``capture_s``), launch each kernel twice its launches a step (the
+   eager warm-up step and the capture), capture ``LAUNCHES_PER_STEP`` and
+   give the explicit eager run of its phase bit for bit; its ms/step
+   printed beside the eager run's; (b) the flagship, 1 + ``IO_STEPS``
+   default (graph) steps checkpointed every ``IO_EVERY`` with the NaN
+   guard: each checkpoint and the final fields bit for bit those of the
+   same run with ``fused_loop=False``; resumed from ``IO_RESUME`` under the
+   graph, the uninterrupted graph run's bits; a NaN written at
+   ``IO_POISON`` through a device counter the step reads (a graph freezes a
+   Python counter) trips the guard at the next boundary with the eager
+   run's message and checkpoints; ``--profile``'s trace of
+   ``TRACE_STEPS`` replays (``TRACE_GRAPH_RUN``, a process of its own) in
+   two sessions that agree, each holding every SUS kernel's CUDA functions
+   launches a step times ``TRACE_STEPS``; (c) ``--spmd`` on the card's one
+   NCCL rank with no mode given: a graph, phase 18's one-rank bits, sus's
+   launches.  Phase lines and two JSON lines.
 
-The isentropic diagnostics kernel serves every diagnostics call, so phases
-4-7, 9, 10, 13, 14 and 17-19 count it too (``LAUNCHES_PER_STEP``); phase 12 counts the
-smoothing kernel under the path ``dwarfs``.  Every phase checks the launch
-counts exactly: each kernel of the path as often as its path launches it a
-step (phase 10: a step's launches twice), and no other kernel.  The last two
+The runs of phases 4-9, 13 and 16, the single device's resume of phase 18
+(a) and the eager runs of phase 19 (c) ask for eager steps
+(``fused_loop=False``): the drivers step through a CUDA graph by default on
+the card, and these runs' launches are counted a step and their fields are
+the graph runs' references.  The isentropic diagnostics kernel serves
+every diagnostics call, so phases 4-7, 9, 10, 13, 14 and 17-20 count it
+too (``LAUNCHES_PER_STEP``); phase 12 counts the smoothing kernel under the
+path ``dwarfs``.  Every phase checks the launch counts exactly: each kernel
+of the path as often as its path launches it a step (phases 10 and 20: a
+step's launches twice), and no other kernel.  The last two
 lines are the card's name and power limit, then ``{"ok": true, "device":
 {...}}``; the line before them is a JSON summary of the kernels, their
 launches in the full-size run of the first path that runs them (``path``:
@@ -1101,8 +1127,8 @@ from tasmania_tpu_torch.drivers import driver_namelist_sus as drv
 from tasmania_tpu_torch.drivers.namelist_sus import load_namelist
 from tasmania_tpu_torch.framework.options import StorageOptions
 nl = load_namelist(niter={steps}, so=StorageOptions(dtype=torch.float32, device={device!r}), **{grid!r})
-plain = drv.run(nl, verbose=False)
-profiled = drv.run(nl, verbose=False, profile={trace_dir!r})
+plain = drv.run(nl, verbose=False, fused_loop=False)
+profiled = drv.run(nl, verbose=False, fused_loop=False, profile={trace_dir!r})
 print(json.dumps({{"plain": plain["ms_per_step"], "profiled": profiled["ms_per_step"]}}))
 """
 
@@ -1162,8 +1188,8 @@ def io_phase(card, path_counts, path_steps, device="cuda", size=None):
         # the checkpointed run, the phase's path
         sync()
         _lib.reset_launch_counts()
-        full = drv.run(nl, verbose=False, checkpoint_dir=str(tmp / "ck"), checkpoint_every=IO_EVERY,
-                       nan_guard=True)
+        full = drv.run(nl, verbose=False, fused_loop=False, checkpoint_dir=str(tmp / "ck"),
+                       checkpoint_every=IO_EVERY, nan_guard=True)
         counts = dict(_lib.launch_counts)
         expected = {k: (1 + IO_STEPS) * n for k, n in per_step.items()}
         if counts != expected:
@@ -1175,8 +1201,8 @@ def io_phase(card, path_counts, path_steps, device="cuda", size=None):
             raise AssertionError(f"sus_io: checkpoints {mgr.all_steps()}, expected {steps}")
         mb = mgr.nbytes(IO_RESUME) / 1e6
         # resume from IO_RESUME: the last steps again, bit for bit
-        resumed = drv.run(nl, verbose=False, checkpoint_dir=str(tmp / "ck"), checkpoint_every=IO_EVERY,
-                          resume=IO_RESUME, nan_guard=True)
+        resumed = drv.run(nl, verbose=False, fused_loop=False, checkpoint_dir=str(tmp / "ck"),
+                          checkpoint_every=IO_EVERY, resume=IO_RESUME, nan_guard=True)
         if resumed["start"] != IO_RESUME:
             raise AssertionError(f"resume: started after step {resumed['start']}, not {IO_RESUME}")
         differ = sorted(k for k, fa in full["fields"].items()
@@ -1223,7 +1249,7 @@ def io_phase(card, path_counts, path_steps, device="cuda", size=None):
         last = boundary - IO_EVERY
         want = f"at step {boundary}; last good checkpoint: step {last}"
         try:
-            drv.run_steps(nl, state, poisoned, dycore.topography_steady, verbose=False,
+            drv.run_steps(nl, state, poisoned, dycore.topography_steady, verbose=False, fused_loop=False,
                           checkpoint_dir=str(tmp / "nan"), checkpoint_every=IO_EVERY, nan_guard=True)
         except RuntimeError as err:
             if want not in str(err):
@@ -1699,10 +1725,12 @@ def node_blocks(coords, local_world):
     return rects
 
 
-def distribution_phase(card, path_counts, path_steps, device="cuda", size=None, flagship=None):
+def distribution_phase(card, path_counts, path_steps, device="cuda", size=None, flagship=None, keep=None):
     """Phase 18 (module docstring).  ``size`` (nx, ny, nz) replaces phase
     14's grid and ``flagship`` (nx, ny, nz) the flagship's, so that the
-    phase can be rehearsed on the CPU (no graph, no launch counted there)."""
+    phase can be rehearsed on the CPU (no graph, no launch counted there).
+    ``keep`` (a dict) receives the one-rank run's fields (numpy) of (b)
+    under ``spmd_one_rank``, which phase 20 (c) compares."""
     import statistics
     import tempfile
 
@@ -1789,7 +1817,7 @@ def distribution_phase(card, path_counts, path_steps, device="cuda", size=None, 
         check_differences("spmd resumed on 4x1", d41, tol_of)
         nl = load_namelist(niter=DIST_STEPS, so=so, **grid)
         _lib.reset_launch_counts()
-        one = drv.run(nl, verbose=False, checkpoint_dir=ck, resume=DIST_RESUME)
+        one = drv.run(nl, verbose=False, fused_loop=False, checkpoint_dir=ck, resume=DIST_RESUME)
         counts_equal("single device resumed", dict(_lib.launch_counts), sus, 1 + DIST_STEPS - DIST_RESUME)
         single = {k: fa.data.cpu().numpy() for k, fa in one["fields"].items()}
         d11 = field_differences(single, fields)
@@ -1863,6 +1891,8 @@ def distribution_phase(card, path_counts, path_steps, device="cuda", size=None, 
     if on_card and one["launches_per_step"] != sus:
         raise AssertionError(f"spmd on one rank: {one['launches_per_step']} a step, expected {sus}")
     bitwise("spmd on one rank against sus's graph run", one["fields"], ref_fields)
+    if keep is not None:
+        keep["spmd_one_rank"] = one["fields"]
     path_counts["spmd_one_rank"], path_steps["spmd_one_rank"] = one["launches_by_rank"][0], 2 if on_card else 1 + DIST_STEPS
     out["spmd_one_rank"] = dict(ms_per_step=one["ms_per_step"], sus_graph_ms_per_step=ref["ms_per_step"])
     phase("dist-spmd", f"--spmd on one {'NCCL' if on_card else 'gloo'} rank, {fl.nx}x{fl.ny}x{fl.nz}, 1+{DIST_STEPS} "
@@ -2109,7 +2139,7 @@ def tools_phase(card, path_counts, path_steps, device="cuda", sweep_cases=None, 
                                  f"{LAUNCHES_PER_STEP[c]}")
         nl = moist.load_namelist(c, niter=TOOLS_NT, so=so, **flag)
         _lib.reset_launch_counts()
-        eager = moist.run(nl, c, verbose=False)["fields"]
+        eager = moist.run(nl, c, verbose=False, fused_loop=False)["fields"]
         launched(f"bench_variants {c}, the eager run", dict(_lib.launch_counts),
                  LAUNCHES_PER_STEP[c] if on_card else {}, 1 + TOOLS_NT)
         unequal = sorted(k for k, fa in eager.items() if not torch.equal(bv["fields"][c][k].data, fa.data))
@@ -2146,6 +2176,255 @@ def tools_phase(card, path_counts, path_steps, device="cuda", sweep_cases=None, 
     out.update(tables)
     out["seconds"] = time.perf_counter() - t_phase
     phase("tools", f"phase 19 took {out['seconds']:.1f} s")
+    return out
+
+
+# phase 20, the graph by default: each driver's entry point with no mode
+# given against its explicit eager run (a), and the recovery flags and
+# --profile between graph replays (b): the flagship 1 + IO_STEPS steps
+# checkpointed every IO_EVERY with the NaN guard, resumed from IO_RESUME,
+# poisoned at IO_POISON through a device counter the step reads (a graph
+# freezes a Python counter), traced for TRACE_STEPS replays
+TRACE_GRAPH_RUN = """
+import json, torch
+from tasmania_tpu_torch.drivers import driver_namelist_sus as drv
+from tasmania_tpu_torch.drivers.namelist_sus import load_namelist
+from tasmania_tpu_torch.framework.options import StorageOptions
+nl = load_namelist(niter={steps}, so=StorageOptions(dtype=torch.float32, device={device!r}), **{grid!r})
+plain = drv.run(nl, verbose=False)
+runs = [drv.run(nl, verbose=False, profile=d) for d in {trace_dirs!r}]
+print(json.dumps({{"plain": plain["ms_per_step"], "profiled": [r["ms_per_step"] for r in runs],
+                  "capture_s": [plain["capture_s"]] + [r["capture_s"] for r in runs]}}))
+"""
+
+
+def default_phase(card, runs, eager, path_counts, path_steps, device="cuda"):
+    """Phase 20 (a): each path of ``runs`` (a call of its driver's entry
+    point with no mode given) from zeroed launch counts, against ``eager``
+    (the path's explicit eager run in its own phase: ``fields``,
+    ``ms_per_step``, ``steps``).  On the card a graph must be captured
+    (``capture_s``), each kernel launched twice its launches a step (the
+    eager warm-up step and the capture; a replay counts nothing), the
+    captured step's launches ``LAUNCHES_PER_STEP`` (Burgers none), and
+    every field the eager run's bit for bit; the default's and the eager
+    ms/step, and the default run's peak device memory (above what was
+    allocated before it) beside its fields' (the graph's buffers and pool
+    besides the model), are printed, not gated.  Adds the flagship's default run to
+    ``path_counts`` (``sus_default``).  On the CPU (a rehearsal) the
+    default steps eagerly and no kernel is counted."""
+    from tasmania_tpu_torch.ops import _lib
+
+    on_card = torch.device(device).type == "cuda"
+    out = {}
+    for path, run in runs.items():
+        per_step = LAUNCHES_PER_STEP.get(path, {}) if on_card else {}
+        if on_card:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            before = torch.cuda.memory_allocated()
+        _lib.reset_launch_counts()
+        res = run()
+        # the run's own peak: above what the earlier phases hold (their eager fields)
+        peak_mb = (torch.cuda.max_memory_allocated() - before) / 1e6 if on_card else None
+        counts = {k: n for k, n in _lib.launch_counts.items() if n}
+        want = {k: 2 * n for k, n in per_step.items() if n}
+        if on_card and res["capture_s"] is None:
+            raise AssertionError(f"graph default, {path}: the default captured no graph on the card")
+        if counts != want:
+            raise AssertionError(f"graph default, {path}: launched {counts} in the warm-up and the capture, "
+                                 f"expected {want}")
+        if on_card and res["launches_per_step"] != per_step:
+            raise AssertionError(f"graph default, {path}: the captured step launched {res['launches_per_step']}")
+        ref = eager[path]
+        if set(res["fields"]) != set(ref["fields"]):
+            raise AssertionError(f"graph default, {path}: fields {sorted(res['fields'])} vs {sorted(ref['fields'])}")
+        unequal = sorted(k for k, fa in ref["fields"].items() if not torch.equal(res["fields"][k].data, fa.data))
+        if unequal:
+            diff = max(float((res["fields"][k].data - ref["fields"][k].data).abs().max()) for k in unequal)
+            raise AssertionError(f"graph default, {path}: {unequal} differ from the eager run's (largest "
+                                 f"difference {diff})")
+        if path == "sus":
+            path_counts["sus_default"], path_steps["sus_default"] = counts, 2
+        fields_mb = nbytes(fa.data for fa in res["fields"].values()) / 1e6
+        out[path] = dict(steps=ref["steps"], default_ms_per_step=res["ms_per_step"],
+                         eager_ms_per_step=ref["ms_per_step"], capture_s=res["capture_s"],
+                         fields_mb=fields_mb, peak_mb=peak_mb)
+        capture = "no graph" if res["capture_s"] is None else f"capture {res['capture_s']:.3f} s"
+        if peak_mb is not None:
+            capture += f", the run's peak device memory {peak_mb:.1f} MB (its fields {fields_mb:.1f} MB)"
+        phase("graph-default", f"{path}: {ref['steps']} steps, {len(ref['fields'])} fields bit for bit the "
+              f"eager run's; {capture}, launches {counts} (the warm-up step and the capture); default "
+              f"{res['ms_per_step']:.4f} ms/step, eager {ref['ms_per_step']:.4f} (its own phase's run) on {card}")
+        del res
+    return out
+
+
+def graph_recovery_phase(card, path_counts, path_steps, one_rank=None, device="cuda", size=None,
+                         flagship=None):
+    """Phase 20 (b) and (c) (module docstring).  ``one_rank`` holds phase
+    18's one-rank fields (numpy) at the flagship, 1 + ``DIST_STEPS``
+    steps.  ``size`` (nx, ny, nz) replaces the flagship's grid of (b) and
+    ``flagship`` that of (c), so that the phase can be rehearsed on the CPU,
+    where the default steps eagerly (no graph, no launch counted, no trace
+    kernel, one gloo rank)."""
+    import tempfile
+
+    import numpy as np
+
+    from tasmania_tpu_torch.drivers import driver_namelist_sus as drv
+    from tasmania_tpu_torch.drivers.namelist_sus import load_namelist
+    from tasmania_tpu_torch.framework.options import StorageOptions
+    from tasmania_tpu_torch.ops import _lib
+    from tasmania_tpu_torch.utils.checkpoint import CheckpointManager
+
+    on_card = torch.device(device).type == "cuda"
+    grid = dict(zip(("nx", "ny", "nz"), size)) if size else {}
+    so = StorageOptions(dtype=torch.float32, device=device)
+    nl = load_namelist(niter=IO_STEPS, so=so, **grid)
+    per_step = LAUNCHES_PER_STEP["sus"] if on_card else {}
+    rec = dict(checkpoint_every=IO_EVERY, nan_guard=True)
+    out = {}
+    t_phase = time.perf_counter()
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    def capture_note(res):
+        return "no graph" if res["capture_s"] is None else f"capture {res['capture_s']:.3f} s"
+
+    def graphed(tag, res):
+        if on_card and res["capture_s"] is None:
+            raise AssertionError(f"graph recovery, {tag}: the default captured no graph on the card")
+
+    def bitwise(tag, got, ref):
+        unequal = sorted(k for k, fa in ref.items() if not torch.equal(got[k].data, fa.data))
+        if unequal or set(got) != set(ref):
+            raise AssertionError(f"graph recovery, {tag}: {unequal or sorted(set(got) ^ set(ref))} differ")
+
+    def poisoned_run(mode, directory):
+        """The flagship with a NaN written at IO_POISON through a device
+        counter the step reads (the same tensor operations eager and in a
+        graph); returns the guard's message."""
+        domain, state, pt = drv.build_domain_and_state(nl)
+        dycore, physics = drv.build_model(nl, domain, pt)
+        calls = torch.zeros((), dtype=torch.long, device=device)
+
+        def step_impl(st, dt):
+            new = physics(dycore(st, {}, dt), dt)
+            calls.add_(1)
+            s = new["air_isentropic_density"].data
+            s[5, 7, 11] = torch.where(calls == 1 + IO_POISON, float("nan"), s[5, 7, 11])
+            return new
+
+        try:
+            drv.run_steps(nl, state, step_impl, dycore.topography_steady, verbose=False, fused_loop=mode,
+                          checkpoint_dir=str(directory), **rec)
+        except RuntimeError as err:
+            return str(err)
+        raise AssertionError(f"graph recovery: the poisoned {'eager' if mode is False else 'default'} run "
+                             "did not raise")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        # (b) the eager and the default checkpointed runs: every checkpoint bit for bit
+        eager = drv.run(nl, verbose=False, fused_loop=False, checkpoint_dir=str(tmp / "eager"), **rec)
+        sync()
+        _lib.reset_launch_counts()
+        graph = drv.run(nl, verbose=False, checkpoint_dir=str(tmp / "graph"), **rec)
+        counts = {k: n for k, n in _lib.launch_counts.items() if n}
+        if counts != {k: 2 * n for k, n in per_step.items()}:
+            raise AssertionError(f"graph recovery: launched {counts}, expected twice {per_step}")
+        graphed("checkpointed run", graph)
+        path_counts["sus_graph_io"], path_steps["sus_graph_io"] = counts, 2
+        steps = list(range(IO_EVERY, IO_STEPS + 1, IO_EVERY))
+        mgr, eager_mgr = CheckpointManager(str(tmp / "graph")), CheckpointManager(str(tmp / "eager"))
+        if mgr.all_steps() != steps or eager_mgr.all_steps() != steps:
+            raise AssertionError(f"graph recovery: checkpoints {mgr.all_steps()} and {eager_mgr.all_steps()}, "
+                                 f"expected {steps}")
+        for n in steps:
+            got, ref = mgr.restore(n), eager_mgr.restore(n)
+            bitwise(f"checkpoint {n}", {k: v for k, v in got.items() if k != "time"},
+                    {k: v for k, v in ref.items() if k != "time"})
+        bitwise("final fields", graph["fields"], eager["fields"])
+        # the resume: the checkpoint into the graph's buffers, its counter at IO_RESUME
+        resumed = drv.run(nl, verbose=False, checkpoint_dir=str(tmp / "graph"), resume=IO_RESUME, **rec)
+        graphed("resumed run", resumed)
+        if resumed["start"] != IO_RESUME:
+            raise AssertionError(f"graph recovery: resumed after step {resumed['start']}, not {IO_RESUME}")
+        bitwise(f"resumed from {IO_RESUME}", resumed["fields"], graph["fields"])
+        out.update(checkpointed_ms_per_step=graph["ms_per_step"], eager_checkpointed_ms_per_step=eager["ms_per_step"],
+                   resumed_ms_per_step=resumed["ms_per_step"], capture_s=graph["capture_s"])
+        phase("graph-recovery", f"{nl.nx}x{nl.ny}x{nl.nz}, 1+{IO_STEPS} {'graph' if on_card else 'eager'} "
+              f"steps checkpointed every {IO_EVERY} with the NaN guard: checkpoints {steps} and the final "
+              f"fields bit for bit the eager run's; resumed from {IO_RESUME}, the uninterrupted run's bits; "
+              f"{capture_note(graph)}; {graph['ms_per_step']:.3f} ms/step (eager "
+              f"{eager['ms_per_step']:.3f}), resumed {resumed['ms_per_step']:.3f}, the saves included, on {card}")
+        del eager, graph, resumed
+        # the NaN guard, eager and default
+        boundary = -(-IO_POISON // IO_EVERY) * IO_EVERY
+        want = f"at step {boundary}; last good checkpoint: step {boundary - IO_EVERY}"
+        messages = [poisoned_run(mode, tmp / f"nan_{mode}") for mode in (False, None)]
+        left = [CheckpointManager(str(tmp / f"nan_{mode}")).all_steps() for mode in (False, None)]
+        if messages[0] != messages[1] or want not in messages[1]:
+            raise AssertionError(f"graph recovery, NaN guard: {messages} (expected both to say {want!r})")
+        if left != [list(range(IO_EVERY, boundary, IO_EVERY))] * 2:
+            raise AssertionError(f"graph recovery, NaN guard: checkpoints left {left}")
+        phase("graph-nan-guard", f"NaN written at step {IO_POISON} through a device counter: the default "
+              f"and the eager run both say {messages[1]!r}; checkpoints {left[1]}")
+        # --profile under the graph, in a process of its own (phase 16):
+        # two sessions a process, each to hold every kernel launches a step
+        # times TRACE_STEPS, and to agree
+        want_trace = {fn: per_step.get(w, 0) * TRACE_STEPS for w, fns in TRACE_KERNELS.items() for fn in fns}
+        for attempt in range(1, TRACE_ATTEMPTS + 1):
+            dirs = [str(tmp / f"graph_trace{attempt}_{k}") for k in range(2)]
+            code = TRACE_GRAPH_RUN.format(steps=TRACE_STEPS, device=str(device), grid=grid, trace_dirs=dirs)
+            run = subprocess.run([sys.executable, "-c", code], cwd=Path(__file__).resolve().parent,
+                                 capture_output=True, text=True, timeout=600)
+            if run.returncode:
+                raise AssertionError(f"graph profile: the traced run failed:\n{run.stderr[-4000:]}")
+            ms = json.loads(run.stdout.strip().splitlines()[-1])
+            if on_card and None in ms["capture_s"]:
+                raise AssertionError(f"graph profile: captures {ms['capture_s']}")
+            got = [trace_counts(next(Path(d).glob("*.json"))) for d in dirs]
+            if got[0] == got[1] == want_trace:
+                break
+            phase("graph-profile", f"attempt {attempt}: {got}, expected {want_trace} twice")
+        else:
+            raise AssertionError(f"graph profile: no two sessions of {TRACE_ATTEMPTS} processes held {want_trace}")
+        out.update(profiled_ms_per_step=ms["profiled"], unprofiled_ms_per_step=ms["plain"], trace_attempts=attempt)
+        phase("graph-profile", f"{TRACE_STEPS} {'graph replays' if on_card else 'eager steps'} under --profile, "
+              f"two sessions agreeing on CUDA functions {got[0]}: profiled "
+              f"{' '.join(f'{t:.3f}' for t in ms['profiled'])} ms/step, unprofiled {ms['plain']:.3f} (one "
+              f"process, attempt {attempt}) on {card}")
+
+    # (c) --spmd on the card's one NCCL rank with no mode given: the graph,
+    # phase 18's one-rank bits
+    flag = dict(zip(("nx", "ny", "nz"), flagship)) if flagship else {}
+    sus = LAUNCHES_PER_STEP["sus"] if on_card else {}
+    _lib.reset_launch_counts()
+    one = drv.run_spmd(dict(flag, niter=DIST_STEPS, so=so), ranks=1, comm="nccl" if on_card else "gloo",
+                       device=device, verbose=False)
+    counts = {k: n for k, n in one["launches_by_rank"][0].items() if n}
+    if not one["degenerate"] or any(one["imported_by_rank"]) or dict(_lib.launch_counts):
+        raise AssertionError(f"graph spmd: degenerate {one['degenerate']}, imported {one['imported_by_rank']}, "
+                             f"the parent launched {dict(_lib.launch_counts)}")
+    graphed("one spmd rank", one)
+    if counts != {k: 2 * n for k, n in sus.items()} or (on_card and one["launches_per_step"] != sus):
+        raise AssertionError(f"graph spmd: launched {counts}, {one['launches_per_step']} a step")
+    if one_rank is not None:
+        unequal = sorted(k for k, a in one_rank.items() if not np.array_equal(one["fields"][k], a))
+        if unequal or set(one["fields"]) != set(one_rank):
+            raise AssertionError(f"graph spmd: {unequal} differ from phase 18's one-rank run")
+    path_counts["spmd_default"], path_steps["spmd_default"] = counts, 2
+    out["spmd_default"] = dict(ms_per_step=one["ms_per_step"], capture_s=one["capture_s"])
+    compared = "phase 18's one-rank bits" if one_rank is not None else "not compared"
+    phase("graph-spmd", f"--spmd on one {'NCCL' if on_card else 'gloo'} rank with no mode given, "
+          f"{'x'.join(map(str, one['grid']))}, 1+{DIST_STEPS} steps: "
+          f"{'a graph' if one['capture_s'] is not None else 'eager'}, {compared}, launches {counts}; "
+          f"{one['ms_per_step']:.3f} ms/step on {card}")
+    out["seconds"] = time.perf_counter() - t_phase
+    phase("graph", f"phase 20 (b), (c) took {out['seconds']:.1f} s")
     return out
 
 
@@ -3150,7 +3429,7 @@ def main() -> int:
         return res, counts
 
     def sus(skip):
-        return lambda n: drv.run(n, skip=skip, verbose=False)
+        return lambda n: drv.run(n, skip=skip, verbose=False, fused_loop=False)
 
     # -- 4. the first slice through its kernels --------------------------------
     drive("slice", sus(nl.slice_skip), nl, LAUNCHES_PER_STEP["slice"], "slice_reference.json",
@@ -3165,8 +3444,12 @@ def main() -> int:
     phase("validation", f"umax = {res['umax']:.5f}, vmax = {res['vmax']:.5f} "
           f"(the TPU's: umax = {TPU_VALIDATION['umax']:.5f}, vmax = {TPU_VALIDATION['vmax']:.5f}; "
           "for information)")
-    # the eager runs' final fields, which phase 10's graph runs must equal
-    eager_fields = {"sus": res["fields"]}
+    # the eager runs' final fields, which the graph runs of phases 10 and 20
+    # must equal, and their ms/step, beside which phase 20 prints the default's
+    def eager_result(res, steps):
+        return dict(fields=res["fields"], ms_per_step=res["ms_per_step"], steps=steps)
+
+    eager_runs = {"sus": eager_result(res, 1 + nl.niter)}
     del res
 
     # -- 6. the full step on rain ----------------------------------------------
@@ -3184,13 +3467,13 @@ def main() -> int:
         if (nl_v.nx, nl_v.ny, nl_v.nz) != (cfg["nx"], cfg["ny"], cfg["nz"]):
             raise AssertionError(f"{reference} is not at the flagship's size")
         res, counts = drive(
-            coupling, lambda n, c=coupling: moist.run(n, c, verbose=False), nl_v,
+            coupling, lambda n, c=coupling: moist.run(n, c, verbose=False, fused_loop=False), nl_v,
             LAUNCHES_PER_STEP[coupling], reference, lambda key, c=coupling: variant_tol(c, key), 0.0,
         )
         path_counts[coupling], path_steps[coupling] = counts, 1 + nl_v.niter
         phase(f"{coupling}-validation", f"umax = {res['umax']:.5f}, vmax = {res['vmax']:.5f} "
               "(for information)")
-        eager_fields[coupling], nl_of[coupling] = res["fields"], nl_v
+        eager_runs[coupling], nl_of[coupling] = eager_result(res, 1 + nl_v.niter), nl_v
         del res
 
     # -- 8. the deep-domain mountain wave (the unfused dry stage) --------------
@@ -3203,7 +3486,7 @@ def main() -> int:
     _lib.reset_launch_counts()
     res = mw.run_case(mwc["nx"], mwc["nz"], mwc["hours"], mwc["dt"], theta_top=mwc["theta_top"],
                       damp_depth=mwc["damp_depth"], damp_max=mwc["damp_max"],
-                      so=StorageOptions(dtype=torch.float32, device=device), verbose=False)
+                      so=StorageOptions(dtype=torch.float32, device=device), verbose=False, fused_loop=False)
     counts = dict(_lib.launch_counts)
     per_step = LAUNCHES_PER_STEP["mountain_wave"]
     for name in sorted(set(per_step) | set(counts)):
@@ -3234,7 +3517,7 @@ def main() -> int:
           f"{res['corr_focused']:.4f}, rms_err_focused {res['rms_err_focused']:.4g}")
     phase("mountain-wave-reference", " ".join(diffs))
     path_counts["mountain_wave"], path_steps["mountain_wave"] = counts, steps
-    eager_fields["mountain_wave"] = res["fields"]
+    eager_runs["mountain_wave"] = eager_result(res, steps)
     del res
 
     # -- 9. the rain run with both process merges (sus_merged) -----------------
@@ -3247,7 +3530,7 @@ def main() -> int:
                         "flagship_merged_reference.json", lambda key: MERGED_TOL, 0.0)
     path_counts["sus_merged"], path_steps["sus_merged"] = counts, 1 + nl_merged.niter
     phase("sus_merged-validation", f"umax = {res['umax']:.5f}, vmax = {res['vmax']:.5f} (for information)")
-    eager_fields["sus_merged"] = res["fields"]
+    eager_runs["sus_merged"] = eager_result(res, 1 + nl_merged.niter)
     del res
 
     # -- 13. the surface paths: third order (the whole-stage and the two-kernel
@@ -3262,12 +3545,13 @@ def main() -> int:
                 or any(cfg.get(k) != v for k, v in overrides.items() if k not in ("hb_type", "hb_kwargs"))):
             raise AssertionError(f"{reference} is not {path}'s configuration at the flagship's size")
         res, counts = drive(
-            path, lambda n, c=coupling: moist.run(n, c, verbose=False), nl_s, LAUNCHES_PER_STEP[path],
+            path, lambda n, c=coupling: moist.run(n, c, verbose=False, fused_loop=False), nl_s,
+            LAUNCHES_PER_STEP[path],
             reference, lambda key, p=path: variant_tol(p, key), 0.0,
         )
         path_counts[path], path_steps[path] = counts, 1 + nl_s.niter
         phase(f"{path}-validation", f"umax = {res['umax']:.5f}, vmax = {res['vmax']:.5f} (for information)")
-        eager_fields[path], nl_of[path] = res["fields"], nl_s
+        eager_runs[path], nl_of[path] = eager_result(res, 1 + nl_s.niter), nl_s
         del res
     # the float64 witness: sus_periodic in float64, the same launches, held to
     # the port's float64 CPU run, so that the float32 limits above stand on
@@ -3279,7 +3563,7 @@ def main() -> int:
     if ((wcfg["dtype"], wcfg["hb_type"], wcfg["nx"], wcfg["ny"], wcfg["nz"])
             != ("float64", nl_w.hb_type, nl_w.nx, nl_w.ny, nl_w.nz)):
         raise AssertionError(f"{WITNESS_REFERENCE} is not sus_periodic's configuration in float64")
-    drive("sus_periodic-float64", lambda n: moist.run(n, coupling, verbose=False), nl_w,
+    drive("sus_periodic-float64", lambda n: moist.run(n, coupling, verbose=False, fused_loop=False), nl_w,
           LAUNCHES_PER_STEP["sus_periodic"], WITNESS_REFERENCE, lambda key: WITNESS_TOL, WITNESS_TOL)
     del nl_w
 
@@ -3313,7 +3597,7 @@ def main() -> int:
                                      f"in the warm-up and the capture, expected {2 * per_step.get(name, 0)}")
         if res["launches_per_step"] != per_step:
             raise AssertionError(f"fused loop, {path}: the captured step launched {res['launches_per_step']}")
-        eager = eager_fields.pop(path)
+        eager = (eager_runs.pop(path) if path in SURFACE_PATHS else eager_runs[path])["fields"]
         if set(res["fields"]) != set(eager):
             raise AssertionError(f"fused loop, {path}: fields {sorted(res['fields'])} vs {sorted(eager)}")
         diff = max(float((res["fields"][k].data - fa.data).abs().max()) for k, fa in eager.items())
@@ -3397,6 +3681,7 @@ def main() -> int:
                     raise AssertionError(f"burgers zhao {key}: {eager[key]} vs reference {bref[key]} "
                                          f"(deviation {dev:.2e} > {tol})")
             phase("burgers-zhao-reference", " ".join(diffs))
+        eager_runs[f"burgers_{case}"] = eager_result(eager, 1 + eager["steps"])
         del runs, eager, graph
         # paired timing: eager, graph, graph, eager, ... of the default steps
         times = {False: [], True: []}
@@ -3415,6 +3700,20 @@ def main() -> int:
               f"{' '.join(f'{t[0]:.4f}' for t in times[True])} (median {med[True]:.4f}, "
               f"{nx * nx / med[True] * 1e3:.4e} gridpoints/s); bound {b['bound_ms']:.4f} ms/step")
     print(json.dumps({"burgers_timing": burgers_timing, "card": card}))
+
+    # -- 20 (a). the graph by default: each driver's entry point with no mode
+    # given, against the explicit eager runs of phases 5, 7, 8, 9 and 11
+    default_runs = {
+        "sus": lambda: drv.run(nl, verbose=False),
+        "sus_merged": lambda: drv.run(nl_merged, verbose=False),
+        **{c: (lambda c=c: moist.run(nl_of[c], c, verbose=False)) for c in VARIANTS},
+        "mountain_wave": lambda: mountain_wave(mwc["hours"], None),
+        **{f"burgers_{c}": (lambda c=c: burgers.run_case(c, BURGERS_NX, so=f32, verbose=False))
+           for c in burgers.CASES},
+    }
+    graph_default = default_phase(card, default_runs, eager_runs, path_counts, path_steps, device)
+    del default_runs, eager_runs
+    print(json.dumps({"graph_default": graph_default, "card": card}))
 
     # -- 12. the diffusion, hyperdiffusion and smoothing dwarfs (BASELINE config 2)
     phi64 = torch.as_tensor(np.random.default_rng(DWARF_SEED).standard_normal(DWARF_SHAPE),
@@ -3469,12 +3768,18 @@ def main() -> int:
 
     # -- 18. distribution and tools: sharded checkpoints, --spmd, the hybrid
     # grid, driver_dist_bench, driver_weak_scaling, driver_profile --------
-    print(json.dumps({"distribution": distribution_phase(card, path_counts, path_steps, device),
+    kept = {}
+    print(json.dumps({"distribution": distribution_phase(card, path_counts, path_steps, device, keep=kept),
                       "card": card}))
 
     # -- 19. the last one-card tools: --sweep, --diagnose, bench_variants,
     # bench_kernels, driver_roofline --------------------------------------
     print(json.dumps({"tools": tools_phase(card, path_counts, path_steps, device), "card": card}))
+
+    # -- 20 (b), (c). recovery and --profile between graph replays, and one
+    # --spmd rank, with no mode given -------------------------------------
+    print(json.dumps({"graph_recovery": graph_recovery_phase(card, path_counts, path_steps,
+                                                             kept["spmd_one_rank"], device), "card": card}))
 
     # each kernel's launches in the full-size run of the first path that runs
     # it (the flagship for the six of the SUS chain, the merged run for the

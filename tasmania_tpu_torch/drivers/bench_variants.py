@@ -40,7 +40,7 @@ import torch
 
 from tasmania_tpu_torch.drivers import driver_isentropic_moist as moist
 from tasmania_tpu_torch.drivers.driver_dist_bench import MIN_PAIRS, stepper
-from tasmania_tpu_torch.drivers.driver_namelist_sus import check_device, fields_step
+from tasmania_tpu_torch.drivers.driver_namelist_sus import check_device, fields_step, graph_mode
 
 VARIANTS = moist.COUPLINGS
 
@@ -59,8 +59,7 @@ def prepare(coupling: str, nt: int, device, **size) -> Dict[str, Any]:
     topo_s = nl.topo_kwargs["time"].total_seconds()
     facts = [min((i + 1) * dt_s / topo_s, 1.0) for i in range(nt)]
     advance, body, per_step = stepper(fields_step(step_impl, names, dt_s), {k: state[k] for k in names},
-                                      dycore.topography_steady, facts,
-                                      graph=torch.device(device).type == "cuda")
+                                      dycore.topography_steady, facts)
     return dict(nl=nl, advance=advance, body=body, launches_per_step=per_step,
                 build_capture_s=time.perf_counter() - t0)
 
@@ -93,7 +92,7 @@ def bench_variants(variants: Sequence[str] = VARIANTS, nt: int = 50, *, device="
             umax=float(u[:, :-1].max()), vmax=float(v[:-1, :].max()),
             build_capture_s=models[c]["build_capture_s"],
             launches_per_step=models[c]["launches_per_step"],
-            graph=torch.device(device).type == "cuda", nt=nt, grid=[nl.nx, nl.ny, nl.nz],
+            graph=graph_mode(device), nt=nt, grid=[nl.nx, nl.ny, nl.nz],
         )
         if verbose:
             print(json.dumps({c: rows[c]}), flush=True)
@@ -114,7 +113,7 @@ def main(argv=None) -> Dict[str, Any]:
     if torch.device(cli.device).type == "cuda" and not torch.cuda.is_available():
         parser.error("no CUDA device is available (pass --device cpu to run on the CPU)")
     size = {k: v for k, v in (("nx", cli.nx), ("ny", cli.ny or cli.nx), ("nz", cli.nz)) if v}
-    graph = torch.device(cli.device).type == "cuda"
+    graph = graph_mode(cli.device)
     where = torch.cuda.get_device_name(0) if graph else "cpu"
     print(f"coupling-variant bench on {where}", flush=True)
     res = bench_variants([v for v in cli.variants.split(",") if v], cli.nt, device=cli.device, **size)

@@ -22,10 +22,12 @@ third-order fluxes, float32 by default, at 2048x2048 by default.  Two cases:
 One warm-up step, then ``steps`` timed steps (50 for bench, 100 for zhao)
 on the host clock ending in a device synchronisation; the driver prints
 ms/step and gridpoints/s (nx·ny·steps/s, the metric of ``bench.py``).
-``--fused-loop`` runs the timed steps as replays of one CUDA graph of the
-step (``driver_namelist_sus.step_sequence``): the zhao step then takes its
-start time from the graph's device table, and the Dirichlet core computes
-the frames from it on the card.
+On a CUDA device the timed steps are replays of one CUDA graph of the step
+(``driver_namelist_sus.step_sequence``), as ``bench.py`` jits its step: the
+zhao step then takes its start time from the graph's device table, and the
+Dirichlet core computes the frames from it on the card.  On the CPU, or
+with ``fused_loop=False`` from Python, they are eager; ``--fused-loop``
+asks for the graph and raises without a CUDA device.
 
 Usage::
 
@@ -55,7 +57,7 @@ from tasmania_tpu_torch.burgers import (
     ZhaoStateFactory,
 )
 from tasmania_tpu_torch.domain.domain import Domain
-from tasmania_tpu_torch.drivers.driver_namelist_sus import check_device, step_sequence
+from tasmania_tpu_torch.drivers.driver_namelist_sus import check_device, cli_mode, step_sequence
 from tasmania_tpu_torch.framework.field import FieldArray
 from tasmania_tpu_torch.framework.options import StorageOptions
 
@@ -168,10 +170,11 @@ def make_case(case: str, nx: int, ny: int, nb: int, steps: int, seed: int, so: S
 
 def run_case(case: str = "bench", nx: int = 2048, ny: Optional[int] = None, nb: int = 3,
              steps: Optional[int] = None, *, seed: int = 0, so: Optional[StorageOptions] = None,
-             verbose: bool = True, fused_loop: bool = False) -> Dict[str, Any]:
+             verbose: bool = True, fused_loop: Optional[bool] = None) -> Dict[str, Any]:
     """One warm-up step and ``steps`` timed steps of ``case`` on the storage
-    device (cuda by default); with ``fused_loop`` the timed steps are
-    replays of one CUDA graph of the step (``ValueError`` on a CPU device).
+    device (cuda by default); on a CUDA device the timed steps are replays
+    of one CUDA graph of the step, unless ``fused_loop`` is False
+    (``driver_namelist_sus.graph_mode``: True raises on a CPU device).
     Returns :func:`validation`'s numbers, ``ms_per_step``, ``gps``, the final
     ``fields``, the kernel launches of one step and ``capture_s`` (None
     without a graph)."""
@@ -208,12 +211,12 @@ def main(argv=None):
     parser.add_argument("--dtype", choices=("float32", "float64"), default="float32")
     parser.add_argument("--device", type=str, default="cuda")
     parser.add_argument("--fused-loop", action="store_true",
-                        help="run the timed steps as replays of one CUDA graph of the step "
-                             "(needs a CUDA device)")
+                        help="run the timed steps as replays of one CUDA graph of the step, as "
+                             "on a CUDA device by default (raises without a CUDA device)")
     cli = parser.parse_args(argv)
     so = StorageOptions(dtype=getattr(torch, cli.dtype), device=cli.device)
     return run_case(cli.case, cli.nx, cli.ny, cli.nb, cli.steps, seed=cli.seed, so=so,
-                    fused_loop=cli.fused_loop)
+                    fused_loop=cli_mode(cli))
 
 
 if __name__ == "__main__":

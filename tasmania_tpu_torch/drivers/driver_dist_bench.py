@@ -41,6 +41,7 @@ from tasmania_tpu_torch.drivers.driver_namelist_sus import (
     build_model,
     check_device,
     fields_step,
+    graph_mode,
     steady_topography,
     synchronize,
     warm_up,
@@ -55,14 +56,15 @@ from tasmania_tpu_torch.utils.jitx import StepBody
 MIN_PAIRS = 5
 
 
-def stepper(step, fields, hs_steady: torch.Tensor, facts, *, graph: bool):
+def stepper(step, fields, hs_steady: torch.Tensor, facts, *, graph: Optional[bool] = None):
     """After :func:`warm_up`'s step at zero mountain height: a function that
     advances ``n`` steps with the mountain at ``facts[i]`` of ``hs_steady``
     (the last fact once past them) and returns their seconds, the
     :class:`StepBody` whose ``fields()`` are the last step's, and the kernel
-    launches of one step (the warm-up's, or the captured step's).  With
-    ``graph`` the steps are replays of the warm-up's CUDA graph, else the
-    body called eagerly, every field copied back."""
+    launches of one step (the warm-up's, or the captured step's).  Where
+    ``graph`` resolves to the graph (``driver_namelist_sus.graph_mode``: by
+    default on a CUDA device) the steps are replays of the warm-up's CUDA
+    graph, else the body called eagerly, every field copied back."""
     device = hs_steady.device
     fields, captured, per_step, _ = warm_up(step, fields, hs_steady * 0.0, hs_steady, facts, device,
                                             fused_loop=graph, verbose=False)
@@ -91,7 +93,7 @@ def bench_degenerate(nl, *, comm: str = "nccl", halo: Optional[int] = None,
         raise ValueError(f"{pairs} pairs: the single device's step is the median of at least "
                          f"{MIN_PAIRS}")
     check_device(nl.so.device)
-    graph = torch.device(nl.so.device).type == "cuda"
+    graph = graph_mode(nl.so.device)
     domain, state, pt = build_domain_and_state(nl)
     dt_s = nl.timestep.total_seconds()
     dm = DistributedModel(domain, state, RankGrid(1, 1), 0, lambda dom: build_model(nl, dom, pt),

@@ -33,9 +33,11 @@ namelist's ``process_merges`` (``--merge NAME``) apply to the sequential-update
 splittings of sus and ssus; the other couplings raise ``ValueError`` if any
 is set.  The step sequence is the JAX driver's: one warm-up step at zero
 mountain height, then ``niter`` timed steps with the growing mountain.
-``--fused-loop`` runs the timed steps as replays of one CUDA graph of the
+On a CUDA device the timed steps are replays of one CUDA graph of the
 coupling's step, the counterpart of the JAX driver's per-step ``jax.jit``
-(``driver_namelist_sus.run_steps``).
+(``driver_namelist_sus.run_steps``); on the CPU, or with
+``fused_loop=False`` from Python, they are eager.  ``--fused-loop`` asks
+for the graph and raises without a CUDA device.
 
 Usage::
 
@@ -50,13 +52,14 @@ namelist names the CPU (``--device cpu`` on the command line).
 from __future__ import annotations
 
 import importlib
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 from tasmania_tpu_torch.drivers.driver_namelist_sus import (
     build_components,
     build_domain_and_state,
     build_model,
     check_device,
+    cli_mode,
     make_dycore,
     namelist_from,
     physics_options,
@@ -132,11 +135,13 @@ def build_variant(nl, coupling: str):
     return domain, state, dycore, step
 
 
-def run(nl, coupling: str, *, verbose: bool = True, fused_loop: bool = False) -> Dict[str, Any]:
+def run(nl, coupling: str, *, verbose: bool = True, fused_loop: Optional[bool] = None) -> Dict[str, Any]:
     """Build the coupling's model, run the warm-up step and ``nl.niter``
-    timed steps on the namelist's device (with ``fused_loop``, as replays of
-    a CUDA graph of the step); the result of ``driver_namelist_sus.run``
-    (validation numbers, timing, final fields, launches a step)."""
+    timed steps on the namelist's device (on a CUDA device as replays of a
+    CUDA graph of the step unless ``fused_loop`` is False:
+    ``driver_namelist_sus.graph_mode``); the result of
+    ``driver_namelist_sus.run`` (validation numbers, timing, final fields,
+    launches a step)."""
     check_device(nl.so.device, fused_loop=fused_loop)
     _, state, dycore, step = build_variant(nl, coupling)
     return run_steps(nl, state, step, dycore.topography_steady, verbose=verbose,
@@ -154,7 +159,7 @@ def main(argv=None):
     parser.add_argument("--coupling", choices=COUPLINGS, default="sus")
     cli = parser.parse_args(argv)
     nl = namelist_from(parser, cli, lambda **kw: load_namelist(cli.coupling, **kw))
-    res = run(nl, cli.coupling, fused_loop=cli.fused_loop)
+    res = run(nl, cli.coupling, fused_loop=cli_mode(cli))
     print("Simulation successfully completed.")
     return res
 

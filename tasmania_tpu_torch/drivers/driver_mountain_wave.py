@@ -36,10 +36,11 @@ Usage::
 The device defaults to ``cuda``; without a GPU the run raises unless the CPU
 is named (``--device cpu``).  The first of the steps is a warm-up; the rest
 are timed on the host clock, ending in a device synchronisation, and the
-driver prints their ms/step.  ``--fused-loop`` (the JAX driver always runs
-its steps in one jitted loop) runs the timed steps as replays of one CUDA
-graph of the step, captured after the warm-up (``driver_namelist_sus.step_sequence``;
-CUDA only).
+driver prints their ms/step.  On a CUDA device the timed steps are
+replays of one CUDA graph of the step, captured after the warm-up
+(``driver_namelist_sus.step_sequence``), as the JAX driver jits its step;
+on the CPU, or with ``fused_loop=False`` from Python, they are eager.
+``--fused-loop`` asks for the graph and raises without a CUDA device.
 """
 
 from __future__ import annotations
@@ -53,7 +54,7 @@ import numpy as np
 import torch
 
 from tasmania_tpu_torch.domain.domain import Domain
-from tasmania_tpu_torch.drivers.driver_namelist_sus import check_device, step_sequence
+from tasmania_tpu_torch.drivers.driver_namelist_sus import check_device, cli_mode, step_sequence
 from tasmania_tpu_torch.framework.field import FieldArray
 from tasmania_tpu_torch.framework.options import StorageOptions
 from tasmania_tpu_torch.isentropic.dynamics.diagnostics import IsentropicDiagnostics
@@ -177,10 +178,11 @@ def make_step(core, diagnostics, pt: float, state, dt: float):
 def run_case(nx: int, nz: int, hours: float, dt: float, growth_hours: float = 0.0, *,
              x_half: float = 2e5, theta_top: float = 360.0, damp_depth: Optional[int] = None,
              damp_max: float = 5e-4, so: Optional[StorageOptions] = None,
-             verbose: bool = True, fused_loop: bool = False) -> Dict[str, Any]:
+             verbose: bool = True, fused_loop: Optional[bool] = None) -> Dict[str, Any]:
     """The JAX ``run_case``'s ``round(hours·3600 / dt)`` steps on the storage
-    device (cuda by default); with ``fused_loop`` all but the first as
-    replays of one CUDA graph of the step (``ValueError`` on a CPU device).
+    device (cuda by default); on a CUDA device all but the first as replays
+    of one CUDA graph of the step, unless ``fused_loop`` is False
+    (``driver_namelist_sus.graph_mode``: True raises on a CPU device).
     Returns :func:`validation`'s numbers, the grid size, ``ms_per_step`` (all
     but the first step, timed), the final ``fields``, the kernel launches of
     one step (the warm-up's, or the captured step's), ``capture_s``, the
@@ -324,8 +326,8 @@ def main(argv=None):
     parser.add_argument("--dtype", choices=("float32", "float64"), default="float32")
     parser.add_argument("--device", type=str, default="cuda")
     parser.add_argument("--fused-loop", action="store_true",
-                        help="run the timed steps as replays of one CUDA graph of the step "
-                             "(needs a CUDA device)")
+                        help="run the timed steps as replays of one CUDA graph of the step, as "
+                             "on a CUDA device by default (raises without a CUDA device)")
     parser.add_argument("--sweep", action="store_true",
                         help="resolution-convergence study over SWEEP_CASES (ignores --nx, --nz, --dt)")
     parser.add_argument("--diagnose", action="store_true",
@@ -337,7 +339,7 @@ def main(argv=None):
         parser.error("no CUDA device is available (pass --device cpu to run on the CPU)")
     kwargs = dict(x_half=cli.x_half, theta_top=cli.theta_top, damp_depth=cli.damp_depth,
                   damp_max=cli.damp_max, so=StorageOptions(dtype=getattr(torch, cli.dtype), device=cli.device),
-                  fused_loop=cli.fused_loop)
+                  fused_loop=cli_mode(cli))
     if cli.diagnose:
         return diagnose(cli.nx, cli.nz, cli.hours, cli.dt, cli.growth_hours, out=cli.diagnose_out, **kwargs)
     if cli.sweep:

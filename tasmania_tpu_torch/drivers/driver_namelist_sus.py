@@ -20,22 +20,27 @@ sequence is the JAX driver's: one step at zero mountain height (the
 warm-up), then ``niter`` timed steps with the mountain at
 ``min((i+1)·dt/1800 s, 1)`` of its height.
 
-``--fused-loop`` (``fused_loop=True``; the JAX flag's name and meaning: no
-per-step dispatch) runs the timed steps as replays of one CUDA graph of the
-step (``utils/jitx.py``), captured after the eager warm-up step and timed
-apart; the graph copies back only the fields the step reads.  It needs a
-CUDA device and raises without one; it gives the eager run's bits.
+On a CUDA device the timed steps are replays of one CUDA graph of the step
+(``utils/jitx.py``), captured after the eager warm-up step and timed apart,
+as the JAX driver ``jax.jit``s every step by default; the graph copies back
+only the fields the step reads and gives the eager run's bits.  On the CPU
+the steps are eager, since a CUDA graph cannot run there.  ``--no-jit``
+(``fused_loop=False``; the JAX flag) steps eagerly on the card too.
+``--fused-loop`` (``fused_loop=True``; the JAX flag's name: no per-step
+dispatch) asks for the graph and raises without a CUDA device.
 
-The eager loop takes the JAX driver's recovery flags (:class:`Recovery`;
+Both loops take the JAX driver's recovery flags (:class:`Recovery`;
 ``run_steps``' keywords of the same names): ``--checkpoint-dir DIR`` saves
 the fields every ``--checkpoint-every`` steps (default 25) and after the
 last step (``utils/checkpoint.py``); ``--resume`` replaces the fields, after
-the warm-up step, by the latest checkpoint's and runs the steps after it;
-``--nan-guard`` checks the fields for a non-finite value at every
-checkpoint boundary and raises ``RuntimeError`` before saving a poisoned
-state.  ``--profile LOGDIR`` writes a ``torch.profiler`` trace of the timed
-loop into LOGDIR (``utils/timer.profile_trace``).  As in the JAX driver,
-the fused loop refuses the checkpoint flags; it refuses ``--profile`` too.
+the warm-up step (and the capture), by the latest checkpoint's and runs the
+steps after it; ``--nan-guard`` checks the fields for a non-finite value at
+every checkpoint boundary and raises ``RuntimeError`` before saving a
+poisoned state.  The graph replays up to each boundary and runs these
+between replays.  ``--profile LOGDIR`` writes a ``torch.profiler`` trace of
+the timed loop into LOGDIR (``utils/timer.profile_trace``).  As in the JAX
+driver, ``--fused-loop`` refuses the checkpoint flags and takes
+``--profile``.
 
 ``--spmd`` (the JAX flag shards the whole step over every visible device,
 ``drivers/driver_namelist_sus.py:273-275``, ``:394-419``) runs the whole
@@ -46,18 +51,20 @@ node's ranks one block; ``--node-grid PRX,PRY`` tiles the nodes in 2-D).
 nx and ny are trimmed to multiples of the grid's extents.  ``--comm``
 names the process group's backend (default ``nccl`` on the card, ``gloo``
 on the CPU; ``nccl`` takes a card a rank, ``gloo`` lets ranks share one).
-One rank is the degenerate 1x1 grid, the single-device program, and takes
-``--fused-loop``; more ranks step eagerly (``--fused-loop`` raises).  The
-recovery flags work under ``--spmd`` on the eager loop: each rank writes
-its blocks of a sharded checkpoint (``utils/checkpoint.py``), ``--resume``
-restores the latest one onto the current grid whatever grid wrote it, and
-the NaN guard stops every rank at the same boundary.
+One rank is the degenerate 1x1 grid, the single-device program, and steps
+through the graph on the card as the single device does; more ranks step
+eagerly and say so, since a halo exchange cannot be captured in a CUDA
+graph (``--fused-loop`` raises there).  The recovery flags work under
+``--spmd``: each rank writes its blocks of a sharded checkpoint
+(``utils/checkpoint.py``), ``--resume`` restores the latest one onto the
+current grid whatever grid wrote it, and the NaN guard stops every rank at
+the same boundary.
 
 Usage::
 
     python -m tasmania_tpu_torch.drivers.driver_namelist_sus [--nx N] [--ny N]
         [--nz N] [--niter N] [--device cuda|cpu] [--merge smooth_smag]
-        [--merge vadv_sed] [--coriolis F] [--implicit-vadv] [--fused-loop]
+        [--merge vadv_sed] [--coriolis F] [--implicit-vadv] [--no-jit | --fused-loop]
         [--checkpoint-dir DIR [--checkpoint-every N] [--resume]] [--nan-guard]
         [--profile LOGDIR] [--spmd [--ranks N] [--comm nccl|gloo]
         [--multihost [--node-grid PRX,PRY]]]
@@ -293,19 +300,33 @@ def synchronize(device) -> None:
         torch.cuda.synchronize()
 
 
-def check_device(device, *, fused_loop: bool = False) -> None:
-    """Raise if ``device`` is a CUDA device this machine does not have, and
-    with ``fused_loop`` raise ``ValueError`` unless it is a CUDA device: the
-    fused loop is a CUDA graph and has no eager fallback.  The drivers check
-    before they build the model."""
+def graph_mode(device, fused_loop: Optional[bool] = None) -> bool:
+    """Whether the drivers step on ``device`` through a CUDA graph of the
+    step.  ``fused_loop`` None (the default) takes the graph on a CUDA
+    device and eager steps on the CPU, as the JAX drivers ``jax.jit`` every
+    step; True takes the graph and raises ``ValueError`` on a CPU device
+    (the graph has no eager fallback); False steps eagerly (the JAX
+    ``--no-jit``)."""
     device = torch.device(device)
+    if fused_loop is None:
+        return device.type == "cuda"
     if fused_loop and device.type != "cuda":
         raise ValueError(f"the fused loop is a CUDA graph and needs a CUDA device, not {device}")
-    if device.type == "cuda" and not torch.cuda.is_available():
+    return bool(fused_loop)
+
+
+def check_device(device, *, fused_loop: Optional[bool] = None) -> bool:
+    """Raise if ``device`` is a CUDA device this machine does not have, or
+    if :func:`graph_mode` refuses ``fused_loop`` on it; else return whether
+    the run steps through a CUDA graph.  The drivers check before they build
+    the model."""
+    graph = graph_mode(device, fused_loop)
+    if torch.device(device).type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             "the namelist's device is cuda but no CUDA device is available "
             "(name the CPU to run there: so=StorageOptions(..., device='cpu'))"
         )
+    return graph
 
 
 def launches_since(before: collections.Counter) -> Dict[str, int]:
@@ -315,9 +336,10 @@ def launches_since(before: collections.Counter) -> Dict[str, int]:
 
 
 class Recovery:
-    """Checkpoints, resume and the NaN guard of one eager run (the JAX SUS
-    driver's ``--checkpoint-dir``, ``--checkpoint-every``, ``--resume`` and
-    ``--nan-guard``, ``drivers/driver_namelist_sus.py:497-583``).
+    """Checkpoints, resume and the NaN guard of one run, eager or between
+    graph replays (the JAX SUS driver's ``--checkpoint-dir``,
+    ``--checkpoint-every``, ``--resume`` and ``--nan-guard``,
+    ``drivers/driver_namelist_sus.py:497-583``).
 
     ``directory`` (None: no checkpoint) holds the checkpoints; at every
     ``every``-th step, and after the last if it is not one, the fields are
@@ -401,19 +423,27 @@ class Recovery:
         if self.manager is not None and n % self.every:
             self._save(n, fields)
 
+    def stops(self, last: int) -> list:
+        """The steps after ``start`` up to ``last`` at which a graph's
+        replays stop for :meth:`after_step`: every boundary, then ``last``
+        (none if the run resumed at or after ``last``)."""
+        first = (self.start // self.every + 1) * self.every
+        return [n for n in sorted(set(range(first, last + 1, self.every)) | {last}) if n > self.start]
+
 
 def warm_up(step, fields, hs0, hs_steady, facts: Sequence[float], device, *,
-            fused_loop: bool = False, verbose: bool = True):
-    """One eager warm-up step at the topography ``hs0`` and, with
-    ``fused_loop``, one CUDA graph of ``step`` captured after it (the warm-up
-    traced for the fields the step reads, ``utils/jitx.py``; the graph's
-    ``i``-th replay steps at ``facts[i] * hs_steady``).  Returns the fields
-    after the warm-up, the graph (None without ``fused_loop``), the kernel
-    launches of one step (the warm-up's, or the captured step's) and the
-    seconds of the capture (None without one)."""
+            fused_loop: Optional[bool] = None, verbose: bool = True):
+    """One eager warm-up step at the topography ``hs0`` and, if
+    :func:`graph_mode` takes the graph, one CUDA graph of ``step`` captured
+    after it (the warm-up traced for the fields the step reads,
+    ``utils/jitx.py``; the graph's ``i``-th replay steps at ``facts[i] *
+    hs_steady``).  Returns the fields after the warm-up, the graph (None
+    for eager steps), the kernel launches of one step (the warm-up's, or the
+    captured step's) and the seconds of the capture (None without one)."""
+    graph = graph_mode(device, fused_loop)
     before = collections.Counter(_lib.launch_counts)
     t0 = time.perf_counter()
-    if fused_loop:
+    if graph:
         fields, carried = traced_step(step, fields, hs0)
     else:
         fields = step(fields, hs0)
@@ -421,67 +451,76 @@ def warm_up(step, fields, hs0, hs_steady, facts: Sequence[float], device, *,
     per_step = launches_since(before)
     if verbose:
         print(f"warmup step: {time.perf_counter() - t0:.3f} s", flush=True)
-    if not fused_loop:
+    if not graph:
         return fields, None, per_step, None
     body = StepBody(step, fields, carried, hs_steady, facts)
     before = collections.Counter(_lib.launch_counts)
     t0 = time.perf_counter()
-    graph = StepGraph(body)
-    torch.cuda.synchronize()
+    captured = StepGraph(body)
+    synchronize(device)
     capture_s = time.perf_counter() - t0
     if verbose:
-        print(f"fused loop carries {len(carried)}/{len(fields)} fields")
+        print(f"CUDA graph of the step carries {len(carried)}/{len(fields)} fields")
         print(f"capture: {capture_s:.3f} s", flush=True)
-    return fields, graph, launches_since(before), capture_s
+    return fields, captured, launches_since(before), capture_s
 
 
 def step_sequence(step, fields, hs0, hs_steady, facts: Sequence[float], device, *,
-                  verbose: bool = True, fused_loop: bool = False,
+                  verbose: bool = True, fused_loop: Optional[bool] = None,
                   recovery: Optional[Recovery] = None, profile: Optional[str] = None):
     """The drivers' loop: :func:`warm_up`, then ``len(facts)`` timed steps
-    at ``facts[i] * hs_steady``, eager or, with ``fused_loop``, as replays of
-    the warm-up's CUDA graph (``ValueError`` on a CPU device).  The eager
-    loop takes a :class:`Recovery` (a resumed run times only the steps after
-    ``recovery.start``) and, with ``profile``, writes a profiler trace of the
-    timed steps into that directory; the fused loop takes neither
-    (``ValueError``).  Returns the final fields, the seconds of the timed
-    steps (ending in a synchronize), the kernel launches of one step (the
-    warm-up's, or the captured step's) and the seconds of the capture (None
-    without one)."""
-    check_device(device, fused_loop=fused_loop)
-    if fused_loop and (recovery is not None or profile is not None):
-        raise ValueError("the fused loop's graph replays take no checkpoint, NaN guard or profile")
+    at ``facts[i] * hs_steady``, as replays of the warm-up's CUDA graph or
+    eager (:func:`graph_mode` of ``device`` and ``fused_loop``).  Both take
+    a :class:`Recovery`: a resumed run loads the checkpoint's fields (into
+    the graph's buffers, its counter at ``recovery.start``) and times only
+    the steps after ``recovery.start``; the graph replays up to each
+    checkpoint boundary, where the guard and the save see its outputs.
+    With ``profile`` a profiler trace of the timed steps goes into that
+    directory.  Returns the final fields, the seconds of the timed steps
+    (ending in a synchronize; the saves included), the kernel launches of
+    one step (the warm-up's, or the captured step's) and the seconds of the
+    capture (None without one)."""
     fields, graph, per_step, capture_s = warm_up(step, fields, hs0, hs_steady, facts, device,
-                                                 fused_loop=fused_loop, verbose=verbose)
-    if graph is None:
-        start = 0
-        if recovery is not None:
-            fields = recovery.resumed(fields, device, verbose)
-            start = recovery.start
-        with profile_trace(profile) if profile else contextlib.nullcontext():
-            t0 = time.perf_counter()
+                                                 fused_loop=check_device(device, fused_loop=fused_loop),
+                                                 verbose=verbose)
+    start = 0
+    if recovery is not None:
+        fields = recovery.resumed(fields, device, verbose)
+        start = recovery.start
+        if graph is not None:
+            graph.body.load(fields, start)
+    with profile_trace(profile) if profile else contextlib.nullcontext():
+        t0 = time.perf_counter()
+        if graph is None:
             for i in range(start, len(facts)):
                 fields = step(fields, facts[i] * hs_steady)
                 if recovery is not None:
                     recovery.after_step(i + 1, fields)
-            synchronize(device)
-            elapsed = time.perf_counter() - t0
-        if recovery is not None:
-            recovery.finish(len(facts), fields)
-        return fields, elapsed, per_step, None
+        else:
+            done = start
+            stops = [len(facts)] if recovery is None else recovery.stops(len(facts))
+            for stop in stops:
+                graph.replay(stop - done)
+                done = stop
+                if recovery is not None:
+                    recovery.after_step(done, graph.body.outputs())
+        synchronize(device)
+        elapsed = time.perf_counter() - t0
+    if graph is not None and len(facts) > start:
+        fields = graph.fields()
+    if recovery is not None:
+        recovery.finish(len(facts), fields)
+    return fields, elapsed, per_step, capture_s
 
-    t0 = time.perf_counter()
-    graph.replay(len(facts))
-    torch.cuda.synchronize()
-    return graph.fields(), time.perf_counter() - t0, per_step, capture_s
 
-
-def run(nl, skip=(), *, verbose: bool = True, fused_loop: bool = False, **recovery) -> Dict[str, Any]:
+def run(nl, skip=(), *, verbose: bool = True, fused_loop: Optional[bool] = None,
+        **recovery) -> Dict[str, Any]:
     """Build the model, run the warm-up step and ``nl.niter`` timed steps on
-    the namelist's device (with ``fused_loop``, as replays of a CUDA graph of
-    the step; ``recovery`` holds :func:`run_steps`' checkpoint, resume, NaN
-    guard and profile keywords).  Returns the validation numbers, the
-    timing, the final fields and the kernel launches of one step."""
+    the namelist's device (on a CUDA device as replays of a CUDA graph of
+    the step, unless ``fused_loop`` is False: :func:`graph_mode`;
+    ``recovery`` holds :func:`run_steps`' checkpoint, resume, NaN guard and
+    profile keywords).  Returns the validation numbers, the timing, the
+    final fields and the kernel launches of one step."""
     check_device(nl.so.device, fused_loop=fused_loop)
     domain, state, pt = build_domain_and_state(nl)
     dycore, physics = build_model(nl, domain, pt, skip)
@@ -490,18 +529,18 @@ def run(nl, skip=(), *, verbose: bool = True, fused_loop: bool = False, **recove
 
 
 def run_steps(nl, state, step_impl, hs_steady, *, verbose: bool = True,
-              fused_loop: bool = False, checkpoint_dir: Optional[str] = None,
+              fused_loop: Optional[bool] = None, checkpoint_dir: Optional[str] = None,
               checkpoint_every: int = 25, resume: Union[bool, int] = False,
               nan_guard: bool = False, profile: Optional[str] = None) -> Dict[str, Any]:
     """The JAX drivers' step sequence from ``state``: one warm-up step at
     zero mountain height, then ``nl.niter`` timed steps with the mountain at
     ``min((i+1)·dt/1800 s, 1)`` of ``hs_steady``; ``step_impl(state, dt)``
-    is one timestep.  With ``fused_loop`` the timed steps are replays of one
-    CUDA graph of the step (:func:`step_sequence`; ``ValueError`` on a CPU
-    device).  The eager loop takes the checkpoints, the resume and the NaN
-    guard (:class:`Recovery`: ``checkpoint_dir``, ``checkpoint_every``,
-    ``resume``, ``nan_guard``) and ``profile``, a directory for a profiler
-    trace of the timed steps.  Returns :func:`run`'s result;
+    is one timestep.  On a CUDA device the timed steps are replays of one
+    CUDA graph of the step, eager on the CPU or with ``fused_loop`` False
+    (:func:`graph_mode`, :func:`step_sequence`).  Both take the checkpoints,
+    the resume and the NaN guard (:class:`Recovery`: ``checkpoint_dir``,
+    ``checkpoint_every``, ``resume``, ``nan_guard``) and ``profile``, a
+    directory for a profiler trace of the timed steps.  Returns :func:`run`'s result;
     ``launches_per_step`` holds the kernel launches of the warm-up step, or
     of the captured step, ``capture_s`` the seconds of the capture (None
     without a graph) and ``start`` the step a resumed run started after;
@@ -545,7 +584,12 @@ def steady_topography(domain, nl) -> torch.Tensor:
     return torch.as_tensor(steady, dtype=nl.so.dtype, device=nl.so.device)
 
 
-def spmd_rank_run(ctx, *, overrides: Dict[str, Any], skip=(), fused_loop: bool = False,
+# more than one rank steps eagerly: the refusal of an explicit graph
+DECOMPOSED_GRAPH = ("--fused-loop is not available decomposed: a halo exchange cannot be captured in "
+                    "a CUDA graph (run --spmd on one rank for the graph)")
+
+
+def spmd_rank_run(ctx, *, overrides: Dict[str, Any], skip=(), fused_loop: Optional[bool] = None,
                   hybrid: bool = False, node_grid: Optional[Tuple[int, int]] = None,
                   halo: Optional[int] = None, verbose: bool = False,
                   checkpoint_dir: Optional[str] = None, checkpoint_every: int = 25,
@@ -555,8 +599,9 @@ def spmd_rank_run(ctx, *, overrides: Dict[str, Any], skip=(), fused_loop: bool =
     through ``DistributedModel`` on the rank's grid (with ``hybrid``,
     ``make_hybrid_rank_grid`` of the grid's shape and ``node_grid`` from the
     rank's environment), ring ``halo`` (default nb + 1), then :func:`run`'s
-    step sequence, with ``fused_loop`` (one rank only) or the recovery
-    keywords.
+    step sequence with the recovery keywords: on one rank in the mode
+    ``fused_loop`` resolves to (the graph on the card by default), on more
+    eager, since a halo exchange cannot be captured.
 
     Every rank returns its kernel launches (counted from zero before the
     warm-up step), its grid coordinates, its exchanges' counts and, if the
@@ -576,9 +621,16 @@ def spmd_rank_run(ctx, *, overrides: Dict[str, Any], skip=(), fused_loop: bool =
     fields = {n: FieldArray(b, dm.units[n], dm.dims[n]) for n, b in dm.scatter_state(state).items()}
     hs_steady = dm.put_topography(steady_topography(domain, nl))
     loud = verbose and ctx.rank == 0
+    if grid.size > 1:
+        if fused_loop:
+            raise ValueError(DECOMPOSED_GRAPH)
+        fused_loop = False
     if loud:
+        mode = "CUDA graph replays" if graph_mode(ctx.device, fused_loop) else "eager steps"
+        if grid.size > 1:
+            mode += " (a halo exchange cannot be captured in a CUDA graph)"
         print(f"SPMD grid {grid.px}x{grid.py} of {ctx.backend} ranks (pads {dm.pads}), "
-              f"{nl.nx}x{nl.ny}x{nl.nz}, device {ctx.device}", flush=True)
+              f"{nl.nx}x{nl.ny}x{nl.nz}, device {ctx.device}, {mode}", flush=True)
     recovery = None
     if checkpoint_dir is not None or resume is not False or nan_guard:
         recovery = Recovery(checkpoint_dir, checkpoint_every, resume, nan_guard, model=dm)
@@ -615,7 +667,7 @@ def spmd_rank_run(ctx, *, overrides: Dict[str, Any], skip=(), fused_loop: bool =
 def run_spmd(overrides: Dict[str, Any], *, ranks: int = 1, comm: Optional[str] = None,
              device: str = "cuda", mesh: Optional[Tuple[int, int]] = None,
              local_world: Optional[int] = None, node_grid: Optional[Tuple[int, int]] = None,
-             fused_loop: bool = False, workdir=None, timeout_s: float = 600.0,
+             fused_loop: Optional[bool] = None, workdir=None, timeout_s: float = 600.0,
              verbose: bool = True, **job) -> Dict[str, Any]:
     """``--spmd``: the namelist with ``overrides`` (nx and ny trimmed to
     multiples of the grid's extents) on ``ranks`` local ranks of
@@ -633,8 +685,7 @@ def run_spmd(overrides: Dict[str, Any], *, ranks: int = 1, comm: Optional[str] =
     comm = comm or ("nccl" if torch.device(device).type == "cuda" else "gloo")
     check_backend(comm, device, ranks)
     if fused_loop and ranks > 1:
-        raise ValueError("--fused-loop is not available decomposed: a gloo halo exchange cannot be "
-                         "captured in a CUDA graph (run --spmd on one rank for the graph)")
+        raise ValueError(DECOMPOSED_GRAPH)
     grid = make_rank_grid(ranks, mesh)
     nl = load_namelist(**{k: v for k, v in overrides.items() if k != "so"})
     nx, ny = trimmed_extents(nl.nx, nl.ny, grid)
@@ -708,8 +759,9 @@ def size_parser(description: str) -> argparse.ArgumentParser:
                         help="implicit (Crank-Nicolson) vertical advection; the SUS chain "
                              "only, as in the JAX drivers")
     parser.add_argument("--fused-loop", action="store_true",
-                        help="run the timed steps as replays of one CUDA graph of the step "
-                             "(removes per-step dispatch; needs a CUDA device)")
+                        help="run the timed steps as replays of one CUDA graph of the step, as "
+                             "on a CUDA device by default (removes per-step dispatch; raises "
+                             "without a CUDA device)")
     return parser
 
 
@@ -748,8 +800,19 @@ def namelist_overrides(parser, cli, load_namelist) -> Dict[str, Any]:
     return overrides
 
 
+def cli_mode(cli) -> Optional[bool]:
+    """The ``fused_loop`` of a command line: True with ``--fused-loop``,
+    False with ``--no-jit`` (where the parser has it), else None, the
+    device's default (:func:`graph_mode`)."""
+    if getattr(cli, "no_jit", False):
+        return False
+    return True if cli.fused_loop else None
+
+
 def main(argv=None):
     parser = size_parser(__doc__.split("\n\n")[0])
+    parser.add_argument("--no-jit", action="store_true",
+                        help="step eagerly, one PyTorch dispatch at a time, also on a CUDA device")
     parser.add_argument("--profile", type=str, default=None, metavar="LOGDIR",
                         help="write a torch.profiler trace of the timed loop into LOGDIR")
     parser.add_argument("--checkpoint-dir", type=str, default=None,
@@ -773,13 +836,13 @@ def main(argv=None):
     parser.add_argument("--node-grid", type=str, default=None, metavar="PRX,PRY",
                         help="with --multihost: tile the nodes' blocks in a PRXxPRY grid")
     cli = parser.parse_args(argv)
+    if cli.no_jit and cli.fused_loop:
+        parser.error("--no-jit steps eagerly and --fused-loop through a CUDA graph: give one")
     if cli.fused_loop and (cli.checkpoint_dir or cli.resume or cli.nan_guard):
         parser.error("--fused-loop runs the timed steps as replays of one CUDA graph; the "
                      "checkpoint/resume/nan-guard machinery never sees intermediate states there.  "
-                     "Drop --fused-loop or the checkpointing flags.")
-    if cli.fused_loop and cli.profile:
-        parser.error("--profile traces the eager loop; the fused loop's graph replays are not "
-                     "traced.  Drop --fused-loop or --profile.")
+                     "Drop --fused-loop (the default steps through the graph between "
+                     "checkpoints) or the checkpointing flags.")
     if cli.resume and not cli.checkpoint_dir:
         parser.error("--resume needs --checkpoint-dir")
     if not cli.spmd and (cli.ranks != 1 or cli.comm or cli.multihost or cli.node_grid):
@@ -788,6 +851,7 @@ def main(argv=None):
         parser.error("--profile traces the single-device run; drop --spmd or --profile")
     recovery = dict(checkpoint_dir=cli.checkpoint_dir, checkpoint_every=cli.checkpoint_every,
                     resume=cli.resume, nan_guard=cli.nan_guard)
+    mode = cli_mode(cli)
     if cli.spmd:
         overrides = namelist_overrides(parser, cli, load_namelist)
         node_grid = tuple(int(k) for k in cli.node_grid.split(",")) if cli.node_grid else None
@@ -795,10 +859,10 @@ def main(argv=None):
             res = _spmd_multihost(cli, overrides, node_grid, recovery)
         else:
             res = run_spmd(overrides, ranks=cli.ranks, comm=cli.comm, device=cli.device,
-                           fused_loop=cli.fused_loop, **recovery)
+                           fused_loop=mode, **recovery)
     else:
-        res = run(namelist_from(parser, cli, load_namelist), fused_loop=cli.fused_loop,
-                  profile=cli.profile, **recovery)
+        res = run(namelist_from(parser, cli, load_namelist), fused_loop=mode, profile=cli.profile,
+                  **recovery)
     print("Simulation successfully completed.")
     return res
 
@@ -814,13 +878,12 @@ def _spmd_multihost(cli, overrides, node_grid, recovery) -> Dict[str, Any]:
     rank, world, local = initialize_distributed(comm)
     check_backend(comm, cli.device, 1)
     if cli.fused_loop and world > 1:
-        raise ValueError("--fused-loop is not available decomposed: a gloo halo exchange cannot be "
-                         "captured in a CUDA graph")
+        raise ValueError(DECOMPOSED_GRAPH)
     grid = make_rank_grid(world)
     nl = load_namelist(**{k: v for k, v in overrides.items() if k != "so"})
     nx, ny = trimmed_extents(nl.nx, nl.ny, grid)
     ctx = RankContext(rank, grid, comm, rank_device(comm, cli.device, local))
-    return spmd_rank_run(ctx, overrides={**overrides, "nx": nx, "ny": ny}, fused_loop=cli.fused_loop,
+    return spmd_rank_run(ctx, overrides={**overrides, "nx": nx, "ny": ny}, fused_loop=cli_mode(cli),
                          hybrid=True, node_grid=node_grid, verbose=True, **recovery)
 
 

@@ -5,9 +5,10 @@ Times the flagship's step with single physics processes, the whole physics
 chain or the dycore left out (``build_model(skip=)``, or the step without
 its dycore), and the step without the dycore's damping, to attribute the
 cost of a step.  Each variant runs the SUS driver's sequence (one warm-up
-step at zero mountain height, then ``--niter`` steps) and, on a CUDA
-device, its timed steps as replays of one CUDA graph of the step (the JAX
-driver times one jitted ``fori_loop``); on the CPU the steps are eager.
+step at zero mountain height, then ``--niter`` steps) in the driver's
+default mode: on a CUDA device its timed steps are replays of one CUDA
+graph of the step (the JAX driver times one jitted ``fori_loop``); on the
+CPU the steps are eager.
 It prints one line a variant, ``variant  ms/step  (full - this)``.
 
 The JAX driver's three variants driven by environment variables
@@ -23,7 +24,7 @@ Usage::
 from __future__ import annotations
 
 import argparse
-from typing import Any, Dict, FrozenSet, Mapping, Tuple
+from typing import Any, Dict, FrozenSet, Mapping, Optional, Tuple
 
 import torch
 
@@ -112,9 +113,10 @@ def variant_model(nl, name: str):
     return nl, state, step_impl, dycore.topography_steady
 
 
-def run_variant(nl, name: str, *, fused_loop: bool) -> Dict[str, Any]:
-    """Variant ``name`` through the SUS driver's sequence (``run_steps``):
-    its result, the fields, ms/step and the launches of one step."""
+def run_variant(nl, name: str, *, fused_loop: Optional[bool] = None) -> Dict[str, Any]:
+    """Variant ``name`` through the SUS driver's sequence (``run_steps``, in
+    the mode ``fused_loop`` resolves to: by default the graph on a CUDA
+    device): its result, the fields, ms/step and the launches of one step."""
     nl, state, step_impl, hs_steady = variant_model(nl, name)
     return run_steps(nl, state, step_impl, hs_steady, verbose=False, fused_loop=fused_loop)
 
@@ -125,10 +127,9 @@ def profile(nl, names, *, verbose: bool = True) -> Dict[str, Dict[str, Any]]:
     check_device(nl.so.device)
     for name in names:
         variant(name)
-    fused = torch.device(nl.so.device).type == "cuda"
     results: Dict[str, Dict[str, Any]] = {}
     for name in names:
-        res = run_variant(nl, name, fused_loop=fused)
+        res = run_variant(nl, name)
         results[name] = res
         if verbose:
             base = results.get("full")

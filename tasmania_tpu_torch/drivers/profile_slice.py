@@ -35,11 +35,13 @@ with the latter the script also profiles the implicit process alone on the
 step's fields: its device time and device operations a call under the
 profiler, and the time of one call replayed as a CUDA graph by CUDA events.
 
-``--fused-loop`` profiles the step as the drivers' ``--fused-loop`` runs it:
-after the untraced steps (the last of them traced for the fields it reads,
-``utils/jitx.py``), one CUDA graph of the step is captured and replayed once
-a step, in the unprofiled window and under the profiler alike; it also
-prints the device time of the replays by CUDA events around them.
+Without ``--fused-loop`` the script profiles eager steps, as the drivers
+step with ``--no-jit``.  ``--fused-loop`` profiles the step as the drivers
+run it on the card by default: after the untraced steps (the last of them
+traced for the fields it reads, ``utils/jitx.py``), one CUDA graph of the
+step is captured and replayed once a step, in the unprofiled window and
+under the profiler alike; it also prints the device time of the replays by
+CUDA events around them.
 
 Usage: ``python -m tasmania_tpu_torch.drivers.profile_slice [--steps N]
 [--slice | --coupling C | --mountain-wave | --burgers CASE] [--merge NAME]

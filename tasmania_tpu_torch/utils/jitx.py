@@ -1,6 +1,7 @@
-"""The step loop as one CUDA graph (counterpart of ``tasmania_tpu/utils/jitx.py``
-and of the JAX drivers' ``--fused-loop``, which run all the steps in one
-jitted ``lax.fori_loop``).
+"""The step loop as one CUDA graph (counterpart of ``tasmania_tpu/utils/jitx.py``,
+of the JAX drivers' ``jax.jit`` of every step, which the port's drivers
+follow by default on a CUDA device, and of their ``--fused-loop``, which
+runs all the steps in one jitted ``lax.fori_loop``).
 
 A model step maps a dict of ``FieldArray``s and the topography height to the
 next dict, but reads only some of its fields: the prognostics and a few
@@ -17,7 +18,10 @@ after each step.
   buffers, the topography from a device table of the run's scaled profiles
   indexed by a device step counter (the JAX loop forms ``fact · hs`` inside
   the loop), and the copy of the carried outputs back into the inputs.
-  It runs eagerly too, on any device.
+  It runs eagerly too, on any device.  ``load`` puts a resumed run's fields
+  into the buffers and sets the counter to the step it resumes after;
+  ``outputs`` views the last step's outputs (a checkpoint or the NaN guard
+  between replays), ``fields`` copies them.
 * :class:`StepGraph` captures one call of a :class:`StepBody` on the card
   and replays it once a step.  It raises on a CPU device and never falls
   back to eager stepping.
@@ -131,6 +135,20 @@ class StepBody:
         self.counter.add_(1)
         self.out = out
         return out
+
+    def load(self, fields: Fields, counter: int) -> None:
+        """Copy ``fields`` (one for each input) into the input buffers and set
+        the counter to ``counter``: the next call steps at ``facts[counter]``
+        (a run resumed after step ``counter``).  The outputs keep the last
+        call's values until the next call."""
+        for k, v in self.static.items():
+            v.data.copy_(fields[k].data)
+        self.counter.fill_(counter)
+
+    def outputs(self) -> Fields:
+        """The last call's outputs, not copied: a graph's next replay
+        overwrites them."""
+        return dict(self.out)
 
     def fields(self) -> Fields:
         """The last call's outputs, copied out of the buffers a graph reuses."""

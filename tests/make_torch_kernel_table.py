@@ -16,8 +16,9 @@ sus_coriolis_implicit and fc_coriolis;
 phase 12's one call of each dwarf, ``dwarfs``; phase 14's rank of the
 decomposed run, ``sharded``; the later phases' paths, among them phase
 19's ``sweep`` and ``diagnose`` (graphs: the warm-up and the capture of
-each case) and ``bench_variants``, whose step is the six couplings' steps
-together)
+each case), ``bench_variants``, whose step is the six couplings' steps
+together, and phase 20's ``sus_default``, ``sus_graph_io`` and
+``spmd_default``, the drivers' default graphs)
 and the times that run measured on the card: kernel, plain version and,
 where one exists, the single PyTorch call computing the same function; a
 kernel timed also at other shapes or in other modes (``also`` in the log:

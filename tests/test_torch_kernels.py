@@ -47,6 +47,10 @@ over the Schaer mountain, the mountain wave, Burgers, 1 + 5 steps),
 its captured step launching ``chip_smoke.py``'s ``LAUNCHES_PER_STEP``.
 Checkpoints: an eager run resumed from a checkpoint equal to the
 uninterrupted run bit for bit, and card fields restored onto the CPU.  The
+graph by default: the SUS driver with no mode given captures a graph, its
+checkpoints equal the eager run's bit for bit, a resume ends on the
+uninterrupted bits and a NaN through a device counter trips the guard as
+eagerly.  The
 input helpers here are shared with ``tests/test_torch_ops.py``,
 ``tests/test_torch_physics_ops.py`` and ``tests/test_torch_merges.py``.
 """
@@ -1188,14 +1192,68 @@ def test_checkpoint_resume_bitwise_on_card(cuda_device, tmp_path):
     from tasmania_tpu_torch.utils.checkpoint import CheckpointManager
 
     nl = load_namelist(**{**GRAPH_SIZE, "niter": 6}, so=StorageOptions(dtype=torch.float32, device="cuda"))
-    full = drv.run(nl, verbose=False, checkpoint_dir=str(tmp_path / "ck"), checkpoint_every=2)
+    full = drv.run(nl, verbose=False, fused_loop=False, checkpoint_dir=str(tmp_path / "ck"), checkpoint_every=2)
     mgr = CheckpointManager(str(tmp_path / "ck"))
     assert mgr.all_steps() == [2, 4, 6]
-    resumed = drv.run(nl, verbose=False, checkpoint_dir=str(tmp_path / "ck"), resume=4)
+    resumed = drv.run(nl, verbose=False, fused_loop=False, checkpoint_dir=str(tmp_path / "ck"), resume=4)
     assert resumed["start"] == 4
     for name, fa in full["fields"].items():
         assert fa.data.is_cuda and resumed["fields"][name].data.is_cuda
         assert torch.equal(resumed["fields"][name].data, fa.data), name
+
+
+@pytest.mark.cuda
+def test_graph_default_recovery_on_card(cuda_device, tmp_path):
+    """41x41x20, float32, 1 + 7 steps every 3 with the NaN guard: the SUS
+    driver with no mode given steps through a graph whose checkpoints (3, 6,
+    7) and final fields equal the eager run's bit for bit; resumed from 3
+    and from 7 (nothing replayed) it ends on the uninterrupted bits; a NaN
+    written at step 4 through a device counter the step reads trips the
+    guard at step 6, as in the eager run."""
+    from tasmania_tpu_torch.drivers import driver_namelist_sus as drv
+    from tasmania_tpu_torch.drivers.namelist_sus import load_namelist
+    from tasmania_tpu_torch.utils.checkpoint import CheckpointManager
+
+    nl = load_namelist(**{**GRAPH_SIZE, "niter": 7}, so=StorageOptions(dtype=torch.float32, device="cuda"))
+    rec = dict(checkpoint_every=3, nan_guard=True)
+    eager = drv.run(nl, verbose=False, fused_loop=False, checkpoint_dir=str(tmp_path / "eager"), **rec)
+    graph = drv.run(nl, verbose=False, checkpoint_dir=str(tmp_path / "graph"), **rec)
+    assert eager["capture_s"] is None and graph["capture_s"] is not None
+    mgrs = [CheckpointManager(str(tmp_path / d)) for d in ("eager", "graph")]
+    assert mgrs[0].all_steps() == mgrs[1].all_steps() == [3, 6, 7]
+    for step in (3, 6, 7):
+        ref, got = (m.restore(step) for m in mgrs)
+        for name in ref:
+            if name != "time":
+                assert torch.equal(got[name].data, ref[name].data), (step, name)
+    for name, fa in eager["fields"].items():
+        assert torch.equal(graph["fields"][name].data, fa.data), name
+    for step in (3, 7):
+        resumed = drv.run(nl, verbose=False, checkpoint_dir=str(tmp_path / "graph"), resume=step, **rec)
+        assert resumed["start"] == step and resumed["capture_s"] is not None
+        for name, fa in graph["fields"].items():
+            assert torch.equal(resumed["fields"][name].data, fa.data), (step, name)
+
+    messages = []
+    for mode in (False, None):
+        domain, state, pt = drv.build_domain_and_state(nl)
+        dycore, physics = drv.build_model(nl, domain, pt)
+        calls = torch.zeros((), dtype=torch.long, device="cuda")
+
+        def step_impl(st, dt, physics=physics, dycore=dycore, calls=calls):
+            out = physics(dycore(st, {}, dt), dt)
+            calls.add_(1)
+            s = out["air_isentropic_density"].data
+            s[3, 4, 2] = torch.where(calls == 1 + 4, float("nan"), s[3, 4, 2])
+            return out
+
+        with pytest.raises(RuntimeError, match="non-finite state") as err:
+            drv.run_steps(nl, state, step_impl, dycore.topography_steady, verbose=False, fused_loop=mode,
+                          checkpoint_dir=str(tmp_path / f"nan_{mode}"), **rec)
+        messages.append(str(err.value))
+        assert CheckpointManager(str(tmp_path / f"nan_{mode}")).all_steps() == [3]
+    assert messages[0] == messages[1]
+    assert "at step 6; last good checkpoint: step 3" in messages[1]
 
 
 @pytest.mark.cuda
